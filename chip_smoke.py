@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of the torch port on one CUDA card: ``python3 chip_smoke.py``.
+
+Drives the port's main path, file-mode ``match``, on the card and checks it:
+
+1. device: card name and power limit (nvidia-smi), torch and CUDA
+   versions, the kernel build from the sources in this checkout;
+2. the candidate-scan kernel against its plain torch version on the card,
+   at the flagship shapes (32 x 495,999 and 32 x 489,999), bitwise; the
+   median ms per call of each over 5 CUDA-event pairs, each around 30
+   back-to-back calls, and the kernel's own device time from torch.profiler;
+3. the flagship step (64-clip bank, one 60 s section at 8 kHz) through
+   the port's class step with the kernel and with the plain scan:
+   identical payloads, ms per step (alternating kernel and plain);
+4. file mode through the port's CLI, in-process: the golden JSONL flows
+   (.claude/skills/verify/SKILL.md), including the zero-detection checks;
+5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
+   (about 482 s, 60 s chunks, 5 per launch) gives 15 detections, equal to
+   an unbatched run of the same file; x-realtime of both runs;
+6. the kernel's launch count over the flag-free runs of phases 4-5 (reset
+   just before phase 4, read just after the batched run) and the flagged
+   rows that took the exact host path.
+
+``python3 chip_smoke.py --profile DIR`` adds a phase that runs the
+flagship step and the batched file-mode run under torch.profiler, prints
+wall time, device time, kernel and launch counts, and writes each op
+table to DIR.
+
+Any mismatch raises, and the script exits non-zero. Without a CUDA card
+it exits 2 before printing any result. The last two lines of stdout are
+a JSON line of per-kernel numbers and the JSON status line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+AUDIO = ROOT / "sample_audios"
+CLIPS = AUDIO / "clips"
+KERNEL_SOURCE = "audio_pattern_detector_tpu_torch/csrc/candidate_scan.cu"
+KERNEL_REPLACES = "audio_pattern_detector_tpu/ops/pallas_peaks.py:154"
+SCAN_SHAPES = ((32, 495_999), (32, 489_999))  # flagship normal / marker groups
+TIMED_RUNS = 30
+
+
+def phase(name: str, **numbers) -> None:
+    print(f"[{name}] " + json.dumps(numbers), flush=True)
+
+
+def make_scan_input(g: int, l: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded |corr| noise with injected plateaus of length 2, 3 and 4,
+    exact-equal neighbours and pairs within 8 ulp; per-row thresholds."""
+    rng = np.random.default_rng(seed)
+    corr = (np.abs(rng.standard_normal((g, l))) * 0.1).astype(np.float32)
+    for gi in range(g):
+        slots = np.arange(8, max(l - 16, 9), 24)
+        pos = rng.choice(slots, size=min(64, len(slots)), replace=False)
+        for k, p in enumerate(pos):
+            v = np.float32(rng.uniform(0.6, 1.0))
+            kind = k % 4
+            if kind < 3:  # plateau of length 2, 3 or 4
+                corr[gi, p : p + kind + 2] = v
+            elif gi % 2 == 0:  # pair within 8 ulp (near-collapse)
+                corr[gi, p] = v
+                corr[gi, p + 1] = np.nextafter(np.nextafter(v, 0), 0, dtype=np.float32)
+            corr[gi, p - 1] = corr[gi, p + 6] = np.float32(0.05)
+    thr = rng.uniform(0.2, 0.4, g).astype(np.float32)
+    return corr, thr
+
+
+def cuda_ms(fn, runs: int, reps: int = 5) -> float:
+    """Median over ``reps`` of the milliseconds per call of ``fn``, each rep
+    one CUDA-event pair around ``runs`` back-to-back calls (so the host's
+    enqueue of one call overlaps the device work of the one before)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    return float(np.median(times))
+
+
+def device_events(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_ms(fn, kernel: str, runs: int) -> "float | None":
+    """Median device milliseconds of the kernels whose name contains
+    ``kernel`` over ``runs`` calls of ``fn``, from torch.profiler; None if
+    the profiler records no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in device_events(prof) if kernel in e.name]
+    return float(np.median(us)) / 1e3 if us else None
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_run(fn, table: Path) -> dict:
+    """One call of ``fn`` under torch.profiler: wall seconds, summed device
+    event time, device event and kernel-launch counts, and the launch
+    calls' share of the host's self time. The op table goes to ``table``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = device_events(prof)
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    launch = [e for e in host if e.name in LAUNCH_CALLS]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    host_self_us = sum(e.self_cpu_time_total for e in host)
+    table.write_text(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=80))
+    return {
+        "profiled_wall_s": wall, "device_events": len(dev), "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / 1e3 / wall, "kernel_launch_calls": len(launch),
+        "launch_share_of_host_self_time":
+            sum(e.self_cpu_time_total for e in launch) / host_self_us if host_self_us else None,
+    }
+
+
+def check_scan_equal(a, b) -> float:
+    """Raise unless the five scan outputs are bitwise equal; max |a - b|."""
+    import torch
+
+    names = ("bmax", "count", "plateau", "omax", "near")
+    for name, x, y in zip(names, a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}: {x.shape}/{x.dtype} vs {y.shape}/{y.dtype}")
+        xb = x.view(torch.int32) if x.dtype == torch.float32 else x
+        yb = y.view(torch.int32) if y.dtype == torch.float32 else y
+        if not torch.equal(xb, yb):
+            raise AssertionError(f"candidate_scan kernel and plain version differ in {name}")
+    err = 0.0
+    for x, y in ((a[0], b[0]), (a[3], b[3])):
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        if fin.any():
+            err = max(err, float((x[fin] - y[fin]).abs().max()))
+    return err
+
+
+def run_cli(argv: list[str]) -> list[dict]:
+    """The port's CLI in-process; its JSONL events."""
+    from audio_pattern_detector_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def detections(events: list[dict]) -> list[tuple[str, int]]:
+    return [(e["clip_name"], e["timestamp_ms"]) for e in events if e["type"] == "pattern_detected"]
+
+
+def expect_events(argv_tail: list[str], audio: Path, want: list[tuple[str, int]], end_ms: int) -> None:
+    events = run_cli(["match", *argv_tail, str(audio)])
+    got_types = [e["type"] for e in events]
+    if got_types[0] != "start" or events[0]["source"] != str(audio) or got_types[-1] != "end":
+        raise AssertionError(f"bad event framing: {events}")
+    if detections(events) != want or events[-1]["total_time_ms"] != end_ms:
+        raise AssertionError(f"{argv_tail}: got {events}, want {want} and end {end_ms}")
+
+
+def write_tiled(path: Path, pcm: np.ndarray, rate: int, copies: int) -> None:
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.tile(pcm, copies).tobytes())
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
+    ap.add_argument("--profile", metavar="DIR", type=Path,
+                    help="also profile the flagship step and the batched file-mode run; "
+                         "op tables go to DIR")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+
+    from audio_pattern_detector_tpu.match import _auto_perf_plan, _load_pattern_clips
+    from audio_pattern_detector_tpu_torch import cli
+    from audio_pattern_detector_tpu_torch.flagship import flagship_step
+    from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ── 1. Device and build ──
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    kern = load_kernels()
+    phase("device", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+          kernel_build_s=kern.build_seconds, kernel_load_s=time.perf_counter() - t0,
+          library=str(kern.path.relative_to(ROOT)))
+    for line in kern.compiler_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+    # ── 2. Kernel against its plain version at flagship shapes ──
+    kernel_rows = []
+    for seed, (g, l) in enumerate(SCAN_SHAPES):
+        corr_np, thr_np = make_scan_input(g, l, seed)
+        corr = torch.from_numpy(corr_np).to(dev)
+        thr = torch.from_numpy(thr_np).to(dev)
+        valid_len = l - 1234
+        got = candidate_scan(corr, thr, valid_len)
+        want = candidate_scan_reference(corr, thr, valid_len)
+        torch.cuda.synchronize()
+        err = check_scan_equal(got, want)
+        if not (bool(want[2].any()) and bool(want[4].any()) and not bool(want[4].all())):
+            raise AssertionError("scan input did not exercise the plateau and near flags")
+        ms = cuda_ms(lambda: candidate_scan(corr, thr, valid_len), TIMED_RUNS)
+        plain_ms = cuda_ms(lambda: candidate_scan_reference(corr, thr, valid_len), TIMED_RUNS)
+        dev_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, valid_len),
+                                  "candidate_scan_kernel", TIMED_RUNS)
+        phase("scan", shape=[g, l], valid_len=valid_len, bitwise_equal=True,
+              max_abs_err=err, ms=ms, plain_ms=plain_ms, kernel_device_ms=dev_ms,
+              read_gb_per_s=corr_np.nbytes / (dev_ms * 1e-3) / 1e9 if dev_ms else None,
+              candidates=int(want[1].sum()), plateau_rows=int(want[2].sum()),
+              near_rows=int(want[4].sum()))
+        kernel_rows.append((g, l, err, ms, plain_ms))
+        del corr, got, want
+
+    # ── 3. The flagship step, kernel against plain scan ──
+    step, bank = flagship_step(dev)
+    pk, pp = step(candidate_scan), step(candidate_scan_reference)
+    torch.cuda.synchronize()
+    for a, b in zip(pk, pp):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("flagship payloads differ between kernel and plain scan")
+    flags = sum(int((p[:, -2] != 0).sum()) for p in pk)
+
+    def step_ms(scan) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            step(scan)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 5 * 1e3
+
+    step_ms(candidate_scan)
+    times: dict[str, list[float]] = {"kernel": [], "plain": []}
+    for order in (("kernel", "plain"), ("plain", "kernel")) * 3:
+        for name in order:
+            times[name].append(step_ms(candidate_scan if name == "kernel"
+                                       else candidate_scan_reference))
+    phase("flagship_step", clips=64, section_s=60, payloads_identical=True,
+          flagged_rows=flags, ms_per_step_kernel=float(np.median(times["kernel"])),
+          ms_per_step_plain=float(np.median(times["plain"])),
+          kernel_ahead_pairs=sum(k < p for k, p in zip(times["kernel"], times["plain"])),
+          pairs=len(times["kernel"]), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del step, bank, pk, pp
+
+    # ── 4-5. The main path: flag-free file mode through the CLI ──
+    built = []
+    build_detector = cli.TorchEngineOptions.build_detector
+
+    def recording_build(self, clips):
+        det = build_detector(self, clips)
+        built.append(det)
+        return det
+
+    cli.TorchEngineOptions.build_detector = recording_build
+    candidate_scan.launches = 0
+
+    rthk = AUDIO / "rthk_section_with_beep.wav"
+    expect_events(["--pattern-file", str(CLIPS / "rthk_beep.apd.toml")], rthk,
+                  [("rthk_beep", 1408), ("rthk_beep", 2420)], 4078)
+    expect_events(["--pattern-file", str(CLIPS / "cbs_news.wav")],
+                  AUDIO / "cbs_news_audio_section.wav", [("cbs_news", 25899)], 32122)
+    for fp in ("881_beep.apd.toml", "903_beep.apd.toml"):
+        expect_events(["--pattern-file", str(CLIPS / fp)], rthk, [], 4078)
+    golden_launches = candidate_scan.launches
+    phase("golden_cli", flows=4, exact=True, kernel_launches=golden_launches)
+
+    with wave.open(str(AUDIO / "cbs_news_audio_section.wav"), "rb") as w:
+        rate, frames = w.getframerate(), w.readframes(w.getnframes())
+    pcm = np.frombuffer(frames, dtype=np.int16)
+    copies = 15
+    period_ms = len(pcm) / rate * 1e3
+    audio_s = copies * len(pcm) / rate
+    pattern = ["--pattern-file", str(CLIPS / "cbs_news.wav")]
+    with tempfile.TemporaryDirectory() as tmp:
+        tiled = Path(tmp) / "cbs_x15.wav"
+        write_tiled(tiled, pcm, rate, copies)
+        chunk_s, batch = _auto_perf_plan(
+            str(tiled), _load_pattern_clips([str(CLIPS / "cbs_news.wav")], rate), rate
+        )
+        t = time.perf_counter()
+        batched = run_cli(["match", *pattern, str(tiled)])
+        wall = time.perf_counter() - t
+        main_path_launches = candidate_scan.launches
+        batched_launches = main_path_launches - golden_launches
+        groups = sum(len(c["groups"]) for c in built[-1]._bank.classes.values())
+        # An explicit --chunk-seconds turns the file-mode batching off
+        # (an explicit --stream-batch 1 alone reads as unset). Not the main
+        # path: its launches are left out of the count above.
+        t = time.perf_counter()
+        single = run_cli(["match", *pattern, "--chunk-seconds", "60", "--stream-batch", "1",
+                          str(tiled)])
+        single_wall = time.perf_counter() - t
+        got = detections(batched)
+        want = [25899 + period_ms * k for k in range(copies)]
+        if len(got) != copies or any(abs(ms - w) > 1.0 for (_, ms), w in zip(got, want)):
+            raise AssertionError(f"tiled file: got {got}, want about {want}")
+        if got != detections(single):
+            raise AssertionError(f"batched {got} != unbatched {detections(single)}")
+        n_chunks = -(-len(pcm) * copies // (chunk_s * rate))
+        n_launches = -(-n_chunks // batch)
+        phase("scan_batch", audio_s=audio_s, chunk_s=chunk_s, chunks=n_chunks, batch=batch,
+              launches_per_class=n_launches, detections=len(got), batch_invariant=True,
+              wall_s=wall, x_realtime=audio_s / wall,
+              unbatched_wall_s=single_wall, unbatched_x_realtime=audio_s / single_wall)
+
+        # ── 6. Kernel use on the main path ──
+        cli.TorchEngineOptions.build_detector = build_detector
+        # The scan runs once per group for each of the batch's rows, a
+        # zero-padded final row included.
+        want_batched = groups * n_launches * batch
+        if golden_launches <= 0 or batched_launches != want_batched:
+            raise AssertionError(
+                f"kernel launches: {golden_launches} in the golden flows, "
+                f"{batched_launches} in the batched run (want {want_batched})"
+            )
+        host_rows = sum(d._bank.host_path_rows for d in built if d._bank is not None)
+        phase("kernel_use", candidate_scan_launches=main_path_launches,
+              golden_launches=golden_launches, batched_launches=batched_launches,
+              host_path_rows=host_rows, detectors=len(built))
+
+        # ── Optional: where the time goes ──
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+            step, bank = flagship_step(dev)
+            step()
+            phase("profile_flagship_step",
+                  **profile_run(step, args.profile / "flagship_step.txt"))
+            del step, bank
+            phase("profile_file_mode", audio_s=audio_s,
+                  **profile_run(lambda: run_cli(["match", *pattern, str(tiled)]),
+                                args.profile / "file_mode.txt"))
+
+    g, l, err, ms, plain_ms = kernel_rows[0]
+    print(json.dumps({"kernels": [{
+        "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": main_path_launches,
+        "max_abs_err": max(r[2] for r in kernel_rows), "ms": ms, "plain_ms": plain_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

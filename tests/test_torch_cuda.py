@@ -1,0 +1,131 @@
+"""The port on a CUDA card: the candidate-scan kernel and the main path.
+
+Every test here carries the ``cuda`` marker and skips without a card. The
+file imports no jax, so it runs where jax is not installed:
+
+    APD_TPU_TESTS=1 python -m pytest tests/test_torch_cuda.py -m cuda
+
+(``APD_TPU_TESTS=1`` keeps tests/conftest.py from importing jax.) The
+kernel is held bitwise to its plain torch version: the scan has no float
+sum, and every cross-block reduction is a max, an or or an integer sum.
+"""
+
+import contextlib
+import io
+import json
+import os
+
+import pytest
+import torch
+
+from chip_smoke import make_scan_input
+
+pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AUDIO = os.path.join(REPO, "sample_audios")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the port's kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize(
+    "g,l,valid_len",
+    [
+        (3, 6001, 6001),
+        (3, 6001, 5224),
+        (2, 1537, 1500),  # L not a multiple of the 512-sample block
+        (4, 2048, 2044),
+        (2, 1024, 0),  # nothing valid
+        (1, 40, 40),  # shorter than one tile
+        (32, 495_999, 494_765),  # the flagship normal group
+    ],
+)
+def test_kernel_bitwise_equals_plain_version(cuda, g, l, valid_len):
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    corr_np, thr_np = make_scan_input(g, l, seed=l)
+    corr = torch.from_numpy(corr_np).to(cuda)
+    thr = torch.from_numpy(thr_np).to(cuda)
+    before = candidate_scan.launches
+    got = candidate_scan(corr, thr, valid_len)
+    want = candidate_scan_reference(corr, thr, valid_len)
+    torch.cuda.synchronize()
+    assert candidate_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    corr = torch.rand((2, 3000), device=cuda)
+    thr = torch.full((2,), 0.5, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        candidate_scan(corr.t().contiguous().t(), thr, 3000)
+    with pytest.raises(ValueError, match="float32"):
+        candidate_scan(corr.double(), thr, 3000)
+    with pytest.raises(ValueError, match="thr_min"):
+        candidate_scan(corr, thr[:1], 3000)
+    with pytest.raises(ValueError, match="valid_len"):
+        candidate_scan(corr, thr, 3001)
+
+
+def _cli_events(argv):
+    from audio_pattern_detector_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+
+
+def test_cli_on_card_gives_the_golden_events_through_the_kernel(cuda):
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    before = candidate_scan.launches
+    rthk = os.path.join(AUDIO, "rthk_section_with_beep.wav")
+    events = _cli_events([
+        "match", "--timestamp-format", "ms",
+        "--pattern-file", os.path.join(AUDIO, "clips", "rthk_beep.apd.toml"), rthk,
+    ])
+    assert events == [
+        {"type": "start", "source": rthk},
+        {"type": "pattern_detected", "clip_name": "rthk_beep", "timestamp_ms": 1408},
+        {"type": "pattern_detected", "clip_name": "rthk_beep", "timestamp_ms": 2420},
+        {"type": "end", "total_time_ms": 4078},
+    ]
+    assert candidate_scan.launches > before
+
+
+def test_file_mode_on_card_equals_cpu(cuda):
+    argv = [
+        "match", "--timestamp-format", "ms",
+        "--pattern-file", os.path.join(AUDIO, "clips", "cbs_news.wav"),
+        os.path.join(AUDIO, "cbs_news_audio_section.wav"),
+    ]
+    on_card = _cli_events(argv[:1] + ["--device", "cuda"] + argv[1:])
+    assert on_card == _cli_events(argv[:1] + ["--device", "cpu"] + argv[1:])
+    assert [e.get("timestamp_ms") for e in on_card if e["type"] == "pattern_detected"] == [25899]
+
+
+def test_flagship_payloads_kernel_equal_plain(cuda):
+    from audio_pattern_detector_tpu_torch.flagship import flagship_step
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    step, _ = flagship_step(cuda)
+    for a, b in zip(step(candidate_scan), step(candidate_scan_reference)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
