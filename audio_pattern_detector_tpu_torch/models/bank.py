@@ -1,5 +1,5 @@
-"""Pattern bank on a torch device: the lean kernel path of
-audio_pattern_detector_tpu/models/bank.py.
+"""Pattern bank on a torch device: port of
+audio_pattern_detector_tpu/models/bank.py (lean tier, full tier, rerun).
 
 Clips group by (sliding_window, clip_len, strategy); each sliding-window
 class runs one class step per chunk section:
@@ -20,9 +20,16 @@ the detector's pipelined loops collect without blocking.
 Flag semantics per payload row (column 2K): 0 = exact as returned;
 1 = host path required (a >= 4 plateau at the conservative threshold);
 2 = wide rerun required (> 16 greedy survivors or a near-collapse row).
-In this port both flagged kinds take the exact host path
-(``hostpath.process_section_host``); the wide device rerun is not
-ported yet. ``host_path_rows`` counts the rows sent there.
+Flag-2 rows re-derive on the device through the wide tier at collect
+time (:meth:`PatternBank.resolve_flagged_rows`): one row at a time when
+few, the whole class when many, first at a capped lane width and then,
+for rows past the cap, at the group's full ``k_detect``. Flag-1 rows, and
+rows the wide tier itself flags, take the exact host path
+(``hostpath.process_section_host``). Counters on the bank say which
+route each row took.
+
+``height_min <= 0`` runs the general-plateau tier (:func:`rich_group_packed`)
+in place of the lean one.
 
 Batched dispatch runs the JAX package's scan schedule as a Python loop
 over the rows on the current stream, one chunk's memory at a time.
@@ -44,6 +51,7 @@ from audio_pattern_detector_tpu.models import hostpath
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import BLOCK, candidate_scan
 from audio_pattern_detector_tpu_torch.ops.correlate import (
     CorrelationBankConsts,
+    bank_correlate,
     bank_correlate_abs,
     build_correlation_bank,
     class_overlap_save_geometry,
@@ -57,8 +65,15 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
 )
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32, upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
+    PeakCandidates,
+    f32,
+    find_peaks_device_fast,
+    greedy_distance_filter,
     greedy_survivors_from_blocks,
+    long_plateau_present,
     plateau_run_mask,
+    short_run_local_maxima_mask,
+    topk_sparse,
 )
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 from audio_pattern_detector_tpu_torch.ops.verify import (
@@ -132,14 +147,16 @@ class PatternBank:
         height_min: float,
         device: "torch.device | str",
     ) -> None:
-        if not height_min > 0:
-            raise NotImplementedError(
-                f"height_min {height_min} <= 0 needs the general plateau "
-                "tier, which the torch port does not have yet"
-            )
         self.device = torch.device(device)
         self.sample_rate = sample_rate
         self.height_min = float(height_min)
+        # Routes of flagged rows. A row rerun is one launch for one row; a
+        # class rerun one launch for every row of the class; an escalated
+        # row is one the capped rerun sent on to the full k_detect width
+        # (its launch counts as a row or class rerun too).
+        self.row_reruns = 0
+        self.class_reruns = 0
+        self.escalated_reruns = 0
         self.host_path_rows = 0  # flagged rows resolved on the exact host path
 
         grouped: dict[tuple[int, int, str], list[str]] = {}
@@ -172,9 +189,11 @@ class PatternBank:
             )
             full_len = corr.full_len
             # The JAX bank's lane sizing. k_verify bounds the post-distance
-            # survivors (full_len // m + 1); k_detect sizes the wide rerun,
-            # which is not ported, and enters the lean tier only as
-            # min(_SMALL_TIER, k_detect) greedy lanes.
+            # survivors (full_len // m + 1); k_detect sizes the wide rerun
+            # and enters the lean tier only as min(_SMALL_TIER, k_detect)
+            # greedy lanes. A marker hit floods |corr| with a comb of up to
+            # 2 m f / sr candidates, so marker groups size k_detect for
+            # about 8 hits: hit-bearing rows then rerun on the device.
             k_verify = min(1024, full_len // m + 4)
             k_detect = max(min(4096, max(64, 4 * (full_len // m) + 16)), k_verify)
             verify: "NormalVerifyConsts | MarkerVerifyConsts"
@@ -202,6 +221,10 @@ class PatternBank:
             sw: tuple((g.kind, g.clip_len, g.k_detect, g.k_verify) for g in cls["groups"])
             for sw, cls in self.classes.items()
         }
+        # Class geometries, and the single-row consts of the row rerun
+        # built on first use.
+        self._shared_geoms = shared_geoms
+        self._row_consts: dict[tuple[int, int, int], tuple] = {}
 
     # ── Sections ──
 
@@ -325,19 +348,157 @@ class PatternBank:
     def _collect_rows(
         self, sw: int, flat_np: NDArray[np.float32], raws: list[NDArray[Any]]
     ) -> list[dict[str, list[int]]]:
-        """Unpack a (B, total) class payload; flagged rows take the host path."""
+        """Unpack a (B, total) class payload; flagged rows of each section
+        go to :meth:`resolve_flagged_rows`."""
         groups = self.classes[sw]["groups"]
         results: list[dict[str, list[int]]] = [dict() for _ in raws]
-        for g, packed in zip(groups, _split_fused(flat_np, groups)):
+        flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
+        for gi, (g, packed) in enumerate(zip(groups, _split_fused(flat_np, groups))):
             pos, sel, host_fb, needs_full = unpack_group(packed, g.k_verify)
-            for bi, raw in enumerate(raws):
+            for bi in range(len(raws)):
                 for ci, name in enumerate(g.names):
                     if host_fb[bi, ci] or needs_full[bi, ci]:
-                        section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
-                        results[bi][name] = self._host_fallback(g, ci, section)
+                        flagged_by_bi.setdefault(bi, []).append((gi, ci, bool(host_fb[bi, ci])))
                     else:
                         results[bi][name] = [int(p) for p in pos[bi, ci][sel[bi, ci]]]
+        for bi, flagged in flagged_by_bi.items():
+            raw = raws[bi]
+            section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
+            for (gi, ci), hits in self.resolve_flagged_rows(sw, flagged, section).items():
+                results[bi][groups[gi].names[ci]] = hits
         return results
+
+    # ── Flagged rows: the wide rerun ──
+
+    # Lane cap of the first wide rerun. A marker group's comb-sized k_detect
+    # (thousands of lanes) prices its top-k and greedy far above what one
+    # hit needs; rows whose raw count exceeds the cap come back host-flagged
+    # and escalate to the full width, then to the host path.
+    _WIDE_RERUN_CAP = 1024
+    # Above this many device-flagged rows in one class, one class rerun
+    # replaces the per-row launches.
+    _ROW_RERUN_MAX = 4
+
+    def _wide_metas(self, sw: int, capped: bool) -> tuple:
+        if not capped:
+            return self._metas[sw]
+        return tuple(
+            (kind, m, min(kd, self._WIDE_RERUN_CAP), kv) for kind, m, kd, kv in self._metas[sw]
+        )
+
+    def _section_tensor(self, sw: int, raw_section: NDArray[np.float32]) -> torch.Tensor:
+        section = np.zeros(self.classes[sw]["section_len"], dtype=np.float32)
+        section[: len(raw_section)] = raw_section
+        return torch.from_numpy(section).to(self.device)
+
+    def _full_tier_packed(
+        self, sw: int, raw_section: NDArray[np.float32], capped: bool = True
+    ) -> list[NDArray[np.float32]]:
+        """Re-derive one section through the wide tier for every group of
+        the class: per-group (G, 2K+2) payloads."""
+        cls = self.classes[sw]
+        self.class_reruns += 1
+        outs = class_step(
+            self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
+            tuple((g.corr, g.verify) for g in cls["groups"]),
+            metas=self._wide_metas(sw, capped), height_min=self.height_min, wide=True,
+        )
+        return [o.cpu().numpy() for o in outs]
+
+    def _row_consts_for(self, sw: int, gi: int, ci: int) -> tuple:
+        """Single-row (corr, verify) consts for clip ``ci`` of group ``gi``,
+        built once with the class-shared overlap-save geometry, so the row
+        is correlated by the same FFT decomposition as the class step."""
+        key = (sw, gi, ci)
+        if key not in self._row_consts:
+            cls = self.classes[sw]
+            g = cls["groups"][gi]
+            corr_row = build_correlation_bank(
+                g.clips_np[ci : ci + 1], g.self_max_np[ci : ci + 1], cls["section_len"],
+                self.device, self._shared_geoms[sw],
+            )
+            verify_row: "NormalVerifyConsts | MarkerVerifyConsts"
+            if g.kind == "marker":
+                verify_row = build_marker_verify_consts(
+                    g.clip_len, self.sample_rate, np.array([g.tone_freqs[ci]], dtype=np.float64),
+                    [g.verification_params[ci]], self.device,
+                )
+            else:
+                verify_row = build_normal_verify_consts(
+                    g.corr_clips_np[ci : ci + 1], g.clip_len, self.sample_rate, self.device
+                )
+            self._row_consts[key] = (corr_row, verify_row)
+        return self._row_consts[key]
+
+    def _full_tier_row(
+        self, sw: int, gi: int, ci: int, raw_section: NDArray[np.float32], capped: bool = True
+    ) -> NDArray[np.float32]:
+        """Re-derive one clip row through the wide tier: its packed payload
+        (2 k_verify + 2,). A marker hit floods exactly that clip's row, and
+        the whole class would cost G times the correlation work."""
+        cls = self.classes[sw]
+        g = cls["groups"][gi]
+        kd = min(g.k_detect, self._WIDE_RERUN_CAP) if capped else g.k_detect
+        self.row_reruns += 1
+        outs = class_step(
+            self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
+            (self._row_consts_for(sw, gi, ci),),
+            metas=((g.kind, g.clip_len, kd, g.k_verify),), height_min=self.height_min, wide=True,
+        )
+        return outs[0][0].cpu().numpy()
+
+    def resolve_flagged_rows(
+        self,
+        sw: int,
+        flagged: "list[tuple[int, int, bool]]",
+        raw_section: NDArray[np.float32],
+    ) -> dict[tuple[int, int], list[int]]:
+        """Resolve the flagged (group, clip) rows of one f32 section exactly.
+
+        ``flagged`` holds (gi, ci, is_host_flag) triples. Host-flagged rows
+        take the host path. Device-flagged rows rerun through the wide
+        tier at the capped lane width, per row when few and per class when
+        many; rows that rerun host-flags escalate to the full k_detect
+        width where the group has more lanes than the cap, else go to the
+        host path, as do rows the escalated rerun host-flags. Returns
+        {(gi, ci): accepted positions}."""
+        groups = self.classes[sw]["groups"]
+        out: dict[tuple[int, int], list[int]] = {}
+        device_rows = [(gi, ci) for gi, ci, host in flagged if not host]
+        host_rows = [(gi, ci) for gi, ci, host in flagged if host]
+
+        def rerun_rows(rows: "list[tuple[int, int]]", capped: bool, on_flag) -> None:
+            class_rerun = None
+            if len(rows) > self._ROW_RERUN_MAX:
+                class_rerun = self._full_tier_packed(sw, raw_section, capped=capped)
+            for gi, ci in rows:
+                k_verify = groups[gi].k_verify
+                if class_rerun is not None:
+                    rpos, rsel, rhost, _ = unpack_group(class_rerun[gi][ci], k_verify)
+                else:
+                    rpos, rsel, rhost, _ = unpack_group(
+                        self._full_tier_row(sw, gi, ci, raw_section, capped=capped), k_verify
+                    )
+                if rhost:
+                    on_flag(gi, ci)
+                else:
+                    out[(gi, ci)] = [int(p) for p in rpos[rsel]]
+
+        escalate: list[tuple[int, int]] = []
+
+        def route_capped_flag(gi: int, ci: int) -> None:
+            if groups[gi].k_detect > self._WIDE_RERUN_CAP:
+                escalate.append((gi, ci))
+            else:
+                host_rows.append((gi, ci))
+
+        rerun_rows(device_rows, capped=True, on_flag=route_capped_flag)
+        if escalate:
+            self.escalated_reruns += len(escalate)
+            rerun_rows(escalate, capped=False, on_flag=lambda gi, ci: host_rows.append((gi, ci)))
+        for gi, ci in host_rows:
+            out[(gi, ci)] = self._host_fallback(groups[gi], ci, raw_section)
+        return out
 
     def _host_fallback(
         self, g: ClipGroup, ci: int, raw_section: NDArray[np.float32]
@@ -409,7 +570,7 @@ def lean_group_packed(
     full tier's. The scan's near-collapse flag routes the rows where f32
     division could make the two spaces disagree.
     """
-    hm = float(np.float32(height_min))  # compares as JAX's f32 threshold
+    hm = f32(height_min)  # compares as JAX's f32 threshold
     g, l = corr.shape
     dev = corr.device
     neg_inf = torch.full((), -math.inf, device=dev)
@@ -447,43 +608,144 @@ def lean_group_packed(
     needs_full = ~plateau_min & (overflow | near)
     flag = torch.where(plateau_min, 1.0, torch.where(needs_full, 2.0, 0.0))
 
-    # The verifier reads the normalised correlation, exact zeros past valid_len.
-    in_range = torch.arange(l, device=dev)[None, :] < valid_len
-    corr_n = torch.where(in_range, corr, 0.0) / denom[:, None]
     return _lean_tail(
-        norm, corr_n, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes
+        norm, _normalised(corr, valid_len, denom), valid_len, kind, m, k_verify,
+        verify_consts, pos, height, flag, k_lanes,
+    )
+
+
+def _normalised(corr: torch.Tensor, valid_len: int, denom: torch.Tensor) -> torch.Tensor:
+    """Raw |corr| as ``bank_correlate`` returns it: exact zeros past
+    ``valid_len``, divided by ``denom`` = max(self_corr_max, observed max)."""
+    in_range = torch.arange(corr.shape[1], device=corr.device)[None, :] < valid_len
+    return torch.where(in_range, corr, 0.0) / denom[:, None]
+
+
+def wide_group_packed(
+    norm: torch.Tensor,  # (S,) normalised section
+    corr: torch.Tensor,  # (G, L) normalised correlation (bank_correlate)
+    valid_len: int,
+    kind: str,
+    m: int,
+    k_detect: int,
+    k_verify: int,
+    height_min: float,
+    verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+) -> torch.Tensor:
+    """Wide tier of one group, the rerun of flag-2 rows: top-k capture at
+    the full ``k_detect`` width, the lane greedy, a two-tier verify.
+
+    Port of ``_lean_group_packed(wide=True)``. It compares the same f32
+    quotients as the lean tier (``bank_correlate`` divides by the same
+    max(self_corr_max, observed max)), so an unflagged row's payload is
+    bitwise the lean tier's. A row with more raw candidates than lanes, or
+    an equal run of length >= 4 at the threshold, is flagged for the host
+    path (flag 1); the wide tier never sets flag 2."""
+    hm = f32(height_min)
+    idx = torch.arange(corr.shape[1], device=corr.device)[None, :]
+    x = torch.where(idx < valid_len, corr, -math.inf)
+    mask = short_run_local_maxima_mask(x) & (x >= hm)
+    host_fallback = (mask.sum(dim=1) > k_detect) | long_plateau_present(x, hm)
+    height, pos = topk_sparse(torch.where(mask, x, -math.inf), k_detect)
+    return _lean_tail(
+        norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height,
+        host_fallback.to(torch.float32), k_detect, wide=True,
+    )
+
+
+def rich_group_packed(
+    norm: torch.Tensor,
+    corr: torch.Tensor,  # (G, L) |correlation|, unnormalised
+    valid_len: int,
+    kind: str,
+    m: int,
+    k_detect: int,
+    k_verify: int,
+    height_min: float,
+    verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+    self_corr_max: torch.Tensor,
+    scan=candidate_scan,
+) -> torch.Tensor:
+    """General-plateau tier of one group, for ``height_min <= 0``: the
+    packed payload of ``_class_step``'s rich branch.
+
+    The short-run mask needs sub-threshold zero runs, so this tier takes
+    the general plateau mask, captures ``k_detect`` candidates and runs
+    the lane greedy. The candidate scan supplies the observed max that
+    normalises the row (bitwise ``bank_correlate``'s normaliser). Raw
+    count past ``k_detect`` flags the row for the host path."""
+    _bmax, _count, _plateau, omax, _near = scan(corr, f32(height_min) * self_corr_max, valid_len)
+    corr_n = _normalised(corr, valid_len, torch.maximum(self_corr_max, omax).clamp_min(1e-38))
+    cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect)
+    half = (2 * m - 1) // 2
+    keep = cand.alive & ~(cand.pos + half > valid_len + 5) & ~(cand.pos - half < -5)
+    sv = torch.topk(torch.where(keep, -cand.pos, -_BIG), k_verify, dim=1).values
+    vpos, valive = -sv, sv > -_BIG
+    accept = _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=True)
+    return _pack(vpos, valive & accept, cand.overflow | plateau_flag, keep.sum(dim=1) > k_verify)
+
+
+def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor) -> torch.Tensor:
+    """Verify only the first _SMALL_TIER lanes when every row's live lanes
+    fit there (compaction puts them first), else every lane; bitwise the
+    same accept bits either way. One host sync."""
+    kv = vpos.shape[1]
+    if int(valive.sum(dim=1).max()) <= _SMALL_TIER:
+        acc = verify_accept(vpos[:, :_SMALL_TIER], valive[:, :_SMALL_TIER])
+        return torch.cat([acc, acc.new_zeros((acc.shape[0], kv - _SMALL_TIER))], dim=1)
+    return verify_accept(vpos, valive)
+
+
+def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool) -> torch.Tensor:
+    def verify_accept(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        if kind == "marker":
+            return verify_marker(norm, p, a, verify_consts)
+        return verify_normal(corr, p, a, verify_consts)[0]
+
+    if two_tier and vpos.shape[1] > _SMALL_TIER:
+        return _two_tier_accept(verify_accept, vpos, valive)
+    return verify_accept(vpos, valive)
+
+
+def _pack(vpos, selected, flag, verify_overflow) -> torch.Tensor:
+    """(G, 2K+2) f32 payload: positions, selected, flag, verify overflow."""
+    return torch.cat(
+        [
+            vpos.to(torch.float32),
+            selected.to(torch.float32),
+            flag[:, None].to(torch.float32),
+            verify_overflow[:, None].to(torch.float32),
+        ],
+        dim=1,
     )
 
 
 def _lean_tail(
-    norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes
+    norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes,
+    wide=False,
 ) -> torch.Tensor:
-    """Bounds -> compact ascending -> verify -> packed (G, 2K+2) payload.
-    The lanes already are the greedy survivors. The verify runs for every
-    group, even a candidate-free one (its ``sel`` is zero either way)."""
+    """[Lane greedy ->] bounds -> compact ascending -> verify -> packed
+    (G, 2K+2) payload. ``corr`` is the normalised correlation. In the lean
+    tier the lanes already are the greedy survivors and the verify runs
+    for every group (its ``sel`` is zero without candidates); ``wide``
+    lanes are raw top-k candidates, filtered here, verified two-tier."""
     keep = torch.isfinite(height)
+    if wide:
+        keep = greedy_distance_filter(PeakCandidates(pos, height, keep, flag != 0), m)
     # Candidate bound checks (reference: audio_pattern_detector.py:531-546).
     half = (2 * m - 1) // 2
     keep = keep & ~(pos + half > valid_len + 5) & ~(pos - half < -5)
     kv = min(k_verify, k_lanes)
-    score = torch.where(keep, -pos, -_BIG)
-    sv = torch.topk(score, kv, dim=1).values  # distinct live values, descending
+    sv = torch.topk(torch.where(keep, -pos, -_BIG), kv, dim=1).values  # live values distinct
     vpos = -sv
     valive = sv > -_BIG
-    verify_overflow = keep.sum(dim=1) > kv
-    if kind == "marker":
-        accept = verify_marker(norm, vpos, valive, verify_consts)
-    else:
-        accept = verify_normal(corr, vpos, valive, verify_consts)[0]
-    sel = (valive & accept).to(torch.float32)
-    vposf = vpos.to(torch.float32)
+    accept = _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier=wide)
     if kv < k_verify:
-        vposf = F.pad(vposf, (0, k_verify - kv), value=float(_BIG))
-        sel = F.pad(sel, (0, k_verify - kv))
-    return torch.cat(
-        [vposf, sel, flag[:, None].to(torch.float32), verify_overflow[:, None].to(torch.float32)],
-        dim=1,
-    )
+        pad = k_verify - kv
+        vpos = F.pad(vpos, (0, pad), value=_BIG)
+        valive = F.pad(valive, (0, pad))
+        accept = F.pad(accept, (0, pad))
+    return _pack(vpos, valive & accept, flag, keep.sum(dim=1) > kv)
 
 
 def class_step(
@@ -495,11 +757,15 @@ def class_step(
     metas: tuple,
     height_min: float,
     scan=candidate_scan,
+    wide: bool = False,
 ) -> list[torch.Tensor]:
     """One sliding-window class over one section: packed payload per group.
 
-    ``scan`` is the candidate scan (the kernel wrapper by default; the
-    plain version to compare against it on the same device)."""
+    The tier follows ``_class_step``: ``wide`` runs the rerun tier
+    (:func:`wide_group_packed`); otherwise ``height_min > 0`` runs the lean
+    tier and ``height_min <= 0`` the general-plateau tier. ``scan`` is the
+    candidate scan (the kernel wrapper by default; the plain version to
+    compare against it on the same device)."""
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
 
@@ -514,9 +780,18 @@ def class_step(
 
     outs = []
     for (kind, m, k_detect, k_verify), (corr_consts, verify_consts) in zip(metas, group_consts):
+        if wide:
+            corr, valid_len = bank_correlate(norm, n_valid, corr_consts, shared_spec)
+            outs.append(
+                wide_group_packed(
+                    norm, corr, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts
+                )
+            )
+            continue
         corr, valid_len = bank_correlate_abs(norm, n_valid, corr_consts, shared_spec)
+        tier = lean_group_packed if height_min > 0 else rich_group_packed
         outs.append(
-            lean_group_packed(
+            tier(
                 norm, corr, valid_len, kind, m, k_detect, k_verify, height_min,
                 verify_consts, corr_consts.self_corr_max, scan,
             )

@@ -1,21 +1,68 @@
-"""Peak masks and the block-wise greedy distance filter
-(port of the lean-path subset of audio_pattern_detector_tpu/ops/peaks.py).
+"""Peak masks, candidate capture and the greedy distance filters
+(port of audio_pattern_detector_tpu/ops/peaks.py).
 
-No FFT and no float sum: every function here is bitwise equal to its JAX
-counterpart on the same input. The greedy runs ``r_max`` statically
-unrolled rounds (the JAX ``APD_GREEDY_UNROLL=1`` branch, identical
-results); the while-loop exit test is not ported because in eager torch
-it would cost a device-to-host sync every round.
+No FFT and no float sum: every output here is an integer or a mask and
+is identical to its JAX counterpart on the same f32 input.
+
+Two tiers, as in the JAX package:
+
+* lean (every launch): the short-run masks and the block-wise greedy
+  ``greedy_survivors_from_blocks``, run as ``r_max`` statically unrolled
+  rounds (the JAX ``APD_GREEDY_UNROLL=1`` branch, identical results). Its
+  while-loop exit test is not ported: in eager torch it would cost a
+  device-to-host sync every round.
+* full (the wide rerun of flagged rows and the ``height_min <= 0`` tier):
+  the general plateau mask, top-k capture and the lane greedy. Its
+  ``while_loop``s become host loops over ``.item()`` tests, which sync the
+  device; that is acceptable there because the full tier runs at collect
+  time, after the payload has reached the host.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Callable
+from typing import NamedTuple
 
 import torch
 
 SURVIVOR_POS_SENTINEL = 2**30  # dead survivor slots
+
+
+class PeakCandidates(NamedTuple):
+    pos: torch.Tensor  # (G, K) int64, 'full' correlation indices
+    height: torch.Tensor  # (G, K) f32
+    alive: torch.Tensor  # (G, K) bool
+    overflow: torch.Tensor  # (G,) bool: more raw candidates than K
+
+
+def plateau_local_maxima_mask(x: torch.Tensor) -> torch.Tensor:
+    """Plateau-midpoint local maxima of any run length (scipy semantics):
+    a maximal run of equal values with strictly smaller neighbours on both
+    sides flags its floor midpoint. ``x`` is (G, L) f32 with -inf at and
+    after each row's valid length."""
+    g, l = x.shape
+    idx = torch.arange(l, device=x.device)[None, :]
+    edge = torch.ones((g, 1), dtype=torch.bool, device=x.device)
+    neq_prev = torch.cat([edge, x[:, 1:] != x[:, :-1]], dim=1)
+    neq_next = torch.cat([x[:, :-1] != x[:, 1:], edge], dim=1)
+    # Start of the equal-value run holding i (cummax), and its end (a
+    # cummin over the flipped row).
+    run_start = torch.cummax(torch.where(neq_prev, idx, 0), dim=1).values
+    run_end = torch.cummin(torch.where(neq_next, idx, l - 1).flip(1), dim=1).values.flip(1)
+    prev_val = torch.gather(x, 1, (run_start - 1).clamp_min(0))
+    next_val = torch.gather(x, 1, (run_end + 1).clamp_max(l - 1))
+    # A finite right neighbour is required: the last true sample before the
+    # -inf sentinel is the array edge, and scipy never reports edges.
+    return (
+        (run_start > 0)
+        & (run_end < l - 1)
+        & (idx == torch.div(run_start + run_end, 2, rounding_mode="floor"))
+        & (prev_val < x)
+        & (next_val < x)
+        & torch.isfinite(x)
+        & torch.isfinite(next_val)
+    )
 
 
 def _shift(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -139,3 +186,125 @@ def greedy_survivors_from_blocks(
             bwork = torch.where(barange == b_edge[:, None], upd[:, None], bwork)
     overflow = (bwork > -math.inf).any(dim=1)
     return kept_pos, kept_h, overflow
+
+
+# ── Full tier: top-k capture and the lane greedy ──
+
+
+def f32(value: float) -> float:
+    """``value`` rounded to f32, as JAX rounds a Python float threshold
+    against an f32 array."""
+    return float(torch.tensor(value, dtype=torch.float32))
+
+
+def topk_sparse(scored: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(height, pos), both (G, k): the k largest entries of each row of
+    ``scored`` (non-candidates -inf), in (height descending, position
+    ascending) order.
+
+    The contract of the JAX ``topk_sparse``: whenever a row holds <= k
+    finite entries, its finite lanes are bitwise ``lax.top_k``'s, which
+    puts the lower index first among equal values. ``torch.topk`` promises
+    no order for ties, so its lanes are re-sorted: by position, then by a
+    stable descending sort on the height. Dead lanes (height -inf) carry
+    unspecified positions; callers gate every use of ``pos`` on
+    ``isfinite(height)``."""
+    height, pos = torch.topk(scored, k, dim=1)
+    order = torch.argsort(pos, dim=1)
+    height, pos = height.gather(1, order), pos.gather(1, order)
+    height, order = torch.sort(height, dim=1, descending=True, stable=True)
+    return height, pos.gather(1, order)
+
+
+def select_candidates(x: torch.Tensor, peak_mask: torch.Tensor, k: int) -> PeakCandidates:
+    """Top-k candidates by height, ties to the lower index."""
+    height, pos = topk_sparse(torch.where(peak_mask, x, -math.inf), k)
+    return PeakCandidates(pos, height, torch.isfinite(height), peak_mask.sum(dim=1) > k)
+
+
+# Above this lane count the (G, K, K) conflict matrix of the parallel
+# filter outweighs the sequential loop (the JAX package's threshold).
+PARALLEL_GREEDY_MAX_K = 2048
+
+
+def _greedy_distance_sequential(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+    """Sequential greedy over height-sorted lanes. Each row's alive lanes
+    are a prefix, so the loop stops at the bank-wide alive maximum."""
+    k = cand.pos.shape[1]
+    lane = torch.arange(k, device=cand.pos.device)[None, :]
+    n_alive = int(cand.alive.sum(dim=1).max()) if cand.alive.numel() else 0
+    keep = torch.ones_like(cand.alive)
+    for i in range(n_alive):
+        cur_alive = keep[:, i : i + 1] & cand.alive[:, i : i + 1]
+        d = (cand.pos - cand.pos[:, i : i + 1]).abs()
+        keep = keep & ~(cur_alive & (d < min_distance) & (lane != i))
+    return keep & cand.alive
+
+
+def _greedy_distance_parallel(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+    """Parallel fixed point of the greedy recurrence: keep(c) = alive(c)
+    and no higher-priority kept candidate within ``min_distance``,
+    iterated from S = alive until S stops changing."""
+    pos = cand.pos.to(torch.int32)
+    k = pos.shape[1]
+    lanes = torch.arange(k, device=pos.device)
+    higher = lanes[None, :] < lanes[:, None]  # (K, K): j < i
+    conflict = ((pos[:, :, None] - pos[:, None, :]).abs() < min_distance) & higher[None]
+    conflict &= cand.alive[:, None, :]
+    s = cand.alive & ~(conflict & cand.alive[:, None, :]).any(dim=2)
+    while True:
+        s_new = cand.alive & ~(conflict & s[:, None, :]).any(dim=2)
+        if not bool((s_new != s).any()):
+            return s & cand.alive
+        s = s_new
+
+
+def greedy_distance_filter(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+    """Greedy tallest-first suppression over height-sorted lanes (scipy's
+    distance filter); the surviving-alive mask."""
+    if cand.pos.shape[1] <= PARALLEL_GREEDY_MAX_K:
+        return _greedy_distance_parallel(cand, min_distance)
+    return _greedy_distance_sequential(cand, min_distance)
+
+
+def _masked(corr: torch.Tensor, valid_len: int) -> torch.Tensor:
+    idx = torch.arange(corr.shape[1], device=corr.device)[None, :]
+    return torch.where(idx < valid_len, corr, -math.inf)
+
+
+def find_peaks_device(
+    corr: torch.Tensor,  # (G, L) normalised correlation, zeros >= valid_len
+    valid_len: int,
+    height_min: float,
+    distance: int,
+    k: int,
+) -> PeakCandidates:
+    """find_peaks(height=height_min, distance=distance) over a bank, with
+    -inf at and after ``valid_len`` (no run extends into the padding)."""
+    x = _masked(corr, valid_len)
+    mask = plateau_local_maxima_mask(x) & (x >= f32(height_min))
+    cand = select_candidates(x, mask, k)
+    keep = greedy_distance_filter(cand, distance)
+    return PeakCandidates(cand.pos, cand.height, keep, cand.overflow)
+
+
+def find_peaks_device_fast(
+    corr: torch.Tensor,
+    valid_len: int,
+    height_min: float,
+    distance: int,
+    k: int,
+) -> tuple[PeakCandidates, torch.Tensor]:
+    """:func:`find_peaks_device` with the short-run mask when
+    ``height_min > 0``, plus a per-row flag for an equal run of length
+    >= 4 at or above the threshold (the one case where that mask could
+    differ from scipy). ``height_min <= 0`` takes the general mask and
+    never flags."""
+    if height_min <= 0:
+        cand = find_peaks_device(corr, valid_len, height_min, distance, k)
+        return cand, torch.zeros(corr.shape[0], dtype=torch.bool, device=corr.device)
+    hm = f32(height_min)
+    x = _masked(corr, valid_len)
+    cand = select_candidates(x, short_run_local_maxima_mask(x) & (x >= hm), k)
+    keep = greedy_distance_filter(cand, distance)
+    return PeakCandidates(cand.pos, cand.height, keep, cand.overflow), long_plateau_present(x, hm)

@@ -19,7 +19,21 @@ Drives the port's main path, file-mode ``match``, on the card and checks it:
    an unbatched run of the same file; x-realtime of both runs;
 6. the kernel's launch count over the flag-free runs of phases 4-5 (reset
    just before phase 4, read just after the batched run) and the flagged
-   rows that took the exact host path.
+   rows that took the exact host path;
+7. the wide rerun of flagged rows on the flagship bank (64 clips, 61 s
+   sections built from numpy seeds): a section per route (one flooded
+   normal row: a row rerun; six: a class rerun; a dense marker row past
+   the 1,024-lane cap: an escalated rerun; one marker hit: no rerun). Every
+   flagged row's detections must equal the exact host path's; the route
+   counters must show each route. Prints the ms of a row and a class
+   rerun and whether a row rerun's payload equals the same row of a class
+   rerun bit for bit (cuFFT at batch 1 and batch G);
+8. every single-process entry point of the port's CLI in a subprocess
+   (``--stdin``, ``--multiplexed-stdin``, ``--offline-batch 4``,
+   ``--checkpoint-file`` run to the end and resumed after an interrupted
+   run, ``--debug``, ``--trace-dir``, two files, ``--height-min 0``): stdout
+   byte-identical to the JAX CLI's (pinned), at least one kernel launch,
+   and jax never imported.
 
 ``python3 chip_smoke.py --profile DIR`` adds a phase that runs the
 flagship step and the batched file-mode run under torch.profiler, prints
@@ -37,6 +51,8 @@ import argparse
 import contextlib
 import io
 import json
+import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -198,12 +214,267 @@ def expect_events(argv_tail: list[str], audio: Path, want: list[tuple[str, int]]
         raise AssertionError(f"{argv_tail}: got {events}, want {want} and end {end_ms}")
 
 
+def routes(bank) -> tuple[int, int, int, int]:
+    return bank.row_reruns, bank.class_reruns, bank.escalated_reruns, bank.host_path_rows
+
+
+def rerun_sections(bank) -> dict[str, np.ndarray]:
+    """61 s sections, one per route of a flagged row (numpy seeds 1-4):
+    20 copies of the normal_0 clip 1.05 s apart (more than 16 greedy
+    survivors on one row: a row rerun); the same with normal_0..5 summed
+    (six rows: a class rerun); one 900 Hz hit and 18 weaker ones (marker_0's
+    row: past the 1,024-lane cap, within k_detect: an escalated rerun);
+    one 900 Hz hit (cleared by the lean tier: no rerun)."""
+    sr = bank.sample_rate
+    length = bank.classes[1]["section_len"]
+    normal = next(g for g in bank.classes[1]["groups"] if g.kind == "normal")
+
+    def noise(seed: int) -> np.ndarray:
+        return (0.004 * np.random.default_rng(seed).standard_normal(length)).astype(np.float32)
+
+    def copies(rows, seed: int) -> np.ndarray:
+        audio = noise(seed)
+        for k in range(20):
+            o = int((0.3 + 1.05 * k) * sr)
+            for ci in rows:
+                audio[o : o + sr] += normal.clips_np[ci]
+        return audio
+
+    def tone_hits(weak: int, seed: int) -> np.ndarray:
+        audio = noise(seed)
+        tone = (0.8 * np.sin(2 * np.pi * 900.0 * np.arange(2000) / sr)).astype(np.float32)
+        audio[sr : sr + 2000] += tone
+        for k in range(weak):
+            o = int((2.0 + 0.6 * k) * sr)
+            audio[o : o + 2000] += 0.3 * tone
+        return audio
+
+    return {
+        "row": copies([0], 1), "class": copies(range(6), 2),
+        "escalated": tone_hits(18, 3), "clear": tone_hits(0, 4),
+    }
+
+
+# Sample audio and the JAX CLI's stdout on it (``python -m
+# audio_pattern_detector_tpu match ...`` with the same arguments; the stdin
+# wrapper reads 4.089 s where the file wrapper reads 4.078 s).
+RTHK = AUDIO / "rthk_section_with_beep.wav"
+RTHK_TOML = CLIPS / "rthk_beep.apd.toml"
+CBS = AUDIO / "cbs_news_audio_section.wav"
+CBS_CLIP = CLIPS / "cbs_news.wav"
+RTHK_HITS = [("rthk_beep", 1408, "00:00:01.408"), ("rthk_beep", 2420, "00:00:02.420")]
+CBS_HITS = [("cbs_news", 25899, "00:00:25.899")]
+RTHK_HITS_MS = [(name, ms) for name, ms, _ in RTHK_HITS]
+
+
+def jsonl_block(source: str, hits, end_ms: int, end_fmt: str) -> str:
+    lines = [{"type": "start", "source": source}]
+    lines += [{"type": "pattern_detected", "clip_name": n, "timestamp_ms": ms,
+               "timestamp_formatted": f} for n, ms, f in hits]
+    lines.append({"type": "end", "total_time_ms": end_ms, "total_time_formatted": end_fmt})
+    return "".join(json.dumps(x, ensure_ascii=False) + "\n" for x in lines)
+
+
+# The port's CLI in a subprocess; afterwards stderr's last line reports its
+# kernel launches and whether jax was imported.
+ENTRY = (
+    "import json, sys\n"
+    "from audio_pattern_detector_tpu_torch.cli import main\n"
+    "from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan\n"
+    "try:\n"
+    "    main(sys.argv[1:])\n"
+    "finally:\n"
+    "    print(json.dumps({'jax_imported': 'jax' in sys.modules,\n"
+    "                      'launches': candidate_scan.launches}), file=sys.stderr, flush=True)\n"
+)
+
+
+def entry_command(args: list[str]) -> list[str]:
+    return [sys.executable, "-c", ENTRY, "match", *args]
+
+
+def entry_env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT)}
+
+
+def run_entry(args: list[str], stdin: "bytes | None" = None) -> tuple[str, dict, float]:
+    """(stdout, {jax_imported, launches}, wall s) of one CLI subprocess."""
+    t = time.perf_counter()
+    proc = subprocess.run(entry_command(args), input=stdin, capture_output=True, cwd=ROOT,
+                          env=entry_env(), timeout=300)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"{args}: exit {proc.returncode}: {proc.stderr.decode()[-3000:]}")
+    report = json.loads(proc.stderr.decode().strip().splitlines()[-1])
+    return proc.stdout.decode(), report, wall
+
+
+def interrupted_stdin_run(wav: bytes, ck: Path, device_args: list[str]) -> str:
+    """An ``--stdin --checkpoint-file`` run killed once the checkpoint of
+    its first 2 s chunk is on disk: the stream's first two chunks are
+    written and stdin is held open, so the run waits for a third. Returns
+    the events it printed before the kill."""
+    data = wav.index(b"data") + 8
+    proc = subprocess.Popen(
+        entry_command([*device_args, "--stdin", "--chunk-seconds", "2", "--pipeline-depth", "1",
+                       "--checkpoint-file", str(ck), "--pattern-file", str(RTHK_TOML)]),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        cwd=ROOT, env=entry_env(),
+    )
+    try:
+        assert proc.stdin is not None
+        proc.stdin.write(wav[: data + 2 * 2 * 8000 * 2])  # two 2 s chunks of int16
+        proc.stdin.flush()
+        deadline = time.monotonic() + 240
+        while not ck.exists():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("the interrupted run wrote no checkpoint")
+            time.sleep(0.2)
+    finally:
+        proc.kill()
+        out, _ = proc.communicate(timeout=60)
+    return out.decode()
+
+
 def write_tiled(path: Path, pcm: np.ndarray, rate: int, copies: int) -> None:
     with wave.open(str(path), "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(rate)
         w.writeframes(np.tile(pcm, copies).tobytes())
+
+
+def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
+    """Phase 7: every route of a flagged row on the flagship bank (a
+    smaller bank of the same clips rehearses it on the CPU)."""
+    from audio_pattern_detector_tpu.models import hostpath
+    from audio_pattern_detector_tpu_torch.flagship import make_bank
+    from audio_pattern_detector_tpu_torch.models.bank import _split_fused, unpack_group
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    bank = make_bank(num_normal, num_marker, chunk_seconds=60, device=dev)
+    groups = bank.classes[1]["groups"]
+    want_route = {"row": 0, "class": 1, "escalated": 2, "clear": None}
+    candidate_scan.launches = 0
+    sections = rerun_sections(bank)
+    for name, audio in sections.items():
+        before = routes(bank)
+        dispatched = bank.dispatch_chunk(audio, None)
+        flat = dispatched[0][1].numpy()
+        flagged = []
+        for g, packed in zip(groups, _split_fused(flat, groups)):
+            _, _, host_fb, needs_full = unpack_group(packed, g.k_verify)
+            flagged += [(g, ci) for ci in np.flatnonzero(host_fb | needs_full)]
+        t = time.perf_counter()
+        got = bank.collect_chunk(dispatched)
+        collect_s = time.perf_counter() - t
+        delta = tuple(a - b for a, b in zip(routes(bank), before))
+        host_ms = []
+        for g, ci in flagged:
+            t = time.perf_counter()
+            want = hostpath.process_section_host(
+                audio_section=audio, clip=g.clips_np[ci], correlation_clip=g.corr_clips_np[ci],
+                correlation_clip_absolute_max=float(g.self_max_np[ci]), sr=bank.sample_rate,
+                height_min=bank.height_min, is_short_clip=g.clip_len / bank.sample_rate < 0.5,
+                tone_frequency=g.tone_freqs[ci], verification_params=g.verification_params[ci],
+            )
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            if got[g.names[ci]] != want:
+                raise AssertionError(f"{name}: {g.names[ci]} {got[g.names[ci]]} != host {want}")
+        route = want_route[name]
+        if delta[3] != 0 or (route is None and (flagged or any(delta))) or (
+            route is not None and delta[route] < 1
+        ) or (name == "row" and delta[1] != 0):
+            raise AssertionError(f"{name}: routes (row, class, escalated, host) {delta}")
+        phase("wide_rerun_route", section=name, flagged_rows=[g.names[ci] for g, ci in flagged],
+              routes_row_class_escalated_host=delta, collect_s=collect_s,
+              host_path_ms_per_row=float(np.median(host_ms)) if host_ms else None,
+              detections={k: len(v) for k, v in got.items() if v}, equal_to_host_path=True)
+    lean_launches = candidate_scan.launches
+
+    normal = next(gi for gi, g in enumerate(groups) if g.kind == "normal")
+    marker = next(gi for gi, g in enumerate(groups) if g.kind == "marker")
+    row_vs_class = {}
+    for name, gi in (("row", normal), ("escalated", marker)):
+        row = bank._full_tier_row(1, gi, 0, sections[name])
+        whole = bank._full_tier_packed(1, sections[name])[gi][0]
+        row_vs_class[groups[gi].names[0]] = bool(np.array_equal(row.view(np.int32),
+                                                                whole.view(np.int32)))
+    reps = dict(runs=3, reps=3)
+    phase("wide_rerun", card=smi, clips=num_normal + num_marker, section_s=61,
+          row_rerun_ms=cuda_ms(lambda: bank._full_tier_row(1, normal, 0, sections["row"]), **reps),
+          marker_row_rerun_ms=cuda_ms(
+              lambda: bank._full_tier_row(1, marker, 0, sections["escalated"]), **reps),
+          escalated_row_rerun_ms=cuda_ms(
+              lambda: bank._full_tier_row(1, marker, 0, sections["escalated"], capped=False),
+              **reps),
+          class_rerun_ms=cuda_ms(lambda: bank._full_tier_packed(1, sections["class"]), **reps),
+          row_payload_bitwise_equal_to_class_rerun=row_vs_class,
+          lean_kernel_launches=lean_launches, host_path_rows=bank.host_path_rows)
+    del bank, sections
+
+
+def phase_entry_points(dev) -> None:
+    """Phase 8: the port's CLI in subprocesses on ``dev`` (on a CUDA card
+    each run must launch the kernel and the trace must hold device
+    kernels)."""
+    on_card = dev.type == "cuda"
+    device_args = ["--device", str(dev.type)]
+    rthk_wav, cbs_wav, cbs_clip = RTHK.read_bytes(), CBS.read_bytes(), CBS_CLIP.read_bytes()
+    mux = (struct.pack("<II", 1, 8) + b"cbs_news" + struct.pack("<I", len(cbs_clip)) + cbs_clip
+           + cbs_wav)
+    rthk_out = jsonl_block(str(RTHK), RTHK_HITS, 4078, "00:00:04.078")
+    cbs_out = jsonl_block(str(CBS), CBS_HITS, 32122, "00:00:32.122")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmpd = Path(tmp)
+        rthk_args = ["--pattern-file", str(RTHK_TOML), str(RTHK)]
+        cases = {
+            "stdin": (["--stdin", "--pattern-file", str(RTHK_TOML)], rthk_wav,
+                      jsonl_block("stdin", RTHK_HITS, 4089, "00:00:04.089")),
+            "multiplexed_stdin": (["--multiplexed-stdin"], mux,
+                                  jsonl_block("multiplexed-stdin", CBS_HITS, 32122, "00:00:32.122")),
+            "offline_batch": (["--offline-batch", "4", *rthk_args], None, rthk_out),
+            "checkpoint_file": (["--chunk-seconds", "2", "--checkpoint-file", str(tmpd / "ck"),
+                                 *rthk_args], None, rthk_out),
+            "debug": (["--debug", "--debug-dir", str(tmpd / "debug"), *rthk_args], None, rthk_out),
+            "trace_dir": (["--trace-dir", str(tmpd / "trace"), *rthk_args], None, rthk_out),
+            "two_files": (["--pattern-file", str(RTHK_TOML), "--pattern-file", str(CBS_CLIP),
+                           str(RTHK), str(CBS)], None, rthk_out + cbs_out),
+            "height_min_0": (["--height-min", "0", "--pattern-file", str(CBS_CLIP), str(CBS)],
+                             None, cbs_out),
+        }
+        entry_rows = {}
+        for name, (args, stdin, want) in cases.items():
+            out, report, wall = run_entry([*device_args, *args], stdin)
+            if out != want or report["jax_imported"] or report["launches"] < on_card:
+                raise AssertionError(f"{name}: {report}, stdout {out!r}, want {want!r}")
+            entry_rows[name] = (report["launches"], wall)
+        if (tmpd / "ck").exists() or not list((tmpd / "debug").rglob("*.txt")):
+            raise AssertionError("checkpoint file left behind, or no debug artifacts")
+        traces = list((tmpd / "trace").glob("*.json"))
+        trace = json.loads(traces[0].read_text()) if len(traces) == 1 else {}
+        device_ops = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+        if not trace.get("traceEvents") or (on_card and not device_ops):
+            raise AssertionError(f"trace {traces} holds no device kernels")
+
+        # Resume: the rerun of an interrupted run's command skips the chunk
+        # it checkpointed; its first section looks back 1 s into that
+        # chunk, so the 1408 ms beep is found again there.
+        ck = tmpd / "resume.ck"
+        head = interrupted_stdin_run(rthk_wav, ck, device_args)
+        out, report, wall = run_entry(
+            [*device_args, "--stdin", "--chunk-seconds", "2", "--checkpoint-file", str(ck),
+             "--pattern-file", str(RTHK_TOML)], rthk_wav)
+        head_hits = detections([json.loads(x) for x in head.splitlines()])
+        tail_hits = detections([json.loads(x) for x in out.splitlines()])
+        if (head_hits != RTHK_HITS_MS[:1] or tail_hits != RTHK_HITS_MS or ck.exists()
+                or report["jax_imported"] or report["launches"] < on_card):
+            raise AssertionError(f"resume: head {head_hits}, resumed {tail_hits}, {report}")
+        entry_rows["checkpoint_resume"] = (report["launches"], wall)
+        phase("entry_points", golden_stdout=True, jax_imported=False,
+              kernel_launches={k: v[0] for k, v in entry_rows.items()},
+              wall_s={k: round(v[1], 2) for k, v in entry_rows.items()},
+              trace_kernel_events=len(device_ops))
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -390,6 +661,9 @@ def main(argv: "list[str] | None" = None) -> int:
             phase("profile_file_mode", audio_s=audio_s,
                   **profile_run(lambda: run_cli(["match", *pattern, str(tiled)]),
                                 args.profile / "file_mode.txt"))
+
+    phase_wide_rerun(dev, smi)
+    phase_entry_points(dev)
 
     g, l, err, ms, plain_ms = kernel_rows[0]
     print(json.dumps({"kernels": [{

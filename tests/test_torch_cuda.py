@@ -129,3 +129,78 @@ def test_flagship_payloads_kernel_equal_plain(cuda):
     step, _ = flagship_step(cuda)
     for a, b in zip(step(candidate_scan), step(candidate_scan_reference)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_topk_sparse_orders_ties_on_the_card(cuda):
+    """``torch.topk`` promises no order among equal values on CUDA; the
+    port's capture must still give (height descending, position ascending)
+    on the finite lanes, as on the CPU."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops.peaks import topk_sparse
+
+    rng = np.random.default_rng(5)
+    x = np.full((4, 200_000), -np.inf, dtype=np.float32)
+    for row in x:
+        pos = rng.choice(len(row), size=900, replace=False)
+        row[pos] = rng.choice(np.float32([0.3, 0.5, 0.5, 0.9]), len(pos))
+    got_h, got_p = topk_sparse(torch.from_numpy(x).to(cuda), 1024)
+    want_h, want_p = topk_sparse(torch.from_numpy(x), 1024)
+    fin = torch.isfinite(want_h)
+    assert torch.equal(got_h.cpu(), want_h)
+    assert torch.equal(got_p.cpu()[fin], want_p[fin])
+    for h, p in zip(want_h, want_p):
+        n = int(torch.isfinite(h).sum())
+        key = list(zip((-h[:n]).tolist(), p[:n].tolist()))
+        assert n == 900 and key == sorted(key)
+
+
+def _host_expected(bank, g, ci, section):
+    from audio_pattern_detector_tpu.models import hostpath
+
+    return hostpath.process_section_host(
+        audio_section=section, clip=g.clips_np[ci], correlation_clip=g.corr_clips_np[ci],
+        correlation_clip_absolute_max=float(g.self_max_np[ci]), sr=8000,
+        height_min=bank.height_min, is_short_clip=g.clip_len / 8000 < 0.5,
+        tone_frequency=g.tone_freqs[ci], verification_params=g.verification_params[ci],
+    )
+
+
+@pytest.mark.parametrize("route", ["row", "class", "escalated"])
+def test_wide_rerun_on_the_card_equals_the_host_path(cuda, route):
+    """The three device routes of a flag-2 row (the CPU twins are in
+    tests/test_torch_rerun.py): detections equal the exact host path's and
+    no row reaches it."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu.utils.clip import AudioClip
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    sr = 8000
+    rng = np.random.default_rng(31)
+    if route == "escalated":
+        tone = (0.8 * np.sin(2 * np.pi * 1040.0 * np.arange(2000) / sr)).astype(np.float32)
+        clips = [AudioClip(name="m", audio=tone, sample_rate=sr, strategy="marker_tone")]
+        audio = (0.002 * np.random.default_rng(5).standard_normal(20 * sr)).astype(np.float32)
+        audio[sr : sr + 2000] += tone
+        for k in range(18):
+            o = int((2.0 + 0.6 * k) * sr)
+            audio[o : o + 2000] += 0.3 * tone
+        want_routes = (2, 0, 1, 0)
+    else:
+        base = (0.4 * rng.standard_normal(sr)).astype(np.float32)
+        n = 1 if route == "row" else 6
+        clips = [AudioClip(name=f"c{i}", audio=base * (0.8 + 0.04 * i), sample_rate=sr)
+                 for i in range(n)]
+        audio = (0.004 * rng.standard_normal(24 * sr)).astype(np.float32)
+        for k in range(20):
+            o = int((0.3 + 1.05 * k) * sr)
+            audio[o : o + sr] += base
+        want_routes = (1, 0, 0, 0) if route == "row" else (0, 1, 0, 0)
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=24)._ensure_bank()
+    got = bank.process_chunk(audio, None)
+    g = bank.classes[1]["groups"][0]
+    for ci, name in enumerate(g.names):
+        assert got[name] == _host_expected(bank, g, ci, audio)
+    routes = (bank.row_reruns, bank.class_reruns, bank.escalated_reruns, bank.host_path_rows)
+    assert routes == want_routes

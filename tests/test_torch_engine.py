@@ -156,7 +156,8 @@ def test_rthk_detections_match_pinned_values():
 
 def test_flagged_rows_take_the_exact_host_path():
     """> 16 distance-spaced survivors flag the row; the port resolves it
-    on the host path, exactly."""
+    with the exact host path's result, through the wide rerun on the
+    device (tests/test_torch_rerun.py covers every route)."""
     from audio_pattern_detector_tpu.models import hostpath
 
     rng = np.random.default_rng(3)
@@ -177,12 +178,12 @@ def test_flagged_rows_take_the_exact_host_path():
         tone_frequency=None, verification_params={},
     )
     assert bank.process_chunk(audio, None)["c"] == expected
-    assert len(expected) == 20 and bank.host_path_rows == 1
+    assert len(expected) == 20 and bank.row_reruns == 1 and bank.host_path_rows == 0
 
 
 def test_flag_free_path_never_decodes_int16_tails(monkeypatch):
-    """The streaming loop's int16 tail decode imports the JAX bank; the
-    port's flag-free path must never reach it."""
+    """The JAX streaming loop decodes int16 checkpoint tails through the
+    JAX bank; the port's loop must never reach it, checkpoints included."""
     stub = types.ModuleType("audio_pattern_detector_tpu.models.bank")
 
     def _forbidden(raw):
@@ -197,8 +198,10 @@ def test_flag_free_path_never_decodes_int16_tails(monkeypatch):
             name="s", audio_stream=io.BytesIO(audio.tobytes()), sample_rate=SR,
             sample_dtype=np.int16,
         )
-        peaks, _ = det.find_clip_in_audio(stream, stream_batch=batch)
+        cks = []
+        peaks, _ = det.find_clip_in_audio(stream, stream_batch=batch, on_checkpoint=cks.append)
         assert len(peaks["c"]) == 2
+        assert len(cks) == 4 and cks[-1].previous_tail.dtype == np.float32
 
 
 # ── Bank contract ──
@@ -207,14 +210,12 @@ def test_flag_free_path_never_decodes_int16_tails(monkeypatch):
 def test_bank_refuses_what_it_does_not_port():
     clips, _ = _hit_audio_i16()
     det = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=10)
-    with pytest.raises(NotImplementedError, match="height_min"):
-        PatternBank(det._clip_datas, det._tone_frequencies, {}, SR, 10 * SR, 0.0, CPU)
     bank = det._ensure_bank()
     with pytest.raises(ValueError, match="scan"):
         bank.dispatch_chunks_batch([np.zeros(10 * SR, np.float32)], None, mode="vmap")
     assert bank.dispatch_chunks_batch([], None) == []
-    with pytest.raises(NotImplementedError, match="debug"):
-        TorchAudioPatternDetector(clips, device="cpu", debug_mode=True)
+    general = PatternBank(det._clip_datas, det._tone_frequencies, {}, SR, 10 * SR, 0.0, CPU)
+    assert general.height_min == 0.0 and general._metas == bank._metas
 
 
 def test_flagship_twin_matches_jax_geometry():
@@ -285,17 +286,11 @@ def test_cli_process_never_imports_jax():
 @pytest.mark.parametrize(
     "extra,flag",
     [
-        (["--stdin"], "--stdin"),
-        (["--multiplexed-stdin"], "--multiplexed-stdin"),
-        (["--offline-batch", "4"], "--offline-batch"),
         (["--mesh-time", "2"], "--mesh-time"),
         (["--mesh-bank", "2"], "--mesh-bank"),
         (["--mesh-stream", "2"], "--mesh-stream"),
-        (["--checkpoint-file", "ck.bin"], "--checkpoint-file"),
-        (["--debug"], "--debug"),
-        (["--trace-dir", "tr"], "--trace-dir"),
         (["--stream-batch-mode", "vmap"], "--stream-batch-mode vmap"),
-        ([RTHK], "exactly one audio file"),
+        (["--offline-batch-mode", "vmap", "--offline-batch", "2"], "--offline-batch-mode vmap"),
     ],
 )
 def test_cli_rejects_what_is_not_ported(extra, flag, capsys):
