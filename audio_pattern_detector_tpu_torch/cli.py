@@ -1,4 +1,4 @@
-"""CLI of the torch port: ``python -m audio_pattern_detector_tpu_torch match | show-config``.
+"""CLI of the torch port: ``python -m audio_pattern_detector_tpu_torch match | serve | show-config``.
 
 ``match`` takes the JAX CLI's flags with the same defaults, guards, error
 messages and exit codes, and writes the same JSONL events: one audio
@@ -8,13 +8,15 @@ file, several files (one start/end block each, the bank shared),
 Chrome trace) and ``--height-min`` at any value. It is built from the
 reused host pieces of ``audio_pattern_detector_tpu.match`` and the port's
 own entry points (``audio_pattern_detector_tpu_torch.match``); only the
-detector differs, chosen through ``TorchEngineOptions``. ``--device``
-(default ``cuda``) picks the torch device; without CUDA, ``cuda`` raises
-instead of running elsewhere.
+detector differs, chosen through ``TorchEngineOptions``. ``serve`` takes
+the JAX ``serve`` flags with the same defaults and answers TCP clients
+with the JSONL events ``match --stdin`` prints (``serve.py``).
+``--device`` (default ``cuda``) picks the torch device; without CUDA,
+``cuda`` raises instead of running elsewhere.
 
 Not ported, and refused with an error naming the flag: ``--mesh-time``,
-``--mesh-bank``, ``--mesh-stream``, ``--stream-batch-mode vmap``,
-``--offline-batch-mode vmap``, and ``serve``.
+``--mesh-bank``, ``--mesh-stream`` (other than 1),
+``--stream-batch-mode vmap`` and ``--offline-batch-mode vmap``.
 """
 
 from __future__ import annotations
@@ -108,7 +110,43 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--trace-dir", metavar="dir", default=None,
                    help="write a torch.profiler Chrome trace of the run to this directory")
 
-    sub.add_parser("serve", help="not supported by the torch port yet")
+    s = sub.add_parser("serve", help=("serve the pattern bank to concurrent TCP audio streams "
+                                      "(one device, N live streams batched per round)"))
+    s.add_argument("--pattern-file", metavar="pattern file", action="append",
+                   help="pattern file (can be specified multiple times)")
+    s.add_argument("--pattern-folder", metavar="pattern folder", action="append",
+                   help="folder of *.wav / *.apd.toml pattern clips (repeatable)")
+    s.add_argument("--device", default="cuda",
+                   help="torch device: 'cuda' (default; raises without CUDA) or 'cpu'")
+    s.add_argument("--host", metavar="host", default="127.0.0.1",
+                   help="bind address (default: 127.0.0.1)")
+    s.add_argument("--port", metavar="port", type=int, default=7342,
+                   help="TCP port to listen on (default: 7342; 0 picks a free port)")
+    s.add_argument("--max-streams", metavar="n", type=int, default=8,
+                   help=("concurrent client streams batched into each round (default: 8); "
+                         "extra connections get a JSONL error event"))
+    s.add_argument("--tile", metavar="n", type=int, default=None,
+                   help=("max rows per dispatch: a round's active rows compact into the tile "
+                         "and the powers of two below it (default: min(16, max-streams))"))
+    s.add_argument("--target-sample-rate", metavar="rate", type=int,
+                   help="target sample rate in Hz (default: 8000)")
+    s.add_argument("--timestamp-format", choices=["ms", "formatted", "both"], default="both",
+                   help="timestamp format in JSONL events (same as match)")
+    s.add_argument("--chunk-seconds", metavar="seconds", type=int, default=None,
+                   help="seconds per chunk per stream (default: 60)")
+    s.add_argument("--height-min", metavar="height", type=float, default=None,
+                   help="minimum correlation peak height (default: 0.25)")
+    s.add_argument("--pipeline-depth", metavar="rounds", type=int, default=2,
+                   help="device rounds kept in flight while sockets ingest (default: 2)")
+    s.add_argument("--dispatch-defer-ms", metavar="ms", type=float, default=50.0,
+                   help=("hold a round back up to this long while other live streams are "
+                         "mid-chunk; 0 disables (default: 50)"))
+    s.add_argument("--idle-timeout", metavar="seconds", type=float, default=0,
+                   help="drop a connection that sends no data for this long; 0 disables (default)")
+    s.add_argument("--stats-interval", metavar="seconds", type=float, default=0,
+                   help="print one JSON ops line to stderr every N seconds; 0 disables (default)")
+    s.add_argument("--mesh-stream", metavar="N", type=int, default=None,
+                   help="not supported by the torch port yet (N other than 1 is refused)")
 
     c = sub.add_parser("show-config", help="Show computed configuration for a pattern file")
     c.add_argument("pattern_file", metavar="pattern file", help="pattern file")
@@ -293,13 +331,15 @@ def cmd_match(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None
 
 def main(argv: "Sequence[str] | None" = None) -> None:
     parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    if args.command == "serve":
-        parser.error("serve is not supported by the torch port yet")
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     if args.command == "match":
         cmd_match(args, parser)
+    elif args.command == "serve":
+        if args.mesh_stream not in (None, 1):
+            parser.error("--mesh-stream is not supported by the torch port yet")
+        from audio_pattern_detector_tpu_torch.serve import cmd_serve
+
+        cmd_serve(args)
     elif args.command == "show-config":
         cmd_show_config(args)
     else:

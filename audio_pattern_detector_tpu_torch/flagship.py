@@ -20,14 +20,16 @@ from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDe
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
 
-def make_bank(
+def make_detector(
     num_normal: int,
     num_marker: int,
     chunk_seconds: int,
     device: "torch.device | str",
     sr: int = 8000,
-) -> PatternBank:
-    """A PatternBank with a mixed normal/marker clip bank."""
+) -> TorchAudioPatternDetector:
+    """A detector over a mixed normal/marker clip bank (the serving path
+    needs the detector: ``peaks_to_times`` and the clip metadata live
+    there)."""
     rng = np.random.default_rng(0)
     clips = []
     for i in range(num_normal):
@@ -46,8 +48,18 @@ def make_bank(
                 strategy_params={"dominant_frequency_hz": freq},
             )
         )
-    det = TorchAudioPatternDetector(clips, device=device, seconds_per_chunk=chunk_seconds)
-    return det._ensure_bank()
+    return TorchAudioPatternDetector(clips, device=device, seconds_per_chunk=chunk_seconds)
+
+
+def make_bank(
+    num_normal: int,
+    num_marker: int,
+    chunk_seconds: int,
+    device: "torch.device | str",
+    sr: int = 8000,
+) -> PatternBank:
+    """The PatternBank of :func:`make_detector`'s detector."""
+    return make_detector(num_normal, num_marker, chunk_seconds, device, sr)._ensure_bank()
 
 
 def flagship_step(

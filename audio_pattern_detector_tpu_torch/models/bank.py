@@ -249,10 +249,10 @@ class PatternBank:
 
     @staticmethod
     def _section_rows(section_len: int, raws: list[NDArray[Any]]) -> NDArray[Any]:
-        """(B, S) zero-padded host rows: int16 when every row is int16,
-        else f32 with int16 rows decoded on the host (bitwise the device
-        decode)."""
-        as_i16 = all(r.dtype == np.int16 for r in raws)
+        """(B, S) zero-padded host rows: int16 when every non-empty row is
+        int16, else f32 with int16 rows decoded on the host (bitwise the
+        device decode)."""
+        as_i16 = all(r.dtype == np.int16 or not len(r) for r in raws)
         rows = np.zeros((len(raws), section_len), dtype=np.int16 if as_i16 else np.float32)
         for bi, raw in enumerate(raws):
             if not as_i16 and raw.dtype == np.int16:
@@ -309,22 +309,34 @@ class PatternBank:
         chunks: list[NDArray[Any]],
         previous_tail: "NDArray[Any] | None",
         mode: str = "scan",
+        prev_tails: "list[NDArray[Any] | None] | None" = None,
+        sharding: Any = None,
     ) -> list[tuple[int, PayloadHandle, list[NDArray[Any]], int, None]]:
-        """Enqueue consecutive chunks (chunk i's lookback is chunk i-1,
-        ``previous_tail`` seeding the first). The rows run one after
-        another on the current stream; the payload copies back once per
-        class."""
+        """Enqueue a chunk batch. By default the chunks are consecutive
+        (chunk i's lookback is chunk i-1, ``previous_tail`` seeding the
+        first); ``prev_tails`` (one per chunk, None = no lookback) makes
+        the rows independent streams, the multi-stream serving path
+        (models/multistream.py). Each row keeps its own length, so a first
+        chunk, a short final chunk and a zero-length idle row share a
+        batch. The rows run one after another on the current stream; the
+        payload copies back once per class. ``sharding`` places rows
+        across a device mesh in the JAX bank and is not ported."""
         if mode != "scan":
             raise ValueError(f"the torch port runs mode='scan' only, got {mode!r}")
+        if sharding is not None:
+            raise ValueError("sharding is not supported by the torch port yet")
+        if prev_tails is not None and len(prev_tails) != len(chunks):
+            raise ValueError(
+                f"prev_tails has {len(prev_tails)} entries for {len(chunks)} chunks"
+            )
         if not chunks:
             return []
         b = len(chunks)
+        if prev_tails is None:
+            prev_tails = [previous_tail, *chunks[:-1]]
         dispatched = []
         for sw, cls in self.classes.items():
-            raws = [
-                self._raw_section(sw, chunk, chunks[bi - 1] if bi else previous_tail)
-                for bi, chunk in enumerate(chunks)
-            ]
+            raws = [self._raw_section(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
             rows = upload_rows(self._section_rows(cls["section_len"], raws), self.device)
             payload = torch.stack(
                 [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]

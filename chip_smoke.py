@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's main path, file-mode ``match``, on the card and checks it:
+Drives the port's main paths, file-mode ``match`` and live serving, on the
+card and checks them:
 
 1. device: card name and power limit (nvidia-smi), torch and CUDA
    versions, the kernel build from the sources in this checkout;
@@ -33,12 +34,31 @@ Drives the port's main path, file-mode ``match``, on the card and checks it:
    ``--checkpoint-file`` run to the end and resumed after an interrupted
    run, ``--debug``, ``--trace-dir``, two files, ``--height-min 0``): stdout
    byte-identical to the JAX CLI's (pinned), at least one kernel launch,
-   and jax never imported.
+   and jax never imported;
+9. the serving session (``MultiStreamSession``) on the flagship detector,
+   16 slots, tile 16, 2 rounds in flight: 12 seeded streams of 60 s
+   chunks (one int16, one ending after its first chunk, one starting in
+   the second round, one carrying phase 7's flooded row) give each
+   stream the serial engine's detections exactly; the first round runs
+   tiles of 8, 2 and 1 rows; the flooded row takes a row rerun and no row
+   the host path; the kernel launches once per row and group (counted
+   from 0 around this run). The kernel equals its plain version bitwise
+   on a round's zero-length and short rows. Prints ms per 16-row round
+   (the median over 5 pipelined rounds) and the aggregate x-realtime,
+   then, in turns (4 each), the host time of one 16-row
+   round's dispatch and collect beside 16 single-chunk dispatches and
+   their collects on the same bank;
+10. the port's ``serve`` in a subprocess (4 slots, the RTHK toml and the
+   CBS clip): 4 concurrent clients (RTHK, CBS, CBS tiled 15 times, RTHK)
+   get the pinned JAX ``match --stdin`` events, the tiled file the port's
+   own ``match --stdin`` events (15 detections); a 5th client gets
+   "server full"; after SIGINT the server reports a kernel launch and no
+   jax. Prints the wall time per client.
 
-``python3 chip_smoke.py --profile DIR`` adds a phase that runs the
-flagship step and the batched file-mode run under torch.profiler, prints
-wall time, device time, kernel and launch counts, and writes each op
-table to DIR.
+``python3 chip_smoke.py --profile DIR`` adds phases that run the
+flagship step, the batched file-mode run and one 16-row serving round
+under torch.profiler, print wall time, device time, kernel and launch
+counts, and write each op table to DIR.
 
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
@@ -52,6 +72,9 @@ import contextlib
 import io
 import json
 import os
+import select
+import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -477,10 +500,327 @@ def phase_entry_points(dev) -> None:
               trace_kernel_events=len(device_ops))
 
 
+def serving_streams(det, sr: int) -> tuple[list[np.ndarray], list[list], list[list]]:
+    """Phase 9's streams and their rounds (numpy seeds 10-21; 60 s chunks).
+
+    Streams 0-10 start in round 1 and carry 3 chunks each, except stream 9,
+    which ends after its first. Each has seeded noise, copies of the bank's
+    normal clip ``normal_<i mod 32>`` at 7 s + 50 s k and a 900 Hz tone (the
+    ``marker_0`` clip's frequency) at 31 s + 60 s k. Stream 3's second
+    chunk's section is phase 7's "row" flood section (a row rerun inside
+    a round); stream 5 is int16. Stream 11 starts in round 2 with 3
+    chunks. Rounds 1-3 hold 11 rows, round 4 one. Returns the streams,
+    the rounds (16 slots) and each stream's planted (clip, second) pairs
+    outside the flood."""
+    bank = det._ensure_bank()
+    normal = next(g for g in bank.classes[1]["groups"] if g.kind == "normal")
+    tone = (0.8 * np.sin(2 * np.pi * 900.0 * np.arange(2000) / sr)).astype(np.float32)
+    audios = []
+    for i in range(12):
+        secs = 60 if i == 9 else 180
+        audio = (0.004 * np.random.default_rng(10 + i).standard_normal(secs * sr)).astype(np.float32)
+        for t in range(7, secs, 50):
+            audio[t * sr : (t + 1) * sr] += normal.clips_np[i % len(normal.names)]
+        for t in range(31, secs, 60):
+            audio[t * sr : t * sr + len(tone)] += tone
+        audios.append(audio)
+    audios[3][59 * sr : 120 * sr] = rerun_sections(bank)["row"]
+    audios[5] = np.clip(np.round(audios[5] * 16384), -32768, 32767).astype(np.int16)
+    planted = [
+        [(normal.names[i % len(normal.names)], t) for t in range(7, len(a) // sr, 50)
+         if not (i == 3 and 59 <= t < 120)]
+        for i, a in enumerate(audios)
+    ]
+    chunk = 60 * sr
+    chunks = [[a[o : o + chunk] for o in range(0, len(a), chunk)] for a in audios]
+    rounds = []
+    for r in range(4):
+        row = [c[r] if r < len(c) else None for c in chunks[:11]]
+        row.append(chunks[11][r - 1] if r else None)
+        rounds.append(row + [None] * 4)
+    return audios, rounds, planted
+
+
+def drive_session(session, rounds: list, in_flight: int) -> tuple[list[dict], list[float]]:
+    """Dispatch the rounds with ``in_flight`` kept in flight; each slot's
+    accumulated detections and the host time of each collect's end."""
+    acc = [{c.name: [] for c in session.detector.audio_clips} for _ in range(session.n_streams)]
+    pending, done = [], []
+
+    def collect() -> None:
+        for a, res in zip(acc, session.collect(pending.pop(0))):
+            for name, ts in res.items():
+                a[name].extend(ts)
+        done.append(time.perf_counter())
+
+    for chunks in rounds:
+        pending.append(session.dispatch(chunks))
+        if len(pending) >= in_flight:
+            collect()
+    while pending:
+        collect()
+    return acc, done
+
+
+def phase_multistream(
+    dev, smi: str, num_normal: int = 32, num_marker: int = 32, profile: "Path | None" = None
+) -> int:
+    """Phase 9: the serving session on the flagship detector (16 slots,
+    tile 16, 2 rounds in flight) against the serial engine, the kernel's
+    launches per row, the kernel against its plain version on a round's
+    zero-length and short rows, and the steady-state round time (with
+    ``profile``, one 16-row round under torch.profiler, its op table
+    written there). Returns the kernel launches of the counted session
+    run."""
+    import torch
+
+    from audio_pattern_detector_tpu.utils.clip import AudioStream
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models.bank import class_step
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    on_card = dev.type == "cuda"
+    det = make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)
+    bank = det._ensure_bank()
+    sr = bank.sample_rate
+    audios, rounds, planted = serving_streams(det, sr)
+    session = MultiStreamSession(det, 16, tile=16)
+    widths: list[list[int]] = []
+    dispatch = bank.dispatch_chunks_batch
+
+    def recording_dispatch(chunks, *a, **kw):
+        widths[-1].append(len(chunks))
+        return dispatch(chunks, *a, **kw)
+
+    bank.dispatch_chunks_batch = recording_dispatch
+    original_session_dispatch = session.dispatch
+
+    def session_dispatch(chunks):
+        widths.append([])
+        return original_session_dispatch(chunks)
+
+    session.dispatch = session_dispatch
+    before = routes(bank)
+    groups = sum(len(c["groups"]) for c in bank.classes.values())
+    # ── The counted run ──
+    candidate_scan.launches = 0
+    t = time.perf_counter()
+    acc, _ = drive_session(session, rounds, in_flight=2)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = candidate_scan.launches
+    delta = tuple(a - b for a, b in zip(routes(bank), before))
+    bank.dispatch_chunks_batch = dispatch
+    rows = sum(sum(w) for w in widths)
+    if widths[0] != [8, 2, 1] or rows != 34:
+        raise AssertionError(f"tile widths per round {widths}, want [8, 2, 1] first and 34 rows")
+    if on_card and launches != rows * groups:
+        raise AssertionError(f"kernel launches {launches}, want rows x groups = {rows * groups}")
+    if delta[0] < 1 or delta[3] != 0:
+        raise AssertionError(f"routes (row, class, escalated, host) {delta}: want a row rerun, no host")
+
+    for i, audio in enumerate(audios):
+        want, total = det.find_clip_in_audio(AudioStream(
+            name=f"s{i}", audio_stream=io.BytesIO(audio.tobytes()), sample_rate=sr,
+            sample_dtype=audio.dtype,
+        ))
+        if acc[i] != want or session.total_time(i) != total:
+            raise AssertionError(f"stream {i}: session {acc[i]} != serial {want}")
+        for name, sec in planted[i]:
+            if not any(abs(x - sec) < 0.01 for x in acc[i][name]):
+                raise AssertionError(f"stream {i}: {name} at {sec} s not detected: {acc[i][name]}")
+    detections = sum(len(v) for a in acc[:12] for v in a.values())
+
+    # ── The kernel on a zero-length and a short row of an untiled round ──
+    short = audios[0][: 7 * sr]
+    full = audios[1][:60 * sr]
+    untiled = MultiStreamSession(det, 4)
+    out = untiled.feed([short, np.zeros(0, np.float32), None, full])
+    if out[1] != {} or out[2] != {} or out[0] != det.peaks_to_times(
+        bank.process_chunk(short, None), 0, False
+    ) or out[3] != det.peaks_to_times(bank.process_chunk(full, None), 0, False):
+        raise AssertionError("an untiled round with idle rows differs from single chunks")
+    cls = bank.classes[1]
+    consts = tuple((g.corr, g.verify) for g in cls["groups"])
+    errs = []
+
+    def checked_scan(corr, thr, valid_len):
+        got = candidate_scan(corr, thr, valid_len)
+        errs.append(check_scan_equal(got, candidate_scan_reference(corr, thr, valid_len)))
+        return got
+
+    for raw in (short, np.zeros(0, np.float32)):
+        section = torch.zeros(cls["section_len"], device=dev)
+        section[: len(raw)] = torch.from_numpy(raw).to(dev)
+        class_step(section, len(raw), cls["loud"], consts, metas=bank._metas[1],
+                   height_min=bank.height_min, scan=checked_scan)
+    if on_card:
+        torch.cuda.synchronize()
+
+    # ── Steady state: 16 full rows per round ──
+    rng = np.random.default_rng(30)
+    n_rounds = 5
+    timed = MultiStreamSession(det, 16, tile=16)
+    full_rounds = [[(0.004 * rng.standard_normal(60 * sr)).astype(np.float32) for _ in range(16)]
+                   for _ in range(n_rounds + 1)]
+    timed.feed(full_rounds[0])
+    t = time.perf_counter()
+    _, done = drive_session(timed, full_rounds[1:], in_flight=2)
+    steady_wall = time.perf_counter() - t
+    intervals = np.diff([t, *done]) * 1e3
+
+    # ── One round's dispatch and collect against 16 single-chunk
+    # dispatches, in turns (round, singles, singles, round, twice) ──
+    def session_round(chunks) -> tuple[float, float]:
+        t0 = time.perf_counter()
+        handle = timed.dispatch(chunks)
+        t1 = time.perf_counter()
+        timed.collect(handle)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def single_dispatches(chunks) -> tuple[float, float]:
+        t0 = time.perf_counter()
+        handles = [bank.dispatch_chunk(c, p) for c, p in zip(chunks, full_rounds[0])]
+        t1 = time.perf_counter()
+        for h in handles:
+            bank.collect_chunk(h)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    turns: dict[str, list[tuple[float, float]]] = {"round": [], "singles": []}
+    for name in ("round", "singles", "singles", "round") * 2:
+        run = session_round if name == "round" else single_dispatches
+        turns[name].append(run(full_rounds[1 + len(turns[name])]))
+    phase("multistream", card=smi, clips=num_normal + num_marker, slots=16, tile=16,
+          in_flight=2, streams=12, rounds=len(rounds), tile_widths_per_round=widths,
+          rows=rows, groups=groups, kernel_launches=launches,
+          routes_row_class_escalated_host=delta, detections=detections,
+          equal_to_serial_engine=True, session_wall_s=wall,
+          kernel_equal_plain_on_short_and_empty_rows=True, scan_checks=len(errs),
+          max_abs_err=max(errs), steady_rows_per_round=16, steady_rounds=n_rounds,
+          ms_per_round_median=float(np.median(intervals)),
+          aggregate_x_realtime=16 * 60 * n_rounds / steady_wall,
+          round_dispatch_collect_ms=turns["round"],
+          singles_dispatch_collect_ms=turns["singles"])
+    if profile is not None:
+        phase("profile_serving_round", rows=16, audio_s=16 * 60,
+              **profile_run(lambda: timed.feed(full_rounds[1]), profile / "serving_round.txt"))
+    del det, bank, session, untiled, timed
+    return launches
+
+
+# The JSONL events after ``start`` that ``python -m audio_pattern_detector_tpu
+# match --stdin --pattern-file <rthk toml> --pattern-file <cbs clip>`` prints
+# for each sample WAV (the stdin read of the RTHK file includes the bytes
+# after its data chunk: 4.089 s).
+SERVE_GOLDEN = {
+    "rthk": jsonl_block("-", RTHK_HITS, 4089, "00:00:04.089").split("\n", 1)[1],
+    "cbs": jsonl_block("-", CBS_HITS, 32122, "00:00:32.122").split("\n", 1)[1],
+}
+
+
+def serve_client(sock, payload: bytes) -> tuple[str, float]:
+    """Send a WAV on a connected socket, half-close, read every event;
+    (events after the start line, wall seconds)."""
+    t = time.perf_counter()
+    sock.sendall(payload)
+    sock.shutdown(socket.SHUT_WR)
+    buf = b""
+    while True:
+        data = sock.recv(1 << 16)
+        if not data:
+            break
+        buf += data
+    sock.close()
+    return buf.decode(), time.perf_counter() - t
+
+
+def phase_serve(dev, smi: str) -> None:
+    """Phase 10: the port's ``serve`` in a subprocess on ``dev`` (4 slots),
+    4 concurrent clients and a refused 5th, then SIGINT."""
+    import threading
+
+    on_card = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        tiled = Path(tmp) / "cbs_x15.wav"
+        with wave.open(str(CBS), "rb") as w:
+            rate, frames = w.getframerate(), w.readframes(w.getnframes())
+        write_tiled(tiled, np.frombuffer(frames, dtype=np.int16), rate, 15)
+        tiled_wav = tiled.read_bytes()
+    patterns = ["--pattern-file", str(RTHK_TOML), "--pattern-file", str(CBS_CLIP)]
+    stdin_out, _, _ = run_entry(["--device", dev.type, "--stdin", *patterns], tiled_wav)
+    tiled_want = stdin_out.split("\n", 1)[1]
+    if sum('"cbs_news"' in x for x in tiled_want.splitlines()) != 15:
+        raise AssertionError(f"match --stdin on the tiled file: {stdin_out}")
+
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ENTRY, "serve", "--device", dev.type, "--port", "0",
+         "--max-streams", "4", *patterns],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, cwd=ROOT, env=entry_env(),
+    )
+    try:
+        assert proc.stderr is not None
+        head = b""
+        deadline = time.monotonic() + 300
+        while b"Serving " not in head:
+            left = deadline - time.monotonic()
+            ready = select.select([proc.stderr], [], [], max(left, 0))[0]
+            data = os.read(proc.stderr.fileno(), 4096) if ready else b""
+            if not data:
+                raise AssertionError(f"serve did not start: {head.decode()[-3000:]}")
+            head += data
+        ready_s = time.perf_counter() - t
+        line = next(x for x in head.decode().splitlines() if x.startswith("Serving "))
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        names = ["rthk", "cbs", "cbs_x15", "rthk_again"]
+        payloads = [RTHK.read_bytes(), CBS.read_bytes(), tiled_wav, RTHK.read_bytes()]
+        socks = [socket.create_connection(("127.0.0.1", port), timeout=300) for _ in names]
+        for s in socks:
+            start = json.loads(s.recv(1 << 16).decode().splitlines()[0])
+            if start["type"] != "start":
+                raise AssertionError(f"no start event: {start}")
+        fifth = socket.create_connection(("127.0.0.1", port), timeout=60)
+        refused = fifth.recv(1 << 16).decode()
+        fifth.close()
+        if json.loads(refused) != {"type": "error",
+                                   "error": "server full: 4 streams already connected"}:
+            raise AssertionError(f"5th client: {refused!r}")
+        results: dict[str, tuple[str, float]] = {}
+        threads = [threading.Thread(target=lambda n=n, s=s, p=p: results.__setitem__(
+            n, serve_client(s, p))) for n, s, p in zip(names, socks, payloads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        want = {"rthk": SERVE_GOLDEN["rthk"], "cbs": SERVE_GOLDEN["cbs"],
+                "cbs_x15": tiled_want, "rthk_again": SERVE_GOLDEN["rthk"]}
+        for n in names:
+            if n not in results or results[n][0] != want[n]:
+                raise AssertionError(f"{n}: {results.get(n)}, want {want[n]!r}")
+        proc.send_signal(signal.SIGINT)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    report = json.loads(err.decode().strip().splitlines()[-1])
+    if proc.returncode != 0 or report["jax_imported"] or report["launches"] < on_card:
+        raise AssertionError(f"serve exit {proc.returncode}, {report}: {err.decode()[-3000:]}")
+    phase("serve", card=smi, slots=4, clients=4, golden_events=True, refused_fifth=True,
+          tiled_detections=15, equal_to_match_stdin=True, jax_imported=False,
+          kernel_launches=report["launches"], ready_s=ready_s,
+          wall_s_per_client={n: results[n][1] for n in names})
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="also profile the flagship step and the batched file-mode run; "
+                    help="also profile the flagship step, the batched file-mode run and a "
+                         "serving round; "
                          "op tables go to DIR")
     args = ap.parse_args(argv)
 
@@ -664,11 +1004,15 @@ def main(argv: "list[str] | None" = None) -> int:
 
     phase_wide_rerun(dev, smi)
     phase_entry_points(dev)
+    serving_launches = phase_multistream(dev, smi, profile=args.profile)
+    phase_serve(dev, smi)
 
     g, l, err, ms, plain_ms = kernel_rows[0]
+    # Launches of the counted main-path runs: file mode (phases 4-5) and
+    # the serving session (phase 9), each counted from 0.
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": main_path_launches,
+        "replaces": KERNEL_REPLACES, "launches": main_path_launches + serving_launches,
         "max_abs_err": max(r[2] for r in kernel_rows), "ms": ms, "plain_ms": plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

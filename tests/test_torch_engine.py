@@ -302,9 +302,13 @@ def test_cli_rejects_what_is_not_ported(extra, flag, capsys):
 
 
 def test_cli_serve_is_refused(capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["serve", "--pattern-file", RTHK_TOML])
-    assert "serve is not supported" in capsys.readouterr().err
+    """``serve`` runs on the port (tests/test_torch_serve.py); its stream
+    mesh does not, and is refused by name before any device work."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["serve", "--device", "cpu", "--mesh-stream", "2", "--pattern-file", RTHK_TOML])
+    assert exc.value.code == 2
+    captured = capsys.readouterr()
+    assert "--mesh-stream is not supported by the torch port" in captured.err and not captured.out
 
 
 def test_cli_cuda_without_a_card_raises_before_any_event(capsys):
