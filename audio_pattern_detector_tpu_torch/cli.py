@@ -5,10 +5,9 @@ messages and exit codes, and writes the same JSONL events: one audio
 file, several files (one start/end block each, the bank shared),
 ``--stdin``, ``--multiplexed-stdin``, ``--offline-batch``,
 ``--checkpoint-file``, ``--debug``, ``--trace-dir`` (a torch.profiler
-Chrome trace) and ``--height-min`` at any value. It is built from the
-reused host pieces of ``audio_pattern_detector_tpu.match`` and the port's
-own entry points (``audio_pattern_detector_tpu_torch.match``); only the
-detector differs, chosen through ``TorchEngineOptions``. ``serve`` takes
+Chrome trace) and ``--height-min`` at any value. It is built on the
+port's ``match`` module, whose ``TorchEngineOptions`` pick the port's
+detector and its device. ``serve`` takes
 the JAX ``serve`` flags with the same defaults and answers TCP clients
 with the JSONL events ``match --stdin`` prints (``serve.py``).
 ``--device`` (default ``cuda``) picks the torch device; without CUDA,
@@ -25,7 +24,8 @@ import argparse
 import sys
 from collections.abc import Sequence
 
-from audio_pattern_detector_tpu.match import (
+from audio_pattern_detector_tpu_torch.match import (
+    TorchEngineOptions,
     _collect_pattern_files,
     _emit_jsonl,
     _emit_jsonl_end,
@@ -34,14 +34,11 @@ from audio_pattern_detector_tpu.match import (
     _match_pattern_multiplexed_stdin,
     _parse_chunk_seconds,
     cmd_show_config,
-)
-from audio_pattern_detector_tpu.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
-from audio_pattern_detector_tpu.utils.timefmt import seconds_to_time
-from audio_pattern_detector_tpu_torch.match import (
-    TorchEngineOptions,
     match_pattern,
     match_pattern_many,
 )
+from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
+from audio_pattern_detector_tpu_torch.utils.timefmt import seconds_to_time
 
 __all__ = ["TorchEngineOptions", "build_parser", "main"]
 

@@ -13,8 +13,8 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from audio_pattern_detector_tpu.models.detector import MARKER_TONE_STRATEGY
-from audio_pattern_detector_tpu.utils.clip import AudioClip
+from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
 from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan

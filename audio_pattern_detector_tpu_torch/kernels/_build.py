@@ -37,7 +37,7 @@ _c_int = ctypes.c_int
 # C signatures of the library's entry points (csrc/*.cu ``extern "C"``).
 _SIGNATURES = {
     "apd_candidate_scan": (
-        [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int,
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int,
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),

@@ -46,8 +46,8 @@ import torch
 import torch.nn.functional as F
 from numpy.typing import NDArray
 
-from audio_pattern_detector_tpu import native
-from audio_pattern_detector_tpu.models import hostpath
+from audio_pattern_detector_tpu_torch import native
+from audio_pattern_detector_tpu_torch.models import hostpath
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import BLOCK, candidate_scan
 from audio_pattern_detector_tpu_torch.ops.correlate import (
     CorrelationBankConsts,
@@ -685,8 +685,15 @@ def rich_group_packed(
     the general plateau mask, captures ``k_detect`` candidates and runs
     the lane greedy. The candidate scan supplies the observed max that
     normalises the row (bitwise ``bank_correlate``'s normaliser). Raw
-    count past ``k_detect`` flags the row for the host path."""
-    _bmax, _count, _plateau, omax, _near = scan(corr, f32(height_min) * self_corr_max, valid_len)
+    count past ``k_detect`` flags the row for the host path.
+
+    The observed max does not depend on the scan's threshold, and the
+    threshold's outputs go unread here, so the scan gets +inf: no finite
+    sample reaches it, and the kernel runs none of its per-sample threshold
+    tests (``height_min * self_corr_max <= 0`` would send every sample to
+    them)."""
+    no_threshold = torch.full_like(self_corr_max, float("inf"))
+    _bmax, _count, _plateau, omax, _near = scan(corr, no_threshold, valid_len)
     corr_n = _normalised(corr, valid_len, torch.maximum(self_corr_max, omax).clamp_min(1e-38))
     cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect)
     half = (2 * m - 1) // 2

@@ -5,39 +5,44 @@ batches one chunk from every active stream through the port bank's
 independent-lookback batch dispatch
 (``PatternBank.dispatch_chunks_batch(prev_tails=...)``): per-stream
 lookback, timestamp algebra and flagged-row resolution are the serial
-engine's, so each stream's detections equal its serial run's.
+engine's, so each stream's detections equal its serial run's. Streams may
+end at different times: pass ``None`` for a stream without data (its row
+is not dispatched on a tiled session, or runs a zero-length section).
 
-The JAX session's round logic is host code and is reused by subclass:
-``feed``, ``dispatch``/``collect`` with any number of rounds in flight,
-``round_ready``, the compacted tile-width ladder, int16 chunks riding
-through raw, zero-length chunks as idle rounds, ``total_time`` and
-``reset``. The port overrides what would reach jax: the constructor
-refuses ``mesh`` (stream sharding is not ported) and the ``vmap`` batch
-mode, and ``checkpoint`` decodes an int16 tail with ``native``.
+The round logic is the JAX session's: ``feed``, ``dispatch``/``collect``
+with any number of rounds in flight, ``round_ready``, the compacted
+tile-width ladder, int16 chunks riding through raw, zero-length chunks as
+idle rounds, ``total_time`` and ``reset``. Stream sharding over a device
+mesh (``mesh=``) and the ``vmap`` batch mode are not ported and are
+refused by name.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Any
 
-from audio_pattern_detector_tpu.models.detector import StreamCheckpoint
-from audio_pattern_detector_tpu.models.multistream import (
-    MultiStreamSession as _JaxMultiStreamSession,
-)
+import numpy as np
+from numpy.typing import NDArray
+
 from audio_pattern_detector_tpu_torch.models.detector import (
+    StreamCheckpoint,
     TorchAudioPatternDetector,
+    _dispatched_ready,
     _f32_copy,
 )
 
 
-class MultiStreamSession(_JaxMultiStreamSession):
+class MultiStreamSession:
     """Batch one chunk from each of N independent streams per dispatch.
 
     ``feed`` takes one chunk (or ``None``) per stream and returns each
     stream's ``{clip_name: [timestamps]}``; ``dispatch``/``collect`` keep
-    several rounds in flight. With ``tile`` set, a round's active rows
-    dispatch as a greedy decomposition over the tile and every power of
-    two below it, and ``collect`` scatters the rows back to their slots.
+    several rounds in flight. Chunks are f32 (or raw int16) mono at the
+    detector's target sample rate, at most ``seconds_per_chunk`` long. With
+    ``tile`` set, a round's active rows dispatch as a greedy decomposition
+    over the tile and every power of two below it, and ``collect``
+    scatters the rows back to their slots.
     """
 
     def __init__(
@@ -57,7 +62,184 @@ class MultiStreamSession(_JaxMultiStreamSession):
                 f"the torch port's session needs a TorchAudioPatternDetector, "
                 f"got {type(detector).__name__}"
             )
-        super().__init__(detector, n_streams, batch_mode=batch_mode, tile=tile)
+        if n_streams < 1:
+            raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        if tile is not None and tile < 1:
+            raise ValueError(f"tile must be >= 1, got {tile}")
+        if batch_mode not in (None, "scan"):
+            raise ValueError(
+                f"batch_mode must be 'scan' or 'vmap', got {batch_mode!r}"
+            )
+        self._batch_mode = "scan"
+        # Serving-capacity tiling: a round's rows dispatch in tiles of at
+        # most ``tile`` rows, so device working memory is bounded by the
+        # tile, not the slot count. None = one full-width dispatch per
+        # round. Tiled rounds compact: only active rows dispatch, as a
+        # greedy decomposition over the width ladder (the tile plus every
+        # power of two below it), so a partial round never pads and device
+        # time and upload bytes follow the active rows.
+        self._tile = min(tile, n_streams) if tile is not None else None
+        self._tile_widths: list[int] | None = None
+        if self._tile is not None:
+            widths = {self._tile}
+            w = 1
+            while w < self._tile:
+                widths.add(w)
+                w *= 2
+            self._tile_widths = sorted(widths, reverse=True)
+        self.detector = detector
+        self.n_streams = n_streams
+        self._bank = detector._ensure_bank()
+        sr = detector.target_sample_rate
+        self._sr = sr
+        self._chunk_samples = int(detector.seconds_per_chunk * sr)
+        self._max_sw = max(
+            d["sliding_window"] for d in detector._clip_datas.values()
+        )
+        self._tails: list[NDArray[np.float32] | None] = [None] * n_streams
+        self._indices = [0] * n_streams
+        self._times = [0.0] * n_streams
+        self._empty = np.zeros(0, dtype=np.float32)
+
+    def feed(
+        self, chunks: Sequence[NDArray[np.float32] | None]
+    ) -> list[dict[str, list[float]]]:
+        """Process one chunk round; returns per-stream detection times.
+
+        ``chunks[i] is None`` means stream ``i`` has no data this round
+        (ended or stalled); its result is ``{}`` and its state is
+        untouched. Timestamps are stream-local (seconds from that
+        stream's start), computed with the reference algebra.
+
+        Synchronous convenience: use :meth:`dispatch` / :meth:`collect`
+        to keep several rounds in flight (the per-round launch, transfer
+        and unpack otherwise serialize against device compute).
+        """
+        return self.collect(self.dispatch(chunks))
+
+    def dispatch(
+        self, chunks: Sequence[NDArray[np.float32] | None]
+    ) -> Any:
+        """Enqueue one chunk round (async); pair with :meth:`collect`.
+
+        Stream state (lookback tails, indices, times) advances at
+        dispatch time — the next round's lookback is host-known — so any
+        number of rounds can be in flight before the first collect.
+        """
+        if len(chunks) != self.n_streams:
+            raise ValueError(
+                f"expected {self.n_streams} chunks, got {len(chunks)}"
+            )
+        batch: list[NDArray[np.float32]] = []
+        tails: list[NDArray[np.float32] | None] = []
+        rounds: list[NDArray[np.float32] | None] = []
+        for i, chunk in enumerate(chunks):
+            if chunk is not None:
+                # int16 chunks ride through raw: the bank's batch
+                # dispatch bit-packs them into upload lanes without ever
+                # materialising f32 on the host (bit-identical results —
+                # the device unpack IS the int16 -> f32 decode).
+                if np.asarray(chunk).dtype == np.int16:
+                    chunk = np.ascontiguousarray(chunk)
+                else:
+                    chunk = np.ascontiguousarray(chunk, dtype=np.float32)
+                if chunk.ndim != 1 or len(chunk) > self._chunk_samples:
+                    raise ValueError(
+                        f"stream {i}: chunk must be 1-D with at most "
+                        f"{self._chunk_samples} samples, got shape {chunk.shape}"
+                    )
+                # A zero-length chunk is an idle round, same as None — it
+                # must not advance the chunk index or replace the lookback
+                # tail with an empty array (that would shift every later
+                # timestamp for the stream).
+                if len(chunk) == 0:
+                    chunk = None
+            rounds.append(chunk)
+            if chunk is None:
+                batch.append(self._empty)
+                tails.append(None)
+            else:
+                batch.append(chunk)
+                tails.append(self._tails[i])
+
+        if self._tile is None:
+            dispatched = [
+                self._bank.dispatch_chunks_batch(
+                    batch, None, mode=self._batch_mode, prev_tails=tails
+                )
+            ]
+            active = None
+        else:
+            # Compacted tiled round: gather the ACTIVE rows (slot order
+            # preserved) and dispatch them as a greedy width-ladder
+            # decomposition — largest tile width that fits the remaining
+            # rows each step. The ladder contains every power of two up
+            # to the tile, so the decomposition is exact: no idle-row
+            # padding, device time and h2d bytes scale with the round's
+            # real occupancy. collect() scatters rows back to slots via
+            # the recorded gather order.
+            active = [
+                i for i in range(self.n_streams) if rounds[i] is not None
+            ]
+            assert self._tile_widths is not None
+            dispatched = []
+            k = 0
+            while k < len(active):
+                rem = len(active) - k
+                w = next(
+                    width for width in self._tile_widths if width <= rem
+                )
+                slots = active[k : k + w]
+                k += w
+                dispatched.append(
+                    self._bank.dispatch_chunks_batch(
+                        [batch[i] for i in slots],
+                        None,
+                        mode=self._batch_mode,
+                        prev_tails=[tails[i] for i in slots],
+                    )
+                )
+        # (stream_active, index, had_prev) snapshot for collect-time
+        # timestamp conversion; then advance state for the next round.
+        meta = []
+        for i, chunk in enumerate(rounds):
+            if chunk is None:
+                meta.append(None)
+                continue
+            meta.append((self._indices[i], self._tails[i] is not None))
+            self._tails[i] = batch[i][int(-self._max_sw * self._sr):].copy()
+            self._indices[i] += 1
+            self._times[i] += len(batch[i]) / self._sr
+        return (dispatched, meta, active)
+
+    def collect(self, handle: Any) -> list[dict[str, list[float]]]:
+        """Block on a dispatched round; per-stream detection times."""
+        dispatched, meta, active = handle
+        rows: list[dict[str, list[int]]] = []
+        for d in dispatched:
+            rows.extend(self._bank.collect_chunks_batch(d))
+        if active is None:
+            results = rows[: self.n_streams]
+        else:
+            # Scatter the compacted rows back to their slots (idle slots
+            # never dispatched a row).
+            results = [dict() for _ in range(self.n_streams)]
+            for pos, slot in enumerate(active):
+                results[slot] = rows[pos]
+        out: list[dict[str, list[float]]] = []
+        for i, m in enumerate(meta):
+            if m is None:
+                out.append({})
+                continue
+            index, had_prev = m
+            out.append(
+                self.detector.peaks_to_times(results[i], index, had_prev)
+            )
+        return out
+
+    def round_ready(self, handle: Any) -> bool:
+        """Non-blocking: a dispatched round's payloads all completed."""
+        return all(_dispatched_ready(d) for d in handle[0])
 
     def checkpoint(self, stream: int) -> StreamCheckpoint:
         """O(1) resume state for one stream. An int16 tail (the raw
@@ -69,3 +251,19 @@ class MultiStreamSession(_JaxMultiStreamSession):
             None if tail is None else _f32_copy(tail),
             self._times[stream],
         )
+
+    def total_time(self, stream: int) -> float:
+        """Seconds of audio processed so far for one stream."""
+        return self._times[stream]
+
+    def reset(self, stream: int) -> None:
+        """Reclaim one slot for a fresh stream.
+
+        The serving layer (serve.py) reuses session slots across client
+        connections; resetting restores the slot to its initial state
+        (no lookback tail, chunk index 0) without touching any other
+        stream or recompiling the batch program.
+        """
+        self._tails[stream] = None
+        self._indices[stream] = 0
+        self._times[stream] = 0.0

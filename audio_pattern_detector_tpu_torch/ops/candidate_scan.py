@@ -14,7 +14,9 @@ returns only per-block and per-row summaries:
 * ``near`` (G,) bool: a sample at or above ``thr_min`` with a strictly
   unequal neighbour within 2 samples inside 8 ulp relative.
 
-Everything at or past ``valid_len`` counts as -inf. ``thr_min`` is the
+Everything at or past ``valid_len`` counts as -inf: one int for every
+row (the main path), or a (G,) int32 tensor on corr's device with one
+length per row (values clamp to [0, L]). ``thr_min`` is the
 host-static lower bound ``height_min * self_corr_max`` of the true
 threshold (see the JAX module's docstring for why that is sound).
 
@@ -43,13 +45,17 @@ def num_blocks(length: int) -> int:
     return -(-length // BLOCK)
 
 
+ValidLen = "int | torch.Tensor"
+
+
 def candidate_scan_reference(
-    corr: torch.Tensor, thr_min: torch.Tensor, valid_len: int
+    corr: torch.Tensor, thr_min: torch.Tensor, valid_len: ValidLen
 ) -> ScanOutputs:
     """The kernel's function in plain torch ops (any device)."""
     g, l = corr.shape
     idx = torch.arange(l, device=corr.device)[None, :]
-    x = torch.where(idx < valid_len, corr, -math.inf)
+    lim = valid_len[:, None] if isinstance(valid_len, torch.Tensor) else valid_len
+    x = torch.where(idx < lim, corr, -math.inf)
     xm2, xm1 = _shift(x, -2), _shift(x, -1)
     xp1, xp2, xp3 = _shift(x, 1), _shift(x, 2), _shift(x, 3)
     finite = x != -math.inf
@@ -74,7 +80,7 @@ def candidate_scan_reference(
     return bmax, count, quad.any(dim=1), omax, near
 
 
-def _launch(corr: torch.Tensor, thr_min: torch.Tensor, valid_len: int) -> ScanOutputs:
+def _launch(corr: torch.Tensor, thr_min: torch.Tensor, valid_len: ValidLen) -> ScanOutputs:
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
 
     if corr.dtype != torch.float32 or corr.dim() != 2 or not corr.is_contiguous():
@@ -82,33 +88,50 @@ def _launch(corr: torch.Tensor, thr_min: torch.Tensor, valid_len: int) -> ScanOu
     g, l = corr.shape
     if thr_min.shape != (g,) or thr_min.dtype != torch.float32 or thr_min.device != corr.device:
         raise ValueError("candidate_scan: thr_min must be (G,) float32 on corr's device")
-    if l >= 2**31 or not 0 <= valid_len <= l:
+    if l >= 2**31:
+        raise ValueError(f"candidate_scan: L {l} does not fit an int32")
+    if isinstance(valid_len, torch.Tensor):
+        if (
+            valid_len.shape != (g,) or valid_len.dtype != torch.int32
+            or valid_len.device != corr.device or not valid_len.is_contiguous()
+        ):
+            raise ValueError(
+                "candidate_scan: a per-row valid_len must be a contiguous (G,) int32 "
+                "tensor on corr's device"
+            )
+        lens_ptr, scalar = valid_len.data_ptr(), 0
+    elif 0 <= valid_len <= l:
+        lens_ptr, scalar = None, int(valid_len)
+    else:
         raise ValueError(f"candidate_scan: valid_len {valid_len} outside [0, {l}]")
     lib = load_kernels().lib
     thr = thr_min.contiguous()
     nb = num_blocks(l)
     dev = corr.device
     bmax = torch.empty((g, nb), dtype=torch.float32, device=dev)
-    stats = torch.zeros((4, g), dtype=torch.int32, device=dev)  # count, omax bits, plateau, near
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # The row stats, zeroed in one launch: count and omax bits (int32),
+    # then plateau and near as bool bytes.
+    stats = torch.zeros(3 * g, dtype=torch.int32, device=dev)
+    flags = stats[2 * g :].view(torch.bool)
+    ptr = stats.data_ptr()
     err = lib.apd_candidate_scan(
-        corr.data_ptr(), thr.data_ptr(), g, l, int(valid_len), bmax.data_ptr(), nb,
-        stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
-        stats[3].data_ptr(), stream,
+        corr.data_ptr(), thr.data_ptr(), lens_ptr, g, l, scalar, bmax.data_ptr(), nb,
+        ptr, ptr + 4 * g, ptr + 8 * g, ptr + 9 * g, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"candidate_scan kernel launch failed: CUDA error {err}")
     candidate_scan.launches += 1
-    return bmax, stats[0], stats[2] != 0, stats[1].view(torch.float32), stats[3] != 0
+    return bmax, stats[:g], flags[:g], stats[g : 2 * g].view(torch.float32), flags[g : 2 * g]
 
 
 def candidate_scan(
     corr: torch.Tensor,  # (G, L) |correlation|, unnormalised
     thr_min: torch.Tensor,  # (G,) f32
-    valid_len: int,
+    valid_len: ValidLen,
 ) -> ScanOutputs:
     """(bmax, count, plateau, omax, near): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. ``valid_len`` is an int,
+    or a (G,) int32 tensor of per-row lengths."""
     if corr.device.type == "cuda":
         return _launch(corr, thr_min, valid_len)
     if corr.device.type == "cpu":

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_pattern_detector_tpu.ops import hostref
+from audio_pattern_detector_tpu_torch.ops import hostref
 from audio_pattern_detector_tpu_torch.ops.correlate import next_pow2
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_shared_windows
 

@@ -69,7 +69,9 @@ def _shift(x: torch.Tensor, offset: int) -> torch.Tensor:
     """x[:, i + offset] with -inf beyond both ends (same shape as x)."""
     if offset == 0:
         return x
-    pad = torch.full((x.shape[0], abs(offset)), -math.inf, dtype=x.dtype, device=x.device)
+    if abs(offset) >= x.shape[1]:
+        return torch.full_like(x, -math.inf)
+    pad =torch.full((x.shape[0], abs(offset)), -math.inf, dtype=x.dtype, device=x.device)
     if offset > 0:
         return torch.cat([x[:, offset:], pad], dim=1)
     return torch.cat([pad, x[:, :offset]], dim=1)

@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from numpy.typing import NDArray
 
-from audio_pattern_detector_tpu.ops import hostref
-from audio_pattern_detector_tpu.ops.tone import frame_grid
+from audio_pattern_detector_tpu_torch.ops import hostref
+from audio_pattern_detector_tpu_torch.ops.tone import frame_grid
 from audio_pattern_detector_tpu_torch.ops.slicing import (
     slice_rows_windows,
     slice_shared_windows,

@@ -7,9 +7,18 @@ card and checks them:
 1. device: card name and power limit (nvidia-smi), torch and CUDA
    versions, the kernel build from the sources in this checkout;
 2. the candidate-scan kernel against its plain torch version on the card,
-   at the flagship shapes (32 x 495,999 and 32 x 489,999), bitwise; the
-   median ms per call of each over 5 CUDA-event pairs, each around 30
-   back-to-back calls, and the kernel's own device time from torch.profiler;
+   at the flagship shapes (32 x 495,999 and 32 x 489,999), bitwise, with
+   one valid length and with per-row lengths; the median ms per call of
+   each over 5 CUDA-event pairs, each around 30 back-to-back calls, the
+   kernel's own device time from torch.profiler, its time with the L2
+   flushed (a 128 MB write before each call), its device time and
+   bitwise equality at a threshold of 0 (every sample at or above it: the
+   kernel's slowest input), the share of samples at or above the
+   threshold, and its bound (bytes over 3.35 TB/s) and share of the bound;
+   then bitwise at the edge shapes (L of 1, 3, 4,095-4,098, 8,193, 8,194;
+   G of 1, 3, 64; and the shapes of EDGE_WIDE, where each CTA walks
+   several tiles and rows; valid_len 0, 1, 2, L-1, L and mixed per-row
+   lengths; thresholds few samples reach and thresholds every one does);
 3. the flagship step (64-clip bank, one 60 s section at 8 kHz) through
    the port's class step with the kernel and with the plain scan:
    identical payloads, ms per step (alternating kernel and plain);
@@ -20,7 +29,10 @@ card and checks them:
    an unbatched run of the same file; x-realtime of both runs;
 6. the kernel's launch count over the flag-free runs of phases 4-5 (reset
    just before phase 4, read just after the batched run) and the flagged
-   rows that took the exact host path;
+   rows that took the exact host path; then the kernel, bitwise and timed,
+   on the inputs of the flagship step's two launches (phase 3) and of the
+   unbatched file-mode run's first launch (phase 5), with the share of
+   their samples at or above the threshold;
 7. the wide rerun of flagged rows on the flagship bank (64 clips, 61 s
    sections built from numpy seeds): a section per route (one flooded
    normal row: a row rerun; six: a class rerun; a dense marker row past
@@ -53,7 +65,9 @@ card and checks them:
    get the pinned JAX ``match --stdin`` events, the tiled file the port's
    own ``match --stdin`` events (15 detections); a 5th client gets
    "server full"; after SIGINT the server reports a kernel launch and no
-   jax. Prints the wall time per client.
+   jax. Prints the wall time per client;
+11. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
+   the run, and no subprocess imported jax or the JAX package.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
 flagship step, the batched file-mode run and one 16-row serving round
@@ -119,6 +133,149 @@ def make_scan_input(g: int, l: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return corr, thr
 
 
+EDGE_LENGTHS = (1, 3, 4095, 4096, 4097, 4098, 8193, 8194)  # every L mod 4
+EDGE_ROWS = (1, 3, 64)
+# (G, L) with more 4096-sample tiles than an H100 holds CTAs of the kernel
+# (132 SMs x at most 8), so each CTA walks several tiles: it reuses ring
+# stages, crosses row ends and, at L = 100, flushes the stats of several
+# rows. Every CTA range starts at a tile edge, where features are planted.
+EDGE_WIDE = ((1024, 4097), (512, 8193), (4096, 100))
+
+
+def make_edge_scan_input(g: int, l: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded |corr| noise with plateaus of length 1-4, exact-equal runs
+    and pairs within 8 ulp planted at each row's start and end and across
+    every 4096-sample tile edge (the kernel's tile, stage and CTA-range
+    boundaries); row 1 of three or more is all -inf. Per-row thresholds
+    that few samples reach."""
+    rng = np.random.default_rng(seed)
+    corr = (np.abs(rng.standard_normal((g, l))) * 0.1).astype(np.float32)
+    anchors = [0, 2, l - 5, l - 2, *range(4096, l + 4, 4096)]
+    for gi in range(g):
+        for a in anchors:
+            p = int(a + rng.integers(-4, 4))
+            kind = int(rng.integers(0, 6))
+            v = np.float32(rng.uniform(0.6, 1.0))
+            lo, hi = max(p, 0), min(p + 5, l)
+            if lo >= hi:
+                continue
+            if kind < 4:  # an equal run of length 1-4
+                corr[gi, lo : min(lo + kind + 1, hi)] = v
+            elif kind == 4:  # a pair within 8 ulp
+                corr[gi, lo] = v
+                if lo + 1 < l:
+                    corr[gi, lo + 1] = np.nextafter(np.nextafter(v, 0), 0, dtype=np.float32)
+            else:  # a dip between equal values
+                corr[gi, lo:hi] = v
+                corr[gi, (lo + hi) // 2] = np.float32(0.05)
+    if g >= 3:
+        corr[1] = -np.inf
+    thr = rng.uniform(0.2, 0.4, g).astype(np.float32)
+    return corr, thr
+
+
+def edge_valid_lens(g: int, l: int, seed: int) -> np.ndarray:
+    """Mixed per-row valid lengths: 0, 1, 2, L-1, L, one past each end
+    (they clamp), and random ones."""
+    fixed = [0, 1, 2, l - 1, l, -1, l + 2]
+    rng = np.random.default_rng(seed)
+    lens = [fixed[i] if i < len(fixed) else int(rng.integers(0, l + 1)) for i in range(g)]
+    return np.array(lens, dtype=np.int32)
+
+
+def low_thresholds(thr: np.ndarray) -> np.ndarray:
+    """Rows alternate a threshold of 0, one below 0 (every finite sample
+    at or above it, so the kernel runs every test on every sample) and the
+    row's own."""
+    k = np.arange(len(thr)) % 3
+    return np.where(k == 0, 0.0, np.where(k == 1, -0.5, thr)).astype(np.float32)
+
+
+def check_scan_edges(dev, shapes) -> int:
+    """The kernel against its plain version at each (G, L) of ``shapes``,
+    at valid_len 0, 1, 2, L-1 and L and with mixed per-row lengths, under
+    the input's thresholds and under low ones. Raises on any
+    difference; returns the number of cases."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    cases = 0
+    for g, l in shapes:
+        corr_np, thr_np = make_edge_scan_input(g, l, seed=7 * l + g)
+        corr = torch.from_numpy(corr_np).to(dev)
+        lens = torch.from_numpy(edge_valid_lens(g, l, seed=l + g)).to(dev)
+        for kind, t in (("few above", thr_np), ("all above", low_thresholds(thr_np))):
+            thr = torch.from_numpy(t).to(dev)
+            for valid_len in sorted({min(v, l) for v in (0, 1, 2, l - 1, l)}) + [lens]:
+                got = candidate_scan(corr, thr, valid_len)
+                want = candidate_scan_reference(corr, thr, valid_len)
+                if corr.is_cuda:
+                    torch.cuda.synchronize()
+                try:
+                    check_scan_equal(got, want)
+                except AssertionError as e:
+                    form = "per-row" if isinstance(valid_len, torch.Tensor) else valid_len
+                    raise AssertionError(
+                        f"G={g} L={l} valid_len={form} thresholds {kind}: {e}") from None
+                cases += 1
+    return cases
+
+
+def edge_shapes(lengths=EDGE_LENGTHS) -> list[tuple[int, int]]:
+    return [(g, l) for l in lengths for g in EDGE_ROWS]
+
+
+@contextlib.contextmanager
+def captured_scan_inputs(limit: int):
+    """Inside the block, a copy of the inputs of the first ``limit``
+    candidate-scan kernel launches, (corr, thr_min, valid_len) each, lands
+    in the yielded list. The launches and their count are unchanged."""
+    from audio_pattern_detector_tpu_torch.ops import candidate_scan as scan_module
+
+    launch, seen = scan_module._launch, []
+
+    def recording(corr, thr_min, valid_len):
+        if len(seen) < limit:
+            seen.append((corr.clone(), thr_min.clone(), valid_len))
+        return launch(corr, thr_min, valid_len)
+
+    scan_module._launch = recording
+    try:
+        yield seen
+    finally:
+        scan_module._launch = launch
+
+
+def share_above(corr, thr, valid_len: int) -> float:
+    """The share of a scan's valid samples at or above the row's threshold:
+    the samples that take the kernel's threshold-side tests."""
+    valid = corr[:, :valid_len]
+    return float((valid >= thr[:, None]).sum()) / max(valid.numel(), 1)
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
+
+
+def scan_bound_ms(g: int, l: int, valid_len: int) -> float:
+    """The least time of one scan on the card: the bytes the function needs
+    (each row's valid samples and the thresholds read once, the block
+    maxima and four (G,) stats written once) over the memory rate. Its
+    operations (a few compares a sample) bound it far lower."""
+    n_read = g * min(valid_len, l) * 4 + g * 4
+    n_written = g * -(-l // 512) * 4 + 4 * g * 4
+    return (n_read + n_written) / HBM_BYTES_PER_S * 1e3
+
+
+def tree_snapshot(path: Path) -> dict[str, tuple[int, int]]:
+    """(size, mtime_ns) of every file under ``path``."""
+    return {str(p.relative_to(path)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(path.rglob("*")) if p.is_file()}
+
+
 def cuda_ms(fn, runs: int, reps: int = 5) -> float:
     """Median over ``reps`` of the milliseconds per call of ``fn``, each rep
     one CUDA-event pair around ``runs`` back-to-back calls (so the host's
@@ -146,10 +303,11 @@ def device_events(prof) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def kernel_device_ms(fn, kernel: str, runs: int) -> "float | None":
+def kernel_device_ms(fn, kernel: str, runs: int, between=None) -> "float | None":
     """Median device milliseconds of the kernels whose name contains
     ``kernel`` over ``runs`` calls of ``fn``, from torch.profiler; None if
-    the profiler records no device time for it."""
+    the profiler records no device time for it. ``between`` runs before
+    each call (an L2 flush, for a cold-cache time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,6 +315,8 @@ def kernel_device_ms(fn, kernel: str, runs: int) -> "float | None":
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in device_events(prof) if kernel in e.name]
@@ -299,7 +459,7 @@ def jsonl_block(source: str, hits, end_ms: int, end_fmt: str) -> str:
 
 
 # The port's CLI in a subprocess; afterwards stderr's last line reports its
-# kernel launches and whether jax was imported.
+# kernel launches and whether jax or the JAX package was imported.
 ENTRY = (
     "import json, sys\n"
     "from audio_pattern_detector_tpu_torch.cli import main\n"
@@ -307,7 +467,8 @@ ENTRY = (
     "try:\n"
     "    main(sys.argv[1:])\n"
     "finally:\n"
-    "    print(json.dumps({'jax_imported': 'jax' in sys.modules,\n"
+    "    jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'audio_pattern_detector_tpu')]\n"
+    "    print(json.dumps({'jax_imported': bool(jax),\n"
     "                      'launches': candidate_scan.launches}), file=sys.stderr, flush=True)\n"
 )
 
@@ -370,7 +531,7 @@ def write_tiled(path: Path, pcm: np.ndarray, rate: int, copies: int) -> None:
 def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
     """Phase 7: every route of a flagged row on the flagship bank (a
     smaller bank of the same clips rehearses it on the CPU)."""
-    from audio_pattern_detector_tpu.models import hostpath
+    from audio_pattern_detector_tpu_torch.models import hostpath
     from audio_pattern_detector_tpu_torch.flagship import make_bank
     from audio_pattern_detector_tpu_torch.models.bank import _split_fused, unpack_group
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
@@ -574,7 +735,7 @@ def phase_multistream(
     run."""
     import torch
 
-    from audio_pattern_detector_tpu.utils.clip import AudioStream
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioStream
     from audio_pattern_detector_tpu_torch.flagship import make_detector
     from audio_pattern_detector_tpu_torch.models.bank import class_step
     from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
@@ -831,7 +992,7 @@ def main(argv: "list[str] | None" = None) -> int:
               file=sys.stderr)
         return 2
 
-    from audio_pattern_detector_tpu.match import _auto_perf_plan, _load_pattern_clips
+    from audio_pattern_detector_tpu_torch.match import _auto_perf_plan, _load_pattern_clips
     from audio_pattern_detector_tpu_torch import cli
     from audio_pattern_detector_tpu_torch.flagship import flagship_step
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
@@ -841,6 +1002,9 @@ def main(argv: "list[str] | None" = None) -> int:
     )
 
     dev = torch.device("cuda")
+    # The run must write nothing into the JAX package (compared at the end).
+    jax_pkg = ROOT / "audio_pattern_detector_tpu"
+    jax_pkg_before = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -872,21 +1036,52 @@ def main(argv: "list[str] | None" = None) -> int:
         err = check_scan_equal(got, want)
         if not (bool(want[2].any()) and bool(want[4].any()) and not bool(want[4].all())):
             raise AssertionError("scan input did not exercise the plateau and near flags")
+        # The per-row form: lengths spread over [L/2, L], bitwise too.
+        lens = torch.from_numpy(np.linspace(l // 2, l, g).astype(np.int32)).to(dev)
+        err = max(err, check_scan_equal(candidate_scan(corr, thr, lens),
+                                        candidate_scan_reference(corr, thr, lens)))
         ms = cuda_ms(lambda: candidate_scan(corr, thr, valid_len), TIMED_RUNS)
         plain_ms = cuda_ms(lambda: candidate_scan_reference(corr, thr, valid_len), TIMED_RUNS)
         dev_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, valid_len),
                                   "candidate_scan_kernel", TIMED_RUNS)
+        # L2-cold: a 128 MB write (more than the 50 MB L2) before each call.
+        flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+        cold_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, valid_len),
+                                   "candidate_scan_kernel", TIMED_RUNS,
+                                   between=lambda: flush.fill_(1.0))
+        del flush
+        # A threshold of 0 puts every finite sample at or above it, so every
+        # sample runs the threshold-side tests: the kernel's slowest input.
+        zero = torch.zeros_like(thr)
+        err = max(err, check_scan_equal(candidate_scan(corr, zero, valid_len),
+                                        candidate_scan_reference(corr, zero, valid_len)))
+        zero_ms = kernel_device_ms(lambda: candidate_scan(corr, zero, valid_len),
+                                   "candidate_scan_kernel", TIMED_RUNS)
+        bound_ms = scan_bound_ms(g, l, valid_len)
         phase("scan", shape=[g, l], valid_len=valid_len, bitwise_equal=True,
+              per_row_valid_len_bitwise=True, threshold_zero_bitwise=True,
               max_abs_err=err, ms=ms, plain_ms=plain_ms, kernel_device_ms=dev_ms,
+              bound_ms=bound_ms, share_of_bound=bound_ms / dev_ms if dev_ms else None,
+              kernel_device_ms_l2_cold=cold_ms,
+              share_of_bound_l2_cold=bound_ms / cold_ms if cold_ms else None,
+              share_above_threshold=share_above(corr, thr, valid_len),
+              kernel_device_ms_threshold_zero=zero_ms,
+              share_of_bound_threshold_zero=bound_ms / zero_ms if zero_ms else None,
               read_gb_per_s=corr_np.nbytes / (dev_ms * 1e-3) / 1e9 if dev_ms else None,
               candidates=int(want[1].sum()), plateau_rows=int(want[2].sum()),
               near_rows=int(want[4].sum()))
-        kernel_rows.append((g, l, err, ms, plain_ms))
+        kernel_rows.append((g, l, err, ms, plain_ms, bound_ms))
         del corr, got, want
+    edge_cases = check_scan_edges(dev, edge_shapes() + list(EDGE_WIDE))
+    phase("scan_edges", cases=edge_cases, lengths=list(EDGE_LENGTHS), rows=list(EDGE_ROWS),
+          walking_shapes=[list(s) for s in EDGE_WIDE], thresholds=["few above", "all above"],
+          bitwise_equal=True)
 
     # ── 3. The flagship step, kernel against plain scan ──
     step, bank = flagship_step(dev)
-    pk, pp = step(candidate_scan), step(candidate_scan_reference)
+    with captured_scan_inputs(limit=2) as step_scans:
+        pk = step(candidate_scan)
+    pp = step(candidate_scan_reference)
     torch.cuda.synchronize()
     for a, b in zip(pk, pp):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
@@ -958,10 +1153,11 @@ def main(argv: "list[str] | None" = None) -> int:
         # An explicit --chunk-seconds turns the file-mode batching off
         # (an explicit --stream-batch 1 alone reads as unset). Not the main
         # path: its launches are left out of the count above.
-        t = time.perf_counter()
-        single = run_cli(["match", *pattern, "--chunk-seconds", "60", "--stream-batch", "1",
-                          str(tiled)])
-        single_wall = time.perf_counter() - t
+        with captured_scan_inputs(limit=1) as file_scans:
+            t = time.perf_counter()
+            single = run_cli(["match", *pattern, "--chunk-seconds", "60", "--stream-batch", "1",
+                              str(tiled)])
+            single_wall = time.perf_counter() - t
         got = detections(batched)
         want = [25899 + period_ms * k for k in range(copies)]
         if len(got) != copies or any(abs(ms - w) > 1.0 for (_, ms), w in zip(got, want)):
@@ -990,6 +1186,24 @@ def main(argv: "list[str] | None" = None) -> int:
               golden_launches=golden_launches, batched_launches=batched_launches,
               host_path_rows=host_rows, detectors=len(built))
 
+        # ── 6b. The kernel on the correlations the main path gives it ──
+        for source, scans in (("flagship_step", step_scans), ("file_mode", file_scans)):
+            for corr, thr, valid_len in scans:
+                g, l = corr.shape
+                err = check_scan_equal(candidate_scan(corr, thr, valid_len),
+                                       candidate_scan_reference(corr, thr, valid_len))
+                dev_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, valid_len),
+                                          "candidate_scan_kernel", TIMED_RUNS)
+                bound_ms = scan_bound_ms(g, l, valid_len)
+                phase("scan_main_path_input", source=source, shape=[g, l],
+                      valid_len=valid_len, bitwise_equal=True, max_abs_err=err,
+                      share_above_threshold=share_above(corr, thr, valid_len),
+                      kernel_device_ms=dev_ms, bound_ms=bound_ms,
+                      share_of_bound=bound_ms / dev_ms if dev_ms else None)
+        if len(step_scans) != 2 or len(file_scans) != 1:
+            raise AssertionError("the main path's scan inputs were not captured")
+        del step_scans, file_scans
+
         # ── Optional: where the time goes ──
         if args.profile is not None:
             args.profile.mkdir(parents=True, exist_ok=True)
@@ -1007,13 +1221,21 @@ def main(argv: "list[str] | None" = None) -> int:
     serving_launches = phase_multistream(dev, smi, profile=args.profile)
     phase_serve(dev, smi)
 
-    g, l, err, ms, plain_ms = kernel_rows[0]
+    jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
+    if jax_pkg_after != jax_pkg_before:
+        changed = sorted(set(jax_pkg_after.items()) ^ set(jax_pkg_before.items()))
+        raise AssertionError(f"the run wrote into the JAX package: {changed}")
+    phase("isolation", jax_package_untouched=True, files=len(jax_pkg_after))
+
+    g, l, err, ms, plain_ms, bound_ms = kernel_rows[0]
     # Launches of the counted main-path runs: file mode (phases 4-5) and
-    # the serving session (phase 9), each counted from 0.
+    # the serving session (phase 9), each counted from 0. No single
+    # PyTorch call computes the scan's five outputs, so no library time.
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": main_path_launches + serving_launches,
         "max_abs_err": max(r[2] for r in kernel_rows), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

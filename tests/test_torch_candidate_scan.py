@@ -118,6 +118,24 @@ def test_reference_bitwise_equals_pallas_interpret(case):
     np.testing.assert_array_equal(tn, jn)
 
 
+@pytest.mark.parametrize("case", ["noise_cut", "plateaus", "near_collapse", "edges"])
+def test_reference_bitwise_equals_pallas_interpret_at_thresholds_up_to_zero(case):
+    """Thresholds of 0 and below put every finite sample at or above
+    them, so every sample counts toward count, plateau and near."""
+    make, valid_len = CASES[case]
+    corr = make()
+    g, l = corr.shape
+    thr = np.resize(np.float32([0.0, -0.5, 0.3]), g)
+    want = _jax_scan(corr, thr, valid_len)
+    got = [t.numpy() for t in candidate_scan_reference(torch.from_numpy(corr), torch.from_numpy(thr), valid_len)]
+    nb = num_blocks(l)
+    np.testing.assert_array_equal(got[0].view(np.int32), want[0][:, :nb].view(np.int32))
+    np.testing.assert_array_equal(got[1].astype(np.float32), want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3].view(np.int32), want[3].view(np.int32))
+    np.testing.assert_array_equal(got[4], want[4])
+
+
 def test_flags_fire_where_expected():
     corr = _near(4, 2048)
     thr = np.full(4, 0.25, np.float32)
@@ -172,3 +190,44 @@ def test_build_key_follows_sources_and_flags():
     assert key == _build._digest(sources) and len(key) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
+
+
+PER_ROW_CASES = {
+    # (corr, per-row valid lengths): a full row, cut rows, an empty row and
+    # a cut through a length-3 plateau and a block edge.
+    "noise": (lambda: _noise(4, 3001, 5), [3001, 2999, 0, 1537]),
+    "plateaus": (lambda: _plateaus(3, 4096), [4096, 302, 1024]),
+    "edges": (lambda: _edges(2, 2048), [2048 - 4, 2048 - 5]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PER_ROW_CASES))
+def test_per_row_valid_len_equals_pallas_interpret_row_by_row(case):
+    """The (G,) int32 form: row g equals the JAX kernel run at row g's own
+    scalar valid_len, bitwise."""
+    make, lens = PER_ROW_CASES[case]
+    corr = make()
+    g, l = corr.shape
+    thr = np.linspace(0.25, 0.35, g).astype(np.float32)
+    got = [
+        t.numpy()
+        for t in candidate_scan_reference(
+            torch.from_numpy(corr), torch.from_numpy(thr), torch.tensor(lens, dtype=torch.int32)
+        )
+    ]
+    nb = num_blocks(l)
+    for gi, vl in enumerate(lens):
+        jb, jc, jp, jo, jn = _jax_scan(corr, thr, vl)
+        np.testing.assert_array_equal(got[0][gi].view(np.int32), jb[gi, :nb].view(np.int32))
+        assert got[1][gi] == jc[gi] and got[2][gi] == jp[gi] and got[4][gi] == jn[gi]
+        assert got[3][gi].view(np.int32) == jo[gi].view(np.int32)
+
+
+@pytest.mark.parametrize("valid_len", [0, 1, 2777, 3001])
+def test_per_row_valid_len_equals_the_scalar_form(valid_len):
+    corr = torch.from_numpy(_noise(3, 3001, 6))
+    thr = torch.full((3,), 0.3)
+    scalar = candidate_scan(corr, thr, valid_len)
+    per_row = candidate_scan(corr, thr, torch.full((3,), valid_len, dtype=torch.int32))
+    for a, b in zip(scalar, per_row):
+        assert torch.equal(a, b)

@@ -18,7 +18,7 @@ import os
 import pytest
 import torch
 
-from chip_smoke import make_scan_input
+from chip_smoke import EDGE_LENGTHS, EDGE_WIDE, check_scan_edges, edge_shapes, make_scan_input
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +66,87 @@ def test_kernel_bitwise_equals_plain_version(cuda, g, l, valid_len):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("l", EDGE_LENGTHS)
+def test_kernel_bitwise_at_edge_shapes(cuda, l):
+    """G in (1, 3, 64), valid_len in (0, 1, 2, L-1, L) and mixed per-row
+    lengths, with plateaus and 8-ulp pairs across every tile edge and at
+    both row ends, and an all -inf row; thresholds few samples reach and
+    thresholds every sample reaches."""
+    assert check_scan_edges(cuda, edge_shapes(lengths=(l,))) > 0
+
+
+@pytest.mark.parametrize("g,l", EDGE_WIDE)
+def test_kernel_bitwise_where_ctas_walk_several_tiles(cuda, g, l):
+    """More tiles than the card holds CTAs: each CTA reuses ring stages,
+    crosses row ends and flushes several rows' stats."""
+    assert check_scan_edges(cuda, [(g, l)]) > 0
+
+
+@pytest.mark.parametrize("g,l", [(3, 6001), (32, 495_999)])
+def test_kernel_bitwise_at_threshold_zero(cuda, g, l):
+    """A threshold of 0 puts every finite sample at or above it: every
+    sample runs the threshold-side tests."""
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    corr_np, _ = make_scan_input(g, l, seed=l)
+    corr = torch.from_numpy(corr_np).to(cuda)
+    zero = torch.zeros(g, device=cuda)
+    for a, b in zip(candidate_scan(corr, zero, l - 3), candidate_scan_reference(corr, zero, l - 3)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g,l", [(32, 495_999), (32, 489_999)])
+def test_kernel_per_row_valid_len_at_flagship_shapes(cuda, g, l):
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    corr_np, thr_np = make_scan_input(g, l, seed=l)
+    corr = torch.from_numpy(corr_np).to(cuda)
+    thr = torch.from_numpy(thr_np).to(cuda)
+    lens = torch.from_numpy(np.linspace(0, l, g).astype(np.int32)).to(cuda)
+    for a, b in zip(candidate_scan(corr, thr, lens), candidate_scan_reference(corr, thr, lens)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_kernel_launches_on_two_streams_and_after_a_wider_launch(cuda):
+    """Launches interleaved on two streams, a wide G after a narrow one and
+    the narrow one again all equal the plain version: each launch zeroes
+    its own outputs on its own stream."""
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    side = torch.cuda.Stream()
+    for g, l in ((2, 9001), (64, 5000), (2, 9001)):
+        corr_np, thr_np = make_scan_input(g, l, seed=g + l)
+        corr = torch.from_numpy(corr_np).to(cuda)
+        thr = torch.from_numpy(thr_np).to(cuda)
+        want = candidate_scan_reference(corr, thr, l - 7)
+        got = [candidate_scan(corr, thr, l - 7)]
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got.append(candidate_scan(corr, thr, l - 7))
+        got.append(candidate_scan(corr, thr, l - 7))
+        torch.cuda.synchronize()
+        for outs in got:
+            for a, b in zip(outs, want):
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b)
+
+
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
@@ -79,6 +160,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         candidate_scan(corr, thr[:1], 3000)
     with pytest.raises(ValueError, match="valid_len"):
         candidate_scan(corr, thr, 3001)
+    with pytest.raises(ValueError, match="valid_len"):
+        candidate_scan(corr, thr, torch.full((2,), 5, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="valid_len"):
+        candidate_scan(corr, thr, torch.full((3,), 5, dtype=torch.int32, device=cuda))
 
 
 def _cli_events(argv):
@@ -156,7 +241,7 @@ def test_topk_sparse_orders_ties_on_the_card(cuda):
 
 
 def _host_expected(bank, g, ci, section):
-    from audio_pattern_detector_tpu.models import hostpath
+    from audio_pattern_detector_tpu_torch.models import hostpath
 
     return hostpath.process_section_host(
         audio_section=section, clip=g.clips_np[ci], correlation_clip=g.corr_clips_np[ci],
@@ -173,7 +258,7 @@ def test_wide_rerun_on_the_card_equals_the_host_path(cuda, route):
     no row reaches it."""
     import numpy as np
 
-    from audio_pattern_detector_tpu.utils.clip import AudioClip
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 
     sr = 8000
@@ -212,7 +297,7 @@ def test_multistream_session_on_card_equals_cpu(cuda):
     equals the CPU's, and the kernel launches once per dispatched row."""
     import numpy as np
 
-    from audio_pattern_detector_tpu.utils.clip import AudioClip
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
     from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan

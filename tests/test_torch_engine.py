@@ -23,15 +23,16 @@ import pytest
 import torch
 
 from audio_pattern_detector_tpu import native
-from audio_pattern_detector_tpu.match import _WavFileStreamWrapper, _opts_for_source
-from audio_pattern_detector_tpu.models.detector import (
-    MARKER_TONE_STRATEGY,
-    AudioPatternDetector,
-)
-from audio_pattern_detector_tpu.utils.clip import AudioClip, AudioStream
+from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
+from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch import cli
+from audio_pattern_detector_tpu_torch.match import _opts_for_source, _WavFileStreamWrapper
 from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step
-from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.models.detector import (
+    MARKER_TONE_STRATEGY,
+    TorchAudioPatternDetector,
+)
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
 from audio_pattern_detector_tpu_torch.ops.consts import consts_from_numpy
 
 torch.set_num_threads(1)
@@ -92,7 +93,8 @@ def test_class_step_payload_identical_to_jax(pallas):
 
     clips, audio = _hit_audio_i16()
     chunk_s = 9  # 10 s sections
-    jbank = AudioPatternDetector(clips, seconds_per_chunk=chunk_s)._ensure_bank()
+    jclips = [jclip.AudioClip(**dataclasses.asdict(c)) for c in clips]
+    jbank = AudioPatternDetector(jclips, seconds_per_chunk=chunk_s)._ensure_bank()
     tbank = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=chunk_s)._ensure_bank()
     (sw, jcls), = jbank.classes.items()
     assert jbank._metas == tbank._metas

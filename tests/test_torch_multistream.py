@@ -15,6 +15,7 @@ against the JAX package.
 * A subprocess checks that the session never imports jax.
 """
 
+import dataclasses
 import io
 import os
 import subprocess
@@ -24,18 +25,19 @@ import numpy as np
 import pytest
 import torch
 
-from audio_pattern_detector_tpu.models.detector import (
-    MARKER_TONE_STRATEGY,
-    AudioPatternDetector,
-    StreamCheckpoint,
-)
+from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
 from audio_pattern_detector_tpu.models.multistream import (
     MultiStreamSession as JaxMultiStreamSession,
 )
-from audio_pattern_detector_tpu.utils.clip import AudioClip, AudioStream
+from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch.models.bank import _split_fused, unpack_group
-from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.models.detector import (
+    MARKER_TONE_STRATEGY,
+    StreamCheckpoint,
+    TorchAudioPatternDetector,
+)
 from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
 
 torch.set_num_threads(1)
 
@@ -58,6 +60,11 @@ def _clips():
             strategy=MARKER_TONE_STRATEGY, strategy_params={"dominant_frequency_hz": 941.0},
         ),
     ]
+
+
+def _jax_clips(clips):
+    """The same clips as the JAX package's AudioClip values."""
+    return [jclip.AudioClip(**dataclasses.asdict(c)) for c in clips]
 
 
 def _pcm16(audio):
@@ -104,7 +111,7 @@ def _streams():
 
 def _serial_jax(det, samples):
     cks = []
-    stream = AudioStream(
+    stream = jclip.AudioStream(
         name="s", audio_stream=io.BytesIO(samples.tobytes()), sample_rate=SR,
         sample_dtype=samples.dtype,
     )
@@ -123,7 +130,7 @@ def env():
     port's serial engine over all four streams."""
     clips = _clips()
     audios, rounds = _streams()
-    jdet = AudioPatternDetector(clips, seconds_per_chunk=CHUNK_S)
+    jdet = AudioPatternDetector(_jax_clips(clips), seconds_per_chunk=CHUNK_S)
     serial = [_serial_jax(jdet, a) for a in audios]
     tdet = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=CHUNK_S)
     for a in audios:
@@ -334,7 +341,7 @@ def test_session_with_an_int16_checkpoint_never_imports_jax():
     code = (
         "import sys\n"
         "import numpy as np\n"
-        "from audio_pattern_detector_tpu.utils.clip import AudioClip\n"
+        "from audio_pattern_detector_tpu_torch.utils.clip import AudioClip\n"
         "from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector\n"
         "from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession\n"
         "t = np.arange(4800) / 8000\n"

@@ -20,18 +20,22 @@ import torch
 
 from audio_pattern_detector_tpu import native
 from audio_pattern_detector_tpu.models import hostpath
-from audio_pattern_detector_tpu.models.detector import MARKER_TONE_STRATEGY, AudioPatternDetector
-from audio_pattern_detector_tpu.utils.clip import AudioClip
+from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
+from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch.models.bank import (
     class_step,
     lean_group_packed,
     unpack_group,
     wide_group_packed,
 )
-from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.models.detector import (
+    MARKER_TONE_STRATEGY,
+    TorchAudioPatternDetector,
+)
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan_reference
 from audio_pattern_detector_tpu_torch.ops.consts import consts_from_numpy
 from audio_pattern_detector_tpu_torch.ops.verify import build_normal_verify_consts
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
 
 torch.set_num_threads(1)
 
@@ -77,7 +81,8 @@ def hit_env():
     f32 sections of the hit audio's chunks."""
     clips, audio = _hit_audio()
     chunk_s = 14
-    jbank = AudioPatternDetector(clips, seconds_per_chunk=chunk_s)._ensure_bank()
+    jclips = [jclip.AudioClip(**dataclasses.asdict(c)) for c in clips]
+    jbank = AudioPatternDetector(jclips, seconds_per_chunk=chunk_s)._ensure_bank()
     tbank = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=chunk_s)._ensure_bank()
     (sw, jcls), = jbank.classes.items()
     chunks = [audio[o : o + chunk_s * SR] for o in range(0, len(audio), chunk_s * SR)]

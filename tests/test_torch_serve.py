@@ -31,7 +31,7 @@ from audio_pattern_detector_tpu.match import (
     match_pattern_many_parallel as jax_match_pattern_many_parallel,
 )
 from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
-from audio_pattern_detector_tpu.utils.clip import AudioClip
+from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch import cli
 from audio_pattern_detector_tpu_torch.match import (
     match_pattern_many,
@@ -40,6 +40,7 @@ from audio_pattern_detector_tpu_torch.match import (
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
 from audio_pattern_detector_tpu_torch.serve import PatternServer
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
 
 torch.set_num_threads(1)
 
@@ -209,7 +210,8 @@ def test_constructor_contract():
     with pytest.raises(ValueError, match="mesh is not supported by the torch port"):
         PatternServer(clips, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="TorchAudioPatternDetector"):
-        PatternServer(detector=AudioPatternDetector(clips))
+        PatternServer(detector=AudioPatternDetector(
+            [jclip.AudioClip.from_audio_file(p, sample_rate=SR) for p in PATTERNS]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PatternServer(clips)

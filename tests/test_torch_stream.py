@@ -14,6 +14,7 @@
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -25,11 +26,15 @@ import numpy as np
 import pytest
 import torch
 
-from audio_pattern_detector_tpu.models.detector import AudioPatternDetector, StreamCheckpoint
-from audio_pattern_detector_tpu.utils.clip import AudioClip, AudioStream
+from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
+from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch import cli
 from audio_pattern_detector_tpu_torch.match import match_pattern, match_pattern_many
-from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.models.detector import (
+    StreamCheckpoint,
+    TorchAudioPatternDetector,
+)
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
 
 torch.set_num_threads(1)
 
@@ -64,7 +69,8 @@ def _run(det, samples, checkpoint=None, **kw):
     """One loop run: a log of ("det", name, t) and ("ck", bytes) entries in
     the order the callbacks fired, the accumulated peaks and total time."""
     log = []
-    stream = AudioStream(
+    stream_cls = AudioStream if isinstance(det, TorchAudioPatternDetector) else jclip.AudioStream
+    stream = stream_cls(
         name="s", audio_stream=io.BytesIO(samples.tobytes()), sample_rate=SR,
         sample_dtype=samples.dtype,
     )
@@ -82,7 +88,7 @@ def _run(det, samples, checkpoint=None, **kw):
 def detectors():
     clip, pcm = _clip_and_audio()
     return (
-        AudioPatternDetector([clip], seconds_per_chunk=CHUNK_S),
+        AudioPatternDetector([jclip.AudioClip(**dataclasses.asdict(clip))], seconds_per_chunk=CHUNK_S),
         TorchAudioPatternDetector([clip], device="cpu", seconds_per_chunk=CHUNK_S),
         pcm,
     )
