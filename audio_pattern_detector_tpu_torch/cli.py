@@ -14,8 +14,7 @@ with the JSONL events ``match --stdin`` prints (``serve.py``).
 ``cuda`` raises instead of running elsewhere.
 
 Not ported, and refused with an error naming the flag: ``--mesh-time``,
-``--mesh-bank``, ``--mesh-stream`` (other than 1),
-``--stream-batch-mode vmap`` and ``--offline-batch-mode vmap``.
+``--mesh-bank`` and ``--mesh-stream`` (other than 1).
 """
 
 from __future__ import annotations
@@ -89,9 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--stream-batch", metavar="chunks", type=int, default=1,
                    help="consecutive chunks per device launch (default: auto for files)")
     m.add_argument("--stream-batch-mode", choices=("scan", "vmap"), default="scan",
-                   help="'scan' (default); 'vmap' is not supported by the torch port yet")
+                   help=("batched program for --stream-batch: 'scan' (chunks one after "
+                         "another, one-chunk memory; default) or 'vmap' (chunks in "
+                         "parallel, one set of launches, higher memory). Identical results"))
     m.add_argument("--offline-batch-mode", choices=("vmap", "scan"), default="scan",
-                   help="'scan' (default); 'vmap' is not supported by the torch port yet")
+                   help=("how --offline-batch packs chunks into a launch: 'scan' (default) "
+                         "runs them one after another (one-chunk memory), 'vmap' computes "
+                         "them in parallel (higher memory). Identical results"))
     m.add_argument("--mesh-time", metavar="devices", type=int, default=None,
                    help="not supported by the torch port yet")
     m.add_argument("--mesh-bank", metavar="devices", type=int, default=1,
@@ -159,10 +162,6 @@ def _not_ported(args: argparse.Namespace) -> "str | None":
         return "--mesh-bank"
     if args.mesh_stream != 1:
         return "--mesh-stream"
-    if args.stream_batch_mode != "scan":
-        return "--stream-batch-mode vmap"
-    if args.offline_batch_mode != "scan":
-        return "--offline-batch-mode vmap"
     return None
 
 

@@ -54,6 +54,12 @@
 //     are plain stores of 1). Tiles at a row's start or valid end mask
 //     their window to -inf in shared memory first; interior tiles skip
 //     that.
+//   * A tile wholly at or past its row's valid length holds no candidate
+//     and no finite sample: it is not copied, its block maxima are written
+//     as -inf and its stage of the ring stays idle for that turn (each
+//     thread keeps the stages' mbarrier phases in a register, since a
+//     skipped turn completes none). A batched round's short and idle rows
+//     then cost their valid tiles only.
 // Every reduction is a max, an or or an integer sum, so the outputs are
 // bitwise deterministic and bitwise equal to the plain version.
 //
@@ -224,7 +230,18 @@ candidate_scan_kernel(const float* __restrict__ base, int off0, const float* __r
     a0 = (first - 2) & ~3LL;
     d = static_cast<int>(first - a0);
   };
+  // The row's valid length, clamped to [0, L].
+  auto row_limit = [&](long long g) -> long long {
+    const int v = valid_lens != nullptr ? valid_lens[g] : valid_len;
+    return v < 0 ? 0 : (v < L ? v : L);
+  };
+  // No sample of the item's tile is valid. (Its left halo may be, but a
+  // halo sample only serves as a neighbour of the tile's own samples.)
+  auto past_end = [&](long long item) -> bool {
+    return (item % tiles_per_row) * kTile >= row_limit(item / tiles_per_row);
+  };
   auto issue = [&](long long item, int stage) {
+    if (past_end(item)) return;
     long long a0;
     int d;
     window(item, a0, d);
@@ -242,6 +259,7 @@ candidate_scan_kernel(const float* __restrict__ base, int off0, const float* __r
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   int cur_g = -1;
+  unsigned phases = 0;  // bit s: the parity of stage s's next completed copy
   float om = 0.0f;
   int cnt = 0, flags = 0;
 
@@ -285,7 +303,6 @@ candidate_scan_kernel(const float* __restrict__ base, int off0, const float* __r
     __syncthreads();
     if (threadIdx.x == 0 && k + kStages - 1 < n)
       issue(i0 + k + kStages - 1, (k + kStages - 1) % kStages);
-    mbar_wait(&full[k % kStages], static_cast<unsigned>(k / kStages) & 1u);
 
     const long long item = i0 + k;
     const int g = static_cast<int>(item / tiles_per_row);
@@ -294,12 +311,19 @@ candidate_scan_kernel(const float* __restrict__ base, int off0, const float* __r
       if (cur_g >= 0) flush();
       cur_g = g;
     }
+    const int blk = t * kWarps + warp;
+    if (past_end(item)) {
+      if (lane == 0 && blk < nb) bmax[static_cast<long long>(g) * nb + blk] = -INFINITY;
+      continue;
+    }
+    const int stage = k % kStages;
+    mbar_wait(&full[stage], (phases >> stage) & 1u);
+    phases ^= 1u << stage;
     long long a0;
     int d;
     window(item, a0, d);
-    float* s = ring + (k % kStages) * kWin;
-    const int v = valid_lens != nullptr ? valid_lens[g] : valid_len;
-    const long long lim = v < 0 ? 0 : (v < L ? v : L);
+    float* s = ring + stage * kWin;
+    const long long lim = row_limit(g);
     const long long t0 = static_cast<long long>(t) * kTile;
     if (t == 0 || t0 + kTile + 3 > lim) {
       // Row start or valid end: everything outside [0, lim) reads -inf.
@@ -309,7 +333,6 @@ candidate_scan_kernel(const float* __restrict__ base, int off0, const float* __r
       }
       __syncthreads();
     }
-    const int blk = t * kWarps + warp;
     scan_tile(s, d, t0, thr_min[g], bmax + static_cast<long long>(g) * nb + blk, blk < nb, om,
               cnt, flags);
   }

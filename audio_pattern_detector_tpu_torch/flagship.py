@@ -4,6 +4,7 @@ A 64-clip bank (32 one-second normal clips of seeded noise, 32 quarter-
 second marker tones at 900 + 7i Hz, numpy seed 0) scanning one 60 s chunk
 section at 8 kHz (seeded noise, numpy seed 1): the same clips, bank
 geometry and section as the JAX package's entry, built by the port.
+:func:`flagship_round` is its batched twin: 16 such sections as one round.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
-from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step
+from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step, class_step_fused
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
@@ -83,3 +84,40 @@ def flagship_step(
         )
 
     return step, bank
+
+
+ROUND_ROWS = 16
+
+
+def flagship_round(
+    device: "torch.device | str",
+) -> tuple[Callable[..., torch.Tensor], PatternBank, torch.Tensor]:
+    """(step, bank, sections): ``step(mode, scan=candidate_scan)`` runs the
+    flagship bank's class step over a round of 16 seeded 60 s sections
+    (numpy seeds 1-16; row 0 is :func:`flagship_step`'s section), the
+    (16, S) ``sections``, and returns the fused (16, total) payload:
+    ``mode="vmap"`` as one batched step, ``"scan"`` as 16 steps one after
+    another."""
+    bank = make_bank(num_normal=32, num_marker=32, chunk_seconds=60, device=device)
+    sw = sorted(bank.classes)[0]
+    cls = bank.classes[sw]
+    s = cls["section_len"]
+    sections = torch.from_numpy(np.stack([
+        (0.05 * np.random.default_rng(1 + i).standard_normal(s)).astype(np.float32)
+        for i in range(ROUND_ROWS)
+    ])).to(bank.device)
+    n_valids = torch.full((ROUND_ROWS,), s, dtype=torch.int32, device=bank.device)
+    group_consts = tuple((g.corr, g.verify) for g in cls["groups"])
+
+    def step(mode: str, scan=candidate_scan) -> torch.Tensor:
+        def fused(section, n_valid) -> torch.Tensor:
+            return class_step_fused(
+                section, n_valid, cls["loud"], group_consts,
+                metas=bank._metas[sw], height_min=bank.height_min, scan=scan,
+            )
+
+        if mode == "vmap":
+            return fused(sections, n_valids)
+        return torch.stack([fused(sections[i], s) for i in range(ROUND_ROWS)])
+
+    return step, bank, sections

@@ -31,8 +31,13 @@ route each row took.
 ``height_min <= 0`` runs the general-plateau tier (:func:`rich_group_packed`)
 in place of the lean one.
 
-Batched dispatch runs the JAX package's scan schedule as a Python loop
-over the rows on the current stream, one chunk's memory at a time.
+Batched dispatch has the JAX package's two schedules, with identical
+results. ``mode="scan"`` runs the class step row after row on the current
+stream, one chunk's memory at a time. ``mode="vmap"`` runs one class step
+over all B rows of the round: the rows are a leading axis of every op,
+folded into the clip axis where an op is row-wise ((B, G, L) correlations
+as (B * G, L) rows with per-row lengths), so the candidate-scan kernel
+launches once per group per round and memory is B times a step's.
 """
 
 from __future__ import annotations
@@ -66,12 +71,14 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32, upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
     PeakCandidates,
+    ValidLen,
     f32,
     find_peaks_device_fast,
     greedy_distance_filter,
     greedy_survivors_from_blocks,
     long_plateau_present,
     plateau_run_mask,
+    row_limit,
     short_run_local_maxima_mask,
     topk_sparse,
 )
@@ -260,7 +267,11 @@ class PatternBank:
             rows[bi, : len(raw)] = raw
         return rows
 
-    def _section_step(self, sw: int, section: torch.Tensor, n_valid: int) -> torch.Tensor:
+    def _section_step(
+        self, sw: int, section: torch.Tensor, n_valid: "int | torch.Tensor"
+    ) -> torch.Tensor:
+        """Fused payload of one section (S,) with its int length, or (B,
+        total) payloads of a (B, S) batch with a (B,) length tensor."""
         cls = self.classes[sw]
         return class_step_fused(
             section, n_valid, cls["loud"],
@@ -302,13 +313,28 @@ class PatternBank:
     ) -> dict[str, list[int]]:
         return self.collect_chunk(self.dispatch_chunk(chunk, previous_chunk))
 
-    # ── Batched dispatch (the scan schedule) ──
+    # ── Batched dispatch ──
+
+    def process_chunks_batch(
+        self,
+        chunks: list[NDArray[Any]],
+        previous_tail: "NDArray[Any] | None",
+        mode: str = "vmap",
+    ) -> list[dict[str, list[int]]]:
+        """Process consecutive stream chunks as one batch: ``chunks[0]``'s
+        lookback is ``previous_tail`` (None at the stream head), later
+        chunks take theirs from their predecessor. Per-chunk result dicts,
+        as :meth:`process_chunk` returns them. ``mode`` as in
+        :meth:`dispatch_chunks_batch`; identical results."""
+        return self.collect_chunks_batch(
+            self.dispatch_chunks_batch(chunks, previous_tail, mode)
+        )
 
     def dispatch_chunks_batch(
         self,
         chunks: list[NDArray[Any]],
         previous_tail: "NDArray[Any] | None",
-        mode: str = "scan",
+        mode: str = "vmap",
         prev_tails: "list[NDArray[Any] | None] | None" = None,
         sharding: Any = None,
     ) -> list[tuple[int, PayloadHandle, list[NDArray[Any]], int, None]]:
@@ -318,11 +344,20 @@ class PatternBank:
         the rows independent streams, the multi-stream serving path
         (models/multistream.py). Each row keeps its own length, so a first
         chunk, a short final chunk and a zero-length idle row share a
-        batch. The rows run one after another on the current stream; the
-        payload copies back once per class. ``sharding`` places rows
-        across a device mesh in the JAX bank and is not ported."""
-        if mode != "scan":
-            raise ValueError(f"the torch port runs mode='scan' only, got {mode!r}")
+        batch.
+
+        ``mode`` is an execution schedule; sections are assembled on the
+        host either way and no state crosses rows, so both modes serve
+        consecutive chunks and independent streams with identical results.
+        "scan" runs the rows one after another on the current stream (one
+        chunk's memory); "vmap" runs every row through one set of launches
+        per class (B times the memory). The payload copies back once per
+        class in both. ``sharding`` places rows across a device mesh in the
+        JAX bank and is not ported."""
+        if mode not in ("vmap", "scan"):
+            raise ValueError(f"mode must be 'vmap' or 'scan', got {mode!r}")
+        if sharding is not None and mode != "vmap":
+            raise ValueError("sharding requires mode='vmap'")
         if sharding is not None:
             raise ValueError("sharding is not supported by the torch port yet")
         if prev_tails is not None and len(prev_tails) != len(chunks):
@@ -338,9 +373,13 @@ class PatternBank:
         for sw, cls in self.classes.items():
             raws = [self._raw_section(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
             rows = upload_rows(self._section_rows(cls["section_len"], raws), self.device)
-            payload = torch.stack(
-                [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
-            )
+            if mode == "vmap":
+                n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
+                payload = self._section_step(sw, as_f32(rows), n_valids.to(self.device))
+            else:
+                payload = torch.stack(
+                    [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
+                )
             dispatched.append((sw, PayloadHandle(payload), raws, b, None))
         return dispatched
 
@@ -560,17 +599,24 @@ def unpack_group(
 # ── The class step ──
 
 
+# Every group tier takes one section's rows or a round's: ``norm`` (S,)
+# with ``corr`` (G, L) and an int ``valid_len``, or ``norm`` (B, S) with
+# ``corr`` (B * G, L) round-major, a (B * G,) int32 ``valid_len`` and
+# ``self_corr_max`` tiled to (B * G,). Row r then reads section r // G and
+# the verify constants of clip r % G.
+
+
 def lean_group_packed(
-    norm: torch.Tensor,  # (S,) normalised section
-    corr: torch.Tensor,  # (G, L) |correlation|, unnormalised
-    valid_len: int,
+    norm: torch.Tensor,  # (S,) or (B, S) normalised section
+    corr: torch.Tensor,  # (R, L) |correlation|, unnormalised
+    valid_len: ValidLen,
     kind: str,
     m: int,
     k_detect: int,
     k_verify: int,
     height_min: float,
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
-    self_corr_max: torch.Tensor,  # (G,) f32
+    self_corr_max: torch.Tensor,  # (R,) f32
     scan=candidate_scan,
 ) -> torch.Tensor:
     """Lean tier of one group: candidate scan, in-program greedy, verify.
@@ -585,6 +631,7 @@ def lean_group_packed(
     hm = f32(height_min)  # compares as JAX's f32 threshold
     g, l = corr.shape
     dev = corr.device
+    lim = row_limit(valid_len)
     neg_inf = torch.full((), -math.inf, device=dev)
     bmax, _count, plateau_min, omax, near = scan(corr, hm * self_corr_max, valid_len)
     denom = torch.maximum(self_corr_max, omax).clamp_min(1e-38)
@@ -601,7 +648,7 @@ def lean_group_packed(
         start = (b_idx * BLOCK - 2).clamp(0, max(l - w, 0))
         xw = slice_rows_windows(corr_w, start[:, None], w)[:, 0, :]
         c = start[:, None] + woffs  # global positions, ascending
-        xq = torch.where(c < valid_len, xw / denom[:, None], neg_inf)
+        xq = torch.where(c < lim, xw / denom[:, None], neg_inf)
         xm1 = torch.cat([neg1, xq[:, :-1]], dim=1)
         xm2 = torch.cat([neg2, xq[:, :-2]], dim=1)
         xp1 = torch.cat([xq[:, 1:], neg1], dim=1)
@@ -626,17 +673,17 @@ def lean_group_packed(
     )
 
 
-def _normalised(corr: torch.Tensor, valid_len: int, denom: torch.Tensor) -> torch.Tensor:
+def _normalised(corr: torch.Tensor, valid_len: ValidLen, denom: torch.Tensor) -> torch.Tensor:
     """Raw |corr| as ``bank_correlate`` returns it: exact zeros past
     ``valid_len``, divided by ``denom`` = max(self_corr_max, observed max)."""
-    in_range = torch.arange(corr.shape[1], device=corr.device)[None, :] < valid_len
+    in_range = torch.arange(corr.shape[1], device=corr.device)[None, :] < row_limit(valid_len)
     return torch.where(in_range, corr, 0.0) / denom[:, None]
 
 
 def wide_group_packed(
-    norm: torch.Tensor,  # (S,) normalised section
-    corr: torch.Tensor,  # (G, L) normalised correlation (bank_correlate)
-    valid_len: int,
+    norm: torch.Tensor,  # (S,) or (B, S) normalised section
+    corr: torch.Tensor,  # (R, L) normalised correlation (bank_correlate)
+    valid_len: ValidLen,
     kind: str,
     m: int,
     k_detect: int,
@@ -655,7 +702,7 @@ def wide_group_packed(
     path (flag 1); the wide tier never sets flag 2."""
     hm = f32(height_min)
     idx = torch.arange(corr.shape[1], device=corr.device)[None, :]
-    x = torch.where(idx < valid_len, corr, -math.inf)
+    x = torch.where(idx < row_limit(valid_len), corr, -math.inf)
     mask = short_run_local_maxima_mask(x) & (x >= hm)
     host_fallback = (mask.sum(dim=1) > k_detect) | long_plateau_present(x, hm)
     height, pos = topk_sparse(torch.where(mask, x, -math.inf), k_detect)
@@ -667,8 +714,8 @@ def wide_group_packed(
 
 def rich_group_packed(
     norm: torch.Tensor,
-    corr: torch.Tensor,  # (G, L) |correlation|, unnormalised
-    valid_len: int,
+    corr: torch.Tensor,  # (R, L) |correlation|, unnormalised
+    valid_len: ValidLen,
     kind: str,
     m: int,
     k_detect: int,
@@ -697,7 +744,7 @@ def rich_group_packed(
     corr_n = _normalised(corr, valid_len, torch.maximum(self_corr_max, omax).clamp_min(1e-38))
     cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect)
     half = (2 * m - 1) // 2
-    keep = cand.alive & ~(cand.pos + half > valid_len + 5) & ~(cand.pos - half < -5)
+    keep = cand.alive & ~(cand.pos + half > row_limit(valid_len) + 5) & ~(cand.pos - half < -5)
     sv = torch.topk(torch.where(keep, -cand.pos, -_BIG), k_verify, dim=1).values
     vpos, valive = -sv, sv > -_BIG
     accept = _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=True)
@@ -753,7 +800,7 @@ def _lean_tail(
         keep = greedy_distance_filter(PeakCandidates(pos, height, keep, flag != 0), m)
     # Candidate bound checks (reference: audio_pattern_detector.py:531-546).
     half = (2 * m - 1) // 2
-    keep = keep & ~(pos + half > valid_len + 5) & ~(pos - half < -5)
+    keep = keep & ~(pos + half > row_limit(valid_len) + 5) & ~(pos - half < -5)
     kv = min(k_verify, k_lanes)
     sv = torch.topk(torch.where(keep, -pos, -_BIG), kv, dim=1).values  # live values distinct
     vpos = -sv
@@ -768,8 +815,8 @@ def _lean_tail(
 
 
 def class_step(
-    section: torch.Tensor,  # (S,) f32
-    n_valid: int,
+    section: torch.Tensor,  # (S,) f32, or (B, S) for a round of B rows
+    n_valid: "int | torch.Tensor",  # int, or (B,) int32 on section's device
     loud: LoudnessConsts,
     group_consts: tuple,
     *,
@@ -778,13 +825,18 @@ def class_step(
     scan=candidate_scan,
     wide: bool = False,
 ) -> list[torch.Tensor]:
-    """One sliding-window class over one section: packed payload per group.
+    """One sliding-window class over one section, or over the B sections
+    of a round in one set of launches: packed payload per group, (G, 2K+2)
+    or round-major (B * G, 2K+2).
 
     The tier follows ``_class_step``: ``wide`` runs the rerun tier
     (:func:`wide_group_packed`); otherwise ``height_min > 0`` runs the lean
     tier and ``height_min <= 0`` the general-plateau tier. ``scan`` is the
     candidate scan (the kernel wrapper by default; the plain version to
-    compare against it on the same device)."""
+    compare against it on the same device). A batch folds into the clip
+    axis after the correlation, so each group's scan is one launch over
+    B * G rows with per-row lengths."""
+    batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
 
@@ -799,28 +851,35 @@ def class_step(
 
     outs = []
     for (kind, m, k_detect, k_verify), (corr_consts, verify_consts) in zip(metas, group_consts):
+        correlate = bank_correlate if wide else bank_correlate_abs
+        corr, valid_len = correlate(norm, n_valid, corr_consts, shared_spec)
+        self_corr_max = corr_consts.self_corr_max
+        if batched:
+            b, g, l = corr.shape
+            corr = corr.reshape(b * g, l)
+            valid_len = valid_len.to(torch.int32).repeat_interleave(g)
+            self_corr_max = self_corr_max.repeat(b)
         if wide:
-            corr, valid_len = bank_correlate(norm, n_valid, corr_consts, shared_spec)
             outs.append(
                 wide_group_packed(
                     norm, corr, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts
                 )
             )
             continue
-        corr, valid_len = bank_correlate_abs(norm, n_valid, corr_consts, shared_spec)
         tier = lean_group_packed if height_min > 0 else rich_group_packed
         outs.append(
             tier(
                 norm, corr, valid_len, kind, m, k_detect, k_verify, height_min,
-                verify_consts, corr_consts.self_corr_max, scan,
+                verify_consts, self_corr_max, scan,
             )
         )
     return outs
 
 
 def class_step_fused(section, n_valid, loud, group_consts, *, metas, height_min, scan=candidate_scan):
-    """:func:`class_step` with every group's payload flattened into one vector."""
+    """:func:`class_step` with every group's payload flattened into one
+    vector per section: (total,), or (B, total) for a batch."""
     outs = class_step(
         section, n_valid, loud, group_consts, metas=metas, height_min=height_min, scan=scan
     )
-    return torch.cat([o.reshape(-1) for o in outs])
+    return torch.cat([o.reshape(*section.shape[:-1], -1) for o in outs], dim=-1)

@@ -549,8 +549,9 @@ class TorchAudioPatternDetector:
         ``find_clip_in_audio`` (same chunking, lookback, and timestamp
         algebra), but processes ``batch_size`` chunks per launch — the
         throughput-oriented path for file scanning. ``batch_mode="scan"``
-        (the only mode the port runs) iterates the chunks one at a time
-        on the device stream (1× memory).
+        iterates the chunks one at a time on the device stream (1×
+        memory); ``"vmap"`` computes them in parallel through one set of
+        launches (B× memory). Identical results.
         """
         bank = self._ensure_bank()
         sr = self.target_sample_rate

@@ -12,9 +12,10 @@ is not dispatched on a tiled session, or runs a zero-length section).
 The round logic is the JAX session's: ``feed``, ``dispatch``/``collect``
 with any number of rounds in flight, ``round_ready``, the compacted
 tile-width ladder, int16 chunks riding through raw, zero-length chunks as
-idle rounds, ``total_time`` and ``reset``. Stream sharding over a device
-mesh (``mesh=``) and the ``vmap`` batch mode are not ported and are
-refused by name.
+idle rounds, ``total_time`` and ``reset``, and both batch modes
+(``batch_mode="scan"``, the default, or ``"vmap"``: one set of launches
+per class for all rows of a dispatch). Stream sharding over a device mesh
+(``mesh=``) is not ported and is refused by name.
 """
 
 from __future__ import annotations
@@ -55,8 +56,6 @@ class MultiStreamSession:
     ) -> None:
         if mesh is not None:
             raise ValueError("mesh is not supported by the torch port yet")
-        if batch_mode == "vmap":
-            raise ValueError("batch_mode='vmap' is not supported by the torch port yet")
         if not isinstance(detector, TorchAudioPatternDetector):
             raise TypeError(
                 f"the torch port's session needs a TorchAudioPatternDetector, "
@@ -66,11 +65,13 @@ class MultiStreamSession:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         if tile is not None and tile < 1:
             raise ValueError(f"tile must be >= 1, got {tile}")
-        if batch_mode not in (None, "scan"):
+        if batch_mode not in (None, "scan", "vmap"):
             raise ValueError(
                 f"batch_mode must be 'scan' or 'vmap', got {batch_mode!r}"
             )
-        self._batch_mode = "scan"
+        # Rows are independent in both schedules, so the mode only chooses
+        # how a dispatch's rows reach the device.
+        self._batch_mode = batch_mode or "scan"
         # Serving-capacity tiling: a round's rows dispatch in tiles of at
         # most ``tile`` rows, so device working memory is bounded by the
         # tile, not the slot count. None = one full-width dispatch per

@@ -15,8 +15,9 @@ returns only per-block and per-row summaries:
   unequal neighbour within 2 samples inside 8 ulp relative.
 
 Everything at or past ``valid_len`` counts as -inf: one int for every
-row (the main path), or a (G,) int32 tensor on corr's device with one
-length per row (values clamp to [0, L]). ``thr_min`` is the
+row (the scan schedule's class step), or a (G,) int32 tensor on corr's
+device with one length per row (values clamp to [0, L]; the batched class
+step, whose G is rounds times clips). ``thr_min`` is the
 host-static lower bound ``height_min * self_corr_max`` of the true
 threshold (see the JAX module's docstring for why that is sound).
 
@@ -33,7 +34,12 @@ import math
 
 import torch
 
-from audio_pattern_detector_tpu_torch.ops.peaks import _shift, plateau_run_mask
+from audio_pattern_detector_tpu_torch.ops.peaks import (
+    ValidLen,
+    _shift,
+    plateau_run_mask,
+    row_limit,
+)
 
 BLOCK = 512
 _NEAR_TOL = 8.0 * 1.1920928955078125e-07  # 8 ulp at 1.0 (exact in f32)
@@ -45,17 +51,13 @@ def num_blocks(length: int) -> int:
     return -(-length // BLOCK)
 
 
-ValidLen = "int | torch.Tensor"
-
-
 def candidate_scan_reference(
     corr: torch.Tensor, thr_min: torch.Tensor, valid_len: ValidLen
 ) -> ScanOutputs:
     """The kernel's function in plain torch ops (any device)."""
     g, l = corr.shape
     idx = torch.arange(l, device=corr.device)[None, :]
-    lim = valid_len[:, None] if isinstance(valid_len, torch.Tensor) else valid_len
-    x = torch.where(idx < lim, corr, -math.inf)
+    x = torch.where(idx < row_limit(valid_len), corr, -math.inf)
     xm2, xm1 = _shift(x, -2), _shift(x, -1)
     xp1, xp2, xp3 = _shift(x, 1), _shift(x, 2), _shift(x, 3)
     finite = x != -math.inf
@@ -88,8 +90,10 @@ def _launch(corr: torch.Tensor, thr_min: torch.Tensor, valid_len: ValidLen) -> S
     g, l = corr.shape
     if thr_min.shape != (g,) or thr_min.dtype != torch.float32 or thr_min.device != corr.device:
         raise ValueError("candidate_scan: thr_min must be (G,) float32 on corr's device")
-    if l >= 2**31:
-        raise ValueError(f"candidate_scan: L {l} does not fit an int32")
+    # The kernel takes G, L and each length as int32 and forms every flat
+    # offset (up to G * L) in 64 bits.
+    if l >= 2**31 or g >= 2**31:
+        raise ValueError(f"candidate_scan: shape ({g}, {l}) does not fit int32 extents")
     if isinstance(valid_len, torch.Tensor):
         if (
             valid_len.shape != (g,) or valid_len.dtype != torch.int32

@@ -101,14 +101,15 @@ def build_correlation_bank(
 def section_segment_spectra(
     section: torch.Tensor, consts: CorrelationBankConsts
 ) -> torch.Tensor:
-    """rfft of the section's overlap-save segments: (ns, N//2+1) complex64."""
+    """rfft of the overlap-save segments of a section (S,) or a batch of
+    sections (B, S): (..., ns, N//2+1) complex64."""
     n = consts.fft_len
     step = consts.step or (n - consts.clip_len + 1)
     pad_left = consts.pad_left if consts.pad_left >= 0 else consts.clip_len - 1
     ns = consts.num_segments
-    padded = F.pad(section, (pad_left, ns * step + n - (section.shape[0] + pad_left)))
-    segments = padded.unfold(0, n, step)[:ns]
-    return torch.fft.rfft(segments, dim=1)
+    padded = F.pad(section, (pad_left, ns * step + n - (section.shape[-1] + pad_left)))
+    segments = padded.unfold(-1, n, step)[..., :ns, :]
+    return torch.fft.rfft(segments)
 
 
 def _correlate_raw(
@@ -116,47 +117,48 @@ def _correlate_raw(
     consts: CorrelationBankConsts,
     seg_spec: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
-    """|full cross-correlation| (G, L), unnormalised."""
+    """|full cross-correlation|, unnormalised: (G, L) for a section (S,),
+    (B, G, L) for a batch (B, S)."""
     m, n, l = consts.clip_len, consts.fft_len, consts.full_len
     if consts.num_segments == 1:
         spec = torch.fft.rfft(section, n=n)
-        z = torch.fft.irfft(spec[None, :] * consts.bank_rfft_conj, n=n, dim=1)
-        return torch.roll(z, m - 1, dims=1)[:, :l].abs()
+        z = torch.fft.irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n)
+        return torch.roll(z, m - 1, dims=-1)[..., :l].abs()
     step = consts.step or (n - m + 1)
     ns = consts.num_segments
     if seg_spec is None:
         seg_spec = section_segment_spectra(section, consts)
     y = torch.fft.irfft(
-        seg_spec[None, :, :] * consts.bank_rfft_conj[:, None, :], n=n, dim=2
-    )  # (G, ns, N)
-    flat = y[:, :, :step].reshape(y.shape[0], ns * step)
+        seg_spec[..., None, :, :] * consts.bank_rfft_conj[:, None, :], n=n
+    )  # (..., G, ns, N)
+    flat = y[..., :step].reshape(*y.shape[:-2], ns * step)
     off = consts.out_offset
-    return flat[:, off : off + l].abs()
+    return flat[..., off : off + l].abs()
 
 
 def bank_correlate(
-    section: torch.Tensor,  # (S,) f32 normalised, zero-padded
-    n_valid: int,
+    section: torch.Tensor,  # (S,) or (B, S) f32 normalised, zero-padded
+    n_valid: "int | torch.Tensor",  # int, or (B,) with a batch
     consts: CorrelationBankConsts,
     seg_spec: "torch.Tensor | None" = None,
-) -> tuple[torch.Tensor, int]:
+) -> "tuple[torch.Tensor, int | torch.Tensor]":
     """(corr, valid_len): |correlation| normalised by max(self_corr_max,
     observed max), zeroed at positions >= valid_len = n_valid + m - 1."""
     corr = _correlate_raw(section, consts, seg_spec)
     valid_len = n_valid + consts.clip_len - 1
-    in_range = torch.arange(consts.full_len, device=corr.device)[None, :] < valid_len
+    lim = valid_len[:, None, None] if isinstance(valid_len, torch.Tensor) else valid_len
+    in_range = torch.arange(consts.full_len, device=corr.device) < lim
     corr = torch.where(in_range, corr, 0.0)
-    denom = torch.maximum(consts.self_corr_max, corr.amax(dim=1))
-    return corr / denom.clamp_min(1e-38)[:, None], valid_len
+    denom = torch.maximum(consts.self_corr_max, corr.amax(dim=-1))
+    return corr / denom.clamp_min(1e-38)[..., None], valid_len
 
 
 def bank_correlate_abs(
     section: torch.Tensor,
-    n_valid: int,
+    n_valid: "int | torch.Tensor",
     consts: CorrelationBankConsts,
     seg_spec: "torch.Tensor | None" = None,
-) -> tuple[torch.Tensor, int]:
+) -> "tuple[torch.Tensor, int | torch.Tensor]":
     """(|correlation|, valid_len) with no normalising pass: the candidate
     scan derives the observed max itself (ops/candidate_scan.py)."""
-    corr = _correlate_raw(section, consts, seg_spec)
-    return corr, n_valid + consts.clip_len - 1
+    return _correlate_raw(section, consts, seg_spec), n_valid + consts.clip_len - 1

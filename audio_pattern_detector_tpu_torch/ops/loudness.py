@@ -5,8 +5,12 @@ impulse response ``hostref.k_weighting_fir`` (f64 on the host); gating
 blocks are fixed windows masked to the valid length. The host tables,
 including ``block_thr`` (the f64 block count as thresholds), come from
 the same numpy expressions as the JAX package's, so the gating geometry
-is bitwise shared. ``n_valid`` is a host integer here: the short/gated
-choice is a Python branch instead of a select.
+is bitwise shared.
+
+Every function takes one section ``(S,)`` with a host integer ``n_valid``
+(the short/gated choice is then a Python branch) or a batch ``(B, S)`` with
+a ``(B,)`` integer tensor of lengths on the section's device (both forms
+are computed and selected per row, with no host sync).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops import hostref
 from audio_pattern_detector_tpu_torch.ops.correlate import next_pow2
+from audio_pattern_detector_tpu_torch.ops.peaks import row_limit
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_shared_windows
 
 LUFS_OFFSET = -0.691
@@ -90,18 +95,19 @@ def build_loudness_consts(
 
 
 def _k_weighted_conv(section: torch.Tensor, consts: LoudnessConsts) -> torch.Tensor:
-    """K-weighting FIR convolution, whole-signal or overlap-save."""
+    """K-weighting FIR convolution along the last axis, whole-signal or
+    overlap-save."""
     s, n = consts.section_len, consts.fft_len
     if consts.num_segments == 1:
         spec = torch.fft.rfft(section, n=n)
-        return torch.fft.irfft(spec * consts.fir_spec, n=n)[:s]
+        return torch.fft.irfft(spec * consts.fir_spec, n=n)[..., :s]
     taps = _FIR_TAPS
     step = n - taps + 1
     ns = consts.num_segments
     padded = F.pad(section, (taps - 1, ns * step + n - (s + taps - 1)))
-    segments = padded.unfold(0, n, step)[:ns]
-    z = torch.fft.irfft(torch.fft.rfft(segments, dim=1) * consts.fir_spec, n=n, dim=1)
-    return z[:, taps - 1 :].reshape(ns * step)[:s]
+    segments = padded.unfold(-1, n, step)[..., :ns, :]
+    z = torch.fft.irfft(torch.fft.rfft(segments) * consts.fir_spec, n=n)
+    return z[..., taps - 1 :].reshape(*section.shape[:-1], ns * step)[..., :s]
 
 
 def _lufs(ms: torch.Tensor) -> torch.Tensor:
@@ -109,32 +115,39 @@ def _lufs(ms: torch.Tensor) -> torch.Tensor:
 
 
 def integrated_loudness_device(
-    section: torch.Tensor, n_valid: int, consts: LoudnessConsts
+    section: torch.Tensor, n_valid: "int | torch.Tensor", consts: LoudnessConsts
 ) -> torch.Tensor:
-    """Gated integrated loudness (0-d f32 LUFS; -inf for silence) of
-    ``section[:n_valid]``; samples at and beyond ``n_valid`` must be zero."""
+    """Gated integrated loudness (f32 LUFS; -inf for silence) of
+    ``section[..., :n_valid]``: 0-d for one section, (B,) for a batch.
+    Samples at and beyond ``n_valid`` must be zero."""
     s = consts.section_len
     dev = section.device
+    batched = isinstance(n_valid, torch.Tensor)
+    lim = row_limit(n_valid)  # against the last axis
     filtered = _k_weighted_conv(section, consts)
     idx = torch.arange(s, device=dev)
-    sq = torch.where(idx < n_valid, filtered * filtered, 0.0)
+    sq = torch.where(idx < lim, filtered * filtered, 0.0)
     neg_inf = torch.full((), -math.inf, device=dev)
 
-    if n_valid < consts.short_threshold:
+    short = None
+    if batched or n_valid < consts.short_threshold:
         # One gating block spanning the whole signal
         # (reference: audio_pattern_detector.py:416-418).
-        ms = sq.sum() / float(max(n_valid, 1))
+        n = n_valid.clamp_min(1).to(torch.float32) if batched else float(max(n_valid, 1))
+        ms = sq.sum(dim=-1) / n
         lufs = torch.where(ms > 0.0, _lufs(ms), neg_inf)
-        return torch.where(lufs >= ABSOLUTE_GATE_LUFS, lufs, neg_inf)
+        short = torch.where(lufs >= ABSOLUTE_GATE_LUFS, lufs, neg_inf)
+        if not batched:
+            return short
 
     nblk = consts.block_lo.shape[0]
     w = consts.window_width
-    num_blocks = (consts.block_thr <= n_valid).sum()
-    hi = consts.block_end.clamp_max(n_valid)
+    num_blocks = (consts.block_thr <= lim).sum(dim=-1, keepdim=True)
+    hi = consts.block_end.clamp(max=lim)  # (nblk,) or (B, nblk)
     starts = consts.block_lo.clamp_max(s - 1)
-    gathered = slice_shared_windows(F.pad(sq, (0, w)), starts, w)  # (B, W)
+    gathered = slice_shared_windows(F.pad(sq, (0, w)), starts, w)  # (..., nblk, W)
     win_idx = starts[:, None] + torch.arange(w, device=dev)[None, :]
-    block_sum = torch.where(win_idx < hi[:, None], gathered, 0.0).sum(dim=1)
+    block_sum = torch.where(win_idx < hi[..., None], gathered, 0.0).sum(dim=-1)
     count = (hi - consts.block_lo).to(torch.float32)
     block_valid = (
         (torch.arange(nblk, device=dev) < num_blocks)
@@ -145,15 +158,18 @@ def integrated_loudness_device(
     loud = _lufs(ms.clamp_min(1e-38))
 
     abs_mask = block_valid & (loud >= ABSOLUTE_GATE_LUFS)
-    abs_count = abs_mask.sum()
-    z_avg = torch.where(abs_mask, ms, 0.0).sum() / abs_count.clamp_min(1)
+    abs_count = abs_mask.sum(dim=-1)
+    z_avg = torch.where(abs_mask, ms, 0.0).sum(dim=-1) / abs_count.clamp_min(1)
     gamma_r = _lufs(z_avg.clamp_min(1e-38)) - 10.0
 
-    rel_mask = abs_mask & (loud > gamma_r)
-    rel_count = rel_mask.sum()
-    z_final = torch.where(rel_mask, ms, 0.0).sum() / rel_count.clamp_min(1)
+    rel_mask = abs_mask & (loud > gamma_r[..., None])
+    rel_count = rel_mask.sum(dim=-1)
+    z_final = torch.where(rel_mask, ms, 0.0).sum(dim=-1) / rel_count.clamp_min(1)
     lufs = _lufs(z_final.clamp_min(1e-38))
-    return torch.where((abs_count > 0) & (rel_count > 0), lufs, neg_inf)
+    gated = torch.where((abs_count > 0) & (rel_count > 0), lufs, neg_inf)
+    if batched:
+        return torch.where(n_valid < consts.short_threshold, short, gated)
+    return gated
 
 
 def loudness_normalize_device(
@@ -162,7 +178,8 @@ def loudness_normalize_device(
     target_lufs: float = DEFAULT_TARGET_LUFS,
 ) -> torch.Tensor:
     """Gain to target LUFS, hard clip to [-1, 1], NaN scrubbed to zero
-    (-inf loudness: non-zero samples saturate, zeros stay zero)."""
+    (-inf loudness: non-zero samples saturate, zeros stay zero). ``lufs``
+    is 0-d for one section or (B,) for a (B, S) batch."""
     gain = torch.pow(torch.full((), 10.0, device=section.device), (target_lufs - lufs) / 20.0)
-    y = (section * gain).clamp(-1.0, 1.0)
+    y = (section * gain[..., None]).clamp(-1.0, 1.0)
     return torch.where(torch.isnan(y), 0.0, y)

@@ -24,6 +24,7 @@ import math
 from collections.abc import Callable
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 SURVIVOR_POS_SENTINEL = 2**30  # dead survivor slots
@@ -196,7 +197,7 @@ def greedy_survivors_from_blocks(
 def f32(value: float) -> float:
     """``value`` rounded to f32, as JAX rounds a Python float threshold
     against an f32 array."""
-    return float(torch.tensor(value, dtype=torch.float32))
+    return float(np.float32(value))
 
 
 def topk_sparse(scored: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -269,14 +270,23 @@ def greedy_distance_filter(cand: PeakCandidates, min_distance: int) -> torch.Ten
     return _greedy_distance_sequential(cand, min_distance)
 
 
-def _masked(corr: torch.Tensor, valid_len: int) -> torch.Tensor:
+ValidLen = "int | torch.Tensor"  # one length for every row, or a (G,) integer tensor
+
+
+def row_limit(valid_len: ValidLen) -> "int | torch.Tensor":
+    """``valid_len`` as it compares against (G, K) positions: the int
+    itself, or the per-row lengths as a (G, 1) column."""
+    return valid_len[:, None] if isinstance(valid_len, torch.Tensor) else valid_len
+
+
+def _masked(corr: torch.Tensor, valid_len: ValidLen) -> torch.Tensor:
     idx = torch.arange(corr.shape[1], device=corr.device)[None, :]
-    return torch.where(idx < valid_len, corr, -math.inf)
+    return torch.where(idx < row_limit(valid_len), corr, -math.inf)
 
 
 def find_peaks_device(
     corr: torch.Tensor,  # (G, L) normalised correlation, zeros >= valid_len
-    valid_len: int,
+    valid_len: ValidLen,
     height_min: float,
     distance: int,
     k: int,
@@ -292,7 +302,7 @@ def find_peaks_device(
 
 def find_peaks_device_fast(
     corr: torch.Tensor,
-    valid_len: int,
+    valid_len: ValidLen,
     height_min: float,
     distance: int,
     k: int,

@@ -22,10 +22,11 @@ def slice_rows_windows(
 
 
 def slice_shared_windows(
-    x: torch.Tensor,  # (L,)
+    x: torch.Tensor,  # (L,) or (B, L)
     starts: torch.Tensor,  # (...,) integer
     width: int,
-) -> torch.Tensor:  # (*starts.shape, width)
-    """Contiguous windows of a shared 1-D signal at arbitrary starts."""
-    s = starts.to(torch.int64).clamp(0, x.shape[0] - width)
-    return x[s[..., None] + torch.arange(width, device=x.device)]
+) -> torch.Tensor:  # (*starts.shape, width), after x's leading axes
+    """Contiguous windows of a shared signal at arbitrary starts; a batch
+    of signals takes the same windows of every row."""
+    s = starts.to(torch.int64).clamp(0, x.shape[-1] - width)
+    return x[..., s[..., None] + torch.arange(width, device=x.device)]

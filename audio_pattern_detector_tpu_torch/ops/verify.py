@@ -30,10 +30,7 @@ from numpy.typing import NDArray
 
 from audio_pattern_detector_tpu_torch.ops import hostref
 from audio_pattern_detector_tpu_torch.ops.tone import frame_grid
-from audio_pattern_detector_tpu_torch.ops.slicing import (
-    slice_rows_windows,
-    slice_shared_windows,
-)
+from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 
 # f32-rounded thresholds: the comparisons then agree with JAX's f32
 # compares whichever precision torch computes a scalar compare in.
@@ -130,33 +127,37 @@ def build_normal_verify_consts(
 
 
 def verify_normal(
-    corr: torch.Tensor,  # (G, L) normalised correlation, zeros >= valid_len
-    pos: torch.Tensor,  # (G, K) candidate 'full' indices
-    alive: torch.Tensor,  # (G, K) bool
+    corr: torch.Tensor,  # (R, L) normalised correlation, zeros >= valid_len
+    pos: torch.Tensor,  # (R, K) candidate 'full' indices
+    alive: torch.Tensor,  # (R, K) bool
     consts: NormalVerifyConsts,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (accept, similarity, pearson_r), each (G, K)."""
-    g = corr.shape[0]
-    k = pos.shape[1]
+    """Returns (accept, similarity, pearson_r), each (R, K). The rows are
+    the group's G clips, or B rounds of them (R = B * G, round-major): row
+    r is held against the constants of clip r % G."""
+    r_rows, k = pos.shape
+    g = consts.ds_clip.shape[0]
+    lead = (r_rows // g, g, k)  # the per-clip constants broadcast over B and K
     m, lc, ps = consts.clip_len, consts.corr_len, consts.partition_size
 
     corrp = F.pad(corr, (_PAD + m - 1, _PAD + m))
     start = (pos - (m - 1) + (_PAD + m - 1)).clamp(0, corrp.shape[1] - lc)
-    slices = slice_rows_windows(corrp, start, lc)  # (G, K, lc)
+    slices = slice_rows_windows(corrp, start, lc)  # (R, K, lc)
     slices = slices / slices.amax(dim=-1, keepdim=True).clamp_min(1e-38)
 
-    diffs = slices[:, :, : 10 * ps].reshape(g, k, 10, ps) - consts.corr_clip_partitions[:, None]
-    mse = (diffs * diffs).mean(dim=-1)  # (G, K, 10)
+    diffs = slices[:, :, : 10 * ps].reshape(*lead, 10, ps) - consts.corr_clip_partitions[:, None]
+    mse = (diffs * diffs).mean(dim=-1)  # (B, G, K, 10)
     sim_whole = mse.mean(dim=-1)
-    sim = sim_whole if consts.is_short else torch.minimum(sim_whole, mse[:, :, 4:6].mean(dim=-1))
+    sim = sim_whole if consts.is_short else torch.minimum(sim_whole, mse[..., 4:6].mean(dim=-1))
 
-    window = slices[:, :, consts.win_lo : consts.win_hi]  # (G, K, n)
+    window = slices[:, :, consts.win_lo : consts.win_hi]  # (R, K, n)
     n = window.shape[-1]
     win = 1 << consts.k_level
-    f = F.max_pool1d(window.reshape(g * k, 1, n), kernel_size=win, stride=1)
-    f = f.reshape(g, k, n - win + 1)  # seg_a / seg_b index only this valid range
-    ds_slice = torch.maximum(f[..., consts.seg_a], f[..., consts.seg_b])  # (G, K, ds_n)
-    r = _pearson_batched(ds_slice, consts.ds_clip[:, None, :])
+    f = F.max_pool1d(window.reshape(r_rows * k, 1, n), kernel_size=win, stride=1)
+    f = f.reshape(*lead, n - win + 1)  # seg_a / seg_b index only this valid range
+    ds_slice = torch.maximum(f[..., consts.seg_a], f[..., consts.seg_b])  # (B, G, K, ds_n)
+    r = _pearson_batched(ds_slice, consts.ds_clip[:, None, :]).reshape(r_rows, k)
+    sim = sim.reshape(r_rows, k)
 
     accept = alive & (sim <= SIMILARITY_HARD_LIMIT) & (r >= PEARSON_R_THRESHOLD)
     return accept, sim, r
@@ -234,37 +235,44 @@ def _band_purity(power: torch.Tensor, band: torch.Tensor) -> tuple[torch.Tensor,
 
 
 def verify_marker(
-    section: torch.Tensor,  # (S,) normalised, NaN-scrubbed section
-    pos: torch.Tensor,  # (G, K) candidate 'full' indices
-    alive: torch.Tensor,  # (G, K) bool
+    section: torch.Tensor,  # (S,) or (B, S) normalised, NaN-scrubbed
+    pos: torch.Tensor,  # (R, K) candidate 'full' indices
+    alive: torch.Tensor,  # (R, K) bool
     consts: MarkerVerifyConsts,
 ) -> torch.Tensor:
-    """Returns the accept mask (G, K)."""
-    g, k = pos.shape
+    """Returns the accept mask (R, K). The rows are the group's G clips
+    over one section, or B rounds of them over a (B, S) batch (R = B * G,
+    round-major): row r reads section r // G and the constants of clip
+    r % G."""
+    r_rows, k = pos.shape
     m = consts.clip_len
+    sections = section.reshape(-1, section.shape[-1])
+    b = sections.shape[0]
+    g = r_rows // b
     # [lag - m, lag + 2m) holds left flank, match and right flank.
     lag = pos - (m - 1)
-    secp = F.pad(section, (m + _PAD, m + _PAD))
-    start = (lag + _PAD).clamp(0, secp.shape[0] - 3 * m)
-    seg3 = slice_shared_windows(secp, start, 3 * m).reshape(g, k, 3, m)
+    secp = F.pad(sections, (m + _PAD, m + _PAD))
+    start = (lag + _PAD).clamp(0, secp.shape[1] - 3 * m)
+    # (B, G, K, 3, m): the per-clip constants broadcast over B and K.
+    seg3 = slice_rows_windows(secp, start.reshape(b, g * k), 3 * m).reshape(b, g, k, 3, m)
 
     spec = torch.fft.rfft(seg3 * consts.hann_whole, dim=-1).abs()
     # argmax on the magnitude, not its square: squaring can collapse
     # near-tied f32 magnitudes and shift the tie-break index.
-    match_arg = spec[:, :, 1, :].argmax(dim=-1)
+    match_arg = spec[..., 1, :].argmax(dim=-1)
     purity, _ = _band_purity(spec * spec, consts.band_whole[:, None, None, :])
-    purity_left, purity_match, purity_right = purity.unbind(dim=2)
+    purity_left, purity_match, purity_right = purity.unbind(dim=-1)
 
-    detected = consts.freqs_whole[match_arg]  # (G, K)
+    detected = consts.freqs_whole[match_arg]  # (B, G, K)
     dom = consts.dom_freq[:, None]
     freq_ok = (detected - dom).abs() <= 0.05 * torch.maximum(detected.abs(), dom)
 
     if consts.frame_count > 0:
         wl = consts.frame_len
-        seg_match = seg3[:, :, 1, :]
+        seg_match = seg3[..., 1, :]
         frames = torch.stack(
-            [seg_match[:, :, s0 : s0 + wl] for s0 in consts.frame_starts], dim=2
-        ) * consts.hann_frame  # (G, K, F, wl)
+            [seg_match[..., s0 : s0 + wl] for s0 in consts.frame_starts], dim=-2
+        ) * consts.hann_frame  # (B, G, K, F, wl)
         fspec = torch.fft.rfft(frames, dim=-1).abs()
         fpur, fenergy = _band_purity(fspec * fspec, consts.band_frame[:, None, None, :])
         nonzero = fenergy > 0.0
@@ -272,11 +280,11 @@ def verify_marker(
         locked = (ffreq - dom[..., None]).abs() <= consts.lock_hz[:, None, None]
         active = nonzero & locked & (fpur >= float(np.float32(0.55)))
 
-        frame_count = nonzero.sum(dim=-1)  # (G, K)
+        frame_count = nonzero.sum(dim=-1)  # (B, G, K)
         active_count = active.sum(dim=-1)
         # Longest consecutive active run: distance to the last inactive frame.
         fpos = torch.arange(consts.frame_count, device=section.device)
-        last_inactive = torch.cummax(torch.where(~active, fpos, -1), dim=2).values
+        last_inactive = torch.cummax(torch.where(~active, fpos, -1), dim=-1).values
         longest_run = torch.where(active, fpos - last_inactive, 0).amax(dim=-1)
         mean_purity = torch.where(
             active_count > 0,
@@ -287,9 +295,9 @@ def verify_marker(
             frame_count > 0, active_count / frame_count.clamp_min(1), 0.0
         )
     else:
-        ratio = torch.zeros((g, k), device=section.device)
-        longest_run = torch.zeros((g, k), dtype=torch.int64, device=section.device)
-        mean_purity = torch.zeros((g, k), device=section.device)
+        ratio = torch.zeros((b, g, k), device=section.device)
+        longest_run = torch.zeros((b, g, k), dtype=torch.int64, device=section.device)
+        mean_purity = torch.zeros((b, g, k), device=section.device)
 
     t = consts.thresholds[:, None, :]  # (G, 1, 6)
     min_flank = torch.minimum(purity_left, purity_right)
@@ -302,4 +310,4 @@ def verify_marker(
         & (min_flank <= t[..., 4])
         & (max_flank <= t[..., 5])
     )
-    return alive & freq_ok & embedded
+    return alive & (freq_ok & embedded).reshape(r_rows, k)

@@ -70,7 +70,7 @@ class Stopwatch:
 
 
 @contextlib.contextmanager
-def device_trace(trace_dir: "str | None", device: "torch.device | str" = "cpu") -> Iterator[None]:
+def device_trace(trace_dir: "str | None", device: "torch.device | str" = "cuda") -> Iterator[None]:
     """Trace the enclosed run with torch.profiler and write it to
     ``trace_dir`` as a Chrome trace (``apd_torch_<time>_<pid>.json``); a
     no-op when ``trace_dir`` is None. On a CUDA device the trace holds the

@@ -22,6 +22,22 @@ card and checks them:
 3. the flagship step (64-clip bank, one 60 s section at 8 kHz) through
    the port's class step with the kernel and with the plain scan:
    identical payloads, ms per step (alternating kernel and plain);
+   2b. the kernel at the shapes a batched round of 16 sections gives it,
+   (512, 495,999) and (512, 489,999), with per-row lengths that mix full,
+   short, lead-in-only (m - 1) and zero rows: bitwise equal to the plain
+   version, probed rows equal to the same row scanned alone, wrapper ms,
+   device ms and share of the bound for the mixed lengths and for every
+   row full; then bitwise at 4,416 rows of 495,999 samples (flat offsets
+   past 32 bits; the plain version 32 rows at a time);
+   3b. the batched flagship step (the same bank, 16 sections) as one
+   ``mode="vmap"`` step against 16 ``scan`` steps: payloads bitwise equal
+   row for row, with the kernel and with the plain scan; 2 kernel launches
+   a round against 32; the largest differences of the schedules' f32
+   intermediates (LUFS within 1e-4 LU, normalised sections within 1e-5,
+   correlation within 1e-5 of its max); ms per round of both in turns
+   (vmap, scan, scan, vmap, twice; 3 rounds each), median and range; peak
+   memory of both; the kernel, bitwise and timed, on the round's own two
+   launches;
 4. file mode through the port's CLI, in-process: the golden JSONL flows
    (.claude/skills/verify/SKILL.md), including the zero-detection checks;
 5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
@@ -42,24 +58,29 @@ card and checks them:
    rerun and whether a row rerun's payload equals the same row of a class
    rerun bit for bit (cuFFT at batch 1 and batch G);
 8. every single-process entry point of the port's CLI in a subprocess
-   (``--stdin``, ``--multiplexed-stdin``, ``--offline-batch 4``,
+   (``--stdin``, ``--multiplexed-stdin``, ``--offline-batch 4`` and
+   ``--stream-batch 4``, each in ``scan`` and in ``vmap`` mode,
    ``--checkpoint-file`` run to the end and resumed after an interrupted
    run, ``--debug``, ``--trace-dir``, two files, ``--height-min 0``): stdout
-   byte-identical to the JAX CLI's (pinned), at least one kernel launch,
-   and jax never imported;
+   byte-identical to the JAX CLI's (pinned; a vmap run's equals its scan
+   twin's), at least one kernel launch (4 for a scan batch of 4 rows, 1
+   for its vmap twin), and jax never imported;
 9. the serving session (``MultiStreamSession``) on the flagship detector,
-   16 slots, tile 16, 2 rounds in flight: 12 seeded streams of 60 s
-   chunks (one int16, one ending after its first chunk, one starting in
-   the second round, one carrying phase 7's flooded row) give each
-   stream the serial engine's detections exactly; the first round runs
-   tiles of 8, 2 and 1 rows; the flooded row takes a row rerun and no row
-   the host path; the kernel launches once per row and group (counted
-   from 0 around this run). The kernel equals its plain version bitwise
-   on a round's zero-length and short rows. Prints ms per 16-row round
-   (the median over 5 pipelined rounds) and the aggregate x-realtime,
-   then, in turns (4 each), the host time of one 16-row
-   round's dispatch and collect beside 16 single-chunk dispatches and
-   their collects on the same bank;
+   16 slots, tile 16, 2 rounds in flight, once with ``batch_mode="scan"``
+   and once with ``"vmap"``: 12 seeded streams of 60 s chunks (one int16,
+   one ending after its first chunk, one starting in the second round,
+   one carrying phase 7's flooded row) give each stream the serial
+   engine's detections exactly; the first round runs tiles of 8, 2 and 1
+   rows; the flooded row takes a row rerun and no row the host path; the
+   kernel launches once per row and group in scan and once per dispatch
+   and group in vmap (each counted from 0 around its run). The kernel
+   equals its plain version bitwise on a round's zero-length, short and
+   full rows, one at a time and as one batched step. Prints ms per 16-row
+   round and the aggregate x-realtime of both modes, timed in turns
+   (vmap, scan, scan, vmap; 3 pipelined rounds each), and the peak memory,
+   then, in turns (4 each), the host time of one 16-row scan round's
+   dispatch and collect beside 16 single-chunk dispatches and their
+   collects on the same bank;
 10. the port's ``serve`` in a subprocess (4 slots, the RTHK toml and the
    CBS clip): 4 concurrent clients (RTHK, CBS, CBS tiled 15 times, RTHK)
    get the pinned JAX ``match --stdin`` events, the tiled file the port's
@@ -70,9 +91,10 @@ card and checks them:
    the run, and no subprocess imported jax or the JAX package.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
-flagship step, the batched file-mode run and one 16-row serving round
-under torch.profiler, print wall time, device time, kernel and launch
-counts, and write each op table to DIR.
+flagship step, the flagship round and one 16-row serving round in both
+batch modes, and the batched file-mode run under torch.profiler, print
+wall time, device time, kernel and launch counts, and write each op table
+to DIR.
 
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
@@ -250,9 +272,16 @@ def captured_scan_inputs(limit: int):
         scan_module._launch = launch
 
 
-def share_above(corr, thr, valid_len: int) -> float:
+def share_above(corr, thr, valid_len) -> float:
     """The share of a scan's valid samples at or above the row's threshold:
-    the samples that take the kernel's threshold-side tests."""
+    the samples that take the kernel's threshold-side tests. ``valid_len``
+    is an int or a (G,) tensor of per-row lengths."""
+    import torch
+
+    if isinstance(valid_len, torch.Tensor):
+        valid = torch.arange(corr.shape[1], device=corr.device)[None, :] < valid_len[:, None]
+        n_valid = int(valid_len.clamp(0, corr.shape[1]).sum())
+        return float((valid & (corr >= thr[:, None])).sum()) / max(n_valid, 1)
     valid = corr[:, :valid_len]
     return float((valid >= thr[:, None]).sum()) / max(valid.numel(), 1)
 
@@ -260,12 +289,16 @@ def share_above(corr, thr, valid_len: int) -> float:
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 
 
-def scan_bound_ms(g: int, l: int, valid_len: int) -> float:
+def scan_bound_ms(g: int, l: int, valid_len) -> float:
     """The least time of one scan on the card: the bytes the function needs
-    (each row's valid samples and the thresholds read once, the block
-    maxima and four (G,) stats written once) over the memory rate. Its
-    operations (a few compares a sample) bound it far lower."""
-    n_read = g * min(valid_len, l) * 4 + g * 4
+    (each row's valid samples and the thresholds read once, and the lengths
+    where they are per row; the block maxima and four (G,) stats written
+    once) over the memory rate. Its operations (a few compares a sample)
+    bound it far lower. ``valid_len`` is an int or a (G,) tensor."""
+    if isinstance(valid_len, int):
+        n_read = g * min(valid_len, l) * 4 + g * 4
+    else:
+        n_read = int(valid_len.clamp(0, l).sum()) * 4 + 2 * g * 4
     n_written = g * -(-l // 512) * 4 + 4 * g * 4
     return (n_read + n_written) / HBM_BYTES_PER_S * 1e3
 
@@ -528,6 +561,233 @@ def write_tiled(path: Path, pcm: np.ndarray, rate: int, copies: int) -> None:
         w.writeframes(np.tile(pcm, copies).tobytes())
 
 
+ROUND_ROWS = 16  # rows of a batched round: the serving tile and the flagship round
+BATCHED_SCAN_SHAPES = tuple((ROUND_ROWS * g, l) for g, l in SCAN_SHAPES)
+SECTION_LEN = 488_000  # the flagship class's 61 s section at 8 kHz
+# Rows past 2**31 samples in all: flat offsets must be 64-bit.
+WIDE_ROWS = 4_416
+
+
+def batched_scan_input(g: int, l: int, seed: int, dev):
+    """The (32, l) input of :func:`make_scan_input` as 16 rounds on the
+    card, round r scaled by 1 - r / 64 (equal runs stay equal), and the
+    per-row lengths a serving round mixes, one kind per round of 32 rows
+    in turn: full rows, short rows (seeded, anywhere in the row), the
+    m - 1 lead-in of an idle row (l less the section) and zero."""
+    import torch
+
+    corr_np, thr_np = make_scan_input(g // ROUND_ROWS, l, seed)
+    scale = 1.0 - torch.arange(ROUND_ROWS, device=dev, dtype=torch.float32) / 64.0
+    corr = (torch.from_numpy(corr_np).to(dev)[None] * scale[:, None, None]).reshape(g, l)
+    thr = torch.from_numpy(np.tile(thr_np, ROUND_ROWS)).to(dev)
+    rng = np.random.default_rng(seed)
+    kinds = np.repeat(np.arange(ROUND_ROWS) % 4, g // ROUND_ROWS)
+    lens = np.select(
+        [kinds == 0, kinds == 1, kinds == 2], [l, rng.integers(1, l, g), l - SECTION_LEN], 0
+    ).astype(np.int32)
+    return corr.contiguous(), thr, torch.from_numpy(lens).to(dev)
+
+
+def reference_in_row_chunks(corr, thr, lens, rows: int):
+    """The plain scan over ``rows`` rows at a time (its temporaries are
+    about twelve times its input), concatenated."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan_reference
+
+    parts = [candidate_scan_reference(corr[i : i + rows], thr[i : i + rows], lens[i : i + rows])
+             for i in range(0, corr.shape[0], rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def phase_scan_batched(dev, smi: str) -> list[tuple]:
+    """Phase 2b: the kernel against its plain version at the shapes a
+    batched round gives it, (512, 495,999) and (512, 489,999), with per-row
+    lengths that mix full, short, lead-in-only and zero rows; then at
+    4,416 rows of 495,999 samples (2.19e9 samples, past 32-bit flat
+    offsets; the plain version in chunks of 32 rows). Returns one
+    (g, l, err, ms, plain_ms, bound_ms) per batched shape."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    rows = []
+    for seed, (g, l) in enumerate(BATCHED_SCAN_SHAPES):
+        corr, thr, lens = batched_scan_input(g, l, seed, dev)
+        torch.cuda.reset_peak_memory_stats()
+        got = candidate_scan(corr, thr, lens)
+        want = candidate_scan_reference(corr, thr, lens)
+        torch.cuda.synchronize()
+        err = check_scan_equal(got, want)
+        # A row's stats must not depend on its neighbours' lengths: every
+        # row again, alone in its launch, at its own scalar length.
+        for gi in (0, 33, 70, 100, g - 1):
+            alone = candidate_scan(corr[gi : gi + 1], thr[gi : gi + 1], int(lens[gi]))
+            check_scan_equal(alone, tuple(o[gi : gi + 1] for o in got))
+        if not (bool(want[2].any()) and bool(want[4].any())):
+            raise AssertionError("batched scan input did not exercise the plateau and near flags")
+        ms = cuda_ms(lambda: candidate_scan(corr, thr, lens), 10)
+        plain_ms = cuda_ms(lambda: candidate_scan_reference(corr, thr, lens), 3, reps=3)
+        dev_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, lens),
+                                  "candidate_scan_kernel", 10)
+        full = torch.full_like(lens, l)
+        full_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, full),
+                                   "candidate_scan_kernel", 10)
+        bound_ms, full_bound_ms = scan_bound_ms(g, l, lens), scan_bound_ms(g, l, full)
+        phase("scan_batched", card=smi, shape=[g, l], bitwise_equal=True, max_abs_err=err,
+              lengths={"full": int((lens == l).sum()), "zero": int((lens == 0).sum()),
+                       "lead_in_only": int((lens == l - SECTION_LEN).sum()),
+                       "valid_share": float(lens.sum()) / (g * l)},
+              rows_alone_bitwise=True, ms=ms, plain_ms=plain_ms, kernel_device_ms=dev_ms,
+              bound_ms=bound_ms, share_of_bound=bound_ms / dev_ms if dev_ms else None,
+              kernel_device_ms_all_rows_full=full_ms, bound_ms_all_rows_full=full_bound_ms,
+              share_of_bound_all_rows_full=full_bound_ms / full_ms if full_ms else None,
+              share_above_threshold=share_above(corr, thr, lens),
+              tiles=g * -(-l // 4096), plain_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows.append((g, l, err, ms, plain_ms, bound_ms))
+        del corr, thr, lens, got, want, full
+
+    g, l = WIDE_ROWS, SCAN_SHAPES[0][1]
+    corr_np, thr_np = make_scan_input(32, l, seed=9)
+    corr = torch.from_numpy(corr_np).to(dev).repeat(g // 32, 1)
+    thr = torch.from_numpy(np.tile(thr_np, g // 32)).to(dev)
+    lens = torch.from_numpy(
+        np.random.default_rng(9).integers(0, l + 1, g).astype(np.int32)).to(dev)
+    got = candidate_scan(corr, thr, lens)
+    err = check_scan_equal(got, reference_in_row_chunks(corr, thr, lens, 32))
+    phase("scan_past_int32", shape=[g, l], samples=g * l, past_int32=g * l > 2**31,
+          bitwise_equal=True, max_abs_err=err, input_gb=corr.numel() * 4 / 1e9)
+    del corr, got
+    return rows
+
+
+def turns_ms(run, n: int = 2) -> dict[str, list[float]]:
+    """``run(mode)`` timed in turns (vmap, scan, scan, vmap), ``n`` times."""
+    times: dict[str, list[float]] = {"vmap": [], "scan": []}
+    for mode in ("vmap", "scan", "scan", "vmap") * n:
+        times[mode].append(run(mode))
+    return times
+
+
+def median_and_range(xs: list[float]) -> list[float]:
+    return [float(np.median(xs)), float(min(xs)), float(max(xs))]
+
+
+def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
+    """Phase 3b: the batched flagship step (64 clips, 16 sections of 60 s)
+    as one ``vmap`` step against 16 ``scan`` steps: payloads equal row for
+    row with the kernel and with the plain scan, 2 kernel launches a round,
+    ms per round in turns, peak memory, the f32 intermediates' largest
+    differences, and the kernel on the round's own two launches. Returns
+    the counted launches and the (g, l, err, device ms, bound ms) rows of
+    those two launches."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+    from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate_abs
+    from audio_pattern_detector_tpu_torch.ops.loudness import (
+        integrated_loudness_device,
+        loudness_normalize_device,
+    )
+
+    step, bank, sections = flagship_round(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    candidate_scan.launches = 0
+    pv = step("vmap")
+    torch.cuda.synchronize()
+    launches = candidate_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    pv_bytes = pv.numel() * pv.element_size()
+    torch.cuda.reset_peak_memory_stats()
+    candidate_scan.launches = 0
+    ps = step("scan")
+    torch.cuda.synchronize()
+    scan_launches = candidate_scan.launches
+    scan_peak = torch.cuda.max_memory_allocated() - pv_bytes  # the vmap payload is still held
+    with captured_scan_inputs(limit=2) as round_scans:
+        step("vmap")
+    if launches != 2 or scan_launches != 2 * ROUND_ROWS:
+        raise AssertionError(f"kernel launches a round: vmap {launches} (want 2), "
+                             f"scan {scan_launches} (want {2 * ROUND_ROWS})")
+    plain = step("vmap", candidate_scan_reference)
+    for name, other in (("scan schedule", ps), ("plain scan", plain)):
+        if pv.shape != other.shape or not torch.equal(pv.view(torch.int32), other.view(torch.int32)):
+            bad = (pv != other).nonzero()
+            raise AssertionError(f"batched payload differs from the {name} at {bad[:5].tolist()}")
+
+    # The f32 intermediates of the two schedules, row 0 and the whole round.
+    sw = sorted(bank.classes)[0]
+    cls = bank.classes[sw]
+    s = cls["section_len"]
+    n_valids = torch.full((ROUND_ROWS,), s, dtype=torch.int32, device=dev)
+    lufs_b = integrated_loudness_device(sections, n_valids, cls["loud"])
+    lufs_s = torch.stack([integrated_loudness_device(sections[i], s, cls["loud"])
+                          for i in range(ROUND_ROWS)])
+    norm_b = loudness_normalize_device(sections, lufs_b)
+    norm_s = torch.stack([loudness_normalize_device(sections[i], lufs_s[i])
+                          for i in range(ROUND_ROWS)])
+    corr_diff = []
+    for g in cls["groups"]:
+        cb, _ = bank_correlate_abs(norm_b, n_valids, g.corr)
+        c0, _ = bank_correlate_abs(norm_s[0], s, g.corr)
+        corr_diff.append(float((cb[0] - c0).abs().max() / c0.max()))
+        del cb, c0
+    diffs = {"lufs_max_abs": float((lufs_b - lufs_s).abs().max()),
+             "normalised_section_max_abs": float((norm_b - norm_s).abs().max()),
+             "correlation_row0_max_abs_over_max": corr_diff}
+    if diffs["lufs_max_abs"] > 1e-4 or diffs["normalised_section_max_abs"] > 1e-5 or max(
+            corr_diff) > 1e-5:
+        raise AssertionError(f"the schedules' f32 intermediates differ past tolerance: {diffs}")
+    del lufs_b, lufs_s, norm_b, norm_s
+
+    def round_ms(mode: str) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            step(mode)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 3 * 1e3
+
+    round_ms("vmap")
+    times = turns_ms(round_ms)
+    phase("flagship_round", card=smi, clips=64, rows=ROUND_ROWS, section_s=60,
+          payload_equal_to_scan_schedule=True, payload_equal_with_plain_scan=True,
+          differing_fields=0, kernel_launches_vmap=launches,
+          kernel_launches_scan=scan_launches, f32_differences=diffs,
+          ms_per_round_vmap_median_min_max=median_and_range(times["vmap"]),
+          ms_per_round_scan_median_min_max=median_and_range(times["scan"]),
+          turns=len(times["vmap"]), peak_mem_gb_vmap=(peak - base_mem) / 1e9,
+          peak_mem_gb_scan=(scan_peak - base_mem) / 1e9, resident_gb=base_mem / 1e9)
+
+    kernel_rows = []
+    for corr, thr, valid_len in round_scans:
+        g, l = corr.shape
+        err = check_scan_equal(candidate_scan(corr, thr, valid_len),
+                               candidate_scan_reference(corr, thr, valid_len))
+        dev_ms = kernel_device_ms(lambda: candidate_scan(corr, thr, valid_len),
+                                  "candidate_scan_kernel", 10)
+        bound_ms = scan_bound_ms(g, l, valid_len)
+        phase("scan_main_path_input", source="flagship_round", shape=[g, l],
+              valid_len="per row", bitwise_equal=True, max_abs_err=err,
+              share_above_threshold=share_above(corr, thr, valid_len),
+              kernel_device_ms=dev_ms, bound_ms=bound_ms,
+              share_of_bound=bound_ms / dev_ms if dev_ms else None)
+        kernel_rows.append((g, l, err, dev_ms, bound_ms))
+    if len(round_scans) != 2:
+        raise AssertionError("the batched round's scan inputs were not captured")
+    del round_scans, step, bank, sections, pv, ps, plain
+    return launches, kernel_rows
+
+
 def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
     """Phase 7: every route of a flagged row on the flagship bank (a
     smaller bank of the same clips rehearses it on the CPU)."""
@@ -618,6 +878,11 @@ def phase_entry_points(dev) -> None:
             "multiplexed_stdin": (["--multiplexed-stdin"], mux,
                                   jsonl_block("multiplexed-stdin", CBS_HITS, 32122, "00:00:32.122")),
             "offline_batch": (["--offline-batch", "4", *rthk_args], None, rthk_out),
+            "offline_batch_vmap": (["--offline-batch", "4", "--offline-batch-mode", "vmap",
+                                    *rthk_args], None, rthk_out),
+            "stream_batch": (["--stream-batch", "4", *rthk_args], None, rthk_out),
+            "stream_batch_vmap": (["--stream-batch", "4", "--stream-batch-mode", "vmap",
+                                   *rthk_args], None, rthk_out),
             "checkpoint_file": (["--chunk-seconds", "2", "--checkpoint-file", str(tmpd / "ck"),
                                  *rthk_args], None, rthk_out),
             "debug": (["--debug", "--debug-dir", str(tmpd / "debug"), *rthk_args], None, rthk_out),
@@ -633,6 +898,13 @@ def phase_entry_points(dev) -> None:
             if out != want or report["jax_imported"] or report["launches"] < on_card:
                 raise AssertionError(f"{name}: {report}, stdout {out!r}, want {want!r}")
             entry_rows[name] = (report["launches"], wall)
+        # A vmap run's stdout equals its scan twin's (both equal the pinned
+        # text above); its 4 rows, 3 of them padding, are one launch.
+        for name in ("offline_batch", "stream_batch"):
+            scan_n, vmap_n = entry_rows[name][0], entry_rows[name + "_vmap"][0]
+            if on_card and (scan_n, vmap_n) != (4, 1):
+                raise AssertionError(f"{name}: kernel launches scan {scan_n}, vmap {vmap_n}; "
+                                     "want 4 and 1")
         if (tmpd / "ck").exists() or not list((tmpd / "debug").rglob("*.txt")):
             raise AssertionError("checkpoint file left behind, or no debug artifacts")
         traces = list((tmpd / "trace").glob("*.json"))
@@ -725,14 +997,15 @@ def drive_session(session, rounds: list, in_flight: int) -> tuple[list[dict], li
 
 def phase_multistream(
     dev, smi: str, num_normal: int = 32, num_marker: int = 32, profile: "Path | None" = None
-) -> int:
+) -> dict[str, int]:
     """Phase 9: the serving session on the flagship detector (16 slots,
-    tile 16, 2 rounds in flight) against the serial engine, the kernel's
-    launches per row, the kernel against its plain version on a round's
-    zero-length and short rows, and the steady-state round time (with
-    ``profile``, one 16-row round under torch.profiler, its op table
-    written there). Returns the kernel launches of the counted session
-    run."""
+    tile 16, 2 rounds in flight) in both batch modes against the serial
+    engine, the kernel's launches (one per row and group in ``scan``, one
+    per dispatch and group in ``vmap``), the kernel against its plain
+    version on a round's zero-length and short rows, and the steady-state
+    round time of both modes in turns (with ``profile``, one 16-row round
+    of each under torch.profiler, its op table written there). Returns the
+    kernel launches of each mode's counted session run."""
     import torch
 
     from audio_pattern_detector_tpu_torch.utils.clip import AudioStream
@@ -749,63 +1022,83 @@ def phase_multistream(
     bank = det._ensure_bank()
     sr = bank.sample_rate
     audios, rounds, planted = serving_streams(det, sr)
-    session = MultiStreamSession(det, 16, tile=16)
-    widths: list[list[int]] = []
-    dispatch = bank.dispatch_chunks_batch
-
-    def recording_dispatch(chunks, *a, **kw):
-        widths[-1].append(len(chunks))
-        return dispatch(chunks, *a, **kw)
-
-    bank.dispatch_chunks_batch = recording_dispatch
-    original_session_dispatch = session.dispatch
-
-    def session_dispatch(chunks):
-        widths.append([])
-        return original_session_dispatch(chunks)
-
-    session.dispatch = session_dispatch
-    before = routes(bank)
     groups = sum(len(c["groups"]) for c in bank.classes.values())
-    # ── The counted run ──
-    candidate_scan.launches = 0
-    t = time.perf_counter()
-    acc, _ = drive_session(session, rounds, in_flight=2)
-    if on_card:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = candidate_scan.launches
-    delta = tuple(a - b for a, b in zip(routes(bank), before))
-    bank.dispatch_chunks_batch = dispatch
-    rows = sum(sum(w) for w in widths)
-    if widths[0] != [8, 2, 1] or rows != 34:
-        raise AssertionError(f"tile widths per round {widths}, want [8, 2, 1] first and 34 rows")
-    if on_card and launches != rows * groups:
-        raise AssertionError(f"kernel launches {launches}, want rows x groups = {rows * groups}")
-    if delta[0] < 1 or delta[3] != 0:
-        raise AssertionError(f"routes (row, class, escalated, host) {delta}: want a row rerun, no host")
-
-    for i, audio in enumerate(audios):
-        want, total = det.find_clip_in_audio(AudioStream(
+    serial = [
+        det.find_clip_in_audio(AudioStream(
             name=f"s{i}", audio_stream=io.BytesIO(audio.tobytes()), sample_rate=sr,
             sample_dtype=audio.dtype,
         ))
-        if acc[i] != want or session.total_time(i) != total:
-            raise AssertionError(f"stream {i}: session {acc[i]} != serial {want}")
-        for name, sec in planted[i]:
-            if not any(abs(x - sec) < 0.01 for x in acc[i][name]):
-                raise AssertionError(f"stream {i}: {name} at {sec} s not detected: {acc[i][name]}")
-    detections = sum(len(v) for a in acc[:12] for v in a.values())
+        for i, audio in enumerate(audios)
+    ]
+    dispatch = bank.dispatch_chunks_batch
+
+    def counted_run(batch_mode: str) -> dict:
+        session = MultiStreamSession(det, 16, tile=16, batch_mode=batch_mode)
+        widths: list[list[int]] = []
+        modes = set()
+
+        def recording_dispatch(chunks, *a, **kw):
+            widths[-1].append(len(chunks))
+            modes.add(kw["mode"])
+            return dispatch(chunks, *a, **kw)
+
+        bank.dispatch_chunks_batch = recording_dispatch
+        original_session_dispatch = session.dispatch
+
+        def session_dispatch(chunks):
+            widths.append([])
+            return original_session_dispatch(chunks)
+
+        session.dispatch = session_dispatch
+        before = routes(bank)
+        candidate_scan.launches = 0
+        t = time.perf_counter()
+        try:
+            acc, _ = drive_session(session, rounds, in_flight=2)
+        finally:
+            bank.dispatch_chunks_batch = dispatch
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = candidate_scan.launches
+        delta = tuple(a - b for a, b in zip(routes(bank), before))
+        rows = sum(sum(w) for w in widths)
+        dispatches = sum(len(w) for w in widths)
+        if widths[0] != [8, 2, 1] or rows != 34 or modes != {batch_mode}:
+            raise AssertionError(
+                f"{batch_mode}: tile widths per round {widths} in modes {modes}, "
+                "want [8, 2, 1] first and 34 rows")
+        want = (rows if batch_mode == "scan" else dispatches) * groups
+        if on_card and launches != want:
+            raise AssertionError(f"{batch_mode}: kernel launches {launches}, want {want}")
+        if delta[0] < 1 or delta[3] != 0:
+            raise AssertionError(
+                f"{batch_mode}: routes (row, class, escalated, host) {delta}: "
+                "want a row rerun, no host")
+        for i, (want_peaks, total) in enumerate(serial):
+            if acc[i] != want_peaks or session.total_time(i) != total:
+                raise AssertionError(
+                    f"{batch_mode}, stream {i}: session {acc[i]} != serial {want_peaks}")
+            for name, sec in planted[i]:
+                if not any(abs(x - sec) < 0.01 for x in acc[i][name]):
+                    raise AssertionError(
+                        f"{batch_mode}, stream {i}: {name} at {sec} s not detected: {acc[i][name]}")
+        return {"widths": widths, "rows": rows, "dispatches": dispatches, "launches": launches,
+                "routes": delta, "wall_s": wall,
+                "detections": sum(len(v) for a in acc[:12] for v in a.values())}
+
+    counted = {mode: counted_run(mode) for mode in ("scan", "vmap")}
 
     # ── The kernel on a zero-length and a short row of an untiled round ──
     short = audios[0][: 7 * sr]
     full = audios[1][:60 * sr]
-    untiled = MultiStreamSession(det, 4)
-    out = untiled.feed([short, np.zeros(0, np.float32), None, full])
-    if out[1] != {} or out[2] != {} or out[0] != det.peaks_to_times(
-        bank.process_chunk(short, None), 0, False
-    ) or out[3] != det.peaks_to_times(bank.process_chunk(full, None), 0, False):
-        raise AssertionError("an untiled round with idle rows differs from single chunks")
+    want_rows = [det.peaks_to_times(bank.process_chunk(short, None), 0, False), {}, {},
+                 det.peaks_to_times(bank.process_chunk(full, None), 0, False)]
+    for mode in ("scan", "vmap"):
+        untiled = MultiStreamSession(det, 4, batch_mode=mode)
+        if untiled.feed([short, np.zeros(0, np.float32), None, full]) != want_rows:
+            raise AssertionError(
+                f"{mode}: an untiled round with idle rows differs from single chunks")
     cls = bank.classes[1]
     consts = tuple((g.corr, g.verify) for g in cls["groups"])
     errs = []
@@ -815,33 +1108,46 @@ def phase_multistream(
         errs.append(check_scan_equal(got, candidate_scan_reference(corr, thr, valid_len)))
         return got
 
-    for raw in (short, np.zeros(0, np.float32)):
-        section = torch.zeros(cls["section_len"], device=dev)
-        section[: len(raw)] = torch.from_numpy(raw).to(dev)
-        class_step(section, len(raw), cls["loud"], consts, metas=bank._metas[1],
-                   height_min=bank.height_min, scan=checked_scan)
+    step_kw = dict(metas=bank._metas[1], height_min=bank.height_min, scan=checked_scan)
+    idle = [short, np.zeros(0, np.float32), full]
+    batch = torch.zeros((len(idle), cls["section_len"]), device=dev)
+    for bi, raw in enumerate(idle):
+        batch[bi, : len(raw)] = torch.from_numpy(raw).to(dev)
+        class_step(batch[bi], len(raw), cls["loud"], consts, **step_kw)
+    # The same three rows as one batched step: one launch per group, with
+    # a short, a zero-length and a full row in it.
+    lens = torch.tensor([len(raw) for raw in idle], dtype=torch.int32, device=dev)
+    class_step(batch, lens, cls["loud"], consts, **step_kw)
     if on_card:
         torch.cuda.synchronize()
 
-    # ── Steady state: 16 full rows per round ──
+    # ── Steady state: 16 full rows per round, both modes in turns ──
     rng = np.random.default_rng(30)
-    n_rounds = 5
-    timed = MultiStreamSession(det, 16, tile=16)
+    n_rounds = 3
+    timed = {mode: MultiStreamSession(det, 16, tile=16, batch_mode=mode)
+             for mode in ("scan", "vmap")}
     full_rounds = [[(0.004 * rng.standard_normal(60 * sr)).astype(np.float32) for _ in range(16)]
                    for _ in range(n_rounds + 1)]
-    timed.feed(full_rounds[0])
-    t = time.perf_counter()
-    _, done = drive_session(timed, full_rounds[1:], in_flight=2)
-    steady_wall = time.perf_counter() - t
-    intervals = np.diff([t, *done]) * 1e3
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for session in timed.values():
+        session.feed(full_rounds[0])
+
+    def steady_ms(mode: str) -> float:
+        t = time.perf_counter()
+        drive_session(timed[mode], full_rounds[1:], in_flight=2)
+        return (time.perf_counter() - t) / n_rounds * 1e3
+
+    steady = turns_ms(steady_ms, n=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
 
     # ── One round's dispatch and collect against 16 single-chunk
     # dispatches, in turns (round, singles, singles, round, twice) ──
     def session_round(chunks) -> tuple[float, float]:
         t0 = time.perf_counter()
-        handle = timed.dispatch(chunks)
+        handle = timed["scan"].dispatch(chunks)
         t1 = time.perf_counter()
-        timed.collect(handle)
+        timed["scan"].collect(handle)
         return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
     def single_dispatches(chunks) -> tuple[float, float]:
@@ -855,23 +1161,35 @@ def phase_multistream(
     turns: dict[str, list[tuple[float, float]]] = {"round": [], "singles": []}
     for name in ("round", "singles", "singles", "round") * 2:
         run = session_round if name == "round" else single_dispatches
-        turns[name].append(run(full_rounds[1 + len(turns[name])]))
+        turns[name].append(run(full_rounds[1 + len(turns[name]) % n_rounds]))
+    scan_run, vmap_run = counted["scan"], counted["vmap"]
     phase("multistream", card=smi, clips=num_normal + num_marker, slots=16, tile=16,
-          in_flight=2, streams=12, rounds=len(rounds), tile_widths_per_round=widths,
-          rows=rows, groups=groups, kernel_launches=launches,
-          routes_row_class_escalated_host=delta, detections=detections,
-          equal_to_serial_engine=True, session_wall_s=wall,
+          in_flight=2, streams=12, rounds=len(rounds), tile_widths_per_round=scan_run["widths"],
+          rows=scan_run["rows"], groups=groups, kernel_launches=scan_run["launches"],
+          routes_row_class_escalated_host=scan_run["routes"],
+          detections=scan_run["detections"], equal_to_serial_engine=True,
+          session_wall_s=scan_run["wall_s"],
+          vmap_dispatches=vmap_run["dispatches"], vmap_kernel_launches=vmap_run["launches"],
+          vmap_routes_row_class_escalated_host=vmap_run["routes"],
+          vmap_detections=vmap_run["detections"], vmap_equal_to_serial_engine=True,
+          vmap_session_wall_s=vmap_run["wall_s"],
           kernel_equal_plain_on_short_and_empty_rows=True, scan_checks=len(errs),
           max_abs_err=max(errs), steady_rows_per_round=16, steady_rounds=n_rounds,
-          ms_per_round_median=float(np.median(intervals)),
-          aggregate_x_realtime=16 * 60 * n_rounds / steady_wall,
+          ms_per_round_median=float(np.median(steady["scan"])),
+          aggregate_x_realtime=16 * 60 / (float(np.median(steady["scan"])) / 1e3),
+          ms_per_round_scan=steady["scan"], ms_per_round_vmap=steady["vmap"],
+          vmap_ms_per_round_median=float(np.median(steady["vmap"])),
+          vmap_aggregate_x_realtime=16 * 60 / (float(np.median(steady["vmap"])) / 1e3),
+          steady_peak_mem_gb=peak_gb,
           round_dispatch_collect_ms=turns["round"],
           singles_dispatch_collect_ms=turns["singles"])
     if profile is not None:
-        phase("profile_serving_round", rows=16, audio_s=16 * 60,
-              **profile_run(lambda: timed.feed(full_rounds[1]), profile / "serving_round.txt"))
-    del det, bank, session, untiled, timed
-    return launches
+        for mode in ("scan", "vmap"):
+            phase("profile_serving_round", mode=mode, rows=16, audio_s=16 * 60,
+                  **profile_run(lambda: timed[mode].feed(full_rounds[1]),
+                                profile / f"serving_round_{mode}.txt"))
+    del det, bank, timed
+    return {mode: run["launches"] for mode, run in counted.items()}
 
 
 # The JSONL events after ``start`` that ``python -m audio_pattern_detector_tpu
@@ -980,9 +1298,8 @@ def phase_serve(dev, smi: str) -> None:
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="also profile the flagship step, the batched file-mode run and a "
-                         "serving round; "
-                         "op tables go to DIR")
+                    help="also profile the flagship step, the flagship and serving rounds in "
+                         "both batch modes and the batched file-mode run; op tables go to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -994,7 +1311,7 @@ def main(argv: "list[str] | None" = None) -> int:
 
     from audio_pattern_detector_tpu_torch.match import _auto_perf_plan, _load_pattern_clips
     from audio_pattern_detector_tpu_torch import cli
-    from audio_pattern_detector_tpu_torch.flagship import flagship_step
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round, flagship_step
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
         candidate_scan,
@@ -1109,6 +1426,10 @@ def main(argv: "list[str] | None" = None) -> int:
           pairs=len(times["kernel"]), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del step, bank, pk, pp
 
+    # ── 2b, 3b. The batched shapes: the kernel alone, then the flagship round ──
+    batched_rows = phase_scan_batched(dev, smi)
+    round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
+
     # ── 4-5. The main path: flag-free file mode through the CLI ──
     built = []
     build_detector = cli.TorchEngineOptions.build_detector
@@ -1212,6 +1533,13 @@ def main(argv: "list[str] | None" = None) -> int:
             phase("profile_flagship_step",
                   **profile_run(step, args.profile / "flagship_step.txt"))
             del step, bank
+            round_step, bank, _ = flagship_round(dev)
+            round_step("vmap")
+            for mode in ("vmap", "scan"):
+                phase("profile_flagship_round", mode=mode, rows=ROUND_ROWS,
+                      **profile_run(lambda: round_step(mode),
+                                    args.profile / f"flagship_round_{mode}.txt"))
+            del round_step, bank
             phase("profile_file_mode", audio_s=audio_s,
                   **profile_run(lambda: run_cli(["match", *pattern, str(tiled)]),
                                 args.profile / "file_mode.txt"))
@@ -1228,14 +1556,23 @@ def main(argv: "list[str] | None" = None) -> int:
     phase("isolation", jax_package_untouched=True, files=len(jax_pkg_after))
 
     g, l, err, ms, plain_ms, bound_ms = kernel_rows[0]
-    # Launches of the counted main-path runs: file mode (phases 4-5) and
-    # the serving session (phase 9), each counted from 0. No single
-    # PyTorch call computes the scan's five outputs, so no library time.
+    bg, bl, berr, bms, bplain_ms, bbound_ms = batched_rows[0]
+    # Launches of the counted main-path runs, each counted from 0: file
+    # mode (phases 4-5), the batched flagship round (phase 3b) and the
+    # serving session in both batch modes (phase 9). ``ms``, ``plain_ms``
+    # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
+    # stand beside them. No single PyTorch call computes the scan's five
+    # outputs, so no library time.
+    launches = {"file_mode": main_path_launches, "flagship_round_vmap": round_launches,
+                "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"]}
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": main_path_launches + serving_launches,
-        "max_abs_err": max(r[2] for r in kernel_rows), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "replaces": KERNEL_REPLACES, "launches": sum(launches.values()),
+        "max_abs_err": max(r[2] for r in kernel_rows + batched_rows + round_kernel_rows),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None, "launches_by_path": launches,
+        "batched_shape": [bg, bl], "batched_ms": bms, "batched_plain_ms": bplain_ms,
+        "batched_bound_ms": bbound_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,9 @@ kernels. A subprocess times, after a warm-up:
 
 * the flagship step (64-clip bank, one 60 s section, the candidate-scan
   kernel): median ms of 5 timed groups of 5 synchronised steps;
+* the flagship round (the same bank, 16 sections), where the checkout has
+  it: ms per round as one ``vmap`` step and as 16 ``scan`` steps, in turns
+  (vmap, scan, scan, vmap, twice), the median of 4 timings of 2 rounds;
 * file mode: ``match`` through the CLI on cbs_news_audio_section.wav tiled
   15 times (about 482 s), the median wall of 5 runs, and its x-realtime;
 * the candidate-scan wrapper at (32, 495,999) on chip_smoke's phase-2
@@ -66,6 +69,28 @@ for _ in range(5):
     groups.append((time.perf_counter() - t) / 5 * 1e3)
 del step
 
+# The batched round (16 sections): one vmap step against 16 scan steps, in
+# turns. A checkout from before the batched class step has no twin for it.
+round_ms = {}
+try:
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round
+except ImportError:
+    flagship_round = None
+if flagship_round is not None:
+    round_step, _, _ = flagship_round(dev)
+    round_step("vmap")
+    times = {"vmap": [], "scan": []}
+    for mode in ("vmap", "scan", "scan", "vmap") * 2:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            round_step(mode)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t) / 2 * 1e3)
+    round_ms = {f"flagship_round_{mode}_ms": float(np.median(v)) for mode, v in times.items()}
+    del round_step
+    torch.cuda.empty_cache()
+
 audio = Path("sample_audios")
 with wave.open(str(audio / "cbs_news_audio_section.wav"), "rb") as w:
     rate, frames = w.getframerate(), w.readframes(w.getnframes())
@@ -111,7 +136,7 @@ for k, (c, t, v) in enumerate(step_scans):
 print(json.dumps({"flagship_step_ms": float(np.median(groups)),
                   "file_mode_wall_s": float(np.median(walls)),
                   "file_mode_x_realtime": audio_s / float(np.median(walls)),
-                  "scan_wrapper_ms": float(np.median(scan)), **kernel}))
+                  "scan_wrapper_ms": float(np.median(scan)), **kernel, **round_ms}))
 '''
 
 

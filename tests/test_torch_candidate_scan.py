@@ -198,6 +198,12 @@ PER_ROW_CASES = {
     "noise": (lambda: _noise(4, 3001, 5), [3001, 2999, 0, 1537]),
     "plateaus": (lambda: _plateaus(3, 4096), [4096, 302, 1024]),
     "edges": (lambda: _edges(2, 2048), [2048 - 4, 2048 - 5]),
+    # Two rounds of a 3-clip group folded into the row axis (round-major),
+    # as the batched class step sends them: a full round, then an idle one
+    # whose zero section leaves only the m - 1 lead-in positions valid.
+    "folded_rounds": (lambda: _noise(6, 3001, 7), [3001, 3001, 3001, 599, 599, 599]),
+    # Every row another length: a first chunk, short last chunks, an empty row.
+    "folded_unequal": (lambda: _plateaus(5, 4096), [4096, 3500, 0, 1, 2049]),
 }
 
 

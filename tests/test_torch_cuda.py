@@ -18,7 +18,18 @@ import os
 import pytest
 import torch
 
-from chip_smoke import EDGE_LENGTHS, EDGE_WIDE, check_scan_edges, edge_shapes, make_scan_input
+from chip_smoke import (
+    BATCHED_SCAN_SHAPES,
+    EDGE_LENGTHS,
+    EDGE_WIDE,
+    WIDE_ROWS,
+    batched_scan_input,
+    check_scan_edges,
+    check_scan_equal,
+    edge_shapes,
+    make_scan_input,
+    reference_in_row_chunks,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,6 +128,108 @@ def test_kernel_per_row_valid_len_at_flagship_shapes(cuda, g, l):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g,l", BATCHED_SCAN_SHAPES)
+def test_kernel_bitwise_at_the_batched_round_shapes(cuda, g, l):
+    """16 rounds of a flagship group as one launch, (512, L), with per-row
+    lengths mixing full, short, lead-in-only and zero rows; each probed
+    row equals the same row scanned alone at its own length."""
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+
+    corr, thr, lens = batched_scan_input(g, l, seed=l, dev=cuda)
+    before = candidate_scan.launches
+    got = candidate_scan(corr, thr, lens)
+    assert candidate_scan.launches == before + 1
+    check_scan_equal(got, candidate_scan_reference(corr, thr, lens))
+    for gi in range(0, g, 37):
+        alone = candidate_scan(corr[gi : gi + 1], thr[gi : gi + 1], int(lens[gi]))
+        check_scan_equal(alone, tuple(o[gi : gi + 1] for o in got))
+
+
+def test_kernel_bitwise_past_32_bit_flat_offsets(cuda):
+    """4,416 rows of 495,999 samples: 2.19e9 samples, so a 32-bit flat
+    offset would wrap. The plain version runs 32 rows at a time."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    g, l = WIDE_ROWS, 495_999
+    assert g * l > 2**31
+    corr_np, thr_np = make_scan_input(32, l, seed=9)
+    corr = torch.from_numpy(corr_np).to(cuda).repeat(g // 32, 1)
+    thr = torch.from_numpy(np.tile(thr_np, g // 32)).to(cuda)
+    lens = torch.from_numpy(np.random.default_rng(9).integers(0, l + 1, g).astype(np.int32)).to(cuda)
+    check_scan_equal(candidate_scan(corr, thr, lens), reference_in_row_chunks(corr, thr, lens, 32))
+
+
+def test_flagship_round_vmap_equals_scan_on_the_card(cuda):
+    """The batched flagship step: 2 kernel launches a round, its payload
+    bitwise the 16 single steps' (every field is integer-valued)."""
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    step, _, _ = flagship_round(cuda)
+    before = candidate_scan.launches
+    batched = step("vmap")
+    assert candidate_scan.launches == before + 2
+    rows = step("scan")
+    assert candidate_scan.launches == before + 2 + 32
+    assert torch.equal(batched.view(torch.int32), rows.view(torch.int32))
+
+
+@pytest.mark.parametrize("height_min", [None, 0.0])
+def test_vmap_round_on_card_equals_scan_and_cpu(cuda, height_min):
+    """A round with a first chunk, hits, a short chunk with an int16 tail
+    and a zero-length row, in the lean tier and at ``height_min`` 0: the
+    vmap payload on the card equals the scan schedule's bit for bit, the
+    results equal the CPU's, and vmap launches the kernel once per group."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    sr = 8000
+    t = np.arange(int(0.6 * sr)) / sr
+    clip = (0.5 * np.sin(2 * np.pi * 640.0 * t) * np.hanning(len(t))).astype(np.float32)
+    tone = np.sin(2 * np.pi * 941.0 * np.arange(2000) / sr).astype(np.float32)
+    clips = [
+        AudioClip(name="c", audio=clip, sample_rate=sr),
+        AudioClip(name="m", audio=tone, sample_rate=sr, strategy="marker_tone",
+                  strategy_params={"dominant_frequency_hz": 941.0}),
+    ]
+    audio = 0.01 * np.random.default_rng(3).standard_normal(25 * sr)
+    for s0 in (4.0, 9.8, 18.0):
+        audio[int(s0 * sr) : int(s0 * sr) + len(clip)] += clip
+    audio[13 * sr : 13 * sr + 2000] += 0.8 * tone
+    f32 = audio.astype(np.float32)
+    i16 = np.clip(np.round(audio * 32768), -32768, 32767).astype(np.int16)
+    chunk = 10 * sr
+    rows = [(f32[:chunk], None), (f32[chunk : 2 * chunk], f32[:chunk]),
+            (np.zeros(0, np.float32), None), (f32[2 * chunk :], i16[chunk : 2 * chunk])]
+    chunks, tails = [c for c, _ in rows], [p for _, p in rows]
+    kwargs = {} if height_min is None else {"height_min": height_min}
+    out = {}
+    for dev in ("cpu", cuda):
+        bank = TorchAudioPatternDetector(
+            clips, device=dev, seconds_per_chunk=10, **kwargs)._ensure_bank()
+        for mode in ("scan", "vmap"):
+            before = candidate_scan.launches
+            d = bank.dispatch_chunks_batch(chunks, None, mode=mode, prev_tails=tails)
+            payload = [h.numpy().copy() for _, h, *_ in d]
+            out[str(dev), mode] = (payload, bank.collect_chunks_batch(d))
+            if dev != "cpu":
+                assert candidate_scan.launches - before >= (2 if mode == "vmap" else 8)
+    (pv, rv), (ps, rs) = out[str(cuda), "vmap"], out[str(cuda), "scan"]
+    for a, b in zip(pv, ps):
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+    assert rv == rs == out["cpu", "vmap"][1] == out["cpu", "scan"][1]
+    # 'full' positions: the clip planted at 4.0 s ends at 4.0 * sr + m - 1.
+    assert 4 * sr + len(clip) - 1 in rv[0]["c"] and rv[2] == {"c": [], "m": []}
 
 
 def test_kernel_launches_on_two_streams_and_after_a_wider_launch(cuda):

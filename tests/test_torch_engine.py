@@ -213,8 +213,10 @@ def test_bank_refuses_what_it_does_not_port():
     clips, _ = _hit_audio_i16()
     det = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=10)
     bank = det._ensure_bank()
-    with pytest.raises(ValueError, match="scan"):
-        bank.dispatch_chunks_batch([np.zeros(10 * SR, np.float32)], None, mode="vmap")
+    with pytest.raises(ValueError, match=r"^mode must be 'vmap' or 'scan', got 'pmap'$"):
+        bank.dispatch_chunks_batch([np.zeros(10 * SR, np.float32)], None, mode="pmap")
+    with pytest.raises(ValueError, match=r"^sharding requires mode='vmap'$"):
+        bank.dispatch_chunks_batch([np.zeros(10, np.float32)], None, mode="scan", sharding=object())
     assert bank.dispatch_chunks_batch([], None) == []
     general = PatternBank(det._clip_datas, det._tone_frequencies, {}, SR, 10 * SR, 0.0, CPU)
     assert general.height_min == 0.0 and general._metas == bank._metas
@@ -291,8 +293,6 @@ def test_cli_process_never_imports_jax():
         (["--mesh-time", "2"], "--mesh-time"),
         (["--mesh-bank", "2"], "--mesh-bank"),
         (["--mesh-stream", "2"], "--mesh-stream"),
-        (["--stream-batch-mode", "vmap"], "--stream-batch-mode vmap"),
-        (["--offline-batch-mode", "vmap", "--offline-batch", "2"], "--offline-batch-mode vmap"),
     ],
 )
 def test_cli_rejects_what_is_not_ported(extra, flag, capsys):

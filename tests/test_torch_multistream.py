@@ -287,8 +287,8 @@ def test_mesh_and_vmap_are_refused_by_name(env):
     det = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=CHUNK_S)
     with pytest.raises(ValueError, match="mesh is not supported by the torch port"):
         MultiStreamSession(det, 2, mesh=object())
-    with pytest.raises(ValueError, match="batch_mode='vmap' is not supported by the torch port"):
-        MultiStreamSession(det, 2, batch_mode="vmap")
+    assert MultiStreamSession(det, 2, batch_mode="vmap")._batch_mode == "vmap"
+    assert MultiStreamSession(det, 2)._batch_mode == "scan"
     with pytest.raises(TypeError, match="TorchAudioPatternDetector"):
         MultiStreamSession(env[3], 2)
 
