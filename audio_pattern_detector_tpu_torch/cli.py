@@ -13,8 +13,11 @@ with the JSONL events ``match --stdin`` prints (``serve.py``).
 ``--device`` (default ``cuda``) picks the torch device; without CUDA,
 ``cuda`` raises instead of running elsewhere.
 
-Not ported, and refused with an error naming the flag: ``--mesh-time``,
-``--mesh-bank`` and ``--mesh-stream`` (other than 1).
+``--mesh-time`` / ``--mesh-bank`` shard one stream's scan over a device
+mesh, ``--mesh-stream`` scans several files (or serves streams) data
+parallel over one; the mesh holds every visible device of ``--device``'s
+kind, times ``APD_TORCH_LOGICAL_DEVICES`` (logical shards on one device,
+``parallel/mesh.py``). Stdout is the serial run's, byte for byte.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from audio_pattern_detector_tpu_torch.match import (
     cmd_show_config,
     match_pattern,
     match_pattern_many,
+    match_pattern_many_parallel,
 )
 from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
 from audio_pattern_detector_tpu_torch.utils.timefmt import seconds_to_time
@@ -96,11 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "runs them one after another (one-chunk memory), 'vmap' computes "
                          "them in parallel (higher memory). Identical results"))
     m.add_argument("--mesh-time", metavar="devices", type=int, default=None,
-                   help="not supported by the torch port yet")
+                   help=("shard the scan along time across this many devices (each takes "
+                         "one chunk of a slab, its lookback copied from its left "
+                         "neighbour). Identical detections; events emitted per slab"))
     m.add_argument("--mesh-bank", metavar="devices", type=int, default=1,
-                   help="not supported by the torch port yet")
+                   help=("with --mesh-time: also shard the pattern bank across this many "
+                         "devices (mesh = bank x time)"))
     m.add_argument("--mesh-stream", metavar="devices", type=int, default=1,
-                   help="not supported by the torch port yet")
+                   help=("several audio files: scan them concurrently, one chunk of each "
+                         "per round, rows partitioned across this many devices. Stdout "
+                         "identical to the sequential multi-file run"))
     m.add_argument("--checkpoint-file", metavar="path", default=None,
                    help=("persist resume state to this file after every chunk and resume "
                          "from it when it exists (single audio file or stdin; removed at "
@@ -146,23 +155,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--stats-interval", metavar="seconds", type=float, default=0,
                    help="print one JSON ops line to stderr every N seconds; 0 disables (default)")
     s.add_argument("--mesh-stream", metavar="N", type=int, default=None,
-                   help="not supported by the torch port yet (N other than 1 is refused)")
+                   help=("partition each round's rows across a stream mesh of N devices "
+                         "(--max-streams must be divisible by N)"))
 
     c = sub.add_parser("show-config", help="Show computed configuration for a pattern file")
     c.add_argument("pattern_file", metavar="pattern file", help="pattern file")
     c.add_argument("--target-sample-rate", metavar="rate", type=int,
                    help="target sample rate in Hz (default: 8000)")
     return parser
-
-
-def _not_ported(args: argparse.Namespace) -> "str | None":
-    if args.mesh_time is not None:
-        return "--mesh-time"
-    if args.mesh_bank != 1:
-        return "--mesh-bank"
-    if args.mesh_stream != 1:
-        return "--mesh-stream"
-    return None
 
 
 def _fail(message: str) -> None:
@@ -182,6 +182,9 @@ def _engine_options(args: argparse.Namespace) -> TorchEngineOptions:
         pipeline_depth=args.pipeline_depth,
         stream_batch=_int_or(args.stream_batch, 1),
         stream_batch_mode=args.stream_batch_mode,
+        mesh_time=args.mesh_time,
+        mesh_bank=_int_or(args.mesh_bank, 1),
+        mesh_stream=_int_or(args.mesh_stream, 1),
         checkpoint_file=args.checkpoint_file,
         device=args.device,
     )
@@ -216,6 +219,8 @@ def _run_match_with_output(
         pipeline_depth=opts.pipeline_depth,
         stream_batch=opts.stream_batch,
         stream_batch_mode=opts.stream_batch_mode,
+        mesh_time=opts.mesh_time,
+        mesh_bank=opts.mesh_bank,
         checkpoint_file=opts.checkpoint_file,
         device=opts.device,
     )
@@ -262,17 +267,98 @@ def _run_match_many(
         pipeline_depth=opts.pipeline_depth,
         stream_batch=opts.stream_batch,
         stream_batch_mode=opts.stream_batch_mode,
+        mesh_time=opts.mesh_time,
+        mesh_bank=opts.mesh_bank,
         device=opts.device,
     )
 
 
-def cmd_match(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+def _run_match_many_parallel(
+    args: argparse.Namespace,
+    pattern_files: list[str],
+    audio_sources: list[str],
+    opts: TorchEngineOptions,
+) -> None:
+    """CLI runner for ``match a.wav b.wav … --mesh-stream N``.
+
+    Output is BYTE-IDENTICAL to the sequential multi-file runner
+    (_run_match_many): one start/end JSONL block per file, in argument
+    order, per-file equal-ms dedup. Files scan concurrently underneath
+    (match_pattern_many_parallel); events for files behind the emission
+    cursor stream live, later files' events buffer until their block's
+    turn. Only the stderr diagnostics interleave in completion order.
+    """
+    fmt = args.timestamp_format
+    n = len(audio_sources)
+    cursor = 0
+    state = ["pending"] * n  # pending | started | ended
+    buffers: list[list[tuple[str, float]]] = [[] for _ in range(n)]
+    callbacks: list = [None] * n
+    totals = [0.0] * n
+
+    def emit_start(i: int) -> None:
+        callbacks[i] = _make_jsonl_callback(fmt)
+        _emit_jsonl("start", source=audio_sources[i])
+
+    def advance() -> None:
+        nonlocal cursor
+        while cursor < n and state[cursor] != "pending":
+            i = cursor
+            if callbacks[i] is None:
+                emit_start(i)
+            cb = callbacks[i]
+            for clip_name, t in buffers[i]:
+                cb(clip_name, t)
+            buffers[i].clear()
+            if state[i] != "ended":
+                return  # head file now live; its events emit directly
+            print(
+                f"Total time processed: {seconds_to_time(seconds=totals[i])}",
+                file=sys.stderr,
+            )
+            _emit_jsonl_end(totals[i], fmt)
+            cursor += 1
+
+    def on_start(i: int, src: str) -> None:
+        state[i] = "started"
+        if i == cursor:
+            advance()
+
+    def on_detect(i: int, src: str, clip_name: str, t: float) -> None:
+        cb = callbacks[i]
+        if i == cursor and cb is not None:
+            cb(clip_name, t)
+        else:
+            buffers[i].append((clip_name, t))
+
+    def on_end(i: int, src: str, total: float) -> None:
+        state[i] = "ended"
+        totals[i] = total
+        advance()
+
+    match_pattern_many_parallel(
+        audio_sources,
+        pattern_files,
+        mesh_stream=opts.mesh_stream,
+        on_file_start=on_start,
+        on_file_detect=on_detect,
+        on_file_end=on_end,
+        accumulate_results=False,
+        seconds_per_chunk=opts.seconds_per_chunk,
+        chunk_seconds_auto_perf=opts.chunk_auto_perf,
+        target_sample_rate=args.target_sample_rate,
+        height_min=opts.height_min,
+        pipeline_depth=opts.pipeline_depth,
+        device=opts.device,
+    )
+    if cursor != n:
+        raise RuntimeError("parallel scan ended with unemitted file blocks")
+
+
+def cmd_match(args: argparse.Namespace) -> None:
     """The JAX CLI's ``cmd_match`` on the port: same guards, messages,
     exit codes and event order."""
-    flag = _not_ported(args)
-    if flag is not None:
-        parser.error(f"{flag} is not supported by the torch port yet")
-    from audio_pattern_detector_tpu_torch.models.detector import resolve_device
+    from audio_pattern_detector_tpu_torch.ops.devices import resolve_device
 
     resolve_device(args.device)  # fail before any event is emitted
     opts = _engine_options(args)
@@ -288,6 +374,12 @@ def cmd_match(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None
             "--offline-batch requires file mode (whole-file scans; incompatible with "
             "--stdin/--multiplexed-stdin — use --stream-batch for live streams)"
         )
+    if opts.mesh_stream != 1 and from_stdin:
+        _fail(
+            "--mesh-stream requires file mode (data parallelism over multiple audio "
+            "FILES; incompatible with --stdin/--multiplexed-stdin — use serve "
+            "--mesh-stream for live streams)"
+        )
 
     if args.multiplexed_stdin:
         # Like the JAX CLI, the multiplexed mode ignores --profile and
@@ -300,6 +392,7 @@ def cmd_match(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None
         return
 
     opts.profile = args.profile
+    opts.trace_dir = args.trace_dir
     pattern_files = _collect_pattern_files(args)
     if not pattern_files:
         print(
@@ -313,11 +406,23 @@ def cmd_match(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None
     elif audio_files:
         opts.offline_batch = args.offline_batch
         opts.offline_batch_mode = args.offline_batch_mode
+        if opts.mesh_stream != 1 and len(audio_files) == 1:
+            _fail(
+                "--mesh-stream parallelises across MULTIPLE audio files (data "
+                "parallelism over files); pass 2+ files, or use --mesh-time to shard "
+                "a single file's scan"
+            )
         if len(audio_files) == 1:
             _run_match_with_output(args, pattern_files, audio_files[0], opts)
         elif opts.checkpoint_file:
             # One checkpoint file cannot say which of the files it belongs to.
             _fail("--checkpoint-file supports a single audio file or stdin")
+        elif opts.mesh_stream != 1:
+            try:
+                opts.validate(from_stdin=False)
+            except ValueError as e:
+                _fail(str(e))
+            _run_match_many_parallel(args, pattern_files, audio_files, opts)
         else:
             _run_match_many(args, pattern_files, audio_files, opts)
     else:
@@ -329,10 +434,8 @@ def main(argv: "Sequence[str] | None" = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "match":
-        cmd_match(args, parser)
+        cmd_match(args)
     elif args.command == "serve":
-        if args.mesh_stream not in (None, 1):
-            parser.error("--mesh-stream is not supported by the torch port yet")
         from audio_pattern_detector_tpu_torch.serve import cmd_serve
 
         cmd_serve(args)

@@ -5,17 +5,21 @@ second marker tones at 900 + 7i Hz, numpy seed 0) scanning one 60 s chunk
 section at 8 kHz (seeded noise, numpy seed 1): the same clips, bank
 geometry and section as the JAX package's entry, built by the port.
 :func:`flagship_round` is its batched twin: 16 such sections as one round.
+:func:`dryrun_multichip` is the twin of ``__graft_entry__.py::dryrun_multichip``:
+the same bank on a bank x stream x time mesh, one slab, against the serial
+engine.
 """
 
 from __future__ import annotations
 
+import io
 from collections.abc import Callable
 
 import numpy as np
 import torch
 
 from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY
-from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
 from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step, class_step_fused
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
@@ -27,10 +31,13 @@ def make_detector(
     chunk_seconds: int,
     device: "torch.device | str",
     sr: int = 8000,
+    height_min: "float | None" = None,
+    extra_clips: "tuple[AudioClip, ...]" = (),
 ) -> TorchAudioPatternDetector:
     """A detector over a mixed normal/marker clip bank (the serving path
     needs the detector: ``peaks_to_times`` and the clip metadata live
-    there)."""
+    there). ``extra_clips`` join the bank after the seeded ones;
+    ``height_min`` as the detector takes it."""
     rng = np.random.default_rng(0)
     clips = []
     for i in range(num_normal):
@@ -49,7 +56,10 @@ def make_detector(
                 strategy_params={"dominant_frequency_hz": freq},
             )
         )
-    return TorchAudioPatternDetector(clips, device=device, seconds_per_chunk=chunk_seconds)
+    return TorchAudioPatternDetector(
+        [*clips, *extra_clips], device=device, seconds_per_chunk=chunk_seconds,
+        height_min=height_min,
+    )
 
 
 def make_bank(
@@ -121,3 +131,94 @@ def flagship_round(
         return torch.stack([fused(sections[i], s) for i in range(ROUND_ROWS)])
 
     return step, bank, sections
+
+
+def dryrun_multichip(
+    n_devices: int,
+    device: "torch.device | str",
+    num_normal: int = 32,
+    num_marker: int = 32,
+    chunk_seconds: int = 60,
+) -> dict:
+    """Run the full multi-device detection step on an ``n_devices`` mesh and
+    hold it against the serial engine.
+
+    Shardings exercised: DP over independent streams ("stream" axis),
+    sequence parallelism over time with the halo copied from the left
+    neighbour ("time" axis), and, on meshes of 8 or more, the clip bank
+    sharded over a "bank" axis (groups auto-padded to divisible sizes).
+    When ``device``'s kind offers fewer than ``n_devices`` devices the mesh
+    is made of logical shards: the visible devices named in turn until the
+    mesh is full. One slab of ``time x chunk_seconds`` seconds per stream
+    (seeded noise with one normal clip and one marker tone planted) goes
+    through ``ShardedDetector.detect`` and, stream by stream, through the
+    serial engine: the timestamps must be identical. Then one round of a
+    ``MultiStreamSession`` on a stream mesh, against the same round
+    unsharded. Returns the mesh axes and the detection counts."""
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.parallel import ShardedDetector, make_mesh
+    from audio_pattern_detector_tpu_torch.parallel.mesh import default_devices
+
+    visible = default_devices(device)
+    devices = [visible[i % len(visible)] for i in range(n_devices)]
+    if n_devices % 8 == 0:
+        axes = {"bank": 2, "stream": 2, "time": n_devices // 4}
+    elif n_devices % 2 == 0 and n_devices > 2:
+        axes = {"stream": 2, "time": n_devices // 2}
+    else:
+        axes = {"time": n_devices}
+    mesh = make_mesh(axes, devices=devices)
+
+    det = make_detector(num_normal, num_marker, chunk_seconds, device)
+    sr = det.target_sample_rate
+    sd = ShardedDetector(det.audio_clips, mesh, chunk_seconds=chunk_seconds, detector=det)
+    batch = mesh.shape.get("stream", 1)
+    total = mesh.shape["time"] * chunk_seconds * sr
+    rng = np.random.default_rng(3)
+    audio = (0.01 * rng.standard_normal((batch, total))).astype(np.float32)
+    normal, marker = det.audio_clips[0], det.audio_clips[num_normal]
+    normal_at = (total // 4) // sr
+    marker_at = (total // 2) // sr
+    for b in range(batch):
+        o = (normal_at + b) * sr
+        audio[b, o : o + len(normal.audio)] += normal.audio
+        o = marker_at * sr
+        audio[b, o : o + len(marker.audio)] += 0.7 * marker.audio
+
+    results = sd.detect(audio)
+    if set(results) != {c.name for c in det.audio_clips}:
+        raise AssertionError(f"sharded results name {sorted(results)}")
+    for b in range(batch):
+        serial, _ = det.find_clip_in_audio(
+            AudioStream(name=f"s{b}", audio_stream=io.BytesIO(audio[b].tobytes()), sample_rate=sr)
+        )
+        for name, per_stream in results.items():
+            if per_stream[b] != serial[name]:
+                raise AssertionError(
+                    f"stream {b}, {name}: sharded {per_stream[b]} != serial {serial[name]}"
+                )
+        if not any(abs(ts - (normal_at + b)) < 0.01 for ts in results[normal.name][b]):
+            raise AssertionError(f"stream {b}: planted {normal.name} not found: {results}")
+
+    # Mesh-sharded live serving (serve --mesh-stream): one chunk round of N
+    # independent streams with the batch rows partitioned across a
+    # "stream" axis.
+    serve_axis = min(n_devices, 4)
+    serve_mesh = make_mesh({"stream": serve_axis}, devices=devices[:serve_axis])
+    chunk = (0.01 * rng.standard_normal(chunk_seconds * sr)).astype(np.float32)
+    chunk[sr : sr + len(normal.audio)] += normal.audio
+    sharded_round = MultiStreamSession(det, n_streams=serve_axis, mesh=serve_mesh).feed(
+        [chunk] * serve_axis
+    )
+    plain_round = MultiStreamSession(det, n_streams=serve_axis, batch_mode="vmap").feed(
+        [chunk] * serve_axis
+    )
+    if sharded_round != plain_round or not all(r[normal.name] for r in sharded_round):
+        raise AssertionError(f"sharded serving round {sharded_round} != unsharded {plain_round}")
+    return {
+        "axes": axes, "logical_shards": len(visible) < n_devices, "streams": batch,
+        "slab_s": mesh.shape["time"] * chunk_seconds,
+        "detections": sum(len(ts) for per in results.values() for ts in per),
+        "serve_axis": serve_axis,
+        "serve_detections": sum(len(ts) for r in sharded_round for ts in r.values()),
+    }

@@ -2,11 +2,17 @@
 
 The ``.cu`` sources under ``audio_pattern_detector_tpu_torch/csrc/`` are
 compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain
-C interface, loaded with ``ctypes``. The build runs at first use, into
-``build/apd_torch_kernels/`` at the root of the checkout, and is keyed by
-a hash of the sources and flags: a changed source builds a new library,
-an unchanged one is loaded as built. There is no fallback: a missing
-``nvcc`` or a failed build raises.
+C interface, loaded with ``ctypes``. The build runs at first use and is
+keyed by a hash of the sources and flags: a changed source builds a new
+library, an unchanged one is loaded as built. There is no fallback: a
+missing ``nvcc`` or a failed build raises.
+
+Where the libraries go (:func:`build_root`) follows from where the package
+sits. In a checkout (a ``pyproject.toml`` beside the package) it is
+``build/`` at the checkout's root, so ``build/apd_torch_kernels/`` here. An
+installed copy sits in ``site-packages``, which it must not write into:
+it builds into the user's cache directory (``$XDG_CACHE_HOME`` or
+``~/.cache``, under ``audio_pattern_detector_tpu_torch/``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,18 @@ from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "apd_torch_kernels"
+
+
+def build_root() -> Path:
+    """The directory the package's libraries build into: ``build/`` of a
+    checkout, the user's cache directory for an installed copy."""
+    if (_PKG_DIR.parent / "pyproject.toml").is_file():
+        return _PKG_DIR.parent / "build"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / _PKG_DIR.name
+
+
+BUILD_DIR = build_root() / "apd_torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

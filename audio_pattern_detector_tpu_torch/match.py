@@ -9,9 +9,10 @@ protocol, checkpoint files, the file-mode launch plan, the offline batch
 scan, ``_scan`` and the parallel multi-file scan, and the JSONL events with
 their per-clip equal-ms dedup. ``TorchEngineOptions`` picks the port's
 detector and its torch device. ``trace_dir`` wraps a run in a
-torch.profiler trace. The device-mesh paths (``mesh_time``,
-``mesh_bank``, ``mesh_stream`` other than 1) are not ported. stdout
-carries only machine-readable JSONL; diagnostics go to stderr.
+torch.profiler trace. The device-mesh paths (``mesh_time``, ``mesh_bank``,
+``mesh_stream``) run on meshes of the torch device's kind
+(``parallel/mesh.py``), driven from this one process. stdout carries only
+machine-readable JSONL; diagnostics go to stderr.
 """
 
 from __future__ import annotations
@@ -52,8 +53,7 @@ class TorchEngineOptions:
 
     One object threads through the CLI handlers, the library entry point,
     and the stream-specific runners, replacing a dozen parallel kwargs.
-    Defaults mirror the CLI defaults. The device mesh options of the JAX
-    package's EngineOptions are not ported: the CLI refuses them by name."""
+    Defaults mirror the CLI defaults."""
 
     seconds_per_chunk: int | None = 60
     chunk_auto_perf: bool = False
@@ -62,6 +62,7 @@ class TorchEngineOptions:
     debug_dir: str = "./tmp"
     height_min: float | None = None
     profile: bool = False
+    trace_dir: str | None = None
     offline_batch: int | None = None
     offline_batch_mode: str = "scan"
     # None = auto: 3 chunks in flight. Results are collected eagerly in
@@ -70,6 +71,17 @@ class TorchEngineOptions:
     pipeline_depth: int | None = None
     stream_batch: int = 1
     stream_batch_mode: str = "scan"
+    # Device-mesh sharding (parallel/sequence.py): split the scan across
+    # mesh_time devices along time (halo-exchange sequence parallelism)
+    # and optionally mesh_bank devices across the pattern bank. Identical
+    # detections; events emitted per mesh_time-chunk slab.
+    mesh_time: int | None = None
+    mesh_bank: int = 1
+    # Data parallelism over FILES (match_pattern_many_parallel): scan N
+    # audio files concurrently, one batched device round per chunk
+    # cadence, rows partitioned across a "stream" mesh axis of this size
+    # (1 = single-device batching). Multi-file mode only.
+    mesh_stream: int = 1
     # Persist a StreamCheckpoint to this path after every chunk (atomic
     # replace) and resume from it when it already exists; removed on a
     # clean end of stream. Streaming loop only.
@@ -102,12 +114,58 @@ class TorchEngineOptions:
             raise ValueError(
                 f"stream_batch must be >= 1, got {self.stream_batch}"
             )
+        if self.mesh_bank < 1:
+            raise ValueError(f"mesh_bank must be >= 1, got {self.mesh_bank}")
+        if self.mesh_time is not None:
+            if self.mesh_time < 1:
+                raise ValueError("mesh axis sizes must be positive")
+            incompatible = [
+                name
+                for name, active in (
+                    ("debug", self.debug_mode),
+                    ("offline_batch", self.offline_batch is not None),
+                    ("stream_batch", self.stream_batch > 1),
+                    ("pipeline_depth", self.pipeline_depth is not None),
+                )
+                if active
+            ]
+            if incompatible:
+                raise ValueError(
+                    "mesh sharding is incompatible with: " + ", ".join(incompatible)
+                )
+        elif self.mesh_bank > 1:
+            raise ValueError("mesh_bank requires mesh_time")
+        if self.mesh_stream != 1:
+            if self.mesh_stream < 1:
+                raise ValueError(
+                    f"mesh_stream must be >= 1, got {self.mesh_stream}"
+                )
+            incompatible = [
+                name
+                for name, active in (
+                    ("stdin", from_stdin),
+                    ("debug", self.debug_mode),
+                    ("profile", self.profile),
+                    ("trace_dir", self.trace_dir is not None),
+                    ("offline_batch", self.offline_batch is not None),
+                    ("stream_batch", self.stream_batch > 1),
+                    ("mesh_time", self.mesh_time is not None),
+                    ("checkpoint_file", self.checkpoint_file is not None),
+                )
+                if active
+            ]
+            if incompatible:
+                raise ValueError(
+                    "mesh_stream is incompatible with: "
+                    + ", ".join(incompatible)
+                )
         if self.checkpoint_file is not None:
             incompatible = [
                 name
                 for name, active in (
                     ("debug", self.debug_mode),
                     ("offline_batch", self.offline_batch is not None),
+                    ("mesh_time", self.mesh_time is not None),
                 )
                 if active
             ]
@@ -458,6 +516,10 @@ def _scan(
     — the whole-stream batched scan via ``find_clip_in_array`` (identical
     chunking/lookback/timestamp algebra, ``offline_batch`` chunks per
     device launch, events fired post-scan in timestamp order)."""
+    if opts.mesh_time:
+        return _scan_sharded(
+            detector, stream, opts, on_pattern_detected, accumulate_results
+        )
     # The engine's per-chunk read size in bytes of the STREAM's dtype
     # (int16 passthrough sources stream 2 bytes/sample, f32 sources 4).
     chunk_bytes = (detector._chunk_size // 4) * stream.resolved_dtype().itemsize
@@ -614,10 +676,113 @@ def _drain_stream(stream: AudioStream, chunk_bytes: int) -> NDArray[Any]:
     return np.frombuffer(b"".join(bufs), dtype=stream.resolved_dtype())
 
 
+def _read_full(raw_stream: Any, n_bytes: int) -> bytes:
+    """Read exactly ``n_bytes`` unless the stream ends first (pipes may
+    return short reads mid-stream; the sharded session needs full slabs
+    except the final one)."""
+    bufs: list[bytes] = []
+    got = 0
+    while got < n_bytes:
+        b = raw_stream.read(n_bytes - got)
+        if not b:
+            break
+        bufs.append(b)
+        got += len(b)
+    return b"".join(bufs)
+
+
+def _scan_sharded(
+    detector: TorchAudioPatternDetector,
+    stream: AudioStream,
+    opts: TorchEngineOptions,
+    on_pattern_detected: PatternDetectedCallback | None,
+    accumulate_results: bool,
+) -> tuple[dict[str, list[float]] | None, float]:
+    """Run one stream through a device-mesh ShardedDetector.
+
+    The mesh is (bank?, time): ``opts.mesh_time`` chunks process
+    concurrently on that many devices with halo-exchanged lookback
+    (parallel/sequence.py), and ``opts.mesh_bank`` > 1 additionally
+    shards the pattern bank. Detections are serial-engine-identical;
+    events are emitted per slab: up to mesh_time × chunk_seconds of added
+    latency versus the serial per-chunk loop."""
+    from audio_pattern_detector_tpu_torch import native
+    from audio_pattern_detector_tpu_torch.parallel.mesh import make_mesh
+    from audio_pattern_detector_tpu_torch.parallel.sequence import ShardedDetector
+
+    # The ShardedDetector (mesh layout and its per-device replicas) is
+    # memoized on the serial detector so multi-file runs build it once;
+    # per-file stream state lives in the session.
+    key = (opts.mesh_bank, int(opts.mesh_time or 1))
+    cached = getattr(detector, "_sharded_scan_cache", None)
+    if cached is not None and cached[0] == key:
+        sd = cached[1]
+    else:
+        axes: dict[str, int] = {}
+        if opts.mesh_bank > 1:
+            axes["bank"] = opts.mesh_bank
+        axes["time"] = key[1]
+        mesh = make_mesh(axes, device=detector.device)
+        sd = ShardedDetector(
+            detector.audio_clips,
+            mesh,
+            chunk_seconds=detector.seconds_per_chunk,
+            target_sample_rate=opts.target_sample_rate,
+            height_min=opts.height_min,
+            detector=detector,
+        )
+        detector._sharded_scan_cache = (key, sd)
+    sess = sd.session()
+    # The sharded session consumes f32 slabs; an int16 passthrough source
+    # decodes at the slab boundary with the pinned cast.
+    stream_dtype = stream.resolved_dtype()
+    slab_bytes = sd.slab_samples * stream_dtype.itemsize
+    chunk_bytes = sd.chunk_samples * stream_dtype.itemsize
+    accumulated: dict[str, list[float]] | None = (
+        {name: [] for cls in sd.bank.classes.values() for g in cls["groups"] for name in g.names}
+        if accumulate_results
+        else None
+    )
+    total_samples = 0
+    while True:
+        # Build the slab from chunk-sized read requests (the exact
+        # request partition the serial streaming loop issues) so a
+        # resampling source decodes the identical waveform (see
+        # _drain_stream / _skip_stream_samples: per-request FFT resample
+        # makes the waveform depend on the read partitioning).
+        parts: list[bytes] = []
+        for _ in range(sd.time_size):
+            b = _read_full(stream.audio_stream, chunk_bytes)
+            if b:
+                parts.append(b)
+            if len(b) < chunk_bytes:
+                break
+        if not parts:
+            break
+        buf = b"".join(parts)
+        slab = np.frombuffer(buf, dtype=stream_dtype)
+        if slab.dtype == np.int16:
+            slab = native.pcm16_to_f32_mono(slab)
+        part = sess.feed(slab)
+        total_samples += len(slab)
+        events = sorted(
+            (t, name) for name, per_stream in part.items() for t in per_stream[0]
+        )
+        for t, name in events:
+            if accumulated is not None:
+                accumulated[name].append(t)
+            if on_pattern_detected is not None:
+                on_pattern_detected(name, t)
+        if len(buf) < slab_bytes:
+            break
+    return accumulated, total_samples / sd.sample_rate
+
+
 # File mode's launch plan: 60 s chunks, up to AUTO_PERF_STREAM_BATCH
 # consecutive chunks per batched dispatch (the JAX package's plan, kept so
 # the two engines chunk a file the same way). AUTO_PERF_MAX_CHUNK_SECONDS
-# caps the big-chunk sizing of runs without stream batching.
+# caps the big-chunk sizing of runs without stream batching (the parallel
+# multi-file scan; mesh-time runs keep the chunk size they are given).
 AUTO_PERF_MAX_CHUNK_SECONDS = 120
 AUTO_PERF_STREAM_BATCH = 8
 
@@ -707,6 +872,8 @@ def match_pattern(
     pipeline_depth: int | None = None,
     stream_batch: int = 1,
     stream_batch_mode: str = "scan",
+    mesh_time: int | None = None,
+    mesh_bank: int = 1,
     checkpoint_file: str | None = None,
     device: str = "cuda",
 ) -> tuple[dict[str, list[float]] | None, float]:
@@ -714,7 +881,8 @@ def match_pattern(
 
     The JAX ``match_pattern``'s contract (its docstring describes every
     option) on the torch ``device``: ``cuda`` (default; raises without a
-    card) or ``cpu``."""
+    card) or ``cpu``. ``mesh_time`` / ``mesh_bank`` shard the scan over a
+    mesh of that device's kind."""
     if not from_stdin:
         if audio_source is None or not os.path.exists(audio_source):
             raise ValueError(f"Audio {audio_source} does not exist")
@@ -728,11 +896,14 @@ def match_pattern(
         debug_dir=debug_dir,
         height_min=height_min,
         profile=profile,
+        trace_dir=trace_dir,
         offline_batch=offline_batch,
         offline_batch_mode=offline_batch_mode,
         pipeline_depth=pipeline_depth,
         stream_batch=stream_batch,
         stream_batch_mode=stream_batch_mode,
+        mesh_time=mesh_time,
+        mesh_bank=mesh_bank,
         checkpoint_file=checkpoint_file,
         device=device,
     )
@@ -768,6 +939,8 @@ def match_pattern_many(
     pipeline_depth: int | None = None,
     stream_batch: int = 1,
     stream_batch_mode: str = "scan",
+    mesh_time: int | None = None,
+    mesh_bank: int = 1,
     device: str = "cuda",
 ) -> list[tuple[dict[str, list[float]] | None, float]]:
     """Scan several audio files against one pattern bank, one after
@@ -787,17 +960,20 @@ def match_pattern_many(
         target_sample_rate=sr,
         height_min=height_min,
         profile=profile,
+        trace_dir=trace_dir,
         offline_batch=offline_batch,
         offline_batch_mode=offline_batch_mode,
         pipeline_depth=pipeline_depth,
         stream_batch=stream_batch,
         stream_batch_mode=stream_batch_mode,
+        mesh_time=mesh_time,
+        mesh_bank=mesh_bank,
         device=device,
     )
     opts.validate(from_stdin=False)
     pattern_clips = _load_pattern_clips(pattern_files, sr)
 
-    if opts.chunk_auto_perf and opts.offline_batch is None:
+    if opts.chunk_auto_perf and opts.offline_batch is None and opts.mesh_time is None:
         # One chunk size and batch width for the whole run, so every file
         # shares one bank (results are chunk-size- and batch-invariant).
         plans = [_auto_perf_plan(src, pattern_clips, sr) for src in audio_sources]
@@ -852,10 +1028,10 @@ def match_pattern_many_parallel(
     file frees its slot for the next. Results equal the sequential scan
     of each file. Callbacks carry the file's input index and path and
     fire as rounds complete, so they interleave across files.
-    ``pipeline_depth`` rounds stay in flight (default 3). Only
-    ``mesh_stream=1`` runs: sharding rows across devices is not ported."""
-    if mesh_stream != 1:
-        raise ValueError("mesh_stream other than 1 is not supported by the torch port yet")
+    ``pipeline_depth`` rounds stay in flight (default 3). With
+    ``mesh_stream`` > 1 each round's rows are partitioned across a
+    "stream" mesh axis of that many of the device's kind; ``n_slots``
+    (default then: ``mesh_stream``) must be a multiple of it."""
     if not audio_sources:
         raise ValueError("No audio sources passed")
     for src in audio_sources:
@@ -868,6 +1044,7 @@ def match_pattern_many_parallel(
         target_sample_rate=sr,
         height_min=height_min,
         pipeline_depth=pipeline_depth,
+        mesh_stream=mesh_stream,
         device=device,
     )
     opts.validate(from_stdin=False)
@@ -876,9 +1053,19 @@ def match_pattern_many_parallel(
         opts.seconds_per_chunk = max(
             _auto_perf_chunk_seconds(src, pattern_clips, sr) for src in audio_sources
         )
-    slots = n_slots if n_slots is not None else min(len(audio_sources), 8)
-    if slots < 1:
-        raise ValueError(f"n_slots ({slots}) must be a positive multiple of mesh_stream (1)")
+    mesh = None
+    if mesh_stream > 1:
+        from audio_pattern_detector_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh({"stream": mesh_stream}, device=device)
+    slots = n_slots if n_slots is not None else (
+        mesh_stream if mesh_stream > 1 else min(len(audio_sources), 8)
+    )
+    if slots < 1 or slots % mesh_stream:
+        raise ValueError(
+            f"n_slots ({slots}) must be a positive multiple of "
+            f"mesh_stream ({mesh_stream})"
+        )
     depth = 3 if pipeline_depth is None else pipeline_depth
 
     # At most two detector variants: the ffmpeg (non-WAV) path drops
@@ -893,7 +1080,7 @@ def match_pattern_many_parallel(
     for hm, items in groups.items():
         detector = dataclasses.replace(opts, height_min=hm).build_detector(pattern_clips)
         _scan_group_parallel(
-            detector, items, slots, depth, on_file_start, on_file_detect, on_file_end,
+            detector, items, slots, mesh, depth, on_file_start, on_file_detect, on_file_end,
             accumulate_results, results,
         )
     return results
@@ -903,6 +1090,7 @@ def _scan_group_parallel(
     detector: TorchAudioPatternDetector,
     items: list[tuple[int, str]],
     n_slots: int,
+    mesh: Any,
     depth: int,
     on_file_start: "Callable[[int, str], None] | None",
     on_file_detect: "Callable[[int, str, str, float], None] | None",
@@ -924,7 +1112,7 @@ def _scan_group_parallel(
         MultiStreamSession,
     )
 
-    session = MultiStreamSession(detector, n_streams=n_slots)
+    session = MultiStreamSession(detector, n_streams=n_slots, mesh=mesh)
     chunk_bytes = detector._chunk_size
     sr = detector.target_sample_rate
     queue = deque(items)
@@ -1160,6 +1348,7 @@ def _match_pattern_file(
         opts.chunk_auto_perf
         and not opts.debug_mode
         and opts.offline_batch is None
+        and opts.mesh_time is None  # sharded scans size by the mesh instead
     ):
         opts.seconds_per_chunk, auto_batch = _auto_perf_plan(
             audio_source, pattern_clips, sr

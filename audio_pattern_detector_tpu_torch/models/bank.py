@@ -38,11 +38,20 @@ over all B rows of the round: the rows are a leading axis of every op,
 folded into the clip axis where an op is row-wise ((B, G, L) correlations
 as (B * G, L) rows with per-row lengths), so the candidate-scan kernel
 launches once per group per round and memory is B times a step's.
+
+A ``"vmap"`` round can also be spread over a device mesh (``sharding=``):
+its rows split contiguously over the mesh's stream axis, each shard's rows
+run the batched class step on that shard's device against a replica of the
+class's constants (:meth:`PatternBank.replica`), and the shards' payloads
+are stitched in row order on the host at collect. Every shard is enqueued
+before any payload is awaited.
 """
 
 from __future__ import annotations
 
 import math
+import time
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
@@ -54,6 +63,7 @@ from numpy.typing import NDArray
 from audio_pattern_detector_tpu_torch import native
 from audio_pattern_detector_tpu_torch.models import hostpath
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import BLOCK, candidate_scan
+from audio_pattern_detector_tpu_torch.ops.consts import consts_to_device
 from audio_pattern_detector_tpu_torch.ops.correlate import (
     CorrelationBankConsts,
     bank_correlate,
@@ -68,6 +78,7 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
     integrated_loudness_device,
     loudness_normalize_device,
 )
+from audio_pattern_detector_tpu_torch.ops.devices import canonical_device, device_guard
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32, upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
     PeakCandidates,
@@ -95,6 +106,19 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
 _BIG = 2**30  # dead-lane position (== ops/peaks.SURVIVOR_POS_SENTINEL)
 _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
 
+# Cumulative host seconds per dispatch_chunks_batch stage, process-wide:
+# section assembly, the copy into the zero-padded host rows ("pack", the
+# JAX bank's key), the upload, the enqueue of the class step's launches,
+# and the enqueue of the payload's copy back. Probes read and reset it to say where a round's
+# dispatch time goes (chip_smoke.py).
+dispatch_phase_seconds: dict[str, float] = {
+    "sections": 0.0,
+    "pack": 0.0,
+    "upload": 0.0,
+    "launch": 0.0,
+    "prefetch": 0.0,
+}
+
 
 @dataclass
 class ClipGroup:
@@ -119,15 +143,17 @@ class PayloadHandle:
     """A dispatched payload on its way to the host.
 
     On CUDA the device-to-host copy into pinned memory is enqueued on the
-    current stream at construction and a CUDA event marks its end;
-    ``is_ready()`` polls the event and ``numpy()`` waits for it."""
+    current stream of the payload's device at construction and a CUDA
+    event of that device marks its end; ``is_ready()`` polls the event and
+    ``numpy()`` waits for it."""
 
     def __init__(self, payload: torch.Tensor) -> None:
         if payload.device.type == "cuda":
-            self._host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
-            self._host.copy_(payload, non_blocking=True)
-            self._event: "torch.cuda.Event | None" = torch.cuda.Event()
-            self._event.record()
+            with device_guard(payload.device):
+                self._host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+                self._host.copy_(payload, non_blocking=True)
+                self._event: "torch.cuda.Event | None" = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = payload
             self._event = None
@@ -139,6 +165,27 @@ class PayloadHandle:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+class StitchedPayload:
+    """The payloads of one class step that ran as several shards, each a
+    :class:`PayloadHandle` on its own device; ``numpy()`` waits for all of
+    them and returns ``stitch(parts)``, the payload the unsharded step
+    would have given."""
+
+    def __init__(
+        self,
+        parts: list[PayloadHandle],
+        stitch: "Callable[[list[NDArray[np.float32]]], NDArray[np.float32]]",
+    ) -> None:
+        self._parts = parts
+        self._stitch = stitch
+
+    def is_ready(self) -> bool:
+        return all(p.is_ready() for p in self._parts)
+
+    def numpy(self) -> NDArray[np.float32]:
+        return self._stitch([p.numpy() for p in self._parts])
 
 
 class PatternBank:
@@ -232,6 +279,30 @@ class PatternBank:
         # built on first use.
         self._shared_geoms = shared_geoms
         self._row_consts: dict[tuple[int, int, int], tuple] = {}
+        # Replicas of a class's constants on other devices, built on first
+        # use (the shards of a device mesh).
+        self._replica_loud: dict[tuple[int, torch.device], LoudnessConsts] = {}
+        self._replica_groups: dict[tuple[int, torch.device], tuple] = {}
+
+    def replica_loud(self, sw: int, device: "torch.device | str") -> LoudnessConsts:
+        """The loudness constants of class ``sw`` on ``device`` (all that a
+        bank shard needs of the whole class: its group constants are its own
+        slice, and the full groups never go to its device)."""
+        key = (sw, canonical_device(device))
+        if key not in self._replica_loud:
+            self._replica_loud[key] = consts_to_device(self.classes[sw]["loud"], key[1])
+        return self._replica_loud[key]
+
+    def replica(self, sw: int, device: "torch.device | str") -> tuple[LoudnessConsts, tuple]:
+        """(loud, group_consts) of class ``sw`` on ``device``: the bank's own
+        tensors on the bank's own device, else a copy made once and kept."""
+        key = (sw, canonical_device(device))
+        if key not in self._replica_groups:
+            self._replica_groups[key] = tuple(
+                (consts_to_device(g.corr, key[1]), consts_to_device(g.verify, key[1]))
+                for g in self.classes[sw]["groups"]
+            )
+        return self.replica_loud(sw, device), self._replica_groups[key]
 
     # ── Sections ──
 
@@ -256,9 +327,14 @@ class PatternBank:
 
     @staticmethod
     def _section_rows(section_len: int, raws: list[NDArray[Any]]) -> NDArray[Any]:
-        """(B, S) zero-padded host rows: int16 when every non-empty row is
-        int16, else f32 with int16 rows decoded on the host (bitwise the
-        device decode)."""
+        """(B, S) zero-padded host rows for the upload: int16 when every
+        non-empty row arrived as int16 (half the bytes of f32), else f32
+        with int16 rows decoded on the host. The device decode of an int16
+        row is bitwise the host decode, so a row's payload does not depend
+        on which form its round took. f32 rows are not tested for lying on
+        the PCM grid: a source of 16-bit PCM hands its samples on as int16
+        (``match.py``'s stream wrappers, ``serve``), and the test costs a
+        round more host time than the smaller upload saves."""
         as_i16 = all(r.dtype == np.int16 or not len(r) for r in raws)
         rows = np.zeros((len(raws), section_len), dtype=np.int16 if as_i16 else np.float32)
         for bi, raw in enumerate(raws):
@@ -268,14 +344,22 @@ class PatternBank:
         return rows
 
     def _section_step(
-        self, sw: int, section: torch.Tensor, n_valid: "int | torch.Tensor"
+        self,
+        sw: int,
+        section: torch.Tensor,
+        n_valid: "int | torch.Tensor",
+        consts: "tuple[LoudnessConsts, tuple] | None" = None,
     ) -> torch.Tensor:
         """Fused payload of one section (S,) with its int length, or (B,
-        total) payloads of a (B, S) batch with a (B,) length tensor."""
+        total) payloads of a (B, S) batch with a (B,) length tensor.
+        ``consts`` replaces the class's own (loud, group_consts): a replica
+        on another device, or a bank shard's slice."""
         cls = self.classes[sw]
+        loud, group_consts = consts if consts is not None else (
+            cls["loud"], tuple((g.corr, g.verify) for g in cls["groups"])
+        )
         return class_step_fused(
-            section, n_valid, cls["loud"],
-            tuple((g.corr, g.verify) for g in cls["groups"]),
+            section, n_valid, loud, group_consts,
             metas=self._metas[sw], height_min=self.height_min,
         )
 
@@ -296,13 +380,18 @@ class PatternBank:
         return dispatched
 
     def collect_chunk(
-        self, dispatched: list[tuple[int, PayloadHandle, NDArray[Any]]]
+        self,
+        dispatched: list[tuple[int, Any, NDArray[Any]]],
+        padded_rows: "dict[int, tuple[int, ...]] | None" = None,
     ) -> dict[str, list[int]]:
         """Wait for a dispatched chunk; accepted 'full'-index peak positions
-        per clip name (ascending)."""
+        per clip name (ascending). ``padded_rows`` maps a class's sliding
+        window to its per-group payload row counts where they were padded
+        (the bank-sharded dispatch)."""
         results: dict[str, list[int]] = {}
         for sw, handle, raw in dispatched:
-            batch = self._collect_rows(sw, handle.numpy()[None], [raw])
+            rows = padded_rows.get(sw) if padded_rows else None
+            batch = self._collect_rows(sw, handle.numpy()[None], [raw], rows)
             results.update(batch[0])
         return results
 
@@ -352,14 +441,18 @@ class PatternBank:
         "scan" runs the rows one after another on the current stream (one
         chunk's memory); "vmap" runs every row through one set of launches
         per class (B times the memory). The payload copies back once per
-        class in both. ``sharding`` places rows across a device mesh in the
-        JAX bank and is not ported."""
+        class in both.
+
+        ``sharding`` (an object with a ``mesh`` and the name of its row
+        ``axis``, e.g. ``parallel.mesh.RowSharding``) spreads a "vmap" round
+        over a device mesh: the rows split contiguously over the axis, each
+        shard runs on its own device against a replica of the class's
+        constants, every shard is enqueued before any is awaited, and the
+        payload reads back in row order. B must be divisible by the axis."""
         if mode not in ("vmap", "scan"):
             raise ValueError(f"mode must be 'vmap' or 'scan', got {mode!r}")
         if sharding is not None and mode != "vmap":
             raise ValueError("sharding requires mode='vmap'")
-        if sharding is not None:
-            raise ValueError("sharding is not supported by the torch port yet")
         if prev_tails is not None and len(prev_tails) != len(chunks):
             raise ValueError(
                 f"prev_tails has {len(prev_tails)} entries for {len(chunks)} chunks"
@@ -369,18 +462,59 @@ class PatternBank:
         b = len(chunks)
         if prev_tails is None:
             prev_tails = [previous_tail, *chunks[:-1]]
+        shards: "list[tuple[torch.device, int, int]]"
+        if sharding is None:
+            shards = [(self.device, 0, b)]
+        else:
+            n = sharding.mesh.shape[sharding.axis]
+            if b % n:
+                raise ValueError(
+                    f"a round of {b} rows does not divide over the mesh's "
+                    f"{sharding.axis!r} axis ({n})"
+                )
+            per = b // n
+            shards = [
+                (sharding.mesh.device_at(**{sharding.axis: i}), i * per, (i + 1) * per)
+                for i in range(n)
+            ]
         dispatched = []
+        clock = time.perf_counter
+        t0 = clock()
         for sw, cls in self.classes.items():
             raws = [self._raw_section(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
-            rows = upload_rows(self._section_rows(cls["section_len"], raws), self.device)
-            if mode == "vmap":
-                n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
-                payload = self._section_step(sw, as_f32(rows), n_valids.to(self.device))
-            else:
-                payload = torch.stack(
-                    [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
+            t1 = clock()
+            dispatch_phase_seconds["sections"] += t1 - t0
+            host_rows = self._section_rows(cls["section_len"], raws)
+            t2 = clock()
+            dispatch_phase_seconds["pack"] += t2 - t1
+            n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
+            uploaded = [
+                (
+                    upload_rows(host_rows[lo:hi], dev),
+                    n_valids[lo:hi].to(dev) if mode == "vmap" else None,
                 )
-            dispatched.append((sw, PayloadHandle(payload), raws, b, None))
+                for dev, lo, hi in shards
+            ]
+            t3 = clock()
+            dispatch_phase_seconds["upload"] += t3 - t2
+            if mode == "scan":
+                rows = uploaded[0][0]
+                payloads = [torch.stack(
+                    [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
+                )]
+            else:
+                payloads = []
+                for (dev, _lo, _hi), (rows, lens) in zip(shards, uploaded):
+                    consts = None if sharding is None else self.replica(sw, dev)
+                    with device_guard(dev):
+                        payloads.append(self._section_step(sw, as_f32(rows), lens, consts))
+            t4 = clock()
+            dispatch_phase_seconds["launch"] += t4 - t3
+            handles = [PayloadHandle(p) for p in payloads]
+            handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
+            dispatched.append((sw, handle, raws, b, None))
+            t0 = clock()
+            dispatch_phase_seconds["prefetch"] += t0 - t4
         return dispatched
 
     def collect_chunks_batch(
@@ -397,14 +531,19 @@ class PatternBank:
         return results
 
     def _collect_rows(
-        self, sw: int, flat_np: NDArray[np.float32], raws: list[NDArray[Any]]
+        self,
+        sw: int,
+        flat_np: NDArray[np.float32],
+        raws: list[NDArray[Any]],
+        rows: "tuple[int, ...] | None" = None,
     ) -> list[dict[str, list[int]]]:
         """Unpack a (B, total) class payload; flagged rows of each section
-        go to :meth:`resolve_flagged_rows`."""
+        go to :meth:`resolve_flagged_rows`. ``rows`` as in
+        :func:`_split_fused`."""
         groups = self.classes[sw]["groups"]
         results: list[dict[str, list[int]]] = [dict() for _ in raws]
         flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
-        for gi, (g, packed) in enumerate(zip(groups, _split_fused(flat_np, groups))):
+        for gi, (g, packed) in enumerate(zip(groups, _split_fused(flat_np, groups, rows))):
             pos, sel, host_fb, needs_full = unpack_group(packed, g.k_verify)
             for bi in range(len(raws)):
                 for ci, name in enumerate(g.names):
@@ -570,16 +709,24 @@ class PatternBank:
 
 
 def _split_fused(
-    flat: NDArray[np.float32], groups: list[ClipGroup]
+    flat: NDArray[np.float32],
+    groups: list[ClipGroup],
+    rows: "tuple[int, ...] | None" = None,
 ) -> list[NDArray[np.float32]]:
-    """Split a fused payload (..., total) into per-group (..., G, 2K+2) views."""
+    """Split a fused payload (..., total) into per-group (..., G, 2K+2)
+    views. ``rows`` gives each group's row count in the payload where it
+    differs from its clip count (the bank-sharded path pads groups to a
+    size its shards divide; padded rows duplicate clip 0 and are sliced
+    off here)."""
     out = []
     off = 0
-    for g in groups:
+    for gi, g in enumerate(groups):
         gn = len(g.names)
+        gr = rows[gi] if rows is not None else gn
         w = 2 * g.k_verify + 2
-        out.append(flat[..., off : off + gn * w].reshape(*flat.shape[:-1], gn, w))
-        off += gn * w
+        blk = flat[..., off : off + gr * w].reshape(*flat.shape[:-1], gr, w)
+        out.append(blk[..., :gn, :])
+        off += gr * w
     return out
 
 

@@ -28,6 +28,7 @@ from numpy.typing import NDArray
 from audio_pattern_detector_tpu_torch import native
 from audio_pattern_detector_tpu_torch.models.bank import PatternBank
 from audio_pattern_detector_tpu_torch.ops import hostref
+from audio_pattern_detector_tpu_torch.ops.devices import resolve_device
 from audio_pattern_detector_tpu_torch.ops.tone import get_pure_tone_frequency
 from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
@@ -125,19 +126,6 @@ class DetectorConfig(TypedDict):
     clips: dict[str, ClipConfig]
 
 
-def resolve_device(device: "torch.device | str") -> torch.device:
-    """``device`` as a torch.device; raises for CUDA without a CUDA device."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False (pass device='cpu' to run the plain torch path)"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
-    return dev
-
-
 def _f32_copy(samples: NDArray[Any]) -> NDArray[np.float32]:
     """An owned f32 array: int16 decodes bitwise as the device does."""
     return native.pcm16_to_f32_mono(samples) if samples.dtype == np.int16 else samples.copy()
@@ -151,7 +139,7 @@ class TorchAudioPatternDetector:
         self,
         audio_clips: list[AudioClip],
         *,
-        device: "torch.device | str",
+        device: "torch.device | str" = "cuda",
         debug_mode: bool = False,
         seconds_per_chunk: int | None = DEFAULT_SECONDS_PER_CHUNK,
         target_sample_rate: int | None = None,

@@ -14,8 +14,10 @@ with any number of rounds in flight, ``round_ready``, the compacted
 tile-width ladder, int16 chunks riding through raw, zero-length chunks as
 idle rounds, ``total_time`` and ``reset``, and both batch modes
 (``batch_mode="scan"``, the default, or ``"vmap"``: one set of launches
-per class for all rows of a dispatch). Stream sharding over a device mesh
-(``mesh=``) is not ported and is refused by name.
+per class for all rows of a dispatch). ``mesh=`` (a mesh with a "stream"
+axis, ``parallel/mesh.py``) spreads each round's rows over the axis's
+devices; the JAX session's multi-process form (one process per host, in
+lockstep) is not ported here.
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ class MultiStreamSession:
         batch_mode: str | None = None,
         tile: int | None = None,
     ) -> None:
-        if mesh is not None:
-            raise ValueError("mesh is not supported by the torch port yet")
         if not isinstance(detector, TorchAudioPatternDetector):
             raise TypeError(
                 f"the torch port's session needs a TorchAudioPatternDetector, "
@@ -65,13 +65,25 @@ class MultiStreamSession:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         if tile is not None and tile < 1:
             raise ValueError(f"tile must be >= 1, got {tile}")
+        if tile is not None and mesh is not None:
+            raise ValueError(
+                "tile and mesh are mutually exclusive (a sharded round "
+                "must batch all rows for the static row→device layout)"
+            )
         if batch_mode not in (None, "scan", "vmap"):
             raise ValueError(
                 f"batch_mode must be 'scan' or 'vmap', got {batch_mode!r}"
             )
         # Rows are independent in both schedules, so the mode only chooses
-        # how a dispatch's rows reach the device.
-        self._batch_mode = batch_mode or "scan"
+        # how a dispatch's rows reach the device. Default: "scan" on one
+        # device; "vmap" when a mesh shards the rows (only the batched
+        # step has a row axis to split).
+        if batch_mode == "scan" and mesh is not None:
+            raise ValueError(
+                "batch_mode='scan' cannot shard rows across a mesh; "
+                "use 'vmap' (or omit batch_mode) with a mesh"
+            )
+        self._batch_mode = batch_mode or ("vmap" if mesh is not None else "scan")
         # Serving-capacity tiling: a round's rows dispatch in tiles of at
         # most ``tile`` rows, so device working memory is bounded by the
         # tile, not the slot count. None = one full-width dispatch per
@@ -101,6 +113,26 @@ class MultiStreamSession:
         self._indices = [0] * n_streams
         self._times = [0.0] * n_streams
         self._empty = np.zeros(0, dtype=np.float32)
+        # Optional data parallelism over streams: a mesh with a "stream"
+        # axis partitions the batch rows across devices (rows are
+        # independent, so nothing crosses devices), and N devices serve
+        # N × (n_streams / stream_axis) live stations with the same
+        # per-round semantics. Rounds always batch all n_streams rows
+        # (idle slots run zero-length sections), so the row→device
+        # assignment is static.
+        self._sharding = None
+        if mesh is not None:
+            if "stream" not in mesh.axis_names:
+                raise ValueError("mesh must have a 'stream' axis")
+            stream_size = mesh.shape["stream"]
+            if n_streams % stream_size != 0:
+                raise ValueError(
+                    f"n_streams {n_streams} must be divisible by the "
+                    f"mesh's stream axis ({stream_size})"
+                )
+            from audio_pattern_detector_tpu_torch.parallel.mesh import RowSharding
+
+            self._sharding = RowSharding(mesh, "stream")
 
     def feed(
         self, chunks: Sequence[NDArray[np.float32] | None]
@@ -166,7 +198,8 @@ class MultiStreamSession:
         if self._tile is None:
             dispatched = [
                 self._bank.dispatch_chunks_batch(
-                    batch, None, mode=self._batch_mode, prev_tails=tails
+                    batch, None, mode=self._batch_mode, prev_tails=tails,
+                    sharding=self._sharding,
                 )
             ]
             active = None

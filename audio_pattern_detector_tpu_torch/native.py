@@ -8,8 +8,9 @@ native-helper/native_helper.pyi): ``find_peaks``, ``resample``,
 
 Sequential/branchy ops dispatch to the C++ library (the package's
 ``csrc/apd_native.cpp``), which g++ builds at first use into
-``build/apd_native/`` at the root of the checkout, keyed by a hash of the
-source and flags. FFT-based resampling stays in numpy f64
+``build/apd_native/`` at the root of a checkout (the user's cache directory
+for an installed copy, ``kernels/_build.py::build_root``), keyed by a hash
+of the source and flags. FFT-based resampling stays in numpy f64
 (ops/hostref.py). When the library cannot be built or loaded everything
 takes the exact numpy implementations, so the package works source-only:
 that path is host code with the same results, not a device fallback.
@@ -28,6 +29,7 @@ from typing import Any
 import numpy as np
 from numpy.typing import NDArray
 
+from audio_pattern_detector_tpu_torch.kernels._build import build_root
 from audio_pattern_detector_tpu_torch.ops import hostref
 
 __all__ = [
@@ -47,7 +49,7 @@ __all__ = [
 ]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "apd_native.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "apd_native"
+BUILD_DIR = build_root() / "apd_native"
 # -ffp-contract=off keeps apd_biquad_f64 bitwise equal to scipy's lfilter
 # (FMA contraction would change the rounding of its recurrence);
 # -fno-math-errno lets gcc inline nearbyintf/rint without changing results.

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from audio_pattern_detector_tpu_torch.ops.devices import device_guard
 from audio_pattern_detector_tpu_torch.ops.peaks import (
     ValidLen,
     _shift,
@@ -112,16 +113,22 @@ def _launch(corr: torch.Tensor, thr_min: torch.Tensor, valid_len: ValidLen) -> S
     thr = thr_min.contiguous()
     nb = num_blocks(l)
     dev = corr.device
-    bmax = torch.empty((g, nb), dtype=torch.float32, device=dev)
-    # The row stats, zeroed in one launch: count and omax bits (int32),
-    # then plateau and near as bool bytes.
-    stats = torch.zeros(3 * g, dtype=torch.int32, device=dev)
-    flags = stats[2 * g :].view(torch.bool)
-    ptr = stats.data_ptr()
-    err = lib.apd_candidate_scan(
-        corr.data_ptr(), thr.data_ptr(), lens_ptr, g, l, scalar, bmax.data_ptr(), nb,
-        ptr, ptr + 4 * g, ptr + 8 * g, ptr + 9 * g, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The C entry point launches on the process's current device (it reads
+    # it with cudaGetDevice), so corr's device is made current around the
+    # launch: a tensor on cuda:1 while cuda:0 is current must not launch
+    # in cuda:0's context.
+    with device_guard(dev):
+        bmax = torch.empty((g, nb), dtype=torch.float32, device=dev)
+        # The row stats, zeroed in one launch: count and omax bits (int32),
+        # then plateau and near as bool bytes.
+        stats = torch.zeros(3 * g, dtype=torch.int32, device=dev)
+        flags = stats[2 * g :].view(torch.bool)
+        ptr = stats.data_ptr()
+        err = lib.apd_candidate_scan(
+            corr.data_ptr(), thr.data_ptr(), lens_ptr, g, l, scalar, bmax.data_ptr(), nb,
+            ptr, ptr + 4 * g, ptr + 8 * g, ptr + 9 * g,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"candidate_scan kernel launch failed: CUDA error {err}")
     candidate_scan.launches += 1

@@ -8,10 +8,15 @@ the same name. It undoes the JAX package's transfer encodings: stacked
 (re, im) f32 spectra become complex64, integers and masks uploaded as f32
 become int64 and bool. The port's own builders give equal constants; this
 converter is how the tests hold them to that.
+
+``consts_to_device(consts, device)`` copies any of those dataclasses to
+another torch device (the per-device replicas of a bank on a device mesh);
+on the device the tensors already live on it returns the object itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Any
 
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from audio_pattern_detector_tpu_torch.ops.correlate import CorrelationBankConsts
+from audio_pattern_detector_tpu_torch.ops.devices import canonical_device
 from audio_pattern_detector_tpu_torch.ops.loudness import LoudnessConsts
 from audio_pattern_detector_tpu_torch.ops.verify import (
     MarkerVerifyConsts,
@@ -85,3 +91,16 @@ def consts_from_numpy(kind: str, fields: Mapping[str, Any], device: torch.device
             )},
         )
     raise ValueError(f"unknown consts kind {kind!r}")
+
+
+def consts_to_device(consts: Any, device: torch.device) -> Any:
+    """A consts dataclass with every tensor on ``device``; the object
+    itself when nothing has to move."""
+    device = canonical_device(device)
+    moved = {
+        f.name: getattr(consts, f.name).to(device)
+        for f in dataclasses.fields(consts)
+        if isinstance(getattr(consts, f.name), torch.Tensor)
+        and getattr(consts, f.name).device != device
+    }
+    return dataclasses.replace(consts, **moved) if moved else consts

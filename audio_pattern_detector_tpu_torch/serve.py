@@ -15,8 +15,9 @@ are the same code paths (match.py), multiplexed. Stream slots are recycled
 across connections (:meth:`MultiStreamSession.reset`). The event loop,
 wire protocol, error strings, inbound backpressure, dispatch hold-back,
 idle and end-drain timeouts and the stats line are the JAX server's. The
-detector runs on an explicit torch device; stream sharding over a mesh
-(``mesh=``, ``--mesh-stream N`` with N != 1) is not ported and is refused.
+detector runs on an explicit torch device. ``mesh=`` (``serve
+--mesh-stream N``) spreads each round's rows over the "stream" axis of a
+device mesh (``parallel/mesh.py``), one event loop driving every device.
 
 Single-threaded by design: one Python thread drives the device and a
 ``selectors`` loop drives the sockets; socket reads never block the
@@ -172,7 +173,9 @@ class PatternServer:
     ``device`` (``cuda``, the default, raises without a card; or ``cpu``)
     is where a detector built from ``pattern_clips`` runs; a prebuilt
     ``detector`` must be a ``TorchAudioPatternDetector`` and carries its
-    own device. ``mesh`` is refused.
+    own device. ``mesh`` (a mesh with a "stream" axis) partitions each
+    serving round's rows across its devices; the round is then the static
+    full width, not tiled.
     """
 
     def __init__(
@@ -195,8 +198,6 @@ class PatternServer:
         tile: int | None = None,
         device: "torch.device | str" = "cuda",
     ) -> None:
-        if mesh is not None:
-            raise ValueError("mesh is not supported by the torch port yet")
         if max_streams < 1:
             raise ValueError(f"max_streams must be >= 1, got {max_streams}")
         if pipeline_depth < 1:
@@ -243,14 +244,21 @@ class PatternServer:
         self.pipeline_depth = pipeline_depth
         self.idle_timeout = idle_timeout
         self.max_outbound = max_outbound
+        # With a mesh (a "stream" axis), each serving round's batch rows
+        # are partitioned across devices: N devices serve N× the streams
+        # at identical per-stream semantics (models/multistream.py).
+        #
         # ``tile``: a round's rows dispatch as a compacted width-ladder
         # decomposition of tiles (models/multistream.py) rather than one
         # fixed full-width batch, so device memory is bounded by the tile
         # and device time and upload bytes follow the round's occupancy.
-        # Default: 16-row tiles (the slot count caps the tile below 16).
-        if tile is None:
+        # Default: 16-row tiles (the slot count caps the tile below 16);
+        # meshes need the static full-width row→device layout instead.
+        if tile is None and mesh is None:
             tile = min(16, max_streams)
-        self.session = MultiStreamSession(self.detector, max_streams, tile=tile)
+        self.session = MultiStreamSession(
+            self.detector, max_streams, mesh=mesh, tile=tile
+        )
 
         self._sel = selectors.DefaultSelector()
         self._listener = socket.create_server((host, port))
@@ -308,11 +316,11 @@ class PatternServer:
 
     def warmup(self) -> None:
         """One round per width the session dispatches (the tile's width
-        ladder) before the first client, so no client's round pays a
-        first use: on the card, the kernel library's build and load and
-        the cuFFT plans."""
+        ladder; just the slot width on a mesh) before the first client,
+        so no client's round pays a first use: on the card, the kernel
+        library's build and load and the cuFFT plans."""
         rng = np.random.default_rng(0)
-        for w in self.session._tile_widths:
+        for w in self.session._tile_widths or [self.max_streams]:
             chunks: list[Any] = [None] * self.max_streams
             for r in range(w):
                 chunks[r] = (0.01 * rng.standard_normal(self.chunk_samples)).astype(np.float32)
@@ -882,8 +890,8 @@ class PatternServer:
 
 def cmd_serve(args: Any) -> None:
     """The JAX ``cmd_serve`` on the port: the same usage errors and exit
-    codes, and the server on ``args.device``. The port's CLI refuses
-    ``--mesh-stream N`` (N != 1) before it gets here."""
+    codes, and the server on ``args.device`` (with ``--mesh-stream N``,
+    on a stream mesh of N of its devices)."""
     pattern_files = _collect_pattern_files(args)
     if not pattern_files:
         print("Please provide either --pattern-file or --pattern-folder", file=sys.stderr)
@@ -891,7 +899,14 @@ def cmd_serve(args: Any) -> None:
     clips = _load_pattern_clips(
         pattern_files, args.target_sample_rate or DEFAULT_TARGET_SAMPLE_RATE
     )
+    mesh = None
+    mesh_stream = getattr(args, "mesh_stream", None)
     try:
+        if mesh_stream:
+            from audio_pattern_detector_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh({"stream": mesh_stream}, device=args.device)
+            print(f"Serving over a {mesh_stream}-device stream mesh", file=sys.stderr)
         server = PatternServer(
             clips,
             host=args.host,
@@ -903,6 +918,7 @@ def cmd_serve(args: Any) -> None:
             height_min=args.height_min,
             pipeline_depth=args.pipeline_depth,
             idle_timeout=args.idle_timeout or None,
+            mesh=mesh,
             stats_interval=args.stats_interval or None,
             dispatch_defer_ms=args.dispatch_defer_ms,
             tile=args.tile,

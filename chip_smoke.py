@@ -87,7 +87,38 @@ card and checks them:
    own ``match --stdin`` events (15 detections); a 5th client gets
    "server full"; after SIGINT the server reports a kernel launch and no
    jax. Prints the wall time per client;
-11. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
+   3c. the general-plateau tier beside the lean one: the 16-row flagship
+   round dispatched through the bank at ``height_min = 0`` and at the
+   default, in turns, in both batch modes: host ms until the dispatch
+   returns (the general tier syncs there) and until the payload is on the
+   host, and the peak memory of each;
+   8 also runs the mesh entry points on logical shards of the card
+   (``APD_TORCH_LOGICAL_DEVICES``): ``--mesh-time 4``, ``--mesh-time 2
+   --mesh-bank 2`` and ``--mesh-stream 2`` over two files, stdout
+   byte-identical to the pinned text with the predicted kernel launches,
+   and ``--mesh-time 64`` failing with the JAX message;
+   9 also reads the bank's ``dispatch_phase_seconds`` over the steady
+   rounds of both modes (sections, pack, upload, launch, prefetch; ms a
+   round and share of the round), once more with raw int16 rows (half the
+   upload bytes), and drives the 12 streams through
+   ``MultiStreamSession(mesh=make_mesh({"stream": 2}))`` on two logical
+   shards: the serial engine's detections, the unsharded run's routes, one
+   launch per round, shard and group;
+   10 runs a second time as ``serve --mesh-stream 2``;
+11. the device mesh on logical shards of the card (every shard's work runs
+   on the one card, one after another; with more cards the same code
+   spreads over them): 11a. time sharding at full width: the flagship
+   bank plus the CBS clip (65 clips, 3 groups), ``make_mesh({"time": 4})``,
+   the 482 s tiled file as one stream of 60 s chunks (two full slabs and a
+   short one): detections equal to the serial engine's (15 of the CBS
+   clip), the same run with the plain scan substituted gives every cell's
+   payload bit for bit, one kernel launch per active cell and group (27),
+   wall time beside the serial engine's, peak memory; 11b. ``bank x time``
+   and ``stream x time`` (2 x 2 each) over two of phase 9's streams, equal
+   to the serial engine; 11c. ``flagship.dryrun_multichip(8)``: the bank on
+   a ``bank x stream x time`` mesh (2 x 2 x 2), one slab, and a sharded
+   serving round, equal to the serial engine and the unsharded round;
+12. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
@@ -510,15 +541,25 @@ def entry_command(args: list[str]) -> list[str]:
     return [sys.executable, "-c", ENTRY, "match", *args]
 
 
-def entry_env() -> dict:
-    return {**os.environ, "PYTHONPATH": str(ROOT)}
+LOGICAL_DEVICES_ENV = "APD_TORCH_LOGICAL_DEVICES"  # parallel/mesh.py reads it
 
 
-def run_entry(args: list[str], stdin: "bytes | None" = None) -> tuple[str, dict, float]:
+def entry_env(logical: "int | None" = None) -> dict:
+    """The subprocesses' environment; ``logical`` multiplies the card into
+    that many logical devices for the mesh entry points."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    env.pop(LOGICAL_DEVICES_ENV, None)
+    if logical is not None:
+        env[LOGICAL_DEVICES_ENV] = str(logical)
+    return env
+
+
+def run_entry(args: list[str], stdin: "bytes | None" = None,
+              logical: "int | None" = None) -> tuple[str, dict, float]:
     """(stdout, {jax_imported, launches}, wall s) of one CLI subprocess."""
     t = time.perf_counter()
     proc = subprocess.run(entry_command(args), input=stdin, capture_output=True, cwd=ROOT,
-                          env=entry_env(), timeout=300)
+                          env=entry_env(logical), timeout=300)
     wall = time.perf_counter() - t
     if proc.returncode != 0:
         raise AssertionError(f"{args}: exit {proc.returncode}: {proc.stderr.decode()[-3000:]}")
@@ -788,6 +829,210 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     return launches, kernel_rows
 
 
+def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
+    """Phase 3c: the flagship round (16 sections of 60 s, seeds 1-16)
+    dispatched through the bank at ``height_min = 0`` (the general-plateau
+    tier, which syncs with the device while it dispatches) beside the lean
+    tier at the default threshold, in turns (lean, general, general, lean;
+    one general turn in scan) in each batch mode. Timed: the host ms until ``dispatch_chunks_batch``
+    returns and until the payload is on the host; the peak memory above
+    the bank. Nothing is collected: at a threshold of 0 every row of noise
+    is flagged, and resolving them is the host path's time, not the
+    tier's. Both tiers fit an 80 GB card in both modes (the general tier's
+    vmap round peaks at 14.4 GB); running out of memory fails the run."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+
+    sr, chunk = 8000, 60 * 8000
+    chunks = [(0.05 * np.random.default_rng(1 + i).standard_normal(chunk)).astype(np.float32)
+              for i in range(ROUND_ROWS)]
+    banks = {"lean": make_detector(num_normal, num_marker, 60, dev, sr)._ensure_bank(),
+             "general": make_detector(num_normal, num_marker, 60, dev, sr,
+                                      height_min=0.0)._ensure_bank()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    out: dict = {}
+    for mode in ("scan", "vmap"):
+        times: dict[str, list] = {"lean": [], "general": []}
+        peaks: dict[str, float] = {}
+        # One general turn in scan (11 s each on an H100), two in vmap.
+        for tier in ("lean", "general", "lean") if mode == "scan" else (
+                "lean", "general", "general", "lean"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dispatched = banks[tier].dispatch_chunks_batch(chunks, None, mode=mode)
+            t1 = time.perf_counter()
+            for rec in dispatched:
+                rec[1].numpy()
+            t2 = time.perf_counter()
+            times[tier].append(((t1 - t0) * 1e3, (t2 - t0) * 1e3))
+            peaks[tier] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+            del dispatched
+        out[mode] = {tier: {"dispatch_returns_ms": [a for a, _ in v],
+                            "payload_on_host_ms": [b for _, b in v],
+                            "peak_mem_gb": peaks[tier]} for tier, v in times.items()}
+    phase("general_plateau", card=smi, clips=num_normal + num_marker, rows=ROUND_ROWS,
+          section_s=60,
+          resident_gb=resident / 1e9, **out)
+    del banks
+
+
+def cbs_pcm() -> tuple[np.ndarray, int]:
+    """The CBS sample as int16 PCM, and its rate."""
+    with wave.open(str(CBS), "rb") as w:
+        rate, frames = w.getframerate(), w.readframes(w.getnframes())
+    return np.frombuffer(frames, dtype=np.int16), rate
+
+
+def sharded_scan(sd, audio: np.ndarray, scan=None):
+    """``audio`` (B, T) through a ShardedDetector slab by slab with ``scan``
+    as every cell's candidate scan: (timestamps, per-slab payloads, kernel
+    launches, wall s). The launches are counted from 0."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    sd.scan = scan or candidate_scan
+    sess = sd.session()
+    times = {c.name: [[] for _ in audio] for c in sd._detector.audio_clips}
+    payloads = []
+    candidate_scan.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for start in range(0, audio.shape[1], sd.slab_samples):
+        for name, per in sess.feed(audio[:, start : start + sd.slab_samples]).items():
+            for b, ts in enumerate(per):
+                times[name][b].extend(ts)
+        payloads.append({sw: [p.copy() for p in ps] for sw, ps in sess.last_payloads.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sd.scan = candidate_scan
+    return times, payloads, candidate_scan.launches, wall
+
+
+def serial_scan(det, row: np.ndarray) -> tuple[dict, float]:
+    """One f32 stream through the serial engine: (timestamps, wall s)."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioStream
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    peaks, _ = det.find_clip_in_audio(AudioStream(
+        name="s", audio_stream=io.BytesIO(row.tobytes()), sample_rate=det.target_sample_rate))
+    torch.cuda.synchronize()
+    return peaks, time.perf_counter() - t
+
+
+def phase_mesh(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict[str, int]:
+    """Phase 11: the device mesh on logical shards of ``dev`` at the
+    flagship width, each path against the serial engine (a smaller bank of
+    the same clips rehearses it on the CPU). Returns the kernel launches
+    of each path, counted from 0."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch import native
+    from audio_pattern_detector_tpu_torch.flagship import dryrun_multichip, make_detector
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+    from audio_pattern_detector_tpu_torch.parallel import ShardedDetector, make_mesh
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    launches: dict[str, int] = {}
+
+    # ── 11a. Time sharding: the flagship bank and the CBS clip over the
+    # tiled file, 4 time shards of 60 s (slabs of 240 s, 240 s and 1.8 s) ──
+    pcm, rate = cbs_pcm()
+    audio = native.pcm16_to_f32_mono(np.tile(pcm, 15))[None]
+    cbs_clip = AudioClip.from_audio_file(str(CBS_CLIP), sample_rate=rate)
+    on_card = dev.type == "cuda"
+    det = make_detector(num_normal, num_marker, 60, dev, rate, extra_clips=(cbs_clip,))
+    bank = det._ensure_bank()
+    groups = sum(len(c["groups"]) for c in bank.classes.values())
+    sd = ShardedDetector(det.audio_clips, make_mesh({"time": 4}, devices=[dev] * 4),
+                         chunk_seconds=60, detector=det)
+    n_chunks = -(-audio.shape[1] // sd.chunk_samples)
+    want_launches = n_chunks * groups  # one cell per chunk, one launch per group
+    sharded_scan(sd, audio[:, : sd.slab_samples])  # first use: replicas, cuFFT plans
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    walls: dict[str, list[float]] = {"sharded": [], "serial": []}
+    for name in ("sharded", "serial", "serial", "sharded"):
+        if name == "sharded":
+            times, payloads, n_launches, wall = sharded_scan(sd, audio)
+            peak = torch.cuda.max_memory_allocated()
+        else:
+            serial, wall = serial_scan(det, audio[0])
+        walls[name].append(wall)
+    got = {name: sorted(per[0]) for name, per in times.items()}
+    if got != serial or len(serial[cbs_clip.name]) != 15:
+        raise AssertionError(f"time mesh: sharded {got} != serial {serial}")
+    if on_card and n_launches != want_launches:
+        raise AssertionError(f"time mesh: kernel launches {n_launches}, want {want_launches}")
+    plain_times, plain_payloads, plain_launches, _ = sharded_scan(
+        sd, audio, candidate_scan_reference)
+    cells = 0
+    for slab, other in zip(payloads, plain_payloads):
+        for sw in slab:
+            for a, b in zip(slab[sw], other[sw]):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError("time mesh: a cell's payload differs between the kernel "
+                                         "and the plain scan")
+                cells += a.shape[0] * a.shape[1]
+    if plain_times != times or plain_launches != 0:
+        raise AssertionError(f"time mesh with the plain scan: launches {plain_launches}")
+    launches["mesh_time_4"] = n_launches
+    audio_s = audio.shape[1] / rate
+    phase("mesh_time", card=smi, logical_shards=True, time_shards=4, clips=len(det.audio_clips),
+          groups=groups, audio_s=audio_s, chunk_s=60, slabs=len(payloads), chunks=n_chunks,
+          detections=len(serial[cbs_clip.name]), equal_to_serial_engine=True,
+          payloads_bit_equal_with_plain_scan=True, cells_compared=cells // len(bank.classes),
+          kernel_launches=n_launches, predicted_launches=want_launches,
+          sharded_wall_s=walls["sharded"], serial_wall_s=walls["serial"],
+          sharded_x_realtime=audio_s / float(np.median(walls["sharded"])),
+          serial_x_realtime=audio_s / float(np.median(walls["serial"])),
+          peak_mem_gb=(peak - resident) / 1e9, resident_gb=resident / 1e9)
+    del sd, det, bank, payloads, plain_payloads
+
+    # ── 11b. bank x time and stream x time, 2 x 2, on the flagship bank ──
+    det = make_detector(num_normal, num_marker, 60, dev, rate)
+    audios, _, _ = serving_streams(det, rate)
+    pair = np.stack([audios[0], audios[1]])  # two 180 s streams: a full slab and a 60 s one
+    serials = [serial_scan(det, row) for row in pair]
+    for name, axes, batch in (("mesh_bank_2_time_2", {"bank": 2, "time": 2}, pair[:1]),
+                              ("mesh_stream_2_time_2", {"stream": 2, "time": 2}, pair)):
+        sd = ShardedDetector(det.audio_clips, make_mesh(axes, devices=[dev] * 4),
+                             chunk_seconds=60, detector=det)
+        times, _, n_launches, wall = sharded_scan(sd, batch)
+        for b, (serial, _) in enumerate(serials[: len(batch)]):
+            got = {n: sorted(per[b]) for n, per in times.items()}
+            if got != serial:
+                raise AssertionError(f"{name}, stream {b}: sharded {got} != serial {serial}")
+        cells = 3 * axes.get("stream", 1) * axes.get("bank", 1)  # 3 chunks a stream
+        if on_card and n_launches != cells * 2:
+            raise AssertionError(f"{name}: kernel launches {n_launches}, want {cells * 2}")
+        launches[name] = n_launches
+        phase(name, card=smi, logical_shards=True, axes=axes, streams=len(batch), audio_s=180,
+              equal_to_serial_engine=True, kernel_launches=n_launches, sharded_wall_s=wall,
+              serial_wall_s=[w for _, w in serials[: len(batch)]],
+              detections=sum(len(ts) for per in times.values() for ts in per))
+        del sd
+    del det
+
+    # ── 11c. bank x stream x time: the dry run of 8 shards ──
+    candidate_scan.launches = 0
+    t = time.perf_counter()
+    report = dryrun_multichip(8, dev, num_normal, num_marker)
+    launches["dryrun_multichip_8"] = candidate_scan.launches
+    phase("dryrun_multichip", card=smi, equal_to_serial_engine=True,
+          kernel_launches=candidate_scan.launches, wall_s=time.perf_counter() - t, **report)
+    return launches
+
+
 def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
     """Phase 7: every route of a flagged row on the flagship bank (a
     smaller bank of the same clips rehearses it on the CPU)."""
@@ -892,12 +1137,40 @@ def phase_entry_points(dev) -> None:
             "height_min_0": (["--height-min", "0", "--pattern-file", str(CBS_CLIP), str(CBS)],
                              None, cbs_out),
         }
+        two_files = ["--pattern-file", str(RTHK_TOML), "--pattern-file", str(CBS_CLIP),
+                     str(RTHK), str(CBS)]
+        # The mesh entry points on logical shards of the device, with the
+        # kernel launches each must make: one per active cell and group.
+        # The 4 s file fills one time shard of one slab; --mesh-bank 2 pads
+        # the one-clip group to 2 rows, one per bank shard; --mesh-stream 2
+        # runs the two files as one round of 2 rows over 2 shards, each
+        # launching both groups.
+        mesh_cases = {
+            "mesh_time_4": (["--mesh-time", "4", *rthk_args], 4, rthk_out, 1),
+            "mesh_time_2_bank_2": (["--mesh-time", "2", "--mesh-bank", "2", *rthk_args], 4,
+                                   rthk_out, 2),
+            "mesh_stream_2": (["--mesh-stream", "2", *two_files], 2, rthk_out + cbs_out, 4),
+        }
         entry_rows = {}
         for name, (args, stdin, want) in cases.items():
             out, report, wall = run_entry([*device_args, *args], stdin)
             if out != want or report["jax_imported"] or report["launches"] < on_card:
                 raise AssertionError(f"{name}: {report}, stdout {out!r}, want {want!r}")
             entry_rows[name] = (report["launches"], wall)
+        for name, (args, logical, want, want_launches) in mesh_cases.items():
+            out, report, wall = run_entry([*device_args, *args], logical=logical)
+            if out != want or report["jax_imported"] or (
+                    on_card and report["launches"] != want_launches):
+                raise AssertionError(f"{name}: {report} (want {want_launches} launches), "
+                                     f"stdout {out!r}, want {want!r}")
+            entry_rows[name] = (report["launches"], wall)
+        refused = subprocess.run(
+            entry_command([*device_args, "--mesh-time", "64", *rthk_args]), capture_output=True,
+            cwd=ROOT, env=entry_env(4), timeout=300)
+        if refused.returncode == 0 or b"mesh needs 64 devices, only 4 available" not in (
+                refused.stderr) or b"pattern_detected" in refused.stdout:
+            raise AssertionError(f"--mesh-time 64: exit {refused.returncode}: "
+                                 f"{refused.stderr.decode()[-2000:]}")
         # A vmap run's stdout equals its scan twin's (both equal the pinned
         # text above); its 4 rows, 3 of them padding, are one launch.
         for name in ("offline_batch", "stream_batch"):
@@ -928,6 +1201,7 @@ def phase_entry_points(dev) -> None:
             raise AssertionError(f"resume: head {head_hits}, resumed {tail_hits}, {report}")
         entry_rows["checkpoint_resume"] = (report["launches"], wall)
         phase("entry_points", golden_stdout=True, jax_imported=False,
+              mesh_time_64_refused=True,
               kernel_launches={k: v[0] for k, v in entry_rows.items()},
               wall_s={k: round(v[1], 2) for k, v in entry_rows.items()},
               trace_kernel_events=len(device_ops))
@@ -1010,7 +1284,7 @@ def phase_multistream(
 
     from audio_pattern_detector_tpu_torch.utils.clip import AudioStream
     from audio_pattern_detector_tpu_torch.flagship import make_detector
-    from audio_pattern_detector_tpu_torch.models.bank import class_step
+    from audio_pattern_detector_tpu_torch.models.bank import class_step, dispatch_phase_seconds
     from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
         candidate_scan,
@@ -1089,6 +1363,40 @@ def phase_multistream(
 
     counted = {mode: counted_run(mode) for mode in ("scan", "vmap")}
 
+    # ── The same streams with each round's rows split over a stream mesh
+    # of two logical shards of the device (an untiled 16-row "vmap" round,
+    # 8 rows a shard, idle slots as zero-length rows) ──
+    def mesh_run() -> dict:
+        from audio_pattern_detector_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh({"stream": 2}, devices=[dev] * 2)
+        session = MultiStreamSession(det, 16, mesh=mesh)
+        before = routes(bank)
+        candidate_scan.launches = 0
+        t = time.perf_counter()
+        acc, _ = drive_session(session, rounds, in_flight=2)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = candidate_scan.launches
+        delta = tuple(a - b for a, b in zip(routes(bank), before))
+        want = len(rounds) * mesh.shape["stream"] * groups
+        if on_card and launches != want:
+            raise AssertionError(f"stream mesh: kernel launches {launches}, want {want}")
+        if session._batch_mode != "vmap" or delta != counted["vmap"]["routes"]:
+            raise AssertionError(f"stream mesh: mode {session._batch_mode}, routes {delta}, "
+                                 f"unsharded {counted['vmap']['routes']}")
+        for i, (want_peaks, total) in enumerate(serial):
+            if acc[i] != want_peaks or session.total_time(i) != total:
+                raise AssertionError(
+                    f"stream mesh, stream {i}: session {acc[i]} != serial {want_peaks}")
+        return {"launches": launches, "routes": delta, "wall_s": wall,
+                "detections": sum(len(v) for a in acc[:12] for v in a.values())}
+
+    counted["mesh"] = mesh_run()
+    if counted["mesh"]["detections"] != counted["vmap"]["detections"]:
+        raise AssertionError(f"stream mesh detections {counted['mesh']['detections']}")
+
     # ── The kernel on a zero-length and a short row of an untiled round ──
     short = audios[0][: 7 * sr]
     full = audios[1][:60 * sr]
@@ -1133,13 +1441,40 @@ def phase_multistream(
     for session in timed.values():
         session.feed(full_rounds[0])
 
-    def steady_ms(mode: str) -> float:
+    # The host time of each dispatch stage (the bank's process-wide clock),
+    # summed per mode over the timed rounds.
+    split: dict[str, dict[str, float]] = {}
+
+    def steady_ms(mode: str, rounds_of=full_rounds) -> float:
+        before = dict(dispatch_phase_seconds)
         t = time.perf_counter()
-        drive_session(timed[mode], full_rounds[1:], in_flight=2)
-        return (time.perf_counter() - t) / n_rounds * 1e3
+        drive_session(timed[mode], rounds_of[1:], in_flight=2)
+        ms = (time.perf_counter() - t) / n_rounds * 1e3
+        acc = split.setdefault(mode, dict.fromkeys(dispatch_phase_seconds, 0.0))
+        for k in acc:
+            acc[k] += dispatch_phase_seconds[k] - before[k]
+        return ms
 
     steady = turns_ms(steady_ms, n=1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    turns_n = len(steady["vmap"]) * n_rounds
+    split_ms = {mode: {k: v / turns_n * 1e3 for k, v in acc.items()}
+                for mode, acc in split.items()}
+    split_share = {mode: {k: v / float(np.median(steady[mode])) for k, v in ms.items()}
+                   for mode, ms in split_ms.items()}
+    # The same rounds as raw int16 rows (what a source of 16-bit PCM hands
+    # on): they upload as int16, half the bytes. One round untimed first, so
+    # that every timed row's lookback is int16 too.
+    pcm_rounds = [[np.round(c * 32768 * 32).astype(np.int16) for c in chunks]
+                  for chunks in full_rounds]
+    for session in timed.values():
+        session.feed(pcm_rounds[0])
+    split.clear()
+    pcm = {mode: [steady_ms(mode, pcm_rounds) for _ in range(2)] for mode in ("vmap", "scan")}
+    pcm_split_ms = {mode: {k: v / (2 * n_rounds) * 1e3 for k, v in acc.items()}
+                    for mode, acc in split.items()}
+    for session in timed.values():
+        session.feed(full_rounds[0])
 
     # ── One round's dispatch and collect against 16 single-chunk
     # dispatches, in turns (round, singles, singles, round, twice) ──
@@ -1183,6 +1518,17 @@ def phase_multistream(
           steady_peak_mem_gb=peak_gb,
           round_dispatch_collect_ms=turns["round"],
           singles_dispatch_collect_ms=turns["singles"])
+    mesh = counted["mesh"]
+    phase("multistream_stream_mesh", card=smi, stream_shards=2, logical_shards=True, slots=16,
+          rounds=len(rounds), kernel_launches=mesh["launches"],
+          routes_row_class_escalated_host=mesh["routes"], detections=mesh["detections"],
+          equal_to_serial_engine=True, session_wall_s=mesh["wall_s"],
+          unsharded_vmap_session_wall_s=vmap_run["wall_s"])
+    phase("dispatch_phase_split", card=smi, rows=16, rounds_timed=turns_n,
+          ms_per_round=split_ms, share_of_round=split_share,
+          int16_rows_ms_per_round=pcm_split_ms,
+          int16_rows_round_ms={m: float(np.median(v)) for m, v in pcm.items()},
+          upload_bytes_per_round={"f32": 16 * SECTION_LEN * 4, "int16": 16 * SECTION_LEN * 2})
     if profile is not None:
         for mode in ("scan", "vmap"):
             phase("profile_serving_round", mode=mode, rows=16, audio_s=16 * 60,
@@ -1218,17 +1564,17 @@ def serve_client(sock, payload: bytes) -> tuple[str, float]:
     return buf.decode(), time.perf_counter() - t
 
 
-def phase_serve(dev, smi: str) -> None:
+def phase_serve(dev, smi: str, mesh_stream: "int | None" = None) -> None:
     """Phase 10: the port's ``serve`` in a subprocess on ``dev`` (4 slots),
-    4 concurrent clients and a refused 5th, then SIGINT."""
+    4 concurrent clients and a refused 5th, then SIGINT. With
+    ``mesh_stream``, as ``serve --mesh-stream N`` on that many logical
+    shards of the device."""
     import threading
 
     on_card = dev.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         tiled = Path(tmp) / "cbs_x15.wav"
-        with wave.open(str(CBS), "rb") as w:
-            rate, frames = w.getframerate(), w.readframes(w.getnframes())
-        write_tiled(tiled, np.frombuffer(frames, dtype=np.int16), rate, 15)
+        write_tiled(tiled, *cbs_pcm(), 15)
         tiled_wav = tiled.read_bytes()
     patterns = ["--pattern-file", str(RTHK_TOML), "--pattern-file", str(CBS_CLIP)]
     stdin_out, _, _ = run_entry(["--device", dev.type, "--stdin", *patterns], tiled_wav)
@@ -1237,16 +1583,18 @@ def phase_serve(dev, smi: str) -> None:
         raise AssertionError(f"match --stdin on the tiled file: {stdin_out}")
 
     t = time.perf_counter()
+    mesh_args = ["--mesh-stream", str(mesh_stream)] if mesh_stream else []
     proc = subprocess.Popen(
         [sys.executable, "-c", ENTRY, "serve", "--device", dev.type, "--port", "0",
-         "--max-streams", "4", *patterns],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, cwd=ROOT, env=entry_env(),
+         "--max-streams", "4", *mesh_args, *patterns],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, cwd=ROOT,
+        env=entry_env(mesh_stream),
     )
     try:
         assert proc.stderr is not None
         head = b""
         deadline = time.monotonic() + 300
-        while b"Serving " not in head:
+        while b" pattern(s) on " not in head:
             left = deadline - time.monotonic()
             ready = select.select([proc.stderr], [], [], max(left, 0))[0]
             data = os.read(proc.stderr.fileno(), 4096) if ready else b""
@@ -1254,7 +1602,9 @@ def phase_serve(dev, smi: str) -> None:
                 raise AssertionError(f"serve did not start: {head.decode()[-3000:]}")
             head += data
         ready_s = time.perf_counter() - t
-        line = next(x for x in head.decode().splitlines() if x.startswith("Serving "))
+        if mesh_stream and f"Serving over a {mesh_stream}-device stream mesh" not in head.decode():
+            raise AssertionError(f"serve --mesh-stream did not announce its mesh: {head.decode()}")
+        line = next(x for x in head.decode().splitlines() if " pattern(s) on " in x)
         port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
         names = ["rthk", "cbs", "cbs_x15", "rthk_again"]
         payloads = [RTHK.read_bytes(), CBS.read_bytes(), tiled_wav, RTHK.read_bytes()]
@@ -1289,7 +1639,8 @@ def phase_serve(dev, smi: str) -> None:
     report = json.loads(err.decode().strip().splitlines()[-1])
     if proc.returncode != 0 or report["jax_imported"] or report["launches"] < on_card:
         raise AssertionError(f"serve exit {proc.returncode}, {report}: {err.decode()[-3000:]}")
-    phase("serve", card=smi, slots=4, clients=4, golden_events=True, refused_fifth=True,
+    phase("serve_mesh_stream" if mesh_stream else "serve", card=smi, slots=4, clients=4,
+          mesh_stream=mesh_stream, golden_events=True, refused_fifth=True,
           tiled_detections=15, equal_to_match_stdin=True, jax_imported=False,
           kernel_launches=report["launches"], ready_s=ready_s,
           wall_s_per_client={n: results[n][1] for n in names})
@@ -1429,6 +1780,7 @@ def main(argv: "list[str] | None" = None) -> int:
     # ── 2b, 3b. The batched shapes: the kernel alone, then the flagship round ──
     batched_rows = phase_scan_batched(dev, smi)
     round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
+    phase_general_plateau(dev, smi)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──
     built = []
@@ -1452,9 +1804,7 @@ def main(argv: "list[str] | None" = None) -> int:
     golden_launches = candidate_scan.launches
     phase("golden_cli", flows=4, exact=True, kernel_launches=golden_launches)
 
-    with wave.open(str(AUDIO / "cbs_news_audio_section.wav"), "rb") as w:
-        rate, frames = w.getframerate(), w.readframes(w.getnframes())
-    pcm = np.frombuffer(frames, dtype=np.int16)
+    pcm, rate = cbs_pcm()
     copies = 15
     period_ms = len(pcm) / rate * 1e3
     audio_s = copies * len(pcm) / rate
@@ -1548,6 +1898,8 @@ def main(argv: "list[str] | None" = None) -> int:
     phase_entry_points(dev)
     serving_launches = phase_multistream(dev, smi, profile=args.profile)
     phase_serve(dev, smi)
+    phase_serve(dev, smi, mesh_stream=2)
+    mesh_launches = phase_mesh(dev, smi)
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:
@@ -1558,13 +1910,17 @@ def main(argv: "list[str] | None" = None) -> int:
     g, l, err, ms, plain_ms, bound_ms = kernel_rows[0]
     bg, bl, berr, bms, bplain_ms, bbound_ms = batched_rows[0]
     # Launches of the counted main-path runs, each counted from 0: file
-    # mode (phases 4-5), the batched flagship round (phase 3b) and the
-    # serving session in both batch modes (phase 9). ``ms``, ``plain_ms``
+    # mode (phases 4-5), the batched flagship round (phase 3b), the
+    # serving session in both batch modes and on a stream mesh (phase 9)
+    # and the mesh paths (phase 11). ``ms``, ``plain_ms``
     # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
     # stand beside them. No single PyTorch call computes the scan's five
     # outputs, so no library time.
     launches = {"file_mode": main_path_launches, "flagship_round_vmap": round_launches,
-                "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"]}
+                "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"],
+                "serving_stream_mesh": serving_launches["mesh"], **mesh_launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a path of the run launched no kernel: {launches}")
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(launches.values()),

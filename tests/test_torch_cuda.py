@@ -449,3 +449,147 @@ def test_multistream_session_on_card_equals_cpu(cuda):
         # 9 planted hits; the one at 19 s lies in the next section's 1 s
         # lookback too, and is reported there again, as the serial engine does.
         assert sum(len(ts) for out in outs["cpu"] for r in out for ts in r.values()) == 10
+
+
+# ── The device mesh on logical shards of the card ──
+
+
+def _mesh_clips(np):
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    sr = 8000
+    clips = [
+        AudioClip(name=f"n{i}", audio=(0.4 * np.random.default_rng(42 + i).standard_normal(sr))
+                  .astype(np.float32), sample_rate=sr)
+        for i in range(3)
+    ]
+    t = np.arange(sr // 4) / sr
+    clips.append(AudioClip(
+        name="beep", audio=np.sin(2 * np.pi * 1000.0 * t).astype(np.float32), sample_rate=sr,
+        strategy="marker_tone", strategy_params={"dominant_frequency_hz": 1000.0}))
+    audio = (0.01 * np.random.default_rng(5).standard_normal((2, 44 * sr))).astype(np.float32)
+    for b, offsets in enumerate(([1.5, 13.0, 33.25], [6.0, 21.5, 40.0])):
+        for off in offsets:
+            audio[b, int(off * sr) : int(off * sr) + sr] += clips[b].audio
+        audio[b, 9 * sr + b * sr // 2 : 9 * sr + b * sr // 2 + sr // 4] += 0.7 * clips[3].audio
+    return clips, audio
+
+
+@pytest.mark.parametrize(
+    "axes", [{"time": 4}, {"stream": 2, "time": 2}, {"bank": 2, "time": 2}],
+    ids=["time4", "stream2_time2", "bank2_time2"],
+)
+def test_sharded_detector_on_logical_shards_of_the_card(cuda, axes):
+    """Two 44 s streams in 5 s chunks (two full slabs and a short one on a
+    4-shard time mesh): the sharded scan on logical shards of the card
+    equals the serial engine on the card and the sharded scan on the CPU;
+    with the plain scan substituted the cells' payloads are bit-equal; the
+    kernel launches once per active cell and group."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import (
+        candidate_scan,
+        candidate_scan_reference,
+    )
+    from audio_pattern_detector_tpu_torch.parallel import ShardedDetector, make_mesh
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioStream
+
+    clips, audio = _mesh_clips(np)
+    n = int(np.prod(list(axes.values())))
+    batch = audio[: axes.get("stream", 1)]
+
+    def run(dev, scan=None):
+        sd = ShardedDetector(clips, make_mesh(axes, devices=[dev] * n), chunk_seconds=5,
+                             device=dev)
+        if scan is not None:
+            sd.scan = scan
+        sess, payloads, times = sd.session(), [], {c.name: [[] for _ in batch] for c in clips}
+        for start in range(0, batch.shape[1], sd.slab_samples):
+            for name, per in sess.feed(batch[:, start : start + sd.slab_samples]).items():
+                for b, ts in enumerate(per):
+                    times[name][b].extend(ts)
+            payloads.append({sw: [p.copy() for p in ps] for sw, ps in sess.last_payloads.items()})
+        return sd, times, payloads
+
+    candidate_scan.launches = 0
+    sd, times, payloads = run(cuda)
+    launches = candidate_scan.launches
+    groups = sum(len(c["groups"]) for c in sd.bank.classes.values())
+    chunks = -(-batch.shape[1] // sd.chunk_samples)
+    assert launches == chunks * axes.get("stream", 1) * axes.get("bank", 1) * groups
+    _, cpu_times, _ = run("cpu")
+    assert times == cpu_times
+    _, plain_times, plain_payloads = run(cuda, candidate_scan_reference)
+    assert plain_times == times
+    for slab, other in zip(payloads, plain_payloads):
+        for sw in slab:
+            for a, b in zip(slab[sw], other[sw]):
+                assert a.tobytes() == b.tobytes()
+    det = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=5)
+    for b, row in enumerate(batch):
+        serial, _ = det.find_clip_in_audio(AudioStream(
+            name="s", audio_stream=io.BytesIO(row.tobytes()), sample_rate=8000))
+        assert {name: sorted(per[b]) for name, per in times.items()} == serial
+    assert times["n0"][0] and times["beep"][0]
+
+
+def test_bank_sharded_bank_and_stream_mesh_on_the_card(cuda):
+    """``BankShardedBank`` on 3 logical shards (groups of 3 and 1 pad to
+    3 and 3) and a 4-slot session on a 2-shard stream mesh, on the card:
+    equal to the unsharded bank and session, payloads bit for bit."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
+
+    clips, audio = _mesh_clips(np)
+    sr = 8000
+    det = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)
+    bank = det._ensure_bank()
+    c0, c1 = audio[0, : 10 * sr], audio[0, 10 * sr : 20 * sr]
+    sharded = BankShardedBank(bank, make_mesh({"bank": 3}, devices=[cuda] * 3))
+    want = [rec[1].numpy().copy() for rec in bank.dispatch_chunk(c1, c0)]
+    got = [rec[1].numpy() for rec in sharded.dispatch_chunk(c1, c0)]
+    for (sw, cls), g, w in zip(bank.classes.items(), got, want):
+        off_g = off_w = 0
+        for grp, rows in zip(cls["groups"], sharded._padded_rows[sw]):
+            width = 2 * grp.k_verify + 2
+            real = len(grp.names) * width
+            assert g[off_g : off_g + real].tobytes() == w[off_w : off_w + real].tobytes()
+            off_g, off_w = off_g + rows * width, off_w + real
+    assert sharded.process_chunk(c1, c0) == bank.process_chunk(c1, c0)
+
+    mesh = make_mesh({"stream": 2}, devices=[cuda] * 2)
+    rounds = [[audio[0, :10 * sr], audio[1, :10 * sr], None, audio[1, 20 * sr : 23 * sr]],
+              [audio[0, 10 * sr : 20 * sr], np.zeros(0, np.float32), audio[1, :10 * sr], None]]
+    meshed = MultiStreamSession(det, 4, mesh=mesh)
+    plain = MultiStreamSession(det, 4, batch_mode="vmap")
+    for chunks in rounds:
+        assert meshed.feed(chunks) == plain.feed(chunks)
+
+
+def test_kernel_wrapper_launches_under_the_tensors_device(cuda):
+    """The wrapper makes corr's device current around the launch; with one
+    card that is the device already current, and the launch count, the
+    outputs' device and the bitwise result stay what they were."""
+    from audio_pattern_detector_tpu_torch.ops import candidate_scan as scan_module
+
+    corr_np, thr_np = make_scan_input(3, 6001, seed=1)
+    corr = torch.from_numpy(corr_np).to("cuda:0")
+    thr = torch.from_numpy(thr_np).to("cuda:0")
+    guards = []
+    guard = scan_module.device_guard
+
+    def recording(dev):
+        guards.append(dev)
+        return guard(dev)
+
+    scan_module.device_guard = recording
+    try:
+        got = scan_module.candidate_scan(corr, thr, 6001)
+    finally:
+        scan_module.device_guard = guard
+    assert guards == [corr.device] and all(o.device == corr.device for o in got)
+    check_scan_equal(got, scan_module.candidate_scan_reference(corr, thr, 6001))

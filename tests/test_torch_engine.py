@@ -288,29 +288,42 @@ def test_cli_process_never_imports_jax():
 
 
 @pytest.mark.parametrize(
-    "extra,flag",
+    "extra,flag,ends_as",
     [
-        (["--mesh-time", "2"], "--mesh-time"),
-        (["--mesh-bank", "2"], "--mesh-bank"),
-        (["--mesh-stream", "2"], "--mesh-stream"),
+        (["--mesh-time", "2"], "mesh needs 2 devices, only 1 available", ValueError),
+        (["--mesh-bank", "2"], "mesh_bank requires mesh_time", ValueError),
+        (["--mesh-stream", "2"], "--mesh-stream parallelises across MULTIPLE audio files",
+         SystemExit),
     ],
 )
-def test_cli_rejects_what_is_not_ported(extra, flag, capsys):
-    with pytest.raises(SystemExit) as exc:
+def test_cli_rejects_what_is_not_ported(extra, flag, ends_as, capsys, monkeypatch):
+    """The mesh flags are ported; what is still rejected, with the JAX
+    package's messages and each as the JAX CLI ends it: a mesh larger than
+    the visible devices (here one CPU device and no logical shards) and a
+    bank axis without a time axis leave ``match`` as the ValueError (a
+    traceback and a non-zero exit for the process), a stream mesh over a
+    single file is a usage error: ``Error: ...`` on stderr and exit 1."""
+    monkeypatch.delenv("APD_TORCH_LOGICAL_DEVICES", raising=False)
+    with pytest.raises(ends_as) as exc:
         cli.main(["match", "--device", "cpu", "--pattern-file", RTHK_TOML, RTHK, *extra])
-    assert exc.value.code == 2
     captured = capsys.readouterr()
-    assert flag in captured.err and captured.out == ""
+    if ends_as is SystemExit:
+        assert exc.value.code == 1 and f"Error: {flag}" in captured.err
+    else:
+        assert str(exc.value) == flag
+    assert '"pattern_detected"' not in captured.out
 
 
-def test_cli_serve_is_refused(capsys):
-    """``serve`` runs on the port (tests/test_torch_serve.py); its stream
-    mesh does not, and is refused by name before any device work."""
+def test_cli_serve_is_refused(capsys, monkeypatch):
+    """``serve --mesh-stream`` runs on the port (tests/test_torch_mesh_surfaces.py);
+    a mesh larger than the visible devices is a usage error: the JAX
+    message on stderr and exit 1, before any device work."""
+    monkeypatch.delenv("APD_TORCH_LOGICAL_DEVICES", raising=False)
     with pytest.raises(SystemExit) as exc:
         cli.main(["serve", "--device", "cpu", "--mesh-stream", "2", "--pattern-file", RTHK_TOML])
-    assert exc.value.code == 2
+    assert exc.value.code == 1
     captured = capsys.readouterr()
-    assert "--mesh-stream is not supported by the torch port" in captured.err and not captured.out
+    assert "Error: mesh needs 2 devices, only 1 available" in captured.err and not captured.out
 
 
 def test_cli_cuda_without_a_card_raises_before_any_event(capsys):

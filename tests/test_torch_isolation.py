@@ -4,11 +4,17 @@ compute what the originals compute.
 * Static: no ``.py`` file of ``audio_pattern_detector_tpu_torch/``, nor
   ``chip_smoke.py``, imports jax or anything of ``audio_pattern_detector_tpu``.
 * Run: a subprocess that refuses those imports (a ``sys.meta_path`` finder)
-  imports every module of the port, runs the RTHK golden flow through the
-  port's CLI on the CPU and builds a ``PatternServer``.
+  imports every module of the port (``parallel/`` included), runs the RTHK
+  golden flow through the port's CLI on the CPU, serially and on a time
+  mesh of logical shards, and builds a ``PatternServer``.
 * Differential: each copied host module against the JAX package's module on
   seeded inputs and on ``sample_audios/``. The code is the same numpy, so
   the results must be equal exactly (arrays bit for bit).
+* Shared code: the functions and methods that the port's ``match.py``,
+  ``serve.py``, ``models/multistream.py`` and ``parallel/sequence.py`` took
+  over unchanged are the JAX modules' code, statement for statement (their
+  syntax trees without docstrings, the package name apart); the mesh
+  branches of ``EngineOptions.validate`` among them.
 """
 
 import ast
@@ -90,6 +96,10 @@ print("MODULES", len(names))
 from audio_pattern_detector_tpu_torch.cli import main
 main(["match", "--device", "cpu", "--timestamp-format", "ms", "--pattern-file", {RTHK_TOML!r},
       {RTHK!r}])
+import os
+os.environ["APD_TORCH_LOGICAL_DEVICES"] = "2"
+main(["match", "--device", "cpu", "--mesh-time", "2", "--timestamp-format", "ms",
+      "--pattern-file", {RTHK_TOML!r}, {RTHK!r}])
 from audio_pattern_detector_tpu_torch.match import _load_pattern_clips
 from audio_pattern_detector_tpu_torch.serve import PatternServer
 server = PatternServer(_load_pattern_clips([{RTHK_TOML!r}], 8000), port=0, max_streams=2,
@@ -107,14 +117,86 @@ def test_port_runs_with_jax_and_the_jax_package_refused():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
-    assert int(lines[0].split()[1]) >= 25
+    assert int(lines[0].split()[1]) >= 30
+    assert "audio_pattern_detector_tpu_torch/parallel/sequence.py" in _port_sources()
     assert [x for x in lines if x.startswith("{")] == [
         '{"type": "start", "source": "%s"}' % RTHK,
         '{"type": "pattern_detected", "clip_name": "rthk_beep", "timestamp_ms": 1408}',
         '{"type": "pattern_detected", "clip_name": "rthk_beep", "timestamp_ms": 2420}',
         '{"type": "end", "total_time_ms": 4078}',
-    ]
+    ] * 2  # the serial run, then the same file on a 2-shard time mesh
     assert lines[-2:] == ["SERVER True 2", "REFUSED_LOADED []"]
+
+
+# ── Shared code ──
+
+
+def _definitions(path: str, rename: bool) -> dict[str, str]:
+    """name -> dump of the syntax tree, docstrings dropped, of every
+    top-level function and every method of ``path``."""
+    src = open(os.path.join(REPO, path), encoding="utf-8").read()
+    if rename:
+        src = (src.replace("audio_pattern_detector_tpu_torch", "audio_pattern_detector_tpu")
+               .replace("TorchEngineOptions", "EngineOptions")
+               .replace("TorchAudioPatternDetector", "AudioPatternDetector"))
+
+    def dump(node: ast.AST) -> str:
+        for n in ast.walk(node):
+            body = getattr(n, "body", None)
+            if (isinstance(n, (ast.FunctionDef, ast.ClassDef)) and body
+                    and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                n.body = body[1:] or [ast.Pass()]
+        return ast.dump(node)
+
+    out = {}
+    for node in ast.parse(src, path).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = dump(node)
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{sub.name}": dump(sub)
+                        for sub in node.body if isinstance(sub, ast.FunctionDef)})
+    return out
+
+
+SHARED = {
+    "match.py": [
+        "EngineOptions.validate", "_emit_jsonl", "_read_uint32",
+        "_read_patterns_from_multiplexed_stdin", "_seek_riff_chunk", "_validate_wav_header",
+        "_decode_samples", "_WavStdinStreamWrapper.__init__", "_WavStdinStreamWrapper.read",
+        "_WavFileStreamWrapper.__init__", "_WavFileStreamWrapper._validate_first_chunk",
+        "_WavFileStreamWrapper.read", "_WavFileStreamWrapper.close", "_load_checkpoint_file",
+        "_skip_stream_samples", "_checkpoint_writer", "_drain_stream", "_read_full",
+        "_probe_duration_seconds", "_auto_perf_chunk_seconds", "_auto_perf_plan",
+        "_load_pattern_clips", "_opts_for_source", "_match_pattern_file",
+        "_match_pattern_wav_stdin", "_match_pattern_multiplexed_stdin", "_make_jsonl_callback",
+        "_emit_jsonl_end", "_parse_chunk_seconds", "_int_or", "_collect_pattern_files",
+    ],
+    "serve.py": [
+        "_ExactReader.read", "PatternServer.shutdown", "PatternServer._service_sockets",
+        "PatternServer._accept", "PatternServer._ingest", "PatternServer._try_parse_header",
+        "PatternServer._take_chunk", "PatternServer._dispatch_round",
+        "PatternServer._collect_ready", "PatternServer._finish_streams", "PatternServer._emit",
+        "PatternServer._flush", "PatternServer._release", "PatternServer._teardown",
+    ],
+    "models/multistream.py": [
+        "MultiStreamSession.feed", "MultiStreamSession.dispatch", "MultiStreamSession.collect",
+        "MultiStreamSession.total_time", "MultiStreamSession.reset",
+    ],
+    "parallel/sequence.py": [
+        "ShardedDetector.session", "ShardedDetector.detect", "_device_section",
+        "detections_from_sharded",
+    ],
+}
+
+
+@pytest.mark.parametrize("module", sorted(SHARED))
+def test_shared_functions_are_the_jax_modules_code(module):
+    theirs = _definitions(os.path.join("audio_pattern_detector_tpu", module), rename=False)
+    ours = _definitions(os.path.join("audio_pattern_detector_tpu_torch", module), rename=True)
+    for name in SHARED[module]:
+        assert name in theirs and name in ours, name
+        assert ours[name] == theirs[name], f"{module}: {name} differs from the JAX module's"
 
 
 # ── Differential cases ──

@@ -285,8 +285,14 @@ def test_validation_messages_equal_the_jax_sessions(env, case):
 def test_mesh_and_vmap_are_refused_by_name(env):
     clips = env[0]
     det = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=CHUNK_S)
-    with pytest.raises(ValueError, match="mesh is not supported by the torch port"):
-        MultiStreamSession(det, 2, mesh=object())
+    from audio_pattern_detector_tpu_torch.parallel import make_mesh
+
+    # A mesh is taken now (tests/test_torch_mesh_surfaces.py); one without
+    # a stream axis is refused by name, and it makes "vmap" the default.
+    with pytest.raises(ValueError, match="mesh must have a 'stream' axis"):
+        MultiStreamSession(det, 2, mesh=make_mesh({"time": 2}, devices=["cpu"] * 2))
+    stream_mesh = make_mesh({"stream": 2}, devices=["cpu"] * 2)
+    assert MultiStreamSession(det, 2, mesh=stream_mesh)._batch_mode == "vmap"
     assert MultiStreamSession(det, 2, batch_mode="vmap")._batch_mode == "vmap"
     assert MultiStreamSession(det, 2)._batch_mode == "scan"
     with pytest.raises(TypeError, match="TorchAudioPatternDetector"):
@@ -299,8 +305,15 @@ def test_bank_prev_tails_mismatch_and_sharding(env):
     chunks = [np.zeros(10, np.float32)] * 2
     want = _error(lambda: jdet._ensure_bank().dispatch_chunks_batch(chunks, None, prev_tails=[None]))
     assert _error(lambda: tbank.dispatch_chunks_batch(chunks, None, prev_tails=[None])) == want
-    assert "sharding is not supported by the torch port" in _error(
-        lambda: tbank.dispatch_chunks_batch(chunks, None, sharding=object())
+    from audio_pattern_detector_tpu_torch.parallel import RowSharding, make_mesh
+
+    sharding = RowSharding(make_mesh({"stream": 2}, devices=["cpu"] * 2))
+    want = _error(lambda: jdet._ensure_bank().dispatch_chunks_batch(
+        chunks, None, mode="scan", sharding=object()))
+    assert _error(lambda: tbank.dispatch_chunks_batch(
+        chunks, None, mode="scan", sharding=sharding)) == want == "sharding requires mode='vmap'"
+    assert "does not divide" in _error(
+        lambda: tbank.dispatch_chunks_batch(chunks + chunks[:1], None, sharding=sharding)
     )
 
 

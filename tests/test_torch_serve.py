@@ -207,8 +207,13 @@ def test_constructor_contract():
         srv._teardown()
     with pytest.raises(ValueError, match="exactly one"):
         PatternServer()
-    with pytest.raises(ValueError, match="mesh is not supported by the torch port"):
-        PatternServer(clips, mesh=object(), device="cpu")
+    from audio_pattern_detector_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mesh must have a 'stream' axis"):
+        PatternServer(clips, mesh=make_mesh({"time": 2}, devices=["cpu"] * 2), device="cpu")
+    with pytest.raises(ValueError, match="tile and mesh are mutually exclusive"):
+        PatternServer(clips, mesh=make_mesh({"stream": 2}, devices=["cpu"] * 2), tile=2,
+                      max_streams=2, device="cpu")
     with pytest.raises(TypeError, match="TorchAudioPatternDetector"):
         PatternServer(detector=AudioPatternDetector(
             [jclip.AudioClip.from_audio_file(p, sample_rate=SR) for p in PATTERNS]))
@@ -297,7 +302,8 @@ def test_parallel_multi_file_scan_equals_the_sequential_scan():
     assert events == want_events
     assert [e[1] for e in events if e[0] == "start"] == [0, 1, 2]  # slot 0 recycles for file 2
     assert sum(e[0] == "detect" for e in events) == 5
-    with pytest.raises(ValueError, match="mesh_stream other than 1 is not supported"):
+    # Without enough devices a stream mesh is refused with the JAX message.
+    with pytest.raises(ValueError, match="mesh needs 2 devices, only 1 available"):
         match_pattern_many_parallel(files, PATTERNS, mesh_stream=2, device="cpu")
 
 
