@@ -20,7 +20,7 @@ import torch
 
 from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
-from audio_pattern_detector_tpu_torch.models.bank import PatternBank, class_step, class_step_fused
+from audio_pattern_detector_tpu_torch.models.bank import PatternBank
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
@@ -85,13 +85,9 @@ def flagship_step(
     s = cls["section_len"]
     rng = np.random.default_rng(1)
     section = torch.from_numpy((0.05 * rng.standard_normal(s)).astype(np.float32)).to(bank.device)
-    group_consts = tuple((g.corr, g.verify) for g in cls["groups"])
 
     def step(scan=candidate_scan) -> list[torch.Tensor]:
-        return class_step(
-            section, s, cls["loud"], group_consts,
-            metas=bank._metas[sw], height_min=bank.height_min, scan=scan,
-        )
+        return bank.step(sw, section, s, scan=scan, fused=False)
 
     return step, bank
 
@@ -117,18 +113,11 @@ def flagship_round(
         for i in range(ROUND_ROWS)
     ])).to(bank.device)
     n_valids = torch.full((ROUND_ROWS,), s, dtype=torch.int32, device=bank.device)
-    group_consts = tuple((g.corr, g.verify) for g in cls["groups"])
 
     def step(mode: str, scan=candidate_scan) -> torch.Tensor:
-        def fused(section, n_valid) -> torch.Tensor:
-            return class_step_fused(
-                section, n_valid, cls["loud"], group_consts,
-                metas=bank._metas[sw], height_min=bank.height_min, scan=scan,
-            )
-
         if mode == "vmap":
-            return fused(sections, n_valids)
-        return torch.stack([fused(sections[i], s) for i in range(ROUND_ROWS)])
+            return bank.step(sw, sections, n_valids, scan=scan)
+        return torch.stack([bank.step(sw, sections[i], s, scan=scan) for i in range(ROUND_ROWS)])
 
     return step, bank, sections
 

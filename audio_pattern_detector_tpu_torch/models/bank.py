@@ -31,6 +31,23 @@ route each row took.
 ``height_min <= 0`` runs the general-plateau tier (:func:`rich_group_packed`)
 in place of the lean one.
 
+Variants of the class step, each behind the JAX bank's own environment
+variable and read when the bank is built, as the JAX bank reads them:
+
+* ``APD_PALLAS=0``: the mask lean tier (:func:`mask_group_packed`), the JAX
+  package's default off the TPU: the candidate mask over the normalised
+  correlation, no kernel. Unset or any other value keeps the kernel tier;
+  nothing else leaves it, and a kernel that fails to build or launch
+  raises.
+* ``APD_NO_OVERLAP_SAVE=1``: one full-length FFT per group and for the
+  loudness filter, in place of the class's overlap-save segments.
+* ``APD_PACKED_UPLOAD=0``: int16 rows decode on the host and upload as f32.
+
+``APD_MARKER_GEMM`` acts inside the marker verifier and is read at each
+call (``ops/verify.py``). :meth:`PatternBank.step` runs a class step
+under the bank's switches: the dispatch paths, the mesh paths and the
+flagship probes all go through it.
+
 Batched dispatch has the JAX package's two schedules, with identical
 results. ``mode="scan"`` runs the class step row after row on the current
 stream, one chunk's memory at a time. ``mode="vmap"`` runs one class step
@@ -50,6 +67,7 @@ before any payload is awaited.
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -86,6 +104,7 @@ from audio_pattern_detector_tpu_torch.ops.peaks import (
     f32,
     find_peaks_device_fast,
     greedy_distance_filter,
+    greedy_survivors_blockwise,
     greedy_survivors_from_blocks,
     long_plateau_present,
     plateau_run_mask,
@@ -212,6 +231,10 @@ class PatternBank:
         self.class_reruns = 0
         self.escalated_reruns = 0
         self.host_path_rows = 0  # flagged rows resolved on the exact host path
+        # The JAX bank's switches (module docstring), read once here.
+        self.packed_upload = os.environ.get("APD_PACKED_UPLOAD", "1") != "0"
+        self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
+        overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
 
         grouped: dict[tuple[int, int, str], list[str]] = {}
         for name, cd in clip_datas.items():
@@ -222,6 +245,7 @@ class PatternBank:
             class_clip_lens.setdefault(sw, []).append(m)
         shared_geoms = {
             sw: class_overlap_save_geometry(sw * sample_rate + chunk_samples, ms)
+            if overlap_save else None
             for sw, ms in class_clip_lens.items()
         }
 
@@ -232,14 +256,17 @@ class PatternBank:
                 sw, {"section_len": section_len, "loud": None, "groups": []}
             )
             if cls["loud"] is None:
-                cls["loud"] = build_loudness_consts(section_len, sample_rate, self.device)
+                cls["loud"] = build_loudness_consts(
+                    section_len, sample_rate, self.device, overlap_save=overlap_save
+                )
             clips_np = np.stack([clip_datas[n]["clip"] for n in names])
             corr_clips_np = np.stack([clip_datas[n]["correlation_clip"] for n in names])
             self_max_np = np.array(
                 [float(clip_datas[n]["correlation_clip_absolute_max"]) for n in names]
             )
             corr = build_correlation_bank(
-                clips_np, self_max_np, section_len, self.device, shared_geoms[sw]
+                clips_np, self_max_np, section_len, self.device, shared_geoms[sw],
+                overlap_save=overlap_save,
             )
             full_len = corr.full_len
             # The JAX bank's lane sizing. k_verify bounds the post-distance
@@ -325,17 +352,17 @@ class PatternBank:
                 chunk = native.pcm16_to_f32_mono(chunk)
         return np.concatenate((tail, chunk))
 
-    @staticmethod
-    def _section_rows(section_len: int, raws: list[NDArray[Any]]) -> NDArray[Any]:
+    def _section_rows(self, section_len: int, raws: list[NDArray[Any]]) -> NDArray[Any]:
         """(B, S) zero-padded host rows for the upload: int16 when every
-        non-empty row arrived as int16 (half the bytes of f32), else f32
-        with int16 rows decoded on the host. The device decode of an int16
+        non-empty row arrived as int16 (half the bytes of f32) and
+        ``APD_PACKED_UPLOAD`` is not 0, else f32 with int16 rows decoded on
+        the host. The device decode of an int16
         row is bitwise the host decode, so a row's payload does not depend
         on which form its round took. f32 rows are not tested for lying on
         the PCM grid: a source of 16-bit PCM hands its samples on as int16
         (``match.py``'s stream wrappers, ``serve``), and the test costs a
         round more host time than the smaller upload saves."""
-        as_i16 = all(r.dtype == np.int16 or not len(r) for r in raws)
+        as_i16 = self.packed_upload and all(r.dtype == np.int16 or not len(r) for r in raws)
         rows = np.zeros((len(raws), section_len), dtype=np.int16 if as_i16 else np.float32)
         for bi, raw in enumerate(raws):
             if not as_i16 and raw.dtype == np.int16:
@@ -343,24 +370,29 @@ class PatternBank:
             rows[bi, : len(raw)] = raw
         return rows
 
-    def _section_step(
+    def step(
         self,
         sw: int,
         section: torch.Tensor,
         n_valid: "int | torch.Tensor",
         consts: "tuple[LoudnessConsts, tuple] | None" = None,
-    ) -> torch.Tensor:
-        """Fused payload of one section (S,) with its int length, or (B,
-        total) payloads of a (B, S) batch with a (B,) length tensor.
-        ``consts`` replaces the class's own (loud, group_consts): a replica
-        on another device, or a bank shard's slice."""
+        scan=candidate_scan,
+        fused: bool = True,
+    ) -> "torch.Tensor | list[torch.Tensor]":
+        """The class step of class ``sw`` under the bank's switches: the
+        fused payload of one section (S,) with its int length, or (B,
+        total) payloads of a (B, S) batch with a (B,) length tensor
+        (``fused=False``: each group's payload, as :func:`class_step`
+        returns them). ``consts`` replaces the class's own (loud,
+        group_consts): a replica on another device, or a bank shard's
+        slice. ``scan`` as in :func:`class_step`."""
         cls = self.classes[sw]
         loud, group_consts = consts if consts is not None else (
             cls["loud"], tuple((g.corr, g.verify) for g in cls["groups"])
         )
-        return class_step_fused(
-            section, n_valid, loud, group_consts,
-            metas=self._metas[sw], height_min=self.height_min,
+        return (class_step_fused if fused else class_step)(
+            section, n_valid, loud, group_consts, metas=self._metas[sw],
+            height_min=self.height_min, scan=scan, kernel_tier=self.kernel_tier,
         )
 
     # ── Single-chunk dispatch ──
@@ -375,7 +407,7 @@ class PatternBank:
         for sw, cls in self.classes.items():
             raw = self._raw_section(sw, chunk, previous_chunk)
             rows = upload_rows(self._section_rows(cls["section_len"], [raw]), self.device)
-            flat = self._section_step(sw, as_f32(rows[0]), len(raw))
+            flat = self.step(sw, as_f32(rows[0]), len(raw))
             dispatched.append((sw, PayloadHandle(flat), raw))
         return dispatched
 
@@ -448,7 +480,13 @@ class PatternBank:
         over a device mesh: the rows split contiguously over the axis, each
         shard runs on its own device against a replica of the class's
         constants, every shard is enqueued before any is awaited, and the
-        payload reads back in row order. B must be divisible by the axis."""
+        payload reads back in row order. B must be divisible by the axis.
+
+        On a mesh that spans processes (``parallel/mesh.py``) each process
+        passes only its own rows, they split over its own cells of the
+        axis, and collect returns only them: the JAX bank's ``_place`` and
+        ``_host_rows``, with no row data crossing processes. The caller
+        keeps the processes in lockstep (``MultiStreamSession.dispatch``)."""
         if mode not in ("vmap", "scan"):
             raise ValueError(f"mode must be 'vmap' or 'scan', got {mode!r}")
         if sharding is not None and mode != "vmap":
@@ -466,16 +504,24 @@ class PatternBank:
         if sharding is None:
             shards = [(self.device, 0, b)]
         else:
-            n = sharding.mesh.shape[sharding.axis]
+            mesh, axis = sharding.mesh, sharding.axis
+            # On a mesh that spans processes the rows are this process's
+            # own, and they go to its own cells of the axis.
+            own = [i for i in range(mesh.shape[axis]) if mesh.is_local(**{axis: i})]
+            if len(own) * mesh.process_count != mesh.shape[axis]:
+                raise ValueError(
+                    f"the mesh's {axis!r} axis ({mesh.shape[axis]}) must split evenly "
+                    f"over the {mesh.process_count} processes"
+                )
+            n = len(own)
             if b % n:
                 raise ValueError(
                     f"a round of {b} rows does not divide over the mesh's "
-                    f"{sharding.axis!r} axis ({n})"
+                    f"{axis!r} axis ({n})"
                 )
             per = b // n
             shards = [
-                (sharding.mesh.device_at(**{sharding.axis: i}), i * per, (i + 1) * per)
-                for i in range(n)
+                (mesh.device_at(**{axis: i}), j * per, (j + 1) * per) for j, i in enumerate(own)
             ]
         dispatched = []
         clock = time.perf_counter
@@ -500,14 +546,14 @@ class PatternBank:
             if mode == "scan":
                 rows = uploaded[0][0]
                 payloads = [torch.stack(
-                    [self._section_step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
+                    [self.step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
                 )]
             else:
                 payloads = []
                 for (dev, _lo, _hi), (rows, lens) in zip(shards, uploaded):
                     consts = None if sharding is None else self.replica(sw, dev)
                     with device_guard(dev):
-                        payloads.append(self._section_step(sw, as_f32(rows), lens, consts))
+                        payloads.append(self.step(sw, as_f32(rows), lens, consts))
             t4 = clock()
             dispatch_phase_seconds["launch"] += t4 - t3
             handles = [PayloadHandle(p) for p in payloads]
@@ -605,7 +651,7 @@ class PatternBank:
             g = cls["groups"][gi]
             corr_row = build_correlation_bank(
                 g.clips_np[ci : ci + 1], g.self_max_np[ci : ci + 1], cls["section_len"],
-                self.device, self._shared_geoms[sw],
+                self.device, self._shared_geoms[sw], overlap_save=g.corr.num_segments > 1,
             )
             verify_row: "NormalVerifyConsts | MarkerVerifyConsts"
             if g.kind == "marker":
@@ -820,6 +866,38 @@ def lean_group_packed(
     )
 
 
+def mask_group_packed(
+    norm: torch.Tensor,  # (S,) or (B, S) normalised section
+    corr: torch.Tensor,  # (R, L) normalised correlation (bank_correlate)
+    valid_len: ValidLen,
+    kind: str,
+    m: int,
+    k_detect: int,
+    k_verify: int,
+    height_min: float,
+    verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+) -> torch.Tensor:
+    """Mask lean tier of one group (``APD_PALLAS=0``), the lean branch of
+    the JAX ``_lean_group_packed``: the short-run candidate mask over the
+    normalised correlation, the exact block-wise greedy seeded from it,
+    verify. No kernel runs. Flags: 1 = an equal run of 4 or more at the threshold
+    (host path), 2 = more than 16 greedy survivors (wide rerun); this tier
+    has no near-collapse flag, since it compares in one space only."""
+    hm = f32(height_min)
+    x = torch.where(
+        torch.arange(corr.shape[1], device=corr.device)[None, :] < row_limit(valid_len),
+        corr, -math.inf,
+    )
+    plateau = long_plateau_present(x, hm)
+    k_lanes = min(_SMALL_TIER, k_detect)
+    scored = torch.where(short_run_local_maxima_mask(x) & (x >= hm), x, -math.inf)
+    pos, height, overflow = greedy_survivors_blockwise(scored, m, k_lanes)
+    flag = torch.where(plateau, 1.0, torch.where(overflow, 2.0, 0.0))
+    return _lean_tail(
+        norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes
+    )
+
+
 def _normalised(corr: torch.Tensor, valid_len: ValidLen, denom: torch.Tensor) -> torch.Tensor:
     """Raw |corr| as ``bank_correlate`` returns it: exact zeros past
     ``valid_len``, divided by ``denom`` = max(self_corr_max, observed max)."""
@@ -889,6 +967,25 @@ def rich_group_packed(
     no_threshold = torch.full_like(self_corr_max, float("inf"))
     _bmax, _count, _plateau, omax, _near = scan(corr, no_threshold, valid_len)
     corr_n = _normalised(corr, valid_len, torch.maximum(self_corr_max, omax).clamp_min(1e-38))
+    return general_group_packed(
+        norm, corr_n, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts
+    )
+
+
+def general_group_packed(
+    norm: torch.Tensor,
+    corr_n: torch.Tensor,  # (R, L) normalised correlation
+    valid_len: ValidLen,
+    kind: str,
+    m: int,
+    k_detect: int,
+    k_verify: int,
+    height_min: float,
+    verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+) -> torch.Tensor:
+    """The general-plateau tier on a normalised correlation: the rest of
+    :func:`rich_group_packed`, and the whole tier under ``APD_PALLAS=0``,
+    where ``bank_correlate`` normalises."""
     cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect)
     half = (2 * m - 1) // 2
     keep = cand.alive & ~(cand.pos + half > row_limit(valid_len) + 5) & ~(cand.pos - half < -5)
@@ -971,6 +1068,7 @@ def class_step(
     height_min: float,
     scan=candidate_scan,
     wide: bool = False,
+    kernel_tier: bool = True,
 ) -> list[torch.Tensor]:
     """One sliding-window class over one section, or over the B sections
     of a round in one set of launches: packed payload per group, (G, 2K+2)
@@ -982,7 +1080,11 @@ def class_step(
     candidate scan (the kernel wrapper by default; the plain version to
     compare against it on the same device). A batch folds into the clip
     axis after the correlation, so each group's scan is one launch over
-    B * G rows with per-row lengths."""
+    B * G rows with per-row lengths.
+
+    ``kernel_tier=False`` (the bank's ``APD_PALLAS=0``) runs the mask tiers
+    (:func:`mask_group_packed`, :func:`general_group_packed`), which read the
+    normalised correlation and launch no kernel."""
     batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
@@ -996,9 +1098,11 @@ def class_step(
     ):
         shared_spec = section_segment_spectra(norm, group_consts[0][0])
 
+    # The kernel tier reads raw |corr| (the scan derives the observed max);
+    # the mask tiers and the wide rerun read it normalised.
+    correlate = bank_correlate_abs if kernel_tier and not wide else bank_correlate
     outs = []
     for (kind, m, k_detect, k_verify), (corr_consts, verify_consts) in zip(metas, group_consts):
-        correlate = bank_correlate if wide else bank_correlate_abs
         corr, valid_len = correlate(norm, n_valid, corr_consts, shared_spec)
         self_corr_max = corr_consts.self_corr_max
         if batched:
@@ -1006,27 +1110,25 @@ def class_step(
             corr = corr.reshape(b * g, l)
             valid_len = valid_len.to(torch.int32).repeat_interleave(g)
             self_corr_max = self_corr_max.repeat(b)
+        args = (norm, corr, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts)
         if wide:
+            outs.append(wide_group_packed(*args))
+        elif not kernel_tier:
             outs.append(
-                wide_group_packed(
-                    norm, corr, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts
-                )
+                mask_group_packed(*args) if height_min > 0 else general_group_packed(*args)
             )
-            continue
-        tier = lean_group_packed if height_min > 0 else rich_group_packed
-        outs.append(
-            tier(
-                norm, corr, valid_len, kind, m, k_detect, k_verify, height_min,
-                verify_consts, self_corr_max, scan,
-            )
-        )
+        else:
+            tier = lean_group_packed if height_min > 0 else rich_group_packed
+            outs.append(tier(*args, self_corr_max, scan))
     return outs
 
 
-def class_step_fused(section, n_valid, loud, group_consts, *, metas, height_min, scan=candidate_scan):
+def class_step_fused(section, n_valid, loud, group_consts, *, metas, height_min, scan=candidate_scan,
+                     kernel_tier=True):
     """:func:`class_step` with every group's payload flattened into one
     vector per section: (total,), or (B, total) for a batch."""
     outs = class_step(
-        section, n_valid, loud, group_consts, metas=metas, height_min=height_min, scan=scan
+        section, n_valid, loud, group_consts, metas=metas, height_min=height_min, scan=scan,
+        kernel_tier=kernel_tier,
     )
     return torch.cat([o.reshape(*section.shape[:-1], -1) for o in outs], dim=-1)

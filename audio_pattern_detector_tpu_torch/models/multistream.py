@@ -16,8 +16,9 @@ idle rounds, ``total_time`` and ``reset``, and both batch modes
 (``batch_mode="scan"``, the default, or ``"vmap"``: one set of launches
 per class for all rows of a dispatch). ``mesh=`` (a mesh with a "stream"
 axis, ``parallel/mesh.py``) spreads each round's rows over the axis's
-devices; the JAX session's multi-process form (one process per host, in
-lockstep) is not ported here.
+devices, in one process or, on a mesh that spans a ``torch.distributed``
+group, in one process per host: each process then serves its own slots on
+its own cells, and every process runs every round in lockstep.
 """
 
 from __future__ import annotations
@@ -120,12 +121,51 @@ class MultiStreamSession:
         # per-round semantics. Rounds always batch all n_streams rows
         # (idle slots run zero-length sections), so the row→device
         # assignment is static.
+        #
+        # A mesh that spans processes (one process per host, a
+        # torch.distributed group) works too: ``n_streams`` then counts THIS
+        # process's local slots, each process feeds only its own rows to
+        # its own cells and unpacks only its own payload rows. Contract: all
+        # processes call dispatch/collect in lockstep; dispatch agrees on
+        # the round with one small collective (``parallel.mesh.lockstep``).
         self._sharding = None
+        self._rounds = 0  # rounds dispatched, the index the processes agree on
         if mesh is not None:
             if "stream" not in mesh.axis_names:
                 raise ValueError("mesh must have a 'stream' axis")
             stream_size = mesh.shape["stream"]
-            if n_streams % stream_size != 0:
+            n_procs = mesh.process_count
+            if n_procs > 1:
+                if tuple(mesh.axis_names) != ("stream",):
+                    raise ValueError(
+                        "multi-host MultiStreamSession requires a 1-D "
+                        f"'stream' mesh, got axes {mesh.axis_names}"
+                    )
+                if stream_size % n_procs:
+                    raise ValueError(
+                        f"stream axis ({stream_size}) must be divisible "
+                        f"by the process count ({n_procs})"
+                    )
+                # Local rows stitch back in order only when each
+                # process's cells form ONE contiguous run along the
+                # stream axis.
+                procs_seen: list[int] = []
+                for p in mesh.process_indices.flat:
+                    if not procs_seen or procs_seen[-1] != p:
+                        if p in procs_seen:
+                            raise ValueError(
+                                "multi-host mesh: stream-axis device "
+                                "order must be process-contiguous"
+                            )
+                        procs_seen.append(p)
+                local_devs = stream_size // n_procs
+                if n_streams % local_devs:
+                    raise ValueError(
+                        f"n_streams {n_streams} (local) must be divisible "
+                        f"by this process's stream-axis devices "
+                        f"({local_devs})"
+                    )
+            elif n_streams % stream_size != 0:
                 raise ValueError(
                     f"n_streams {n_streams} must be divisible by the "
                     f"mesh's stream axis ({stream_size})"
@@ -159,6 +199,7 @@ class MultiStreamSession:
         dispatch time — the next round's lookback is host-known — so any
         number of rounds can be in flight before the first collect.
         """
+        self._lockstep(chunks)
         if len(chunks) != self.n_streams:
             raise ValueError(
                 f"expected {self.n_streams} chunks, got {len(chunks)}"
@@ -245,6 +286,17 @@ class MultiStreamSession:
             self._indices[i] += 1
             self._times[i] += len(batch[i]) / self._sr
         return (dispatched, meta, active)
+
+    def _lockstep(self, chunks: Sequence[Any]) -> None:
+        """On a mesh that spans processes, agree on the round (its index
+        and width) with the other processes before it is dispatched
+        (``parallel.mesh.lockstep``): the port's counterpart of the JAX
+        session's global program. Nothing to agree on otherwise."""
+        if self._sharding is not None and self._sharding.mesh.process_count > 1:
+            from audio_pattern_detector_tpu_torch.parallel.mesh import lockstep
+
+            lockstep("a round", round=self._rounds, rows=len(chunks))
+        self._rounds += 1
 
     def collect(self, handle: Any) -> list[dict[str, list[float]]]:
         """Block on a dispatched round; per-stream detection times."""

@@ -70,17 +70,22 @@ def build_correlation_bank(
     section_len: int,
     device: torch.device,
     shared_geometry: "tuple[int, int, int, int] | None" = None,
+    overlap_save: bool = True,
 ) -> CorrelationBankConsts:
+    """``overlap_save=False`` takes one full-length FFT whatever the
+    section's length (the bank's ``APD_NO_OVERLAP_SAVE``)."""
     g, m = clips.shape
     step, pad_left, out_offset = 0, -1, 0
-    if shared_geometry is not None:
+    if shared_geometry is not None and overlap_save:
         fft_len, step, num_segments, m_max = shared_geometry
         if m > m_max:
             raise ValueError(f"clip length {m} exceeds the class geometry's {m_max}")
         pad_left = m_max - 1
         out_offset = m_max - m
-    else:
+    elif overlap_save:
         fft_len, _, num_segments = _overlap_save_geometry(section_len, m)
+    else:
+        fft_len, num_segments = next_pow2(section_len + m - 1), 1
     bank = np.fft.rfft(clips.astype(np.float64), n=fft_len, axis=1).conj()
     return CorrelationBankConsts(
         bank_rfft_conj=torch.from_numpy(bank.astype(np.complex64)).to(device),

@@ -16,6 +16,9 @@ Two tiers, as in the JAX package:
   ``while_loop``s become host loops over ``.item()`` tests, which sync the
   device; that is acceptable there because the full tier runs at collect
   time, after the payload has reached the host.
+
+The mask lean tier of ``APD_PALLAS=0`` seeds the same block-wise greedy
+from the full (G, L) candidate mask (:func:`greedy_survivors_blockwise`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 
 SURVIVOR_POS_SENTINEL = 2**30  # dead survivor slots
 
@@ -189,6 +194,33 @@ def greedy_survivors_from_blocks(
             bwork = torch.where(barange == b_edge[:, None], upd[:, None], bwork)
     overflow = (bwork > -math.inf).any(dim=1)
     return kept_pos, kept_h, overflow
+
+
+_BLOCK = 512  # the JAX package's _TOPK_BLOCK
+
+
+def greedy_survivors_blockwise(
+    scored: torch.Tensor,  # (G, L) candidates at their height, else -inf
+    min_distance: int,
+    r_max: int,
+    block: int = _BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact greedy-distance survivors for any raw candidate count, over a
+    materialised (G, L) scored array: its block maxima seed
+    :func:`greedy_survivors_from_blocks` and each round gathers its blocks
+    from it. Same returns as that function."""
+    g, l = scored.shape
+    nb = -(-l // block)
+    padded = torch.nn.functional.pad(scored, (0, nb * block - l), value=-math.inf)
+    offs = torch.arange(block, device=scored.device)[None, :]
+
+    def gather_block(b_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        starts = b_idx * block
+        return slice_rows_windows(padded, starts[:, None], block)[:, 0, :], starts[:, None] + offs
+
+    return greedy_survivors_from_blocks(
+        padded.reshape(g, nb, block).amax(dim=2), gather_block, min_distance, r_max, block
+    )
 
 
 # ── Full tier: top-k capture and the lane greedy ──

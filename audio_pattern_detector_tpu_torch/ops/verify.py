@@ -14,13 +14,18 @@ over (bank, candidate); dead lanes are masked, never branched on.
   purity; six per-clip thresholds.
 
 Per-clip static structure is built on the host in f64 with the same
-numpy expressions as the JAX package. Spectra come from ``torch.fft``.
-The JAX package's DFT-GEMM marker spectra (a TPU-only default) are not
-ported.
+numpy expressions as the JAX package. Spectra come from ``torch.fft``, or,
+under ``APD_MARKER_GEMM=1``, the marker verifier's power spectra come from
+one real-DFT matrix product each (the JAX package's DFT-GEMM, on by default
+only on a TPU, so off here). The port reads the variable at each call; the
+JAX package reads it when it traces.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -226,6 +231,63 @@ def build_marker_verify_consts(
     )
 
 
+# The DFT-GEMM runs only up to this transform length: its (n, n + 2)
+# matrix grows quadratically (67 MB at 4,096).
+_GEMM_MAX_N = 4096
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_matrix(n: int, device: torch.device) -> torch.Tensor:
+    """(n, 2F) f32 [cos | sin] real-DFT matrix, F = n // 2 + 1, built in
+    f64 with the JAX package's expression."""
+    f = n // 2 + 1
+    idx = np.arange(n, dtype=np.float64)[:, None] * np.arange(f, dtype=np.float64)
+    ang = -2.0 * np.pi * idx / n
+    mat = np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(mat).to(device)
+
+
+def _rfft_power_gemm(x: torch.Tensor, n: int) -> torch.Tensor:
+    """|rfft(x)|^2 along the last axis as one real-DFT matrix product.
+
+    Not bitwise the FFT's (another summation order); the marker verifier
+    decides on thresholds, not on spectrum bits. The product runs at full
+    f32 whatever the process allows for matmuls (JAX asks for
+    ``Precision.HIGHEST``): TF32 is switched off around it and the
+    process's setting restored. Callers gate on ``n <= _GEMM_MAX_N``."""
+    f = n // 2 + 1
+    mat = _dft_matrix(n, x.device)
+    with _full_f32_matmul():
+        proj = x.reshape(-1, n) @ mat
+    re, im = proj[:, :f], proj[:, f:]
+    return (re * re + im * im).reshape(*x.shape[:-1], f)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """CUDA f32 matmuls at IEEE f32, not TF32, inside the block. Through
+    the CUDA backend's own setting (``fp32_precision``, where torch has
+    it), which leaves the process-wide getters as they were: mixing it with
+    the legacy ``allow_tf32`` flag makes ``get_float32_matmul_precision``
+    raise."""
+    matmul = torch.backends.cuda.matmul
+    name, off = ("fp32_precision", "ieee") if hasattr(matmul, "fp32_precision") else (
+        "allow_tf32", False)
+    saved = getattr(matmul, name)
+    setattr(matmul, name, off)
+    try:
+        yield
+    finally:
+        setattr(matmul, name, saved)
+
+
+def _marker_gemm_enabled() -> bool:
+    """DFT-GEMM marker spectra: ``APD_MARKER_GEMM=1`` turns them on, any
+    other value or none leaves the FFT (the JAX package's default off a
+    TPU). Read at each call."""
+    return os.environ.get("APD_MARKER_GEMM") == "1"
+
+
 def _band_purity(power: torch.Tensor, band: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(purity, energy) of power spectra (..., F) against a band mask."""
     energy = power.sum(dim=-1)
@@ -255,12 +317,19 @@ def verify_marker(
     start = (lag + _PAD).clamp(0, secp.shape[1] - 3 * m)
     # (B, G, K, 3, m): the per-clip constants broadcast over B and K.
     seg3 = slice_rows_windows(secp, start.reshape(b, g * k), 3 * m).reshape(b, g, k, 3, m)
+    gemm = _marker_gemm_enabled()
 
-    spec = torch.fft.rfft(seg3 * consts.hann_whole, dim=-1).abs()
-    # argmax on the magnitude, not its square: squaring can collapse
-    # near-tied f32 magnitudes and shift the tie-break index.
-    match_arg = spec[..., 1, :].argmax(dim=-1)
-    purity, _ = _band_purity(spec * spec, consts.band_whole[:, None, None, :])
+    if gemm and m <= _GEMM_MAX_N:
+        # argmax and the purity ratios need only the power spectrum.
+        power = _rfft_power_gemm(seg3 * consts.hann_whole, m)
+        match_arg = power[..., 1, :].argmax(dim=-1)
+    else:
+        spec = torch.fft.rfft(seg3 * consts.hann_whole, dim=-1).abs()
+        power = spec * spec
+        # argmax on the magnitude, not its square: squaring can collapse
+        # near-tied f32 magnitudes and shift the tie-break index.
+        match_arg = spec[..., 1, :].argmax(dim=-1)
+    purity, _ = _band_purity(power, consts.band_whole[:, None, None, :])
     purity_left, purity_match, purity_right = purity.unbind(dim=-1)
 
     detected = consts.freqs_whole[match_arg]  # (B, G, K)
@@ -273,10 +342,16 @@ def verify_marker(
         frames = torch.stack(
             [seg_match[..., s0 : s0 + wl] for s0 in consts.frame_starts], dim=-2
         ) * consts.hann_frame  # (B, G, K, F, wl)
-        fspec = torch.fft.rfft(frames, dim=-1).abs()
-        fpur, fenergy = _band_purity(fspec * fspec, consts.band_frame[:, None, None, :])
+        if gemm and wl <= _GEMM_MAX_N:
+            fpow = _rfft_power_gemm(frames, wl)
+            ffreq_arg = fpow.argmax(dim=-1)
+        else:
+            fspec = torch.fft.rfft(frames, dim=-1).abs()
+            fpow = fspec * fspec
+            ffreq_arg = fspec.argmax(dim=-1)
+        fpur, fenergy = _band_purity(fpow, consts.band_frame[:, None, None, :])
         nonzero = fenergy > 0.0
-        ffreq = consts.freqs_frame[fspec.argmax(dim=-1)]
+        ffreq = consts.freqs_frame[ffreq_arg]
         locked = (ffreq - dom[..., None]).abs() <= consts.lock_hz[:, None, None]
         active = nonzero & locked & (fpur >= float(np.float32(0.55)))
 

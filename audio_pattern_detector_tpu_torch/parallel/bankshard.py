@@ -32,7 +32,6 @@ from audio_pattern_detector_tpu_torch.models.bank import (
     PatternBank,
     PayloadHandle,
     StitchedPayload,
-    class_step_fused,
 )
 from audio_pattern_detector_tpu_torch.ops.consts import consts_to_device
 from audio_pattern_detector_tpu_torch.ops.correlate import CorrelationBankConsts
@@ -191,9 +190,8 @@ class BankShardedBank:
                 if dev not in uploaded:
                     uploaded[dev] = as_f32(upload_rows(host_rows, dev)[0])
                 with device_guard(dev):
-                    flat = class_step_fused(
-                        uploaded[dev], len(raw), bank.replica_loud(sw, dev), group_consts,
-                        metas=bank._metas[sw], height_min=bank.height_min,
+                    flat = bank.step(
+                        sw, uploaded[dev], len(raw), (bank.replica_loud(sw, dev), group_consts)
                     )
                     handles.append(PayloadHandle(flat))
             widths = self._local_widths[sw]

@@ -33,9 +33,14 @@ Timestamp algebra on the host matches the serial engine exactly: the
 stream's first chunk is lookback-free, every other chunk subtracts its
 sliding-window seconds.
 
-The JAX module's multi-controller form (several processes in lockstep,
-each feeding its own streams' rows) is not ported here; it belongs to a
-later port on ``torch.distributed``.
+On a mesh that spans processes (one process per host, a
+``torch.distributed`` group; ``parallel/mesh.py``) the "stream" axis
+splits over the processes and each process owns whole (time x bank)
+slices of its streams, so the halo copy and the payload unpack stay inside
+the process. Each process feeds only its own streams' rows and gets their
+results; every process feeds every slab, and the processes agree on the
+slab (index, length, rows) with one small collective before it runs.
+Nothing else crosses processes.
 """
 
 from __future__ import annotations
@@ -49,7 +54,6 @@ from numpy.typing import NDArray
 from audio_pattern_detector_tpu_torch.models.bank import (
     PatternBank,
     PayloadHandle,
-    class_step,
     unpack_group,
 )
 from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
@@ -60,7 +64,7 @@ from audio_pattern_detector_tpu_torch.parallel.bankshard import (
     pad_group_consts,
     slice_group_consts,
 )
-from audio_pattern_detector_tpu_torch.parallel.mesh import Mesh
+from audio_pattern_detector_tpu_torch.parallel.mesh import Mesh, lockstep
 from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
 
@@ -77,8 +81,12 @@ class ShardedDetector:
     slab-feeding form for unbounded streams.
 
     The bank lives on ``detector``'s device, or, when the detector is
-    built here, on ``device`` (default: the mesh's first device); the
-    cells work against replicas on their own devices.
+    built here, on ``device`` (default: this process's first cell's
+    device); the cells work against replicas on their own devices.
+
+    On a mesh that spans processes, B counts this process's streams and
+    the results are theirs; every process feeds the same slab lengths in
+    lockstep.
     """
 
     def __init__(
@@ -98,6 +106,54 @@ class ShardedDetector:
         self.stream_size = mesh.shape.get("stream", 1)
         self.bank_size = mesh.shape.get("bank", 1)
         self.chunk_seconds = chunk_seconds
+        # This process's streams of the mesh (all of them in one process).
+        self.local_streams = [
+            s for s in range(self.stream_size)
+            if any(mesh.is_local(stream=s, time=d, bank=k)
+                   for d in range(self.time_size) for k in range(self.bank_size))
+        ]
+
+        # Multi-host contract: the "stream" axis spans processes
+        # (process-contiguous rows: make_mesh lays the grid out
+        # process-major), and every process owns whole (time × bank)
+        # slices so the halo copy and the payload unpack stay in the
+        # process. Each process then feeds only its own streams' rows;
+        # nothing but the lockstep agreement crosses processes.
+        self.process_count = mesh.process_count
+        if self.process_count > 1:
+            if self.stream_size % self.process_count != 0:
+                raise ValueError(
+                    f"multi-host mesh needs the stream axis "
+                    f"({self.stream_size}) divisible by the process count "
+                    f"({self.process_count})"
+                )
+            local_slices = (
+                (self.stream_size // self.process_count)
+                * self.time_size
+                * self.bank_size
+            )
+            if local_slices != mesh.local_device_count:
+                raise ValueError(
+                    f"multi-host mesh places {local_slices} devices per "
+                    f"process but {mesh.local_device_count} are local; "
+                    "order the mesh stream-outermost with time x bank "
+                    "within one host"
+                )
+            # The counts agree, but the halo copy and the unpack also need
+            # every (time x bank) cell of this process's streams.
+            for s in self.local_streams:
+                for d in range(self.time_size):
+                    for k in range(self.bank_size):
+                        if not mesh.is_local(stream=s, time=d, bank=k):
+                            cell = {a: c for a, c in (("stream", s), ("time", d), ("bank", k))
+                                    if a in mesh.axis_names}
+                            raise ValueError(
+                                f"multi-host mesh: cell {cell} of stream {s} belongs to "
+                                f"process {mesh.process_of(**cell)}, but this process "
+                                f"({mesh.process_index}) holds other cells of that stream; "
+                                "each process must own whole time x bank slices of its "
+                                "streams (order the mesh stream-outermost)"
+                            )
 
         # Slab bound first, before the serial detector's own per-chunk
         # f32-exactness guard, so oversized mesh configs get the error
@@ -127,7 +183,7 @@ class ShardedDetector:
         else:
             self._detector = TorchAudioPatternDetector(
                 audio_clips=audio_clips,
-                device=device if device is not None else mesh.devices.flat[0],
+                device=device if device is not None else mesh.device_at(stream=self.local_streams[0]),
                 seconds_per_chunk=chunk_seconds,
                 target_sample_rate=target_sample_rate,
                 height_min=height_min,
@@ -190,8 +246,7 @@ class ShardedDetector:
         time shard, bank shard, payload handle) per cell. Time shards that
         own no sample of a short slab are not run."""
         halo = sw * self.sample_rate
-        b_local = blocks.shape[0] // self.stream_size
-        metas = self.bank._metas[sw]
+        b_local = blocks.shape[0] // len(self.local_streams)
         on_dev: dict[tuple[torch.device, int, int], torch.Tensor] = {}
 
         def cell_device(s: int, d: int, k: int) -> torch.device:
@@ -204,20 +259,22 @@ class ShardedDetector:
                 on_dev[key] = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
             return on_dev[key]
 
+        # ``s`` numbers this process's streams of the mesh, ``gs`` is the
+        # stream axis's coordinate.
         cells = []
-        for s in range(self.stream_size):
+        for s, gs in enumerate(self.local_streams):
             for d in range(self.time_size):
                 owned = int(owned_d[d])
                 if owned == 0:
                     continue
                 for k in range(self.bank_size):
-                    dev = cell_device(s, d, k)
+                    dev = cell_device(gs, d, k)
                     local = block_on(dev, s, d)
                     if d > 0:
                         # The left neighbour's last ``halo`` samples: a copy
                         # between the two devices (ordered against both
                         # devices' current streams), a slice on one device.
-                        left = block_on(cell_device(s, d - 1, k), s, d - 1)
+                        left = block_on(cell_device(gs, d - 1, k), s, d - 1)
                         section = torch.cat([left[:, -halo:].to(dev), local], dim=1)
                         n_valid = owned + halo
                     elif prev_tail is not None:
@@ -229,14 +286,11 @@ class ShardedDetector:
                         # The stream head has no lookback.
                         section = torch.cat([local, local.new_zeros((b_local, halo))], dim=1)
                         n_valid = owned
-                    loud, group_consts = self._consts_for(sw, k, dev)
                     with device_guard(dev):
                         lens = torch.full((b_local,), n_valid, dtype=torch.int32, device=dev)
-                        outs = class_step(
-                            section, lens, loud, group_consts, metas=metas,
-                            height_min=self.bank.height_min, scan=self.scan,
+                        fused = self.bank.step(
+                            sw, section, lens, self._consts_for(sw, k, dev), scan=self.scan
                         )
-                        fused = torch.cat([o.reshape(b_local, -1) for o in outs], dim=1)
                         cells.append((s, d, k, PayloadHandle(fused)))
         return cells
 
@@ -299,18 +353,24 @@ class ShardedStreamSession:
         self.last_payloads: dict[int, list[NDArray[np.float32]]] = {}
 
     def feed(self, slab: NDArray[np.float32]) -> dict[str, list[list[float]]]:
-        """One slab; returns name -> per-stream timestamp lists."""
+        """One slab; returns name -> per-stream timestamp lists.
+
+        Multi-host: every process calls feed in lockstep with the SAME
+        slab length but only its OWN streams' rows (the same count on each
+        process); the returned results cover this process's streams."""
         sd = self._sd
         slab = np.asarray(slab, dtype=np.float32)
         if slab.ndim == 1:
             slab = slab[None, :]
         B, t_actual = slab.shape
+        if sd.process_count > 1:
+            lockstep("a slab", slab=self._base // sd.time_size, length=t_actual, rows=B)
         if self._finished:
             raise ValueError(
                 "stream already finished: a short slab must be the last"
             )
         if self._batch is None:
-            local_groups = sd.stream_size
+            local_groups = len(sd.local_streams)
             if B % local_groups != 0:
                 raise ValueError(
                     f"batch {B} must be divisible by this process's share "
@@ -465,7 +525,7 @@ def _stitch_cells(
 ) -> list[NDArray[np.float32]]:
     """Wait for a class's cells and lay their fused payloads out as one
     (B, Dt, G_padded, 2K+2) array per group (zeros where no cell ran)."""
-    b_local = batch // sd.stream_size
+    b_local = batch // len(sd.local_streams)
     shapes = []
     for g in cls["groups"]:
         g_pad = -(-len(g.names) // sd.bank_size) * sd.bank_size

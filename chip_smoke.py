@@ -118,7 +118,24 @@ card and checks them:
    to the serial engine; 11c. ``flagship.dryrun_multichip(8)``: the bank on
    a ``bank x stream x time`` mesh (2 x 2 x 2), one slab, and a sharded
    serving round, equal to the serial engine and the unsharded round;
-12. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
+12. the mesh paths in two processes on the card (a gloo group over
+   127.0.0.1; each process runs from a fresh copy of the package, so the
+   two build the kernel library at once): ``MultiStreamSession`` over a
+   ``stream`` mesh of 2 spanning the processes, 8 local streams each of
+   60 s chunks on the flagship bank, 3 rounds, every stream equal to one
+   process's 16-row vmap session; ``ShardedDetector`` ``stream(2) x
+   time(2)``, one stream of the tiled file a process with the 65-clip bank
+   of 11a, equal to the serial engine; kernel launches per process and
+   their sum, wall per process beside the one-process run;
+13. the class-step switches of the JAX package that the port reads
+   (``APD_PALLAS=0``, ``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD=0``,
+   ``APD_MARKER_GEMM``), each set around its bank's construction and run,
+   on a 16-row round of int16 chunks and on phase 9's streams: payloads
+   and detections equal to the default's (the mask tier has no
+   near-collapse flag), f32 intermediates within tolerance, the DFT-GEMM
+   at f32 with TF32 allowed; ms per round beside the default's,
+   kernel launches (0 under ``APD_PALLAS=0``);
+14. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
@@ -1646,15 +1663,423 @@ def phase_serve(dev, smi: str, mesh_stream: "int | None" = None) -> None:
           wall_s_per_client={n: results[n][1] for n in names})
 
 
+MP_STREAMS = 16  # phase 12's streams, 8 a process
+MP_ROUNDS = 3
+
+
+def multi_process_streams(det, sr: int) -> list[np.ndarray]:
+    """Phase 12's 16 streams of 180 s (numpy seeds 40-55): seeded noise,
+    the bank's normal clip ``normal_<i mod 32>`` at 7 s + 50 s k and the
+    tone of ``marker_<i mod 32>`` at 31 s + 60 s k."""
+    bank = det._ensure_bank()
+    normal = next(g for g in bank.classes[1]["groups"] if g.kind == "normal")
+    audios = []
+    for i in range(MP_STREAMS):
+        audio = (0.004 * np.random.default_rng(40 + i).standard_normal(180 * sr)).astype(np.float32)
+        tone = (0.8 * np.sin(2 * np.pi * (900.0 + 7 * (i % 32)) * np.arange(2000) / sr))
+        for t in range(7, 180, 50):
+            audio[t * sr : (t + 1) * sr] += normal.clips_np[i % len(normal.names)]
+        for t in range(31, 180, 60):
+            audio[t * sr : t * sr + 2000] += tone.astype(np.float32)
+        audios.append(audio)
+    return audios
+
+
+def multi_process_worker(rank: int, port: int, out: Path, device: str, clips: str) -> int:
+    """One of phase 12's two processes: a gloo group over 127.0.0.1,
+    ``device`` (the card) as this process's cell(s). Drives the session (a
+    stream mesh of 2, one cell a process, 8 local streams) and the sharded
+    detector (stream 2 x time 2, two logical shards a process, one stream
+    of the tiled file) on a bank of ``clips`` ("normal,marker") seeded
+    clips; writes timestamps, kernel launches and wall times to ``out``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from audio_pattern_detector_tpu_torch import native
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.parallel import ShardedDetector, make_mesh
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=timedelta(seconds=300))
+    dev = torch.device(device)
+    num_normal, num_marker = (int(n) for n in clips.split(","))
+    on_card = dev.type == "cuda"
+    report: dict = {"rank": rank, "kernel_build_s": None}
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        report["kernel_build_s"] = load_kernels().build_seconds  # both start with nothing built
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    det = make_detector(num_normal, num_marker, 60, dev)
+    sr = det.target_sample_rate
+    mine = multi_process_streams(det, sr)[8 * rank : 8 * rank + 8]
+    session = MultiStreamSession(det, 8, mesh=make_mesh({"stream": 2}, devices=[dev]))
+    chunk = 60 * sr
+    acc = [{c.name: [] for c in det.audio_clips} for _ in mine]
+    dist.barrier()
+    candidate_scan.launches = 0
+    t = time.perf_counter()
+    for r in range(MP_ROUNDS):
+        for a, res in zip(acc, session.feed([s[r * chunk : (r + 1) * chunk] for s in mine])):
+            for name, ts in res.items():
+                a[name].extend(ts)
+    sync()
+    report.update(session_wall_s=time.perf_counter() - t, session_launches=candidate_scan.launches,
+                  session_times=acc, session_totals=[session.total_time(i) for i in range(8)])
+
+    pcm, rate = cbs_pcm()
+    audio = native.pcm16_to_f32_mono(np.tile(pcm, 15))[None]
+    cbs_clip = AudioClip.from_audio_file(str(CBS_CLIP), sample_rate=rate)
+    det65 = make_detector(num_normal, num_marker, 60, dev, rate, extra_clips=(cbs_clip,))
+    sd = ShardedDetector(det65.audio_clips, make_mesh({"stream": 2, "time": 2}, devices=[dev] * 2),
+                         chunk_seconds=60, detector=det65)
+    dist.barrier()
+    candidate_scan.launches = 0
+    t = time.perf_counter()
+    res = sd.detect(audio)
+    sync()
+    report.update(sharded_wall_s=time.perf_counter() - t,
+                  sharded_launches=candidate_scan.launches,
+                  sharded_times={n: per[0] for n, per in res.items()},
+                  local_streams=sd.local_streams)
+    out.write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_process(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict[str, int]:
+    """Phase 12: the mesh paths in two processes on the card, against one
+    process and the serial engine (a smaller bank rehearses it on the CPU).
+    The processes run from a fresh copy of the package (nothing built),
+    started together, so both build the kernel library at once into the
+    same directory. Returns the kernel launches of each path, summed over
+    the processes."""
+    import shutil
+    import torch
+
+    from audio_pattern_detector_tpu_torch import native
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp)
+        shutil.copytree(ROOT / "audio_pattern_detector_tpu_torch",
+                        copy / "audio_pattern_detector_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+        (copy / "pyproject.toml").write_text("")  # builds go to the copy's build/
+        (copy / "sample_audios").symlink_to(AUDIO)
+        port = free_port()
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(copy / "chip_smoke.py"), "--multi-process-worker", str(rank),
+             str(port), str(copy / f"rank{rank}.json"), dev.type, f"{num_normal},{num_marker}"],
+            cwd=copy, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for rank in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"process {rank} exit {p.returncode}:\n{log[-4000:]}")
+        reports = [json.loads((copy / f"rank{rank}.json").read_text()) for rank in range(2)]
+        built = sorted(q.name for q in (copy / "build" / "apd_torch_kernels").glob("*.so"))
+
+    # One process: the same 16 streams as one 16-row vmap session, and the
+    # serial engine on the tiled file.
+    on_card = dev.type == "cuda"
+    det = make_detector(num_normal, num_marker, 60, dev)
+    sr = det.target_sample_rate
+    streams = multi_process_streams(det, sr)
+    groups = sum(len(c["groups"]) for c in det._ensure_bank().classes.values())
+    single = MultiStreamSession(det, MP_STREAMS, batch_mode="vmap")
+    acc = [{c.name: [] for c in det.audio_clips} for _ in streams]
+    chunk = 60 * sr
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in range(MP_ROUNDS):
+        for a, res in zip(acc, single.feed([s[r * chunk : (r + 1) * chunk] for s in streams])):
+            for name, ts in res.items():
+                a[name].extend(ts)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t
+    pcm, rate = cbs_pcm()
+    audio = native.pcm16_to_f32_mono(np.tile(pcm, 15))
+    cbs_clip = AudioClip.from_audio_file(str(CBS_CLIP), sample_rate=rate)
+    det65 = make_detector(num_normal, num_marker, 60, dev, rate, extra_clips=(cbs_clip,))
+    serial, serial_wall = serial_scan(det65, audio)
+
+    for rep in reports:
+        rank = rep["rank"]
+        for i, got in enumerate(rep["session_times"]):
+            if got != acc[8 * rank + i] or rep["session_totals"][i] != single.total_time(8 * rank + i):
+                raise AssertionError(f"process {rank}, stream {i}: {got} != one process's "
+                                     f"{acc[8 * rank + i]}")
+        if rep["sharded_times"] != serial or len(serial[cbs_clip.name]) != 15:
+            raise AssertionError(f"process {rank}: sharded {rep['sharded_times']} != serial {serial}")
+        if rep["local_streams"] != [rank]:
+            raise AssertionError(f"process {rank} owns streams {rep['local_streams']}")
+        # 3 rounds x 1 cell x the groups; 9 chunks x the 65-clip bank's groups.
+        if on_card and (rep["session_launches"] != MP_ROUNDS * groups
+                        or rep["sharded_launches"] != 9 * 3):
+            raise AssertionError(f"process {rank}: kernel launches {rep['session_launches']} / "
+                                 f"{rep['sharded_launches']}, want {MP_ROUNDS * groups} / 27")
+    if on_card and len(built) != 1:
+        raise AssertionError(f"the two processes left {built} in the build directory")
+    launches = {"multi_process_session": sum(r["session_launches"] for r in reports),
+                "multi_process_sharded": sum(r["sharded_launches"] for r in reports)}
+    phase("multi_process", card=smi, processes=2, backend="gloo", clips=num_normal + num_marker,
+          streams=MP_STREAMS,
+          local_streams=8, rounds=MP_ROUNDS, session_equal_to_one_process=True,
+          sharded_axes={"stream": 2, "time": 2}, sharded_clips=len(det65.audio_clips),
+          sharded_audio_s=len(audio) / rate,
+          sharded_equal_to_serial_engine=True, detections=len(serial[cbs_clip.name]),
+          kernel_build_s_per_process=[r["kernel_build_s"] for r in reports], libraries_built=built,
+          session_launches_per_process=[r["session_launches"] for r in reports],
+          sharded_launches_per_process=[r["sharded_launches"] for r in reports],
+          launches_sum=launches, session_wall_s_per_process=[r["session_wall_s"] for r in reports],
+          one_process_session_wall_s=single_wall,
+          sharded_wall_s_per_process=[r["sharded_wall_s"] for r in reports],
+          serial_engine_wall_s=serial_wall, processes_wall_s=wall)
+    del det, det65, single
+    return launches
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def switches(values: dict[str, str]):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+VARIANTS = (  # phase 13: each of the JAX package's class-step switches the port reads
+    ("mask", {"APD_PALLAS": "0"}),
+    ("no_overlap_save", {"APD_NO_OVERLAP_SAVE": "1"}),
+    ("packed_upload_0", {"APD_PACKED_UPLOAD": "0"}),
+    ("marker_gemm", {"APD_MARKER_GEMM": "1"}),
+)
+GEMM_RTOL = 1e-5  # of the largest power: the DFT-GEMM against the FFT's power
+
+
+def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> int:
+    """Phase 13: the flagship 16-row round (16 seeded 60 s chunks as int16
+    PCM, one vmap dispatch) and phase 9's streams (tile 16, vmap, 2 rounds
+    in flight) under each class-step switch, against the default. Payloads:
+    every field equal, except that the mask tier has no near-collapse
+    flag (a default row with flag 2 may read 0 there); detections equal.
+    f32 intermediates within stated tolerances; the DFT-GEMM at f32 with
+    TF32 allowed process-wide (a smaller bank rehearses it on the CPU).
+    Returns the kernel launches of the counted runs (0 under
+    ``APD_PALLAS=0``)."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models.bank import _split_fused
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.ops import verify
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate
+    from audio_pattern_detector_tpu_torch.ops.loudness import (
+        integrated_loudness_device,
+        loudness_normalize_device,
+    )
+
+    chunks = [np.clip(np.round(0.05 * np.random.default_rng(1 + i).standard_normal(480_000)
+                               * 32768), -32768, 32767).astype(np.int16) for i in range(ROUND_ROWS)]
+
+    def round_payload(bank) -> np.ndarray:
+        (sw, handle, *_), = bank.dispatch_chunks_batch(
+            chunks, None, mode="vmap", prev_tails=[None] * ROUND_ROWS)
+        return handle.numpy().copy()
+
+    def run(name: str, values: dict[str, str]) -> dict:
+        tf32 = name == "marker_gemm"  # the GEMM's run allows TF32 process-wide
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with switches(values):
+                det = make_detector(num_normal, num_marker, 60, dev)
+                bank = det._ensure_bank()
+                candidate_scan.launches = 0
+                payload = round_payload(bank)
+                _audios, rounds, _ = serving_streams(det, det.target_sample_rate)
+                session = MultiStreamSession(det, 16, tile=16, batch_mode="vmap")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                acc, _ = drive_session(session, rounds, in_flight=2)
+                torch.cuda.synchronize()
+                session_wall = time.perf_counter() - t
+                launches = candidate_scan.launches
+                ms = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    round_payload(bank)
+                    ms.append((time.perf_counter() - t) * 1e3)
+                out = {"payload": payload, "acc": acc, "launches": launches,
+                       "totals": [session.total_time(i) for i in range(16)],
+                       "routes": routes(bank), "kernel_tier": bank.kernel_tier,
+                       "upload_dtype": str(bank._section_rows(10, [chunks[0][:10]]).dtype),
+                       "ms_per_round": float(np.median(ms[1:])), "session_wall_s": session_wall,
+                       "bank": bank, "det": det}
+                if tf32 and not torch.backends.cuda.matmul.allow_tf32:
+                    raise AssertionError("the DFT-GEMM left TF32 switched off process-wide")
+                return out
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    base = run("default", {})
+    groups = base["bank"].classes[1]["groups"]
+    results: dict[str, dict] = {}
+    total_launches = base["launches"]
+    for name, values in VARIANTS:
+        res = run(name, values)
+        mask = values.get("APD_PALLAS") == "0"
+        got, want = res["payload"], base["payload"]
+        near = 0
+        if mask:
+            got, want = got.copy(), want.copy()
+            for g, pv, pb in zip(groups, _split_fused(got, groups), _split_fused(want, groups)):
+                k = g.k_verify
+                hide = (pb[..., 2 * k] == 2.0) & (pv[..., 2 * k] == 0.0)
+                near += int(hide.sum())
+                pb[hide, 2 * k] = 0.0
+        if got.shape != want.shape or not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"{name}: the round's payload differs from the default's")
+        if res["acc"] != base["acc"] or res["totals"] != base["totals"]:
+            raise AssertionError(f"{name}: phase 9's streams differ from the default run")
+        if dev.type == "cuda" and (res["launches"] == 0) != mask:
+            raise AssertionError(f"{name}: {res['launches']} kernel launches")
+        results[name] = res
+        if not mask:
+            total_launches += res["launches"]
+        res["near_flags_hidden"] = near
+        if name == "mask":
+            mask_bank = res["bank"]
+        del res["bank"], res["det"]
+        torch.cuda.empty_cache()
+
+    # The kernel tier (the default) and the mask tier on the same round, in
+    # turns (kernel, mask, mask, kernel, twice; 2 rounds each).
+    def tier_ms(bank) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            round_payload(bank)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 2 * 1e3
+
+    tier_turns: dict[str, list[float]] = {"kernel": [], "mask": []}
+    for tier in ("kernel", "mask", "mask", "kernel") * 2:
+        tier_turns[tier].append(tier_ms(base["bank"] if tier == "kernel" else mask_bank))
+    del mask_bank
+
+    # f32 intermediates on the round's first 4 rows, against the default bank.
+    bank = base["bank"]
+    cls = bank.classes[1]
+    rows = torch.stack([torch.from_numpy(c[:480_000].astype(np.float32) / 32768) for c in
+                        chunks[:4]]).to(dev)
+    sections = torch.nn.functional.pad(rows, (0, cls["section_len"] - rows.shape[1]))
+    lens = torch.full((4,), 480_000, dtype=torch.int32, device=dev)
+    norm = loudness_normalize_device(sections, integrated_loudness_device(sections, lens, cls["loud"]))
+    consts = [g.corr for g in cls["groups"]]
+    with switches({"APD_NO_OVERLAP_SAVE": "1"}):
+        whole = make_detector(num_normal, num_marker, 60, dev)._ensure_bank().classes[1]
+    lufs_os = integrated_loudness_device(sections, lens, cls["loud"])
+    lufs_whole = integrated_loudness_device(sections, lens, whole["loud"])
+    whole_err = max(
+        float((bank_correlate(norm, lens, gw.corr)[0] - bank_correlate(norm, lens, c)[0]).abs().max())
+        for gw, c in zip(whole["groups"], consts))
+    del whole
+    m = 2000  # the marker clips' length; windows of the round, Hann-weighted
+    x = norm[:, : norm.shape[1] // m * m].reshape(-1, m) * torch.hann_window(
+        m, periodic=False, device=dev)
+    exact = torch.from_numpy(np.abs(np.fft.rfft(x.cpu().double().numpy(), axis=-1)) ** 2)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gemm = verify._rfft_power_gemm(x, m).cpu().double()
+        precision_kept = torch.backends.cuda.matmul.allow_tf32
+        mat = verify._dft_matrix(m, x.device)
+        proj = (x @ mat).cpu().double()  # the same product with TF32 allowed, unguarded
+        tf32 = proj[:, : m // 2 + 1] ** 2 + proj[:, m // 2 + 1 :] ** 2
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    scale = float(exact.max())
+    gemm_err = float((gemm - exact).abs().max()) / scale
+    tf32_err = float((tf32 - exact).abs().max()) / scale
+    lufs_err = float((lufs_os - lufs_whole).abs().max())
+    if whole_err > 1e-5 or lufs_err > 1e-4 or gemm_err > GEMM_RTOL or not precision_kept:
+        raise AssertionError(f"variant intermediates: no-overlap-save {whole_err} / {lufs_err} "
+                             f"LU, GEMM {gemm_err} (TF32 kept {precision_kept})")
+    phase("variants", card=smi, clips=num_normal + num_marker, round_rows=ROUND_ROWS, round="16 int16 chunks of 60 s",
+          session="phase 9's streams, tile 16, vmap, 2 in flight",
+          equal_to_default=True, default_ms_per_round=base["ms_per_round"],
+          default_session_wall_s=base["session_wall_s"], default_launches=base["launches"],
+          default_routes_row_class_escalated_host=base["routes"],
+          variants={name: {"ms_per_round": r["ms_per_round"], "session_wall_s": r["session_wall_s"],
+                           "kernel_launches": r["launches"], "kernel_tier": r["kernel_tier"],
+                           "upload_dtype": r["upload_dtype"], "routes": r["routes"],
+                           "near_flags_hidden": r["near_flags_hidden"]}
+                    for name, r in results.items()},
+          mask_tier_kernel_launches="0: APD_PALLAS=0 runs no kernel, by the caller's choice",
+          no_overlap_save_corr_max_abs_err=whole_err,
+          no_overlap_save_lufs_max_abs_err=lufs_err, gemm_with_tf32_allowed_rel_err=gemm_err,
+          unguarded_tf32_product_rel_err=tf32_err, gemm_tolerance=GEMM_RTOL,
+          kernel_vs_mask_tier_ms_per_round_in_turns=tier_turns)
+    del base, bank
+    torch.cuda.empty_cache()
+    return total_launches
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="also profile the flagship step, the flagship and serving rounds in "
                          "both batch modes and the batched file-mode run; op tables go to DIR")
+    ap.add_argument("--multi-process-worker", nargs=5,
+                    metavar=("RANK", "PORT", "OUT", "DEVICE", "CLIPS"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.multi_process_worker:  # phase 12's processes
+        rank, port, out, device, clips = args.multi_process_worker
+        return multi_process_worker(int(rank), int(port), Path(out), device, clips)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -1900,6 +2325,8 @@ def main(argv: "list[str] | None" = None) -> int:
     phase_serve(dev, smi)
     phase_serve(dev, smi, mesh_stream=2)
     mesh_launches = phase_mesh(dev, smi)
+    multi_process_launches = phase_multi_process(dev, smi)
+    variant_launches = phase_variants(dev, smi)
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:
@@ -1911,14 +2338,17 @@ def main(argv: "list[str] | None" = None) -> int:
     bg, bl, berr, bms, bplain_ms, bbound_ms = batched_rows[0]
     # Launches of the counted main-path runs, each counted from 0: file
     # mode (phases 4-5), the batched flagship round (phase 3b), the
-    # serving session in both batch modes and on a stream mesh (phase 9)
-    # and the mesh paths (phase 11). ``ms``, ``plain_ms``
+    # serving session in both batch modes and on a stream mesh (phase 9),
+    # the mesh paths (phase 11), the two processes' paths (phase 12, summed
+    # over the processes) and the class-step switches that keep the kernel
+    # tier (phase 13; the mask tier launches none). ``ms``, ``plain_ms``
     # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
     # stand beside them. No single PyTorch call computes the scan's five
     # outputs, so no library time.
     launches = {"file_mode": main_path_launches, "flagship_round_vmap": round_launches,
                 "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"],
-                "serving_stream_mesh": serving_launches["mesh"], **mesh_launches}
+                "serving_stream_mesh": serving_launches["mesh"], **mesh_launches,
+                **multi_process_launches, "variants": variant_launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"a path of the run launched no kernel: {launches}")
     print(json.dumps({"kernels": [{

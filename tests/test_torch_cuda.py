@@ -593,3 +593,65 @@ def test_kernel_wrapper_launches_under_the_tensors_device(cuda):
         scan_module.device_guard = guard
     assert guards == [corr.device] and all(o.device == corr.device for o in got)
     check_scan_equal(got, scan_module.candidate_scan_reference(corr, thr, 6001))
+
+
+def test_marker_gemm_runs_at_f32_with_tf32_allowed(cuda):
+    """The marker DFT-GEMM switches TF32 off around its product: with TF32
+    allowed process-wide it stays within f32 error of the f64 spectrum,
+    and the process's setting comes back unchanged."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops.verify import _rfft_power_gemm
+
+    x = np.random.default_rng(5).standard_normal((512, 2000)).astype(np.float32)
+    exact = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1)) ** 2
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = _rfft_power_gemm(torch.from_numpy(x).to(cuda), 2000).cpu().double().numpy()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    assert np.abs(got - exact).max() <= 1e-5 * exact.max()
+
+
+@pytest.mark.parametrize("switch", ["APD_PALLAS=0", "none", "APD_NO_OVERLAP_SAVE=1",
+                                    "APD_MARKER_GEMM=1"])
+def test_class_step_switch_on_card_equals_cpu(cuda, switch, monkeypatch):
+    """A vmap round with hits under one of the JAX package's switches, or
+    none (the default path): the card's results equal the CPU's with the
+    same switch, and the mask tier (``APD_PALLAS=0``) launches no kernel."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    if switch != "none":
+        name, value = switch.split("=")
+        monkeypatch.setenv(name, value)
+    sr = 8000
+    t = np.arange(int(0.6 * sr)) / sr
+    clip = (0.5 * np.sin(2 * np.pi * 640.0 * t) * np.hanning(len(t))).astype(np.float32)
+    tone = np.sin(2 * np.pi * 941.0 * np.arange(2000) / sr).astype(np.float32)
+    clips = [
+        AudioClip(name="c", audio=clip, sample_rate=sr),
+        AudioClip(name="m", audio=tone, sample_rate=sr, strategy="marker_tone",
+                  strategy_params={"dominant_frequency_hz": 941.0}),
+    ]
+    audio = 0.01 * np.random.default_rng(3).standard_normal(25 * sr)
+    for s0 in (4.0, 9.8, 18.0):
+        audio[int(s0 * sr) : int(s0 * sr) + len(clip)] += clip
+    audio[13 * sr : 13 * sr + 2000] += 0.8 * tone
+    f32 = audio.astype(np.float32)
+    chunk = 10 * sr
+    chunks = [f32[:chunk], f32[chunk : 2 * chunk], f32[2 * chunk :]]
+    out = {}
+    for dev in ("cpu", cuda):
+        bank = TorchAudioPatternDetector(clips, device=dev, seconds_per_chunk=10)._ensure_bank()
+        before = candidate_scan.launches
+        out[str(dev)] = bank.process_chunks_batch(chunks, None, mode="vmap")
+        launched = candidate_scan.launches - before
+    assert launched == (0 if switch == "APD_PALLAS=0" else 2)
+    assert out[str(cuda)] == out["cpu"]
+    assert 4 * sr + len(clip) - 1 in out["cpu"][0]["c"] and out["cpu"][1]["m"]

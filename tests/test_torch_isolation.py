@@ -14,7 +14,9 @@ compute what the originals compute.
   ``serve.py``, ``models/multistream.py`` and ``parallel/sequence.py`` took
   over unchanged are the JAX modules' code, statement for statement (their
   syntax trees without docstrings, the package name apart); the mesh
-  branches of ``EngineOptions.validate`` among them.
+  branches of ``EngineOptions.validate`` among them. The one statement the
+  port adds at the head of ``MultiStreamSession.dispatch``, the lockstep
+  of a round across processes, is held to be there and set aside.
 """
 
 import ast
@@ -131,9 +133,24 @@ def test_port_runs_with_jax_and_the_jax_package_refused():
 # ── Shared code ──
 
 
+# Statements the port adds at the head of a shared function, each held to
+# be there and then set aside: the agreement on a round between the
+# processes of a group, which JAX gets from its global program.
+PORT_HEADS = {"MultiStreamSession.dispatch": "self._lockstep(chunks)"}
+
+
+def _drop_port_head(name: str, node: ast.FunctionDef) -> None:
+    body = node.body
+    first = 1 if (body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                  and isinstance(body[0].value.value, str)) else 0
+    assert ast.unparse(body[first]) == PORT_HEADS[name], f"{name}: no {PORT_HEADS[name]!r} at its head"
+    del body[first]
+
+
 def _definitions(path: str, rename: bool) -> dict[str, str]:
     """name -> dump of the syntax tree, docstrings dropped, of every
-    top-level function and every method of ``path``."""
+    top-level function and every method of ``path``; with ``rename`` (the
+    port's side) the ``PORT_HEADS`` statements set aside."""
     src = open(os.path.join(REPO, path), encoding="utf-8").read()
     if rename:
         src = (src.replace("audio_pattern_detector_tpu_torch", "audio_pattern_detector_tpu")
@@ -154,8 +171,12 @@ def _definitions(path: str, rename: bool) -> dict[str, str]:
         if isinstance(node, ast.FunctionDef):
             out[node.name] = dump(node)
         elif isinstance(node, ast.ClassDef):
-            out.update({f"{node.name}.{sub.name}": dump(sub)
-                        for sub in node.body if isinstance(sub, ast.FunctionDef)})
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef):
+                    name = f"{node.name}.{sub.name}"
+                    if rename and name in PORT_HEADS:
+                        _drop_port_head(name, sub)
+                    out[name] = dump(sub)
     return out
 
 

@@ -177,7 +177,7 @@ def run_case(name):
                     raw = _device_section(slab, prev_tail, b, int(d), sd.chunk_samples, halo,
                                           int(owned[d]), has_prev)
                     rows = upload_rows(bank._section_rows(cls["section_len"], [raw]), bank.device)
-                    flat = bank._section_step(sw, as_f32(rows[0]), len(raw)).numpy()
+                    flat = bank.step(sw, as_f32(rows[0]), len(raw)).numpy()
                     serial = _split_fused(flat, cls["groups"])
                     sharded = [p[b, d, : len(g.names)] for p, g in
                                zip(sess.last_payloads[sw], cls["groups"])]
@@ -301,12 +301,13 @@ def test_sample_counts_past_2_24_reach_the_cells_exactly(monkeypatch):
     t_actual = 2**24 + 1
     seen = []
 
-    def recording_step(section, lens, loud, group_consts, *, metas, **kw):
+    def recording_step(sw, section, lens, consts, scan=None):
         seen.append((section.shape, lens.clone()))
-        return [torch.zeros((section.shape[0] * c.self_corr_max.shape[0], 2 * kv + 2))
-                for (c, _), (_, _, _, kv) in zip(group_consts, metas)]
+        width = sum(c.self_corr_max.shape[0] * (2 * kv + 2)
+                    for (c, _), (_, _, _, kv) in zip(consts[1], sd.bank._metas[sw]))
+        return torch.zeros((section.shape[0], width))
 
-    monkeypatch.setattr(tsequence, "class_step", recording_step)
+    monkeypatch.setattr(sd.bank, "step", recording_step)
     out = sd.session().feed(np.zeros((1, t_actual), np.float32))
     assert out == {"c": [[]]}
     chunk = 300 * SR
@@ -411,14 +412,14 @@ def test_every_cell_steps_under_its_devices_guard(monkeypatch):
         def __exit__(self, *exc):
             current.pop()
 
-    step = tsequence.class_step
+    step = sd.bank.step
 
-    def guarded_step(section, *args, **kwargs):
+    def guarded_step(sw, section, *args, **kwargs):
         steps.append((section.device, current[-1] if current else None))
-        return step(section, *args, **kwargs)
+        return step(sw, section, *args, **kwargs)
 
     monkeypatch.setattr(tsequence, "device_guard", Guard)
-    monkeypatch.setattr(tsequence, "class_step", guarded_step)
+    monkeypatch.setattr(sd.bank, "step", guarded_step)
     sd.session().feed(audio[:, : sd.slab_samples])
     cells = mesh.devices.size * len(sd.bank.classes)
     assert len(steps) == cells and not current

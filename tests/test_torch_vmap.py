@@ -505,7 +505,7 @@ def test_batched_lean_step_makes_no_host_sync(env, monkeypatch):
     raws = [bank._raw_section(sw, c, t) for c, t in _round_rows(audios)]
     sections = torch.from_numpy(bank._section_rows(cls["section_len"], raws).astype(np.float32))
     n_valids = torch.tensor([len(r) for r in raws], dtype=torch.int32)
-    want = bank._section_step(sw, sections, n_valids)
+    want = bank.step(sw, sections, n_valids)
 
     def forbidden(name):
         def raise_(*a, **k):
@@ -514,7 +514,7 @@ def test_batched_lean_step_makes_no_host_sync(env, monkeypatch):
 
     for name in ("item", "tolist", "__bool__", "__int__", "__float__", "__index__", "cpu", "numpy"):
         monkeypatch.setattr(torch.Tensor, name, forbidden(name))
-    got = bank._section_step(sw, sections, n_valids)
+    got = bank.step(sw, sections, n_valids)
     monkeypatch.undo()
     assert torch.equal(got, want)
 
