@@ -89,6 +89,9 @@ class TorchEngineOptions:
     # The torch device the detector runs on: "cuda" (raises without a
     # card) or "cpu".
     device: str = "cuda"
+    # Captured class steps (models/captured.py): None captures on a CUDA
+    # device; False runs the eager step.
+    capture: bool | None = None
 
     def validate(self, from_stdin: bool) -> None:
         """Reject option combinations the engine cannot honour.
@@ -184,6 +187,7 @@ class TorchEngineOptions:
             target_sample_rate=self.target_sample_rate,
             debug_dir=self.debug_dir,
             height_min=self.height_min,
+            capture=self.capture,
         )
 
 

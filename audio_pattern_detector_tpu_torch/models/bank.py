@@ -56,6 +56,16 @@ folded into the clip axis where an op is row-wise ((B, G, L) correlations
 as (B * G, L) rows with per-row lengths), so the candidate-scan kernel
 launches once per group per round and memory is B times a step's.
 
+On a CUDA device every lean class step runs as a replay of a captured
+CUDA graph, the counterpart of the JAX bank's jitted class-step programs
+(``models/captured.py``): one graph per (device, class, B, upload dtype,
+tier, switches, constants), the batched form with B = 1 for one section.
+"scan" replays the B = 1 graph once per row, "vmap" the (B) graph once per
+round. ``capture=False`` (a constructor argument, and the ``capture``
+attribute) runs the eager step instead; the CPU has only the eager step.
+The general-plateau tier, the wide rerun and the host path sync with the
+host and stay eager.
+
 A ``"vmap"`` round can also be spread over a device mesh (``sharding=``):
 its rows split contiguously over the mesh's stream axis, each shard's rows
 run the batched class step on that shard's device against a replica of the
@@ -66,6 +76,7 @@ before any payload is awaited.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -80,6 +91,12 @@ from numpy.typing import NDArray
 
 from audio_pattern_detector_tpu_torch import native
 from audio_pattern_detector_tpu_torch.models import hostpath
+from audio_pattern_detector_tpu_torch.models.captured import (
+    CapturedStep,
+    EagerStep,
+    StepGraphs,
+    StepKey,
+)
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import BLOCK, candidate_scan
 from audio_pattern_detector_tpu_torch.ops.consts import consts_to_device
 from audio_pattern_detector_tpu_torch.ops.correlate import (
@@ -97,7 +114,7 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
     loudness_normalize_device,
 )
 from audio_pattern_detector_tpu_torch.ops.devices import canonical_device, device_guard
-from audio_pattern_detector_tpu_torch.ops.packing import as_f32, upload_rows
+from audio_pattern_detector_tpu_torch.ops.packing import upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
     PeakCandidates,
     ValidLen,
@@ -116,6 +133,7 @@ from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 from audio_pattern_detector_tpu_torch.ops.verify import (
     MarkerVerifyConsts,
     NormalVerifyConsts,
+    _marker_gemm_enabled,
     build_marker_verify_consts,
     build_normal_verify_consts,
     verify_marker,
@@ -219,6 +237,7 @@ class PatternBank:
         chunk_samples: int,
         height_min: float,
         device: "torch.device | str",
+        capture: "bool | None" = None,
     ) -> None:
         self.device = torch.device(device)
         self.sample_rate = sample_rate
@@ -234,7 +253,14 @@ class PatternBank:
         # The JAX bank's switches (module docstring), read once here.
         self.packed_upload = os.environ.get("APD_PACKED_UPLOAD", "1") != "0"
         self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
-        overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
+        self.overlap_save = overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
+        # Captured class steps (models/captured.py): the default on a CUDA
+        # device; ``capture`` may be switched off and on again between
+        # calls, to hold the two against each other.
+        self.graphs = StepGraphs()
+        self.capture = self.device.type == "cuda" if capture is None else bool(capture)
+        if self.capture:
+            self.graphs.check(self.device)
 
         grouped: dict[tuple[int, int, str], list[str]] = {}
         for name, cd in clip_datas.items():
@@ -370,6 +396,46 @@ class PatternBank:
             rows[bi, : len(raw)] = raw
         return rows
 
+    def program(
+        self,
+        sw: int,
+        device: "torch.device | str",
+        rows: "int | None" = None,
+        dtype: torch.dtype = torch.float32,
+        consts: "tuple[LoudnessConsts, tuple] | None" = None,
+        scan=candidate_scan,
+        fused: bool = True,
+    ) -> "CapturedStep | EagerStep":
+        """The class step of class ``sw`` on ``device`` under the bank's
+        switches, as an object to ``load(section, n_valid)`` and ``run()``:
+        a (B, S) batch of ``rows`` sections with a (B,) length tensor, or
+        one (S,) section with an int length (``rows=None``), in the upload
+        ``dtype``. With ``capture`` on and the lean tier (``height_min >
+        0``), the captured step of its key (``models/captured.py``); else
+        the eager step. ``consts`` replaces the class's own (loud,
+        group_consts): a replica on another device, or a bank shard's
+        slice. ``scan`` as in :func:`class_step`; ``fused=False`` returns
+        each group's payload."""
+        cls = self.classes[sw]
+        loud, group_consts = consts if consts is not None else (
+            cls["loud"], tuple((g.corr, g.verify) for g in cls["groups"])
+        )
+        fn = functools.partial(
+            class_step_fused if fused else class_step, loud=loud, group_consts=group_consts,
+            metas=self._metas[sw], height_min=self.height_min, scan=scan,
+            kernel_tier=self.kernel_tier,
+        )
+        device = canonical_device(device)
+        if not (self.capture and self.height_min > 0):
+            return EagerStep(fn, device)
+        key = StepKey(
+            device=device, sw=sw, rows=1 if rows is None else rows, dtype=dtype, fused=fused,
+            scan=scan, kernel_tier=self.kernel_tier, overlap_save=self.overlap_save,
+            packed_upload=self.packed_upload, marker_gemm=_marker_gemm_enabled(),
+            consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
+        )
+        return self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
+
     def step(
         self,
         sw: int,
@@ -379,21 +445,20 @@ class PatternBank:
         scan=candidate_scan,
         fused: bool = True,
     ) -> "torch.Tensor | list[torch.Tensor]":
-        """The class step of class ``sw`` under the bank's switches: the
-        fused payload of one section (S,) with its int length, or (B,
-        total) payloads of a (B, S) batch with a (B,) length tensor
-        (``fused=False``: each group's payload, as :func:`class_step`
-        returns them). ``consts`` replaces the class's own (loud,
-        group_consts): a replica on another device, or a bank shard's
-        slice. ``scan`` as in :func:`class_step`."""
-        cls = self.classes[sw]
-        loud, group_consts = consts if consts is not None else (
-            cls["loud"], tuple((g.corr, g.verify) for g in cls["groups"])
+        """The class step of class ``sw`` under the bank's switches on
+        ``section``'s device: the fused payload of one section (S,) with its
+        int length, or (B, total) payloads of a (B, S) batch with a (B,)
+        length tensor (``fused=False``: each group's payload, as
+        :func:`class_step` returns them). Sections may be int16 (they
+        decode in the step). ``consts``, ``scan`` as in :meth:`program`."""
+        batched = section.dim() == 2
+        prog = self.program(
+            sw, section.device, section.shape[0] if batched else None, section.dtype, consts,
+            scan, fused,
         )
-        return (class_step_fused if fused else class_step)(
-            section, n_valid, loud, group_consts, metas=self._metas[sw],
-            height_min=self.height_min, scan=scan, kernel_tier=self.kernel_tier,
-        )
+        prog.load(section, n_valid)
+        out = prog.run()
+        return out if batched or not fused else out.reshape(-1)
 
     # ── Single-chunk dispatch ──
 
@@ -407,8 +472,7 @@ class PatternBank:
         for sw, cls in self.classes.items():
             raw = self._raw_section(sw, chunk, previous_chunk)
             rows = upload_rows(self._section_rows(cls["section_len"], [raw]), self.device)
-            flat = self.step(sw, as_f32(rows[0]), len(raw))
-            dispatched.append((sw, PayloadHandle(flat), raw))
+            dispatched.append((sw, PayloadHandle(self.step(sw, rows[0], len(raw))), raw))
         return dispatched
 
     def collect_chunk(
@@ -533,27 +597,32 @@ class PatternBank:
             host_rows = self._section_rows(cls["section_len"], raws)
             t2 = clock()
             dispatch_phase_seconds["pack"] += t2 - t1
-            n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
-            uploaded = [
-                (
-                    upload_rows(host_rows[lo:hi], dev),
-                    n_valids[lo:hi].to(dev) if mode == "vmap" else None,
-                )
-                for dev, lo, hi in shards
-            ]
+            # The round's rows go up once per shard. Each step then copies
+            # its rows and lengths into its inputs just before it runs (two
+            # logical shards of one device may share one captured step).
+            if mode == "scan":
+                # Row after row: the B = 1 graph replayed once per row (or
+                # the eager single-section step), on the current stream.
+                rows = upload_rows(host_rows, self.device)
+                prog = self.program(sw, self.device, dtype=rows.dtype)
+                steps = [(prog, rows[bi], len(raws[bi])) for bi in range(b)]
+            else:
+                n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
+                steps = []
+                for dev, lo, hi in shards:
+                    rows = upload_rows(host_rows[lo:hi], dev)
+                    consts = None if sharding is None else self.replica(sw, dev)
+                    steps.append((self.program(sw, dev, hi - lo, rows.dtype, consts), rows,
+                                  n_valids[lo:hi]))
             t3 = clock()
             dispatch_phase_seconds["upload"] += t3 - t2
+            payloads = []
+            for prog, rows, n_valid in steps:
+                with device_guard(prog.device):
+                    prog.load(rows, n_valid)
+                    payloads.append(prog.run())
             if mode == "scan":
-                rows = uploaded[0][0]
-                payloads = [torch.stack(
-                    [self.step(sw, as_f32(rows[bi]), len(raws[bi])) for bi in range(b)]
-                )]
-            else:
-                payloads = []
-                for (dev, _lo, _hi), (rows, lens) in zip(shards, uploaded):
-                    consts = None if sharding is None else self.replica(sw, dev)
-                    with device_guard(dev):
-                        payloads.append(self.step(sw, as_f32(rows), lens, consts))
+                payloads = [torch.stack([p.reshape(-1) for p in payloads])]
             t4 = clock()
             dispatch_phase_seconds["launch"] += t4 - t3
             handles = [PayloadHandle(p) for p in payloads]
@@ -1108,7 +1177,10 @@ def class_step(
         if batched:
             b, g, l = corr.shape
             corr = corr.reshape(b * g, l)
-            valid_len = valid_len.to(torch.int32).repeat_interleave(g)
+            # Round-major, one length per row: a copy, so that one section's
+            # lengths (B = 1) are not a stride-0 view the kernel refuses.
+            valid_len = valid_len.to(torch.int32)[:, None].expand(b, g).reshape(b * g)
+            valid_len = valid_len.contiguous()
             self_corr_max = self_corr_max.repeat(b)
         args = (norm, corr, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts)
         if wide:

@@ -1,0 +1,230 @@
+"""Captured class steps: the port's counterpart of the JAX bank's jitted
+class-step programs (``_class_step_jit``, ``_class_step_fused_jit``,
+``_class_step_batch_jit``, ``_class_step_scan_jit`` and their packed
+twins, JAX ``models/bank.py:1716-1884``).
+
+The JAX bank never runs a class step op by op: each is one compiled
+program, cached by its shapes and static arguments. Here the class step
+(:func:`models.bank.class_step_fused`, or :func:`class_step` for per-group
+payloads) is captured once per key into a CUDA graph and replayed:
+
+* **The batched form, B = 1 included.** A graph runs the step on a
+  ``(B, S)`` section in the upload dtype (int16 rows decode inside it)
+  with a ``(B,)`` int32 length tensor, the form that makes no host sync.
+  One section is B = 1, so one graph serves every length of a shape, as
+  the JAX program does by tracing its length.
+* **Key** (:class:`StepKey`): device, sliding-window class, B, upload
+  dtype, fused or per-group payloads, the candidate scan, the lean tier
+  (kernel or ``APD_PALLAS=0`` mask), the bank's switches
+  (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``), ``APD_MARKER_GEMM`` as
+  it reads at the call, and the identity of the constants the step reads:
+  a replica on another device or a bank shard's slice is another key, and
+  its graph holds those constants for as long as it lives.
+* **First use** copies the call's rows and lengths into the static inputs,
+  runs the step eagerly on the device's capture stream (which builds the
+  cuFFT plans, the kernel's per-device attributes and the DFT matrix), then
+  captures it into the device's graph memory pool. The eager run's payload
+  is the call's result, so a key's first call costs one step on the card,
+  as every later call does.
+* **Replay**: copy the rows and lengths into the static inputs, replay on
+  the current stream, copy the payload out of the static output (one small
+  device copy), so that no later replay overwrites a payload a caller
+  holds.
+* **Launch accounting**: a replay makes no Python call of the kernel
+  wrapper, so each graph records how many kernel launches its capture
+  enqueued (the capture itself executes none and adds none to
+  ``candidate_scan.launches``), and each replay adds that number.
+* **Memory**: one graph memory pool per device, shared by the bank's
+  graphs on it (the widths of a tile ladder, both upload dtypes, both
+  schedules), on one capture stream per device. Graphs sharing a pool must
+  not run at once: a bank's replays on a device are issued in order on the
+  current stream, each payload copied out before the next replay.
+
+A bank is driven from one thread at a time. Nothing here falls back to the
+eager step: a capture or replay that fails raises.
+"""
+
+from __future__ import annotations
+
+import time
+from collections.abc import Callable
+from typing import Any, NamedTuple
+
+import torch
+
+from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+from audio_pattern_detector_tpu_torch.ops.devices import device_guard
+from audio_pattern_detector_tpu_torch.ops.packing import as_f32
+
+
+class StepKey(NamedTuple):
+    """What a captured class step is compiled for (the JAX compile key:
+    shapes plus static arguments)."""
+
+    device: torch.device
+    sw: int  # sliding-window class
+    rows: int  # B
+    dtype: torch.dtype  # upload dtype of the section
+    fused: bool  # one flat payload per row, or each group's
+    scan: Callable  # the candidate scan the lean tier calls
+    kernel_tier: bool  # False: the APD_PALLAS=0 mask tier
+    overlap_save: bool  # False: APD_NO_OVERLAP_SAVE=1
+    packed_upload: bool  # False: APD_PACKED_UPLOAD=0
+    marker_gemm: bool  # APD_MARKER_GEMM=1 at the call
+    consts: tuple[int, ...]  # ids of the loudness and group constants
+
+
+def _tensors(out: Any) -> list[torch.Tensor]:
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def _copy_out(out: Any) -> Any:
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return [t.clone() for t in out]
+
+
+class EagerStep:
+    """The class step run op by op (``capture=False``, the CPU, and every
+    tier that syncs with the host). A single section with an int length
+    runs the single-section form; a length tensor is copied into a buffer
+    of the step's own, as the captured step copies it into its static
+    input."""
+
+    def __init__(self, fn: Callable, device: torch.device) -> None:
+        self._fn = fn
+        self.device = device
+
+    def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
+        self._section = section.to(self.device)
+        if isinstance(n_valid, torch.Tensor):
+            with device_guard(self.device):
+                self._n_valid: "int | torch.Tensor" = torch.empty(
+                    n_valid.shape, dtype=torch.int32, device=self.device)
+            self._n_valid.copy_(n_valid)
+        else:
+            self._n_valid = int(n_valid)
+
+    def run(self) -> Any:
+        return self._fn(as_f32(self._section), self._n_valid)
+
+
+class CudaGraphBackend:
+    """``torch.cuda.CUDAGraph`` with one memory pool and one capture stream
+    per device, shared by every graph the backend makes on that device."""
+
+    def __init__(self) -> None:
+        self._devices: dict[torch.device, tuple[Any, torch.cuda.Stream]] = {}
+
+    @staticmethod
+    def check(device: torch.device) -> None:
+        if device.type != "cuda":
+            raise ValueError(
+                f"capture=True needs a CUDA device, got {device}: on the CPU the class "
+                "step runs eagerly (capture=False)"
+            )
+
+    def _pool_and_stream(self, device: torch.device) -> tuple[Any, torch.cuda.Stream]:
+        if device not in self._devices:
+            self._devices[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+        return self._devices[device]
+
+    def warm_up(self, device: torch.device, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run eagerly on the device's capture stream, ordered after
+        the current stream's work and before its later work."""
+        _, stream = self._pool_and_stream(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = fn()
+        current.wait_stream(stream)
+        for t in _tensors(out):
+            t.record_stream(current)
+        return out
+
+    def capture(self, device: torch.device, fn: Callable[[], Any]) -> tuple[Callable[[], None], Any]:
+        """(replay, static output) of ``fn`` captured into the device's pool."""
+        pool, stream = self._pool_and_stream(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = fn()
+        return graph.replay, out
+
+
+class CapturedStep:
+    """One captured class step: static inputs, its graph and static output."""
+
+    def __init__(self, key: StepKey, fn: Callable, consts: tuple, backend: Any,
+                 section_len: int) -> None:
+        self.key = key
+        self.device = key.device
+        self.consts = consts  # the graph reads these tensors: held while it lives
+        self._fn = fn
+        self._backend = backend
+        with device_guard(self.device):
+            self.section = torch.zeros((key.rows, section_len), dtype=key.dtype,
+                                       device=self.device)
+            self.n_valid = torch.zeros((key.rows,), dtype=torch.int32, device=self.device)
+        self._replay: "Callable[[], None] | None" = None
+        self._out: Any = None
+        self.launches = 0  # kernel launches one replay makes
+        self.replays = 0
+        self.capture_seconds: "float | None" = None  # first use: eager run and capture
+
+    def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
+        """Copy one call's rows ((B, S), or one (S,) row) and lengths into
+        the static inputs."""
+        self.section.copy_(section.reshape(self.section.shape))
+        if isinstance(n_valid, torch.Tensor):
+            self.n_valid.copy_(n_valid.reshape(self.n_valid.shape))
+        else:
+            self.n_valid.fill_(n_valid)
+
+    def _step(self) -> Any:
+        return self._fn(as_f32(self.section), self.n_valid)
+
+    def run(self) -> Any:
+        """The payload of the loaded inputs, owned by the caller."""
+        with device_guard(self.device):
+            if self._replay is None:
+                return self._first_run()
+            before = candidate_scan.launches
+            self._replay()
+            candidate_scan.launches = before + self.launches
+            self.replays += 1
+            return _copy_out(self._out)
+
+    def _first_run(self) -> Any:
+        t0 = time.perf_counter()
+        self._backend.check(self.device)
+        out = self._backend.warm_up(self.device, self._step)
+        counted = candidate_scan.launches
+        try:
+            self._replay, self._out = self._backend.capture(self.device, self._step)
+            self.launches = candidate_scan.launches - counted
+        finally:
+            candidate_scan.launches = counted  # a capture executes nothing
+        self.capture_seconds = time.perf_counter() - t0
+        return out
+
+
+class StepGraphs:
+    """A bank's captured class steps, by :class:`StepKey`."""
+
+    backend: type = CudaGraphBackend  # the graph maker; tests substitute a stand-in
+
+    def __init__(self) -> None:
+        self._backend = type(self).backend()
+        self._steps: dict[StepKey, CapturedStep] = {}
+
+    def check(self, device: torch.device) -> None:
+        self._backend.check(device)
+
+    def get(self, key: StepKey, fn: Callable, consts: tuple, section_len: int) -> CapturedStep:
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = CapturedStep(key, fn, consts, self._backend, section_len)
+        return step
+
+    def steps(self) -> list[CapturedStep]:
+        return list(self._steps.values())

@@ -133,7 +133,8 @@ def _f32_copy(samples: NDArray[Any]) -> NDArray[np.float32]:
 
 class TorchAudioPatternDetector:
     """Two-step streaming pattern detector (FFT correlation + verification)
-    running its device work in torch."""
+    running its device work in torch. On a CUDA device each class step is a
+    replay of a captured CUDA graph; ``capture=False`` runs it eagerly."""
 
     def __init__(
         self,
@@ -145,8 +146,12 @@ class TorchAudioPatternDetector:
         target_sample_rate: int | None = None,
         debug_dir: str = "./tmp",
         height_min: float | None = None,
+        capture: bool | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        # Captured class steps (models/captured.py): None runs them on a
+        # CUDA device; False runs the eager step; True on the CPU raises.
+        self.capture = capture
         self.audio_clips = audio_clips
         self.debug_mode = debug_mode
         self.debug_dir = debug_dir
@@ -320,6 +325,7 @@ class TorchAudioPatternDetector:
                 chunk_samples=int(self.seconds_per_chunk * self.target_sample_rate),
                 height_min=self.height_min if self.height_min is not None else 0.25,
                 device=self.device,
+                capture=self.capture,
             )
         return self._bank
 

@@ -47,6 +47,11 @@ class MultiStreamSession:
     ``tile`` set, a round's active rows dispatch as a greedy decomposition
     over the tile and every power of two below it, and ``collect``
     scatters the rows back to their slots.
+
+    On a CUDA device each dispatch replays the bank's captured class step
+    for its width (``models/captured.py``): every width of the tile
+    ladder, in each upload dtype, is captured at its first use (``serve``
+    warms them all before its first client).
     """
 
     def __init__(

@@ -150,4 +150,7 @@ def candidate_scan(
     raise ValueError(f"candidate_scan: unsupported device {corr.device}")
 
 
-candidate_scan.launches = 0  # kernel launches (CUDA only), for run accounting
+# Kernels the card ran: one per launch of the wrapper, and for each replay
+# of a captured class step the launches its graph holds
+# (models/captured.py). The plain version counts nothing.
+candidate_scan.launches = 0

@@ -236,6 +236,13 @@ def build_marker_verify_consts(
 _GEMM_MAX_N = 4096
 
 
+# The DFT matrices that captured CUDA graphs read (models/captured.py): a
+# graph holds the matrix's address, so a matrix read while a graph is
+# captured stays here for the life of the process, whatever the cache below
+# evicts.
+_CAPTURED_DFT: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
 @functools.lru_cache(maxsize=16)
 def _dft_matrix(n: int, device: torch.device) -> torch.Tensor:
     """(n, 2F) f32 [cos | sin] real-DFT matrix, F = n // 2 + 1, built in
@@ -257,6 +264,8 @@ def _rfft_power_gemm(x: torch.Tensor, n: int) -> torch.Tensor:
     process's setting restored. Callers gate on ``n <= _GEMM_MAX_N``."""
     f = n // 2 + 1
     mat = _dft_matrix(n, x.device)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        _CAPTURED_DFT[(n, x.device)] = mat
     with _full_f32_matmul():
         proj = x.reshape(-1, n) @ mat
     re, im = proj[:, :f], proj[:, f:]

@@ -197,6 +197,7 @@ class PatternServer:
         dispatch_defer_ms: float = 50.0,
         tile: int | None = None,
         device: "torch.device | str" = "cuda",
+        capture: bool | None = None,
     ) -> None:
         if max_streams < 1:
             raise ValueError(f"max_streams must be >= 1, got {max_streams}")
@@ -231,7 +232,7 @@ class PatternServer:
             if height_min is not None:
                 kwargs["height_min"] = height_min
             self.detector = TorchAudioPatternDetector(
-                audio_clips=pattern_clips, device=device, **kwargs
+                audio_clips=pattern_clips, device=device, capture=capture, **kwargs
             )
         self.sr = self.detector.target_sample_rate
         self.chunk_samples = int(self.detector.seconds_per_chunk * self.sr)
@@ -315,18 +316,23 @@ class PatternServer:
         return self._listener.getsockname()[:2]
 
     def warmup(self) -> None:
-        """One round per width the session dispatches (the tile's width
-        ladder; just the slot width on a mesh) before the first client,
-        so no client's round pays a first use: on the card, the kernel
-        library's build and load and the cuFFT plans."""
+        """Two rounds per width the session dispatches (the tile's width
+        ladder; just the slot width on a mesh) before the first client, one
+        of int16 rows (a 16-bit PCM client's) and one of f32 rows (an IEEE
+        float client's), so no client's round pays a first use: on the
+        card, the kernel library's build and load, the cuFFT plans and the
+        capture of each width's class step in each upload dtype."""
         rng = np.random.default_rng(0)
         for w in self.session._tile_widths or [self.max_streams]:
-            chunks: list[Any] = [None] * self.max_streams
-            for r in range(w):
-                chunks[r] = (0.01 * rng.standard_normal(self.chunk_samples)).astype(np.float32)
-            self.session.feed(chunks)
-            for r in range(w):
-                self.session.reset(r)
+            for dtype in (np.int16, np.float32):
+                chunks: list[Any] = [None] * self.max_streams
+                for r in range(w):
+                    chunk = 0.01 * rng.standard_normal(self.chunk_samples)
+                    chunks[r] = (np.round(chunk * 32768).astype(np.int16) if dtype == np.int16
+                                 else chunk.astype(np.float32))
+                self.session.feed(chunks)
+                for r in range(w):
+                    self.session.reset(r)
 
     def shutdown(self) -> None:
         """Stop ``serve_forever`` from any thread (idempotent)."""

@@ -135,7 +135,19 @@ card and checks them:
    near-collapse flag), f32 intermediates within tolerance, the DFT-GEMM
    at f32 with TF32 allowed; ms per round beside the default's,
    kernel launches (0 under ``APD_PALLAS=0``);
-14. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
+14. the captured class step (``models/captured.py``; every phase above
+   runs it, the port's default on the card) against the eager one on the
+   same bank (its ``capture`` switched off): payloads bit for bit on the
+   flagship step, the 16-row flagship round in both modes, the mask tier's
+   round and a bank-sharded chunk on 2 logical shards; detections, routes
+   and stream times on phase 9's session in both modes and on a 2-shard
+   stream mesh; ms in turns (eager, captured, captured, eager, twice) for
+   the step, both rounds, the session and file mode's x-realtime on the
+   tiled 482 s file; launch calls, graph launches and device-busy share
+   under torch.profiler; each key's capture seconds, replays and kernel
+   launches a replay; the memory a key's first use took and what the graph
+   pools kept;
+15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
@@ -303,13 +315,18 @@ def edge_shapes(lengths=EDGE_LENGTHS) -> list[tuple[int, int]]:
 def captured_scan_inputs(limit: int):
     """Inside the block, a copy of the inputs of the first ``limit``
     candidate-scan kernel launches, (corr, thr_min, valid_len) each, lands
-    in the yielded list. The launches and their count are unchanged."""
+    in the yielded list. The launches and their count are unchanged. A
+    replayed class step calls no wrapper, so only eager steps (a captured
+    key's first use among them) are recorded."""
     from audio_pattern_detector_tpu_torch.ops import candidate_scan as scan_module
+
+    import torch
 
     launch, seen = scan_module._launch, []
 
     def recording(corr, thr_min, valid_len):
-        if len(seen) < limit:
+        # A launch being captured into a CUDA graph runs nothing yet.
+        if len(seen) < limit and not torch.cuda.is_current_stream_capturing():
             seen.append((corr.clone(), thr_min.clone(), valid_len))
         return launch(corr, thr_min, valid_len)
 
@@ -405,12 +422,14 @@ def kernel_device_ms(fn, kernel: str, runs: int, between=None) -> "float | None"
 
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def profile_run(fn, table: Path) -> dict:
     """One call of ``fn`` under torch.profiler: wall seconds, summed device
-    event time, device event and kernel-launch counts, and the launch
-    calls' share of the host's self time. The op table goes to ``table``."""
+    event time, device event, kernel-launch and graph-launch counts, and the
+    launch calls' share of the host's self time. The op table goes to
+    ``table``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -430,6 +449,7 @@ def profile_run(fn, table: Path) -> dict:
     return {
         "profiled_wall_s": wall, "device_events": len(dev), "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall, "kernel_launch_calls": len(launch),
+        "graph_launch_calls": sum(e.name in GRAPH_LAUNCH_CALLS for e in host),
         "launch_share_of_host_self_time":
             sum(e.self_cpu_time_total for e in launch) / host_self_us if host_self_us else None,
     }
@@ -771,8 +791,13 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     torch.cuda.synchronize()
     scan_launches = candidate_scan.launches
     scan_peak = torch.cuda.max_memory_allocated() - pv_bytes  # the vmap payload is still held
+    # A replay calls no Python of the kernel's wrapper: the eager step on
+    # the same bank records the launches' inputs (phase 14 holds the two
+    # steps bitwise equal).
+    bank.capture = False
     with captured_scan_inputs(limit=2) as round_scans:
         step("vmap")
+    bank.capture = True
     if launches != 2 or scan_launches != 2 * ROUND_ROWS:
         raise AssertionError(f"kernel launches a round: vmap {launches} (want 2), "
                              f"scan {scan_launches} (want {2 * ROUND_ROWS})")
@@ -2066,6 +2091,227 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     return total_launches
 
 
+def payloads_equal(a, b) -> bool:
+    """Two payloads (a tensor, or a list of them) equal bit for bit."""
+    import torch
+
+    a, b = ([a], [b]) if isinstance(a, torch.Tensor) else (a, b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def in_turns(run, n: int = 2) -> dict[str, list[float]]:
+    """``run(capture)`` timed in turns (eager, captured, captured, eager), ``n`` times."""
+    times: dict[str, list[float]] = {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager") * n:
+        times[name].append(run(name == "captured"))
+    return times
+
+
+def phase_captured(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
+                   profile: "Path | None" = None) -> None:
+    """Phase 14: the captured class step (``models/captured.py``) against
+    the eager one, on the same bank with its ``capture`` switched: payloads
+    bit for bit on the flagship step, the 16-row flagship round in both
+    modes, the mask tier's round, a bank shard's chunk on 2 logical shards,
+    and detections, routes and stream times on phase 9's session (both
+    modes and on a 2-shard stream mesh); ms in turns (eager, captured,
+    captured, eager) for the step, both rounds, the session and file mode's
+    x-realtime on the tiled 482 s file; launch calls, graph launches and
+    device-busy share under torch.profiler; each key's capture seconds and
+    the memory its first use took. The kernel launches here are not on the
+    kernels line."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch import cli
+    from audio_pattern_detector_tpu_torch.flagship import (
+        flagship_round,
+        flagship_step,
+        make_detector,
+    )
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
+
+    tables = Path(tempfile.mkdtemp()) if profile is None else profile
+    out: dict = {}
+
+    def keys(bank) -> list[dict]:
+        cls = bank.classes
+        own = {sw: (id(c["loud"]), *(id(x) for g in c["groups"] for x in (g.corr, g.verify)))
+               for sw, c in cls.items()}
+        return [{"sw": s.key.sw, "rows": s.key.rows, "dtype": str(s.key.dtype).split(".")[1],
+                 "fused": s.key.fused, "bank_consts": s.key.consts == own[s.key.sw],
+                 "capture_s": s.capture_seconds, "replays": s.replays,
+                 "kernel_launches_a_replay": s.launches} for s in bank.graphs.steps()]
+
+    def first_use(bank, fn) -> tuple:
+        """Eager, then the captured first use (its capture) and a replay:
+        (eager, [first, replay], peak GB allocated above what was held,
+        GB that stay reserved once the cache is emptied: the new graph's
+        pool, which no ``empty_cache`` returns while the graph lives)."""
+        bank.capture = False
+        eager = fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        bank.capture = True
+        got = [fn(), fn()]
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - alloc) / 1e9
+        torch.cuda.empty_cache()
+        kept = (torch.cuda.memory_reserved() - reserved) / 1e9
+        return eager, got, peak, kept
+
+    def timed(bank, fn, reps: int):
+        def run(capture: bool) -> float:
+            bank.capture = capture
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / reps * 1e3
+        times = in_turns(run)
+        bank.capture = True
+        return {k: median_and_range(v) for k, v in times.items()}
+
+    def profiled(bank, fn, name: str) -> dict:
+        res = {}
+        for capture in (False, True):
+            bank.capture = capture
+            fn()
+            res["captured" if capture else "eager"] = profile_run(
+                fn, tables / f"captured_{name}_{'captured' if capture else 'eager'}.txt")
+        return res
+
+    # ── The flagship step (one 60 s section, each group's payload) ──
+    step, bank = flagship_step(dev)
+    eager, got, peak, kept = first_use(bank, step)
+    if not all(payloads_equal(g, eager) for g in got):
+        raise AssertionError("flagship step: captured payload differs from the eager one")
+    out["flagship_step"] = {"ms_median_min_max": timed(bank, step, 5),
+                            "profile": profiled(bank, step, "flagship_step"),
+                            "first_use_peak_gb": peak, "pool_gb": kept, "keys": keys(bank)}
+    del step, bank, eager, got
+
+    # ── The 16-row flagship round in both modes ──
+    round_step, bank, _ = flagship_round(dev)
+    out["flagship_round"] = {}
+    for mode in ("vmap", "scan"):
+        eager, got, peak, kept = first_use(bank, lambda: round_step(mode))
+        if not all(payloads_equal(g, eager) for g in got):
+            raise AssertionError(f"flagship round, {mode}: captured payload differs from eager")
+        out["flagship_round"][mode] = {
+            "ms_median_min_max": timed(bank, lambda: round_step(mode), 3 if mode == "vmap" else 1),
+            "profile": profiled(bank, lambda: round_step(mode), f"round_{mode}"),
+            "first_use_peak_gb": peak, "pool_gb": kept}
+    out["flagship_round"]["keys"] = keys(bank)
+    del round_step, bank, eager, got
+
+    # ── The mask tier (APD_PALLAS=0) on the same round ──
+    with switches({"APD_PALLAS": "0"}):
+        round_step, bank, _ = flagship_round(dev)
+    eager, got, peak, kept = first_use(bank, lambda: round_step("vmap"))
+    if bank.kernel_tier or not all(payloads_equal(g, eager) for g in got):
+        raise AssertionError("mask tier: captured payload differs from the eager one")
+    out["mask_tier_round_vmap"] = {
+        "ms_median_min_max": timed(bank, lambda: round_step("vmap"), 3),
+        "first_use_peak_gb": peak, "pool_gb": kept}
+    del round_step, bank, eager, got
+
+    # ── Phase 9's session, both modes and on a stream mesh; a bank shard ──
+    det = make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)
+    bank = det._ensure_bank()
+    _audios, rounds, _ = serving_streams(det, bank.sample_rate)
+
+    def session_run(make) -> dict:
+        session = make()
+        before = routes(bank)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        acc, _ = drive_session(session, rounds, in_flight=2)
+        torch.cuda.synchronize()
+        return {"acc": acc, "totals": [session.total_time(i) for i in range(16)],
+                "routes": tuple(a - b for a, b in zip(routes(bank), before)),
+                "wall_s": time.perf_counter() - t}
+
+    sessions = {
+        "scan": lambda: MultiStreamSession(det, 16, tile=16, batch_mode="scan"),
+        "vmap": lambda: MultiStreamSession(det, 16, tile=16, batch_mode="vmap"),
+        "stream_mesh_2": lambda: MultiStreamSession(
+            det, 16, mesh=make_mesh({"stream": 2}, devices=[dev] * 2)),
+    }
+    out["session"] = {}
+    for name, make in sessions.items():
+        runs = {}
+        for capture in (False, True):
+            bank.capture = capture
+            runs[capture] = session_run(make)
+        e, c = runs[False], runs[True]
+        if (c["acc"], c["totals"], c["routes"]) != (e["acc"], e["totals"], e["routes"]):
+            raise AssertionError(f"session {name}: captured {c['routes']} differs from eager "
+                                 f"{e['routes']}")
+        entry = {"detections": sum(len(v) for a in c["acc"][:12] for v in a.values()),
+                 "routes_row_class_escalated_host": c["routes"]}
+        if name != "stream_mesh_2":
+            def run(capture: bool, make=make) -> float:
+                bank.capture = capture
+                return session_run(make)["wall_s"]
+            entry["wall_s_median_min_max"] = {
+                k: median_and_range(v) for k, v in in_turns(run).items()}
+        out["session"][name] = entry
+    bank.capture = True
+    sharded = BankShardedBank(bank, make_mesh({"bank": 2}, devices=[dev] * 2))
+    chunk, prev = rounds[1][3], rounds[0][3]  # phase 7's flooded row, with its lookback
+    shard_payloads = {}
+    for capture in (False, True, True):
+        bank.capture = capture
+        shard_payloads.setdefault(capture, []).append(
+            [rec[1].numpy().copy() for rec in sharded.dispatch_chunk(chunk, prev)])
+    if not all(all(np.array_equal(a.view(np.int32), b.view(np.int32)) for a, b in zip(p, shard_payloads[False][0]))
+               for p in shard_payloads[True]):
+        raise AssertionError("bank shards: captured payload differs from the eager one")
+    out["bank_shards_2"] = {"payload_equal": True}
+    out["session"]["keys"] = keys(bank)
+    bank.capture = True
+    del det, bank, sharded
+
+    # ── File mode on the tiled 482 s file (the CLI, flag-free) ──
+    pcm, rate = cbs_pcm()
+    audio_s = 15 * len(pcm) / rate
+    build_detector = cli.TorchEngineOptions.build_detector
+    with tempfile.TemporaryDirectory() as tmp:
+        tiled = Path(tmp) / "cbs_x15.wav"
+        write_tiled(tiled, pcm, rate, 15)
+        found: dict[bool, list] = {}
+
+        def file_mode(capture: bool) -> float:
+            def build(self, clips):
+                self.capture = capture
+                return build_detector(self, clips)
+
+            cli.TorchEngineOptions.build_detector = build
+            try:
+                t = time.perf_counter()
+                events = run_cli(["match", "--device", dev.type, "--pattern-file", str(CBS_CLIP),
+                                  str(tiled)])
+                wall = time.perf_counter() - t
+            finally:
+                cli.TorchEngineOptions.build_detector = build_detector
+            found.setdefault(capture, detections(events))
+            return audio_s / wall
+
+        file_mode(True)
+        x = in_turns(file_mode)
+    if found[True] != found[False] or len(found[True]) != 15:
+        raise AssertionError(f"file mode: captured {found[True]} against eager {found[False]}")
+    out["file_mode_x_realtime_median_min_max"] = {k: median_and_range(v) for k, v in x.items()}
+    phase("captured", card=smi, clips=num_normal + num_marker, equal_to_eager=True, **out)
+    torch.cuda.empty_cache()
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -2292,7 +2538,8 @@ def main(argv: "list[str] | None" = None) -> int:
                                           "candidate_scan_kernel", TIMED_RUNS)
                 bound_ms = scan_bound_ms(g, l, valid_len)
                 phase("scan_main_path_input", source=source, shape=[g, l],
-                      valid_len=valid_len, bitwise_equal=True, max_abs_err=err,
+                      valid_len=valid_len if isinstance(valid_len, int) else "per row",
+                      bitwise_equal=True, max_abs_err=err,
                       share_above_threshold=share_above(corr, thr, valid_len),
                       kernel_device_ms=dev_ms, bound_ms=bound_ms,
                       share_of_bound=bound_ms / dev_ms if dev_ms else None)
@@ -2327,6 +2574,7 @@ def main(argv: "list[str] | None" = None) -> int:
     mesh_launches = phase_mesh(dev, smi)
     multi_process_launches = phase_multi_process(dev, smi)
     variant_launches = phase_variants(dev, smi)
+    phase_captured(dev, smi, profile=args.profile)
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:

@@ -655,3 +655,178 @@ def test_class_step_switch_on_card_equals_cpu(cuda, switch, monkeypatch):
     assert launched == (0 if switch == "APD_PALLAS=0" else 2)
     assert out[str(cuda)] == out["cpu"]
     assert 4 * sr + len(clip) - 1 in out["cpu"][0]["c"] and out["cpu"][1]["m"]
+
+
+# ── Captured class steps (models/captured.py) against the eager step ──
+
+
+def _eager_then_captured(bank, fn, calls=2):
+    """``fn()`` with the bank's step eager, then ``calls`` times captured
+    (the key's first use, then replays), on the same bank."""
+    bank.capture = False
+    eager = fn()
+    bank.capture = True
+    got = [fn() for _ in range(calls)]
+    torch.cuda.synchronize()
+    return eager, got
+
+
+def _bitwise(a, b):
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def test_captured_flagship_step_equals_eager(cuda):
+    """The flagship step (one section, each group's payload) as a replay of
+    its one-row graph: bitwise the eager step's; the first use counts its
+    eager run's launches, each replay its graph's two."""
+    from audio_pattern_detector_tpu_torch.flagship import flagship_step
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    step, bank = flagship_step(cuda)
+    assert bank.capture is True
+    before = candidate_scan.launches
+    eager, got = _eager_then_captured(bank, step, calls=3)
+    assert candidate_scan.launches - before == 2 * 4
+    assert all(_bitwise(g, eager) for g in got)
+    (captured,) = bank.graphs.steps()
+    assert (captured.key.rows, captured.key.fused, captured.launches, captured.replays) == (
+        1, False, 2, 2)
+
+
+@pytest.mark.parametrize("mode", ["vmap", "scan"])
+def test_captured_flagship_round_equals_eager(cuda, mode):
+    """The 16-row flagship round: "vmap" one replay of the 16-row graph,
+    "scan" 16 replays of the one-row graph; bitwise the eager round's."""
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, flagship_round
+
+    step, bank, _ = flagship_round(cuda)
+    eager, got = _eager_then_captured(bank, lambda: step(mode))
+    assert all(_bitwise(g, eager) for g in got)
+    (captured,) = bank.graphs.steps()
+    assert captured.key.rows == (ROUND_ROWS if mode == "vmap" else 1)
+    assert captured.replays == (1 if mode == "vmap" else 2 * ROUND_ROWS - 1)
+
+
+def test_captured_mask_tier_equals_eager(cuda, monkeypatch):
+    """``APD_PALLAS=0``: the mask tier's round captured, bitwise the eager
+    round's, with no kernel in its graph."""
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    monkeypatch.setenv("APD_PALLAS", "0")
+    step, bank, _ = flagship_round(cuda)
+    monkeypatch.delenv("APD_PALLAS")
+    before = candidate_scan.launches
+    eager, got = _eager_then_captured(bank, lambda: step("vmap"))
+    assert candidate_scan.launches == before and not bank.kernel_tier
+    assert all(_bitwise(g, eager) for g in got)
+    assert [s.key.kernel_tier for s in bank.graphs.steps()] == [False]
+
+
+def test_captured_bank_and_stream_shards_equal_eager(cuda):
+    """A bank-sharded chunk on 3 logical shards (a graph per shard's slice)
+    and a stream-sharded round on 2 (the shards share the bank's graph):
+    payloads bitwise the eager ones."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
+    from audio_pattern_detector_tpu_torch.parallel.mesh import RowSharding
+
+    clips, audio = _mesh_clips(np)
+    sr = 8000
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    c0, c1 = audio[0, : 10 * sr], audio[0, 10 * sr : 20 * sr]
+    sharded = BankShardedBank(bank, make_mesh({"bank": 3}, devices=[cuda] * 3))
+    eager, got = _eager_then_captured(
+        bank, lambda: [rec[1].numpy().copy() for rec in sharded.dispatch_chunk(c1, c0)])
+    assert all(_bitwise(g, eager) for g in got)
+    assert len({s.key.consts for s in bank.graphs.steps()}) == 3 * len(bank.classes)
+
+    rows = RowSharding(make_mesh({"stream": 2}, devices=[cuda] * 2), "stream")
+    chunks = [audio[0, : 10 * sr], audio[1, : 10 * sr], np.zeros(0, np.float32),
+              audio[1, 20 * sr : 23 * sr]]
+    eager, got = _eager_then_captured(bank, lambda: [
+        rec[1].numpy().copy() for rec in bank.dispatch_chunks_batch(
+            chunks, None, mode="vmap", prev_tails=[None] * 4, sharding=rows)])
+    assert all(_bitwise(g, eager) for g in got)
+
+
+def _capture_clips():
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    sr = 8000
+    t = np.arange(int(0.6 * sr)) / sr
+    clip = (0.5 * np.sin(2 * np.pi * 640.0 * t) * np.hanning(len(t))).astype(np.float32)
+    tone = np.sin(2 * np.pi * 941.0 * np.arange(2000) / sr).astype(np.float32)
+    clips = [
+        AudioClip(name="c", audio=clip, sample_rate=sr),
+        AudioClip(name="m", audio=tone, sample_rate=sr, strategy="marker_tone",
+                  strategy_params={"dominant_frequency_hz": 941.0}),
+    ]
+    rounds = []
+    for seed in range(3):
+        audio = 0.01 * np.random.default_rng(40 + seed).standard_normal(40 * sr)
+        for s0 in (4.0 + seed, 14.5, 27.0 + seed):
+            audio[int(s0 * sr) : int(s0 * sr) + len(clip)] += clip
+        audio[(21 + seed) * sr : (21 + seed) * sr + 2000] += 0.8 * tone
+        rounds.append([audio[o : o + 10 * sr].astype(np.float32) for o in range(0, 40 * sr, 10 * sr)])
+    return clips, rounds
+
+
+def test_replays_take_new_inputs_with_rounds_in_flight(cuda):
+    """Three different rounds dispatched back to back through one graph,
+    none collected before the last is enqueued: each payload is its own
+    round's, bitwise the eager one's."""
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    bank.capture = False
+    eager = [[h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(r, None)]
+             for r in rounds]
+    bank.capture = True
+    for order in ([0, 1, 2], [2, 0, 1]):
+        in_flight = [bank.dispatch_chunks_batch(rounds[i], None) for i in order]
+        for i, dispatched in zip(order, in_flight):
+            assert _bitwise([h.numpy() for _, h, *_ in dispatched], eager[i])
+    assert len(eager[0]) == len(bank.classes)
+    assert [s.replays for s in bank.graphs.steps()] == [5] * len(bank.classes)
+
+
+def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
+    """After capture, the DFT-matrix cache and torch's cuFFT plan cache are
+    emptied, other transforms made and the freed memory filled with NaN:
+    replays still equal the eager round (the graph holds what it reads)."""
+    import gc
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.ops import verify
+
+    monkeypatch.setenv("APD_MARKER_GEMM", "1")
+    clips, rounds = _capture_clips()
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+
+    def run():
+        return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(rounds[0], None)]
+
+    eager, got = _eager_then_captured(bank, run)
+    assert all(_bitwise(g, eager) for g in got)
+    assert [s.key.marker_gemm for s in bank.graphs.steps()] == [True] * len(bank.classes)
+    verify._dft_matrix.cache_clear()
+    torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n in (1000, 3001, 5000, 12_345, 40_000):
+        torch.fft.irfft(torch.fft.rfft(torch.randn(32, n, device=cuda)), n=n)
+    free, _ = torch.cuda.mem_get_info()
+    junk = torch.full((int(free * 0.5) // 4,), float("nan"), device=cuda)
+    again = run()
+    del junk
+    assert _bitwise(again, eager)
