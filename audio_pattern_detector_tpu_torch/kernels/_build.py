@@ -58,6 +58,8 @@ _SIGNATURES = {
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
+    "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
+    "apd_graph_if_end": ([_c_ptr], ctypes.c_int),
 }
 
 

@@ -42,6 +42,12 @@ variable and read when the bank is built, as the JAX bank reads them:
 * ``APD_NO_OVERLAP_SAVE=1``: one full-length FFT per group and for the
   loudness filter, in place of the class's overlap-save segments.
 * ``APD_PACKED_UPLOAD=0``: int16 rows decode on the host and upload as f32.
+* ``APD_SKIP_EMPTY_VERIFY=0``: the captured lean step verifies every group.
+  By default a group none of whose rows has a live lane skips its verify
+  tail (the JAX ``lax.cond`` in ``_lean_tail``): a CUDA conditional node in
+  the captured graph (``models/captured.py``), which needs no host sync.
+  The eager step, which has no node, always verifies; the payload is the
+  same either way.
 
 ``APD_MARKER_GEMM`` acts inside the marker verifier and is read at each
 call (``ops/verify.py``). :meth:`PatternBank.step` runs a class step
@@ -72,6 +78,15 @@ run the batched class step on that shard's device against a replica of the
 class's constants (:meth:`PatternBank.replica`), and the shards' payloads
 are stitched in row order on the host at collect. Every shard is enqueued
 before any payload is awaited.
+
+A dispatch writes each section, lookback and chunk, straight into a host
+buffer from the bank's pool (the JAX bank's ``_payload_pool``), pinned on a
+CUDA bank so that the upload is an asynchronous copy on the current stream;
+the dispatch record's raw sections are views of that buffer. A buffer
+returns to the pool only when its dispatch is collected: its payload is
+then on the host, so the step that read the upload has run, and its
+flagged rows have been resolved. A dispatch that is never collected keeps
+its buffer.
 """
 
 from __future__ import annotations
@@ -142,12 +157,16 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
 
 _BIG = 2**30  # dead-lane position (== ops/peaks.SURVIVOR_POS_SENTINEL)
 _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
+# branch(pred, body): run body() where the 0-d device bool ``pred`` holds
+# (models/captured.py; the lean tail's skip of candidate-free groups).
+Branch = Callable[[torch.Tensor, Callable[[], Any]], None]
 
 # Cumulative host seconds per dispatch_chunks_batch stage, process-wide:
-# section assembly, the copy into the zero-padded host rows ("pack", the
-# JAX bank's key), the upload, the enqueue of the class step's launches,
-# and the enqueue of the payload's copy back. Probes read and reset it to say where a round's
-# dispatch time goes (chip_smoke.py).
+# each row's section parts (lookback and chunk), their copy into the
+# zero-padded staging rows ("pack", the JAX bank's key), the upload, the
+# enqueue of the class step's launches, and the enqueue of the payload's
+# copy back. Probes read and reset it to say where a round's dispatch time
+# goes (chip_smoke.py).
 dispatch_phase_seconds: dict[str, float] = {
     "sections": 0.0,
     "pack": 0.0,
@@ -254,6 +273,9 @@ class PatternBank:
         self.packed_upload = os.environ.get("APD_PACKED_UPLOAD", "1") != "0"
         self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
         self.overlap_save = overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
+        self.skip_empty_verify = os.environ.get("APD_SKIP_EMPTY_VERIFY", "1") != "0"
+        # Staging buffers by (dtype, B, S), recycled at collect time.
+        self._staging: dict[tuple[np.dtype, int, int], list[NDArray[Any]]] = {}
         # Captured class steps (models/captured.py): the default on a CUDA
         # device; ``capture`` may be switched off and on again between
         # calls, to hold the two against each other.
@@ -359,42 +381,98 @@ class PatternBank:
 
     # ── Sections ──
 
-    def _raw_section(
+    def _section_parts(
         self,
         sw: int,
         chunk: NDArray[Any],
         previous_chunk: "NDArray[Any] | None",
-    ) -> NDArray[Any]:
-        """Prepend the last ``sw`` seconds of the previous chunk (the
-        overlap-save lookback; reference: audio_pattern_detector.py:400-412).
-        A mixed int16/f32 pair decodes the int16 side first."""
+    ) -> tuple[NDArray[Any], ...]:
+        """A chunk's section as its parts in order: the last ``sw`` seconds
+        of the previous chunk (the overlap-save lookback; reference:
+        audio_pattern_detector.py:400-412), then the chunk. A mixed
+        int16/f32 pair decodes the int16 side first."""
         if previous_chunk is None:
-            return chunk
+            return (chunk,)
         tail = previous_chunk[int(-sw * self.sample_rate):]
         if tail.dtype != chunk.dtype:
             if tail.dtype == np.int16:
                 tail = native.pcm16_to_f32_mono(tail)
             if chunk.dtype == np.int16:
                 chunk = native.pcm16_to_f32_mono(chunk)
-        return np.concatenate((tail, chunk))
+        return (tail, chunk)
 
-    def _section_rows(self, section_len: int, raws: list[NDArray[Any]]) -> NDArray[Any]:
-        """(B, S) zero-padded host rows for the upload: int16 when every
-        non-empty row arrived as int16 (half the bytes of f32) and
+    def _raw_section(
+        self,
+        sw: int,
+        chunk: NDArray[Any],
+        previous_chunk: "NDArray[Any] | None",
+    ) -> NDArray[Any]:
+        """The section of :meth:`_section_parts` as one array."""
+        parts = self._section_parts(sw, chunk, previous_chunk)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    _POOL_BOUND = 4  # buffers kept a key: pipeline depth plus margin, as in JAX
+
+    def _pool_get(self, dtype: type, b: int, s: int) -> NDArray[Any]:
+        """A recycled staging buffer of (B, S) ``dtype``, else a new one:
+        pinned on a CUDA bank (a numpy view of a pinned host tensor, which
+        it keeps alive), plain on the CPU."""
+        pooled = self._staging.get((np.dtype(dtype), b, s))
+        if pooled:
+            return pooled.pop()
+        if self.device.type == "cuda":
+            torch_dtype = torch.int16 if dtype == np.int16 else torch.float32
+            return torch.empty((b, s), dtype=torch_dtype, pin_memory=True).numpy()
+        return np.empty((b, s), dtype=dtype)
+
+    def _pool_put(self, buf: NDArray[Any]) -> None:
+        """Return a staging buffer whose dispatch has been collected."""
+        pooled = self._staging.setdefault((buf.dtype, *buf.shape), [])
+        if len(pooled) < self._POOL_BOUND:
+            pooled.append(buf)
+
+    def _section_rows(
+        self,
+        section_len: int,
+        sections: "list[NDArray[Any] | tuple[NDArray[Any], ...]]",
+    ) -> NDArray[Any]:
+        """(B, S) zero-padded host rows for the upload, in a buffer of the
+        staging pool, one row per section (an array, or its parts in order,
+        as :meth:`_section_parts` gives them): int16 when every non-empty
+        row arrived as int16 (half the bytes of f32) and
         ``APD_PACKED_UPLOAD`` is not 0, else f32 with int16 rows decoded on
         the host. The device decode of an int16
         row is bitwise the host decode, so a row's payload does not depend
         on which form its round took. f32 rows are not tested for lying on
         the PCM grid: a source of 16-bit PCM hands its samples on as int16
         (``match.py``'s stream wrappers, ``serve``), and the test costs a
-        round more host time than the smaller upload saves."""
-        as_i16 = self.packed_upload and all(r.dtype == np.int16 or not len(r) for r in raws)
-        rows = np.zeros((len(raws), section_len), dtype=np.int16 if as_i16 else np.float32)
-        for bi, raw in enumerate(raws):
-            if not as_i16 and raw.dtype == np.int16:
-                raw = native.pcm16_to_f32_mono(raw)
-            rows[bi, : len(raw)] = raw
+        round more host time than the smaller upload saves. Each row is
+        written part by part and only its tail past the row's length
+        zeroed, so a recycled buffer keeps nothing of an earlier round and
+        no section is assembled anywhere else."""
+        rows_parts = [s if isinstance(s, tuple) else (s,) for s in sections]
+        as_i16 = self.packed_upload and all(
+            p.dtype == np.int16 or not len(p) for parts in rows_parts for p in parts)
+        rows = self._pool_get(np.int16 if as_i16 else np.float32, len(sections), section_len)
+        for bi, parts in enumerate(rows_parts):
+            o = 0
+            for p in parts:
+                if not as_i16 and p.dtype == np.int16:
+                    p = native.pcm16_to_f32_mono(p)
+                rows[bi, o : o + len(p)] = p
+                o += len(p)
+            rows[bi, o:] = 0
         return rows
+
+    def _staged_sections(
+        self, section_len: int, parts: "list[tuple[NDArray[Any], ...]]"
+    ) -> tuple[NDArray[Any], list[NDArray[Any]]]:
+        """(rows, raws): :meth:`_section_rows` of the parts, and each row's
+        section as a view of its staged row (int16 rows stay int16; a row
+        decoded for an f32 round is f32). The views hold the section until
+        the staging buffer goes back to the pool, at collect."""
+        rows = self._section_rows(section_len, parts)
+        return rows, [rows[bi, : sum(len(p) for p in ps)] for bi, ps in enumerate(parts)]
 
     def program(
         self,
@@ -432,6 +510,7 @@ class PatternBank:
             device=device, sw=sw, rows=1 if rows is None else rows, dtype=dtype, fused=fused,
             scan=scan, kernel_tier=self.kernel_tier, overlap_save=self.overlap_save,
             packed_upload=self.packed_upload, marker_gemm=_marker_gemm_enabled(),
+            skip_empty_verify=self.skip_empty_verify,
             consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
         )
         return self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
@@ -466,18 +545,20 @@ class PatternBank:
         self,
         chunk: NDArray[Any],
         previous_chunk: "NDArray[Any] | None",
-    ) -> list[tuple[int, PayloadHandle, NDArray[Any]]]:
-        """Enqueue one stream chunk; returns per-class records."""
+    ) -> list[tuple[int, PayloadHandle, NDArray[Any], NDArray[Any]]]:
+        """Enqueue one stream chunk; returns per-class records (class,
+        payload, raw section, staging buffer)."""
         dispatched = []
         for sw, cls in self.classes.items():
-            raw = self._raw_section(sw, chunk, previous_chunk)
-            rows = upload_rows(self._section_rows(cls["section_len"], [raw]), self.device)
-            dispatched.append((sw, PayloadHandle(self.step(sw, rows[0], len(raw))), raw))
+            staged, (raw,) = self._staged_sections(
+                cls["section_len"], [self._section_parts(sw, chunk, previous_chunk)])
+            rows = upload_rows(staged, self.device)
+            dispatched.append((sw, PayloadHandle(self.step(sw, rows[0], len(raw))), raw, staged))
         return dispatched
 
     def collect_chunk(
         self,
-        dispatched: list[tuple[int, Any, NDArray[Any]]],
+        dispatched: list[tuple[int, Any, NDArray[Any], NDArray[Any]]],
         padded_rows: "dict[int, tuple[int, ...]] | None" = None,
     ) -> dict[str, list[int]]:
         """Wait for a dispatched chunk; accepted 'full'-index peak positions
@@ -485,10 +566,10 @@ class PatternBank:
         window to its per-group payload row counts where they were padded
         (the bank-sharded dispatch)."""
         results: dict[str, list[int]] = {}
-        for sw, handle, raw in dispatched:
+        for sw, handle, raw, staged in dispatched:
             rows = padded_rows.get(sw) if padded_rows else None
-            batch = self._collect_rows(sw, handle.numpy()[None], [raw], rows)
-            results.update(batch[0])
+            results.update(self._collect_rows(sw, handle.numpy()[None], [raw], rows)[0])
+            self._pool_put(staged)
         return results
 
     def process_chunk(
@@ -522,7 +603,7 @@ class PatternBank:
         mode: str = "vmap",
         prev_tails: "list[NDArray[Any] | None] | None" = None,
         sharding: Any = None,
-    ) -> list[tuple[int, PayloadHandle, list[NDArray[Any]], int, None]]:
+    ) -> list[tuple[int, "PayloadHandle | StitchedPayload", list[NDArray[Any]], int, NDArray[Any]]]:
         """Enqueue a chunk batch. By default the chunks are consecutive
         (chunk i's lookback is chunk i-1, ``previous_tail`` seeding the
         first); ``prev_tails`` (one per chunk, None = no lookback) makes
@@ -591,10 +672,10 @@ class PatternBank:
         clock = time.perf_counter
         t0 = clock()
         for sw, cls in self.classes.items():
-            raws = [self._raw_section(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
+            parts = [self._section_parts(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
             t1 = clock()
             dispatch_phase_seconds["sections"] += t1 - t0
-            host_rows = self._section_rows(cls["section_len"], raws)
+            host_rows, raws = self._staged_sections(cls["section_len"], parts)
             t2 = clock()
             dispatch_phase_seconds["pack"] += t2 - t1
             # The round's rows go up once per shard. Each step then copies
@@ -608,6 +689,10 @@ class PatternBank:
                 steps = [(prog, rows[bi], len(raws[bi])) for bi in range(b)]
             else:
                 n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
+                if self.device.type == "cuda":
+                    # Pinned, so that loading the lengths does not wait for
+                    # the rounds in flight, as a pageable copy would.
+                    n_valids = n_valids.pin_memory()
                 steps = []
                 for dev, lo, hi in shards:
                     rows = upload_rows(host_rows[lo:hi], dev)
@@ -627,22 +712,26 @@ class PatternBank:
             dispatch_phase_seconds["launch"] += t4 - t3
             handles = [PayloadHandle(p) for p in payloads]
             handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
-            dispatched.append((sw, handle, raws, b, None))
+            dispatched.append((sw, handle, raws, b, host_rows))
             t0 = clock()
             dispatch_phase_seconds["prefetch"] += t0 - t4
         return dispatched
 
     def collect_chunks_batch(
         self,
-        dispatched: list[tuple[int, PayloadHandle, list[NDArray[Any]], int, None]],
+        dispatched: list[tuple[int, Any, list[NDArray[Any]], int, NDArray[Any]]],
     ) -> list[dict[str, list[int]]]:
-        """Wait for a dispatched batch; per-chunk result dicts."""
+        """Wait for a dispatched batch; per-chunk result dicts. Each class's
+        staging buffer goes back to the pool once its payload (every
+        shard's) is on the host and its flagged rows, which read the raw
+        sections in it, are resolved."""
         if not dispatched:
             return []
         results: list[dict[str, list[int]]] = [dict() for _ in range(dispatched[0][3])]
-        for sw, handle, raws, _b, _ in dispatched:
+        for sw, handle, raws, _b, staged in dispatched:
             for bi, res in enumerate(self._collect_rows(sw, handle.numpy(), raws)):
                 results[bi].update(res)
+            self._pool_put(staged)
         return results
 
     def _collect_rows(
@@ -880,6 +969,7 @@ def lean_group_packed(
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
     self_corr_max: torch.Tensor,  # (R,) f32
     scan=candidate_scan,
+    branch: "Branch | None" = None,
 ) -> torch.Tensor:
     """Lean tier of one group: candidate scan, in-program greedy, verify.
 
@@ -888,7 +978,9 @@ def lean_group_packed(
     candidate mask on a +-2-halo window in normalised (quotient) space,
     the space every tier compares in, so unflagged rows are bitwise the
     full tier's. The scan's near-collapse flag routes the rows where f32
-    division could make the two spaces disagree.
+    division could make the two spaces disagree. ``branch`` as in
+    :func:`_lean_tail`; the normalised correlation only the normal
+    verifier reads is formed inside the verify.
     """
     hm = f32(height_min)  # compares as JAX's f32 threshold
     g, l = corr.shape
@@ -930,8 +1022,8 @@ def lean_group_packed(
     flag = torch.where(plateau_min, 1.0, torch.where(needs_full, 2.0, 0.0))
 
     return _lean_tail(
-        norm, _normalised(corr, valid_len, denom), valid_len, kind, m, k_verify,
-        verify_consts, pos, height, flag, k_lanes,
+        norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes,
+        denom=denom, branch=branch,
     )
 
 
@@ -945,13 +1037,15 @@ def mask_group_packed(
     k_verify: int,
     height_min: float,
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+    branch: "Branch | None" = None,
 ) -> torch.Tensor:
     """Mask lean tier of one group (``APD_PALLAS=0``), the lean branch of
     the JAX ``_lean_group_packed``: the short-run candidate mask over the
     normalised correlation, the exact block-wise greedy seeded from it,
     verify. No kernel runs. Flags: 1 = an equal run of 4 or more at the threshold
     (host path), 2 = more than 16 greedy survivors (wide rerun); this tier
-    has no near-collapse flag, since it compares in one space only."""
+    has no near-collapse flag, since it compares in one space only.
+    ``branch`` as in :func:`_lean_tail`."""
     hm = f32(height_min)
     x = torch.where(
         torch.arange(corr.shape[1], device=corr.device)[None, :] < row_limit(valid_len),
@@ -963,7 +1057,8 @@ def mask_group_packed(
     pos, height, overflow = greedy_survivors_blockwise(scored, m, k_lanes)
     flag = torch.where(plateau, 1.0, torch.where(overflow, 2.0, 0.0))
     return _lean_tail(
-        norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes
+        norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes,
+        branch=branch,
     )
 
 
@@ -1101,13 +1196,21 @@ def _pack(vpos, selected, flag, verify_overflow) -> torch.Tensor:
 
 def _lean_tail(
     norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes,
-    wide=False,
+    wide=False, denom=None, branch=None,
 ) -> torch.Tensor:
     """[Lane greedy ->] bounds -> compact ascending -> verify -> packed
-    (G, 2K+2) payload. ``corr`` is the normalised correlation. In the lean
-    tier the lanes already are the greedy survivors and the verify runs
-    for every group (its ``sel`` is zero without candidates); ``wide``
-    lanes are raw top-k candidates, filtered here, verified two-tier."""
+    (G, 2K+2) payload. ``corr`` is the normalised correlation, or raw
+    |corr| with its normaliser ``denom``. In the lean tier the lanes
+    already are the greedy survivors; ``wide`` lanes are raw top-k
+    candidates, filtered here, verified two-tier.
+
+    ``branch(pred, body)`` (a captured lean step under
+    ``APD_SKIP_EMPTY_VERIFY``; ``models/captured.py``) runs the verify only
+    where the 0-d device tensor ``pred``, "some lane of the group is live",
+    holds at run time, into ``accept`` zeroed before it: the JAX
+    ``lax.cond``. Without a live lane ``sel = valive & accept`` is zero
+    whatever the verify returns, and nothing else reads it, so the payload
+    is the same either way. Without ``branch`` the verify always runs."""
     keep = torch.isfinite(height)
     if wide:
         keep = greedy_distance_filter(PeakCandidates(pos, height, keep, flag != 0), m)
@@ -1118,7 +1221,16 @@ def _lean_tail(
     sv = torch.topk(torch.where(keep, -pos, -_BIG), kv, dim=1).values  # live values distinct
     vpos = -sv
     valive = sv > -_BIG
-    accept = _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier=wide)
+
+    def verify() -> torch.Tensor:
+        corr_n = corr if denom is None else _normalised(corr, valid_len, denom)
+        return _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=wide)
+
+    if branch is None:
+        accept = verify()
+    else:
+        accept = torch.zeros_like(valive)
+        branch(valive.any(), lambda: accept.copy_(verify()))
     if kv < k_verify:
         pad = k_verify - kv
         vpos = F.pad(vpos, (0, pad), value=_BIG)
@@ -1138,6 +1250,7 @@ def class_step(
     scan=candidate_scan,
     wide: bool = False,
     kernel_tier: bool = True,
+    branch: "Branch | None" = None,
 ) -> list[torch.Tensor]:
     """One sliding-window class over one section, or over the B sections
     of a round in one set of launches: packed payload per group, (G, 2K+2)
@@ -1153,7 +1266,10 @@ def class_step(
 
     ``kernel_tier=False`` (the bank's ``APD_PALLAS=0``) runs the mask tiers
     (:func:`mask_group_packed`, :func:`general_group_packed`), which read the
-    normalised correlation and launch no kernel."""
+    normalised correlation and launch no kernel.
+
+    ``branch`` reaches the lean tiers' verify tail (:func:`_lean_tail`); the
+    wide and general-plateau tiers verify unconditionally, as in JAX."""
     batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
@@ -1187,20 +1303,22 @@ def class_step(
             outs.append(wide_group_packed(*args))
         elif not kernel_tier:
             outs.append(
-                mask_group_packed(*args) if height_min > 0 else general_group_packed(*args)
+                mask_group_packed(*args, branch=branch) if height_min > 0
+                else general_group_packed(*args)
             )
+        elif height_min > 0:
+            outs.append(lean_group_packed(*args, self_corr_max, scan, branch=branch))
         else:
-            tier = lean_group_packed if height_min > 0 else rich_group_packed
-            outs.append(tier(*args, self_corr_max, scan))
+            outs.append(rich_group_packed(*args, self_corr_max, scan))
     return outs
 
 
 def class_step_fused(section, n_valid, loud, group_consts, *, metas, height_min, scan=candidate_scan,
-                     kernel_tier=True):
+                     kernel_tier=True, branch=None):
     """:func:`class_step` with every group's payload flattened into one
     vector per section: (total,), or (B, total) for a batch."""
     outs = class_step(
         section, n_valid, loud, group_consts, metas=metas, height_min=height_min, scan=scan,
-        kernel_tier=kernel_tier,
+        kernel_tier=kernel_tier, branch=branch,
     )
     return torch.cat([o.reshape(*section.shape[:-1], -1) for o in outs], dim=-1)

@@ -30,13 +30,28 @@ payloads) is captured once per key into a CUDA graph and replayed:
   the current stream, copy the payload out of the static output (one small
   device copy), so that no later replay overwrites a payload a caller
   holds.
+* **Candidate-free groups skip the verify tail** (``APD_SKIP_EMPTY_VERIFY``,
+  on by default, JAX ``models/bank.py:1306-1330``): the capture hands the
+  step the backend's ``conditional(pred, body)``, and the lean tail captures
+  each group's verify as the body of a CUDA conditional (if) node whose
+  predicate, "some lane of the group's rows is live", a kernel sets on the
+  device at replay (``csrc/graph_conditional.cu``: torch 2.11 has no
+  conditional-node capture of its own). The body is captured on a side
+  stream into the if-node's body graph, and what it allocates comes from a
+  second memory pool of the device kept for bodies, as the graph's pool
+  takes only the capture stream's allocations. A round's graph (B > 1)
+  tests all its rows at once: it skips a group only where no row of the
+  round has a live lane. The eager first run verifies every group, so the
+  cuFFT plans and the DFT matrix the body replays exist before the
+  capture.
 * **Launch accounting**: a replay makes no Python call of the kernel
   wrapper, so each graph records how many kernel launches its capture
   enqueued (the capture itself executes none and adds none to
   ``candidate_scan.launches``), and each replay adds that number.
 * **Memory**: one graph memory pool per device, shared by the bank's
   graphs on it (the widths of a tile ladder, both upload dtypes, both
-  schedules), on one capture stream per device. Graphs sharing a pool must
+  schedules), on one capture stream per device, and one pool and side
+  stream per device for the conditional bodies. Graphs sharing a pool must
   not run at once: a bank's replays on a device are issued in order on the
   current stream, each payload copied out before the next replay.
 
@@ -71,6 +86,7 @@ class StepKey(NamedTuple):
     overlap_save: bool  # False: APD_NO_OVERLAP_SAVE=1
     packed_upload: bool  # False: APD_PACKED_UPLOAD=0
     marker_gemm: bool  # APD_MARKER_GEMM=1 at the call
+    skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
     consts: tuple[int, ...]  # ids of the loudness and group constants
 
 
@@ -101,7 +117,7 @@ class EagerStep:
             with device_guard(self.device):
                 self._n_valid: "int | torch.Tensor" = torch.empty(
                     n_valid.shape, dtype=torch.int32, device=self.device)
-            self._n_valid.copy_(n_valid)
+            self._n_valid.copy_(n_valid, non_blocking=True)
         else:
             self._n_valid = int(n_valid)
 
@@ -111,10 +127,12 @@ class EagerStep:
 
 class CudaGraphBackend:
     """``torch.cuda.CUDAGraph`` with one memory pool and one capture stream
-    per device, shared by every graph the backend makes on that device."""
+    per device, shared by every graph the backend makes on that device,
+    and a pool and side stream per device for conditional bodies."""
 
     def __init__(self) -> None:
         self._devices: dict[torch.device, tuple[Any, torch.cuda.Stream]] = {}
+        self._bodies: dict[torch.device, tuple[Any, torch.cuda.Stream]] = {}
 
     @staticmethod
     def check(device: torch.device) -> None:
@@ -150,6 +168,56 @@ class CudaGraphBackend:
             out = fn()
         return graph.replay, out
 
+    # How conditional() builds its node: the port's own C entry points
+    # around the capture (torch 2.11 has no conditional-node capture).
+    conditional_route = "csrc/graph_conditional.cu"
+
+    def conditional(self, pred: torch.Tensor, body: Callable[[], Any]) -> None:
+        """Inside a capture on the current stream: ``body``'s work becomes
+        the body graph of a CUDA if-node, run at replay only where the 0-d
+        bool ``pred`` on the device holds (a kernel captured before the
+        node sets the node's handle from it). The body runs on the device's
+        side stream, allocating from the bodies' pool. Raises outside a
+        capture, and where the driver cannot make the node."""
+        from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
+
+        if pred.dim() != 0 or pred.dtype != torch.bool or pred.device.type != "cuda":
+            raise ValueError("conditional: pred must be a 0-d bool tensor on a CUDA device")
+        lib = load_kernels().lib
+        device = pred.device
+        held = self._bodies.get(device)
+        pool, side = held or (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+        err = lib.apd_graph_if_begin(torch.cuda.current_stream(device).cuda_stream,
+                                     pred.data_ptr(), side.cuda_stream)
+        if err:
+            raise RuntimeError(f"conditional node: capture of the if-node failed: CUDA error {err}")
+        # The graph's pool takes only the capture stream's allocations, and
+        # a pool records one capture at a time: the body's go to its own.
+        # Each recording takes a reference to the pool; the backend keeps
+        # the first until it is collected (after every graph it made).
+        torch._C._cuda_beginAllocateToPool(device.index, pool)
+        if held is None:
+            self._bodies[device] = (pool, side)
+        try:
+            with torch.cuda.stream(side):
+                body()
+        finally:
+            torch._C._cuda_endAllocateToPool(device.index, pool)
+            if held is not None:
+                torch._C._cuda_releasePool(device.index, pool)
+            end = lib.apd_graph_if_end(side.cuda_stream)
+        if end:
+            raise RuntimeError(f"conditional node: capture of the body failed: CUDA error {end}")
+
+    def __del__(self) -> None:
+        # Every graph of this backend holds it, so none is left to replay:
+        # the bodies' pools may go back to the allocator.
+        for device, (pool, _) in getattr(self, "_bodies", {}).items():
+            try:
+                torch._C._cuda_releasePool(device.index, pool)
+            except (AttributeError, TypeError):  # torch torn down at interpreter exit
+                pass
+
 
 class CapturedStep:
     """One captured class step: static inputs, its graph and static output."""
@@ -173,15 +241,16 @@ class CapturedStep:
 
     def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
         """Copy one call's rows ((B, S), or one (S,) row) and lengths into
-        the static inputs."""
+        the static inputs, in stream order: lengths from pinned host memory
+        (the dispatch path's) do not make the host wait for the stream."""
         self.section.copy_(section.reshape(self.section.shape))
         if isinstance(n_valid, torch.Tensor):
-            self.n_valid.copy_(n_valid.reshape(self.n_valid.shape))
+            self.n_valid.copy_(n_valid.reshape(self.n_valid.shape), non_blocking=True)
         else:
             self.n_valid.fill_(n_valid)
 
-    def _step(self) -> Any:
-        return self._fn(as_f32(self.section), self.n_valid)
+    def _step(self, branch: "Callable | None" = None) -> Any:
+        return self._fn(as_f32(self.section), self.n_valid, branch=branch)
 
     def run(self) -> Any:
         """The payload of the loaded inputs, owned by the caller."""
@@ -199,8 +268,10 @@ class CapturedStep:
         self._backend.check(self.device)
         out = self._backend.warm_up(self.device, self._step)
         counted = candidate_scan.launches
+        branch = self._backend.conditional if self.key.skip_empty_verify else None
         try:
-            self._replay, self._out = self._backend.capture(self.device, self._step)
+            self._replay, self._out = self._backend.capture(
+                self.device, lambda: self._step(branch))
             self.launches = candidate_scan.launches - counted
         finally:
             candidate_scan.launches = counted  # a capture executes nothing

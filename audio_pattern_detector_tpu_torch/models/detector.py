@@ -54,8 +54,8 @@ def _dispatched_ready(dispatched: list) -> bool:
     collecting it will not stall the pipeline loop.
 
     Accepts both dispatch record shapes — ``dispatch_chunk``'s
-    ``(sw, flat, raws)`` and ``dispatch_chunks_batch``'s
-    ``(sw, flat, raws, b, pool_rec)`` — the payload whose transfer
+    ``(sw, flat, raw, staged)`` and ``dispatch_chunks_batch``'s
+    ``(sw, flat, raws, b, staged)`` — the payload whose transfer
     readiness gates collection is ``rec[1]`` in both."""
     for rec in dispatched:
         ready = getattr(rec[1], "is_ready", None)

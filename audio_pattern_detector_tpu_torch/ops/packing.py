@@ -22,10 +22,15 @@ def pcm16_to_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def upload_rows(rows: NDArray, device: torch.device) -> torch.Tensor:
-    """Host rows (int16 or f32) -> device tensor of the same dtype."""
+    """Host rows (int16 or f32) -> device tensor of the same dtype, copied
+    on the current stream of ``device`` with ``non_blocking``. From pinned
+    memory (the bank's staging pool) the copy returns at once and runs in
+    stream order, so the caller must leave the rows unchanged until that
+    stream has passed it; from pageable memory it returns once the rows
+    are read. On the CPU the tensor shares the rows' memory."""
     if rows.dtype not in (np.int16, np.float32):
         raise TypeError(f"section rows must be int16 or float32, got {rows.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device, non_blocking=True)
 
 
 def as_f32(x: torch.Tensor) -> torch.Tensor:

@@ -175,20 +175,22 @@ class BankShardedBank:
         """Enqueue one chunk over the sharded bank (async); returns the
         same per-class records PatternBank.dispatch_chunk does.
 
-        Rides the serial path's helpers (section assembly, int16 upload,
-        fused payload, copy back enqueued at dispatch) with each shard's
-        slice of the constants substituted; every shard of every class is
-        enqueued before anything is awaited."""
+        Rides the serial path's helpers (section assembly into a pooled
+        staging buffer, int16 upload, fused payload, copy back enqueued at
+        dispatch) with each shard's slice of the constants substituted;
+        every shard of every class is enqueued before anything is awaited.
+        The staging buffer goes back to the bank's pool at collect, once
+        every shard's payload is on the host."""
         bank = self._bank
         dispatched = []
         for sw, cls in bank.classes.items():
-            raw = bank._raw_section(sw, chunk, previous_chunk)
-            host_rows = bank._section_rows(cls["section_len"], [raw])
+            staged, (raw,) = bank._staged_sections(
+                cls["section_len"], [bank._section_parts(sw, chunk, previous_chunk)])
             uploaded: dict[torch.device, torch.Tensor] = {}
             handles = []
             for dev, group_consts in zip(self._devices, self._sharded[sw]):
                 if dev not in uploaded:
-                    uploaded[dev] = as_f32(upload_rows(host_rows, dev)[0])
+                    uploaded[dev] = as_f32(upload_rows(staged, dev)[0])
                 with device_guard(dev):
                     flat = bank.step(
                         sw, uploaded[dev], len(raw), (bank.replica_loud(sw, dev), group_consts)
@@ -197,7 +199,7 @@ class BankShardedBank:
             widths = self._local_widths[sw]
             dispatched.append(
                 (sw, StitchedPayload(handles, lambda parts, w=widths: stitch_bank_shards(parts, w)),
-                 raw)
+                 raw, staged)
             )
         return dispatched
 

@@ -147,6 +147,22 @@ card and checks them:
    under torch.profiler; each key's capture seconds, replays and kernel
    launches a replay; the memory a key's first use took and what the graph
    pools kept;
+16. candidate-free groups skip the captured verify tail (a CUDA
+   conditional node, ``APD_SKIP_EMPTY_VERIFY``) and the pinned staging
+   pool: a flagship detector with the node (the default) against one built
+   with ``APD_SKIP_EMPTY_VERIFY=0`` and against the eager step, payloads
+   bit for bit on the flagship step's candidate-free section, phase 7's
+   sections and one with hits in both groups, a candidate-free 16-row round
+   and one with a single hit-bearing row (both modes), a chunk on 2 bank
+   shards; detections, routes and stream times on phase 9's session in
+   both modes, with accepted hits in both groups of one section (so both
+   bodies ran); the node's route; under torch.profiler the kernels only the
+   verifiers launch, absent from a candidate-free replay, and how many of
+   them the trace of a replay with hits in both groups records; ms in turns (node, none, none, node, twice) and
+   profiled device-busy ms for the step, the rounds and the session; the
+   pinned host allocations of a first and of a steady 16-row serving round
+   (none in a steady one). A node that cannot be captured raises. It runs
+   before 15;
 15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
@@ -2312,6 +2328,288 @@ def phase_captured(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
     torch.cuda.empty_cache()
 
 
+def kernel_names(fn) -> "Counter[str]":
+    """The device kernels of one call of ``fn`` under torch.profiler, by
+    name (copies and fills left out)."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in device_events(prof)
+                   if not e.name.startswith(("Memcpy", "Memset")))
+
+
+HOST_ALLOC_CALLS = ("cudaHostAlloc", "cudaMallocHost", "cuMemHostAlloc")
+
+
+def host_allocs(fn) -> int:
+    """Pinned host allocations (``cudaHostAlloc`` and its kin) made by one
+    call of ``fn``, from torch.profiler's runtime-call events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name in HOST_ALLOC_CALLS for e in prof.events()
+               if e.device_type == DeviceType.CPU)
+
+
+def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
+                                  profile: "Path | None" = None) -> None:
+    """Phase 16: candidate-free groups skip the captured verify tail (a
+    CUDA conditional node; ``APD_SKIP_EMPTY_VERIFY``), and the pinned
+    staging pool. Two flagship detectors, one built with the switch unset
+    (the node) and one with ``APD_SKIP_EMPTY_VERIFY=0`` (no node), and the
+    first's eager step. Payloads bit for bit between all three on the
+    flagship step's candidate-free section, phase 7's sections and a
+    section with hits in both groups (single-section graphs), a 16-row
+    round with no candidates and one with a single hit-bearing row (both
+    modes), and a bank-sharded chunk on 2 logical shards; detections,
+    routes and stream times on phase 9's session in both modes; accepted
+    hits in both groups of one section, so both bodies ran there. Under
+    torch.profiler a candidate-free replay holds none of the kernels only
+    the verifiers launch; the phase reports how many of them the trace of a
+    replay with hits in both groups records. Timed in turns (node,
+    none, none, node, twice): the flagship step, both rounds, the session;
+    profiled device-busy ms of each. The pool: pinned host allocations in
+    a first and in a steady 16-row serving round (cudaHostAlloc). A node
+    that cannot be captured raises: nothing falls back."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.models.bank import _split_fused
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
+
+    tables = Path(tempfile.mkdtemp()) if profile is None else profile
+    det = {"node": make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)}
+    banks = {"node": det["node"]._ensure_bank()}
+    with switches({"APD_SKIP_EMPTY_VERIFY": "0"}):
+        det["none"] = make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)
+        banks["none"] = det["none"]._ensure_bank()
+    if not banks["node"].skip_empty_verify or banks["none"].skip_empty_verify:
+        raise AssertionError("APD_SKIP_EMPTY_VERIFY was not read at the bank's construction")
+    bank = banks["node"]
+    sw, sr = 1, bank.sample_rate
+    s_len = bank.classes[sw]["section_len"]
+    groups = bank.classes[sw]["groups"]
+    out: dict = {"node_route": captured.CudaGraphBackend.conditional_route}
+
+    def live_groups(payload) -> list[bool]:
+        """Per group: did any row keep a live lane (a position below the
+        dead-lane sentinel)? Those are the groups whose body runs."""
+        flat = payload.reshape(-1, payload.shape[-1]) if payload.dim() > 1 else payload[None]
+        parts = _split_fused(flat.cpu().numpy(), groups)
+        return [bool((p[..., : g.k_verify] < 2**30).any()) for g, p in zip(groups, parts)]
+
+    def three_ways(run) -> dict:
+        """``run(bank)`` on the node's graph, the graph without it and the
+        eager step: payloads bit for bit."""
+        got = {}
+        for name in ("node", "none"):
+            banks[name].capture = True
+            got[name] = [run(banks[name]) for _ in range(2)]  # first use, then a replay
+        bank.capture = False
+        got["eager"] = [run(bank)]
+        bank.capture = True
+        want = got["eager"][0]
+        for name in ("node", "none"):
+            if not all(payloads_equal(p, want) for p in got[name]):
+                raise AssertionError(f"{name}: payload differs from the eager step's")
+        return want
+
+    rng = np.random.default_rng(1)
+    flagship = torch.from_numpy((0.05 * rng.standard_normal(s_len)).astype(np.float32)).to(dev)
+    # Phase 7's sections, and its marker hit with a normal clip added.
+    flooded = rerun_sections(bank)
+    flooded["both"] = flooded["clear"].copy()
+    flooded["both"][20 * sr : 21 * sr] += next(g for g in groups if g.kind == "normal").clips_np[0]
+    sections = {"flagship": flagship,
+                **{name: torch.from_numpy(sec).to(dev) for name, sec in flooded.items()}}
+    live, selected = {}, {}
+    for name, sec in sections.items():
+        payload = three_ways(lambda b, sec=sec: b.step(sw, sec, s_len))
+        live[name] = live_groups(payload)
+        parts = _split_fused(payload[None].cpu().numpy(), groups)
+        selected[name] = [int((p[..., g.k_verify : 2 * g.k_verify] != 0).sum())
+                          for g, p in zip(groups, parts)]
+    # Accepted hits in both groups, bitwise the eager step's: both bodies ran.
+    if any(live["flagship"]) or not all(live["both"]) or not all(selected["both"]):
+        raise AssertionError(f"live groups per section: {live}; selected lanes {selected}")
+    out["sections_live_groups"] = live
+    out["sections_selected_lanes_per_group"] = selected
+
+    # A round with no candidate, and one whose row 5 (of 16) has hits in both groups.
+    rows = torch.stack([
+        torch.from_numpy((0.05 * np.random.default_rng(1 + i).standard_normal(s_len))
+                         .astype(np.float32)) for i in range(ROUND_ROWS)]).to(dev)
+    mixed = rows.clone()
+    mixed[ROUND_ROWS // 3] = sections["both"]
+    n_valids = torch.full((ROUND_ROWS,), s_len, dtype=torch.int32, device=dev)
+
+    def round_of(rows_):
+        def run(b, mode):
+            if mode == "vmap":
+                return b.step(sw, rows_, n_valids)
+            return torch.stack([b.step(sw, rows_[i], s_len) for i in range(ROUND_ROWS)])
+        return run
+
+    out["rounds_live_groups"] = {}
+    for rname, rows_ in (("candidate_free", rows), ("one_hit_row", mixed)):
+        for mode in ("vmap", "scan"):
+            payload = three_ways(lambda b, m=mode, r=round_of(rows_): r(b, m))
+            out["rounds_live_groups"][f"{rname}_{mode}"] = live_groups(payload)
+    if any(out["rounds_live_groups"]["candidate_free_vmap"]) or not all(
+            out["rounds_live_groups"]["one_hit_row_vmap"]):
+        raise AssertionError(f"live groups per round: {out['rounds_live_groups']}")
+
+    # A bank-sharded chunk (phase 7's flooded row, with its lookback).
+    _audios, rounds, _ = serving_streams(det["node"], sr)
+    chunk, prev = rounds[1][3], rounds[0][3]
+    shard_payloads, shard_results = {}, {}
+    for name, capture in (("node", True), ("none", True), ("eager", False)):
+        b = banks["none" if name == "none" else "node"]
+        b.capture = capture
+        sharded = BankShardedBank(b, make_mesh({"bank": 2}, devices=[dev] * 2))
+        recs = sharded.dispatch_chunk(chunk, prev)
+        shard_payloads[name] = [rec[1].numpy().copy() for rec in recs]
+        shard_results[name] = sharded.collect_chunk(recs)
+    bank.capture = True
+    for name in ("node", "none"):
+        if shard_results[name] != shard_results["eager"] or not all(
+                np.array_equal(a.view(np.int32), e.view(np.int32))
+                for a, e in zip(shard_payloads[name], shard_payloads["eager"])):
+            raise AssertionError(f"bank shards, {name}: payload differs from the eager step's")
+    out["bank_shards_2"] = {"payload_equal": True}
+
+    # ── Phase 9's session on both banks, both modes ──
+    def session_run(name: str, mode: str) -> dict:
+        session = MultiStreamSession(det[name], 16, tile=16, batch_mode=mode)
+        before = routes(banks[name])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        acc, _ = drive_session(session, rounds, in_flight=2)
+        torch.cuda.synchronize()
+        return {"acc": acc, "totals": [session.total_time(i) for i in range(16)],
+                "routes": tuple(a - b for a, b in zip(routes(banks[name]), before)),
+                "wall_s": time.perf_counter() - t}
+
+    out["session"] = {}
+    for mode in ("scan", "vmap"):
+        runs = {name: session_run(name, mode) for name in ("node", "none")}
+        a, b = runs["node"], runs["none"]
+        if (a["acc"], a["totals"], a["routes"]) != (b["acc"], b["totals"], b["routes"]):
+            raise AssertionError(f"session {mode}: the node's run differs from the run without")
+        out["session"][mode] = {
+            "detections": sum(len(v) for x in a["acc"][:12] for v in x.values()),
+            "routes_row_class_escalated_host": a["routes"]}
+
+    # ── The node in the trace: no verifier kernel in a candidate-free replay ──
+    def replay(name: str, sec):
+        banks[name].step(sw, sec, s_len)
+        return lambda: banks[name].step(sw, sec, s_len)
+
+    seen = {(name, sec): kernel_names(replay(name, sections[sec]))
+            for name in ("node", "none") for sec in ("flagship", "both")}
+    # Kernels of the graph without the node that a candidate-free replay
+    # with the node does not run: the verifiers' own, a name each. The
+    # profiler does not record every kernel of an if-node's body in every
+    # process (PERF.md, PR 9): the bodies' running is held by the payload
+    # above, and the replay with hits is traced up to 3 times and the most
+    # complete trace kept.
+    verifier_only = set(seen["none", "flagship"]) - set(seen["node", "flagship"])
+    if not verifier_only:
+        raise AssertionError("the trace does not show the skip: a candidate-free replay with "
+                             "the node runs every kernel the graph without it runs")
+
+    def verifier_kernels(counts) -> int:
+        return sum(counts[k] for k in verifier_only)
+
+    for _ in range(2):
+        if verifier_kernels(seen["node", "both"]) >= verifier_kernels(seen["none", "both"]):
+            break
+        again = kernel_names(replay("node", sections["both"]))
+        if verifier_kernels(again) > verifier_kernels(seen["node", "both"]):
+            seen["node", "both"] = again
+    out["trace"] = {
+        "kernels_a_replay_candidate_free": {n: sum(seen[n, "flagship"].values())
+                                            for n in ("node", "none")},
+        "kernels_a_replay_hits_in_both_groups": {n: sum(seen[n, "both"].values())
+                                                 for n in ("node", "none")},
+        "verifier_only_kernel_names": len(verifier_only),
+        "verifier_only_kernels_a_replay_hits_in_both_groups": {
+            n: verifier_kernels(seen[n, "both"]) for n in ("node", "none")},
+        "verifier_only_examples": sorted(k[:90] for k in verifier_only)[:6],
+        "node_handle_kernels_a_replay": sum(v for k, v in seen["node", "both"].items()
+                                            if "set_if_handle" in k)}
+
+    # ── Timed in turns, and profiled ──
+    def in_turns_node(run, n: int = 2) -> dict:
+        times: dict[str, list[float]] = {"node": [], "none": []}
+        for name in ("node", "none", "none", "node") * n:
+            times[name].append(run(name))
+        return {k: median_and_range(v) for k, v in times.items()}
+
+    def ms_of(fn, reps: int):
+        def run(name: str) -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn(name)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / reps * 1e3
+        return run
+
+    paths = {
+        "flagship_step": (lambda name: banks[name].step(sw, flagship, s_len, fused=False), 5),
+        "round_vmap_candidate_free": (lambda name: round_of(rows)(banks[name], "vmap"), 3),
+        "round_scan_candidate_free": (lambda name: round_of(rows)(banks[name], "scan"), 1),
+        "round_scan_one_hit_row": (lambda name: round_of(mixed)(banks[name], "scan"), 1),
+    }
+    out["ms_median_min_max"] = {}
+    out["profiled_device_busy_ms"] = {}
+    for pname, (fn, reps) in paths.items():
+        for name in ("node", "none"):
+            fn(name)
+        out["ms_median_min_max"][pname] = in_turns_node(ms_of(fn, reps))
+        out["profiled_device_busy_ms"][pname] = {
+            name: profile_run(lambda: fn(name), tables / f"skip_{pname}_{name}.txt")[
+                "device_busy_ms"] for name in ("node", "none")}
+    for mode in ("scan", "vmap"):
+        out["session"][mode]["wall_s_median_min_max"] = in_turns_node(
+            lambda name, mode=mode: session_run(name, mode)["wall_s"])
+        out["session"][mode]["profiled_device_busy_ms"] = {
+            name: profile_run(lambda: session_run(name, mode),
+                              tables / f"skip_session_{mode}_{name}.txt")["device_busy_ms"]
+            for name in ("node", "none")}
+
+    # ── The staging pool: pinned allocations in a first and a steady round ──
+    steady = [[(0.004 * rng.standard_normal(60 * sr)).astype(np.float32) for _ in range(16)]
+              for _ in range(3)]
+    session = MultiStreamSession(det["node"], 16, tile=16, batch_mode="vmap")
+    bank._staging.clear()
+    out["pinned_host_allocs_a_round"] = {
+        "first": host_allocs(lambda: session.feed(steady[0])),
+        "steady": [host_allocs(lambda c=c: session.feed(c)) for c in steady[1:]]}
+    if any(out["pinned_host_allocs_a_round"]["steady"]):
+        raise AssertionError(f"a steady round allocated pinned memory: "
+                             f"{out['pinned_host_allocs_a_round']}")
+    out["staging_pool"] = {f"{dt} {b}x{s}": len(v) for (dt, b, s), v in bank._staging.items()}
+    phase("skip_empty_verify_and_staging", card=smi, clips=num_normal + num_marker,
+          payloads_equal_node_none_eager=True, **out)
+    del det, banks, bank, session
+    torch.cuda.empty_cache()
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -2575,6 +2873,7 @@ def main(argv: "list[str] | None" = None) -> int:
     multi_process_launches = phase_multi_process(dev, smi)
     variant_launches = phase_variants(dev, smi)
     phase_captured(dev, smi, profile=args.profile)
+    phase_skip_verify_and_staging(dev, smi, profile=args.profile)
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:

@@ -13,6 +13,13 @@ kernels. A subprocess times, after a warm-up:
 * the flagship round (the same bank, 16 sections), where the checkout has
   it: ms per round as one ``vmap`` step and as 16 ``scan`` steps, in turns
   (vmap, scan, scan, vmap, twice), the median of 4 timings of 2 rounds;
+* chip_smoke phase 9's steady serving round, where the checkout has it:
+  ``MultiStreamSession`` on the flagship detector, 16 slots of seeded 60 s
+  f32 chunks, tile 16, 2 rounds in flight, in ``vmap`` and in ``scan`` in
+  turns (vmap, scan, scan, vmap, twice; 3 rounds a turn after a warm-up
+  round): the median ms per round, and the host ms per round of each
+  dispatch stage (``dispatch_phase_seconds``: sections, pack, upload,
+  launch, prefetch) over the 12 rounds of each mode;
 * file mode: ``match`` through the CLI on cbs_news_audio_section.wav tiled
   15 times (about 482 s), the median wall of 5 runs, and its x-realtime;
 * the candidate-scan wrapper at (32, 495,999) on chip_smoke's phase-2
@@ -91,6 +98,45 @@ if flagship_round is not None:
     del round_step
     torch.cuda.empty_cache()
 
+# Phase 9's steady serving round (16 full rows, 2 rounds in flight).
+serve_ms = {}
+try:
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models.bank import dispatch_phase_seconds
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+except ImportError:
+    MultiStreamSession = None
+if MultiStreamSession is not None:
+    det = make_detector(32, 32, chunk_seconds=60, device=dev)
+    rng = np.random.default_rng(30)
+    rounds = [[(0.004 * rng.standard_normal(60 * 8000)).astype(np.float32) for _ in range(16)]
+              for _ in range(4)]
+    sessions = {m: MultiStreamSession(det, 16, tile=16, batch_mode=m) for m in ("vmap", "scan")}
+    for session in sessions.values():
+        session.feed(rounds[0])
+    times = {"vmap": [], "scan": []}
+    split = {m: dict.fromkeys(dispatch_phase_seconds, 0.0) for m in times}
+    for mode in ("vmap", "scan", "scan", "vmap") * 2:
+        session, pending = sessions[mode], []
+        before = dict(dispatch_phase_seconds)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for chunks in rounds[1:]:
+            pending.append(session.dispatch(chunks))
+            if len(pending) >= 2:
+                session.collect(pending.pop(0))
+        while pending:
+            session.collect(pending.pop(0))
+        times[mode].append((time.perf_counter() - t) / 3 * 1e3)
+        for k in split[mode]:
+            split[mode][k] += dispatch_phase_seconds[k] - before[k]
+    for mode, v in times.items():
+        serve_ms[f"serving_round_{mode}_ms"] = float(np.median(v))
+        for k, sec in split[mode].items():
+            serve_ms[f"serving_round_{mode}_{k}_ms"] = sec / (3 * len(v)) * 1e3
+    del det, sessions
+    torch.cuda.empty_cache()
+
 audio = Path("sample_audios")
 with wave.open(str(audio / "cbs_news_audio_section.wav"), "rb") as w:
     rate, frames = w.getframerate(), w.readframes(w.getnframes())
@@ -136,7 +182,7 @@ for k, (c, t, v) in enumerate(step_scans):
 print(json.dumps({"flagship_step_ms": float(np.median(groups)),
                   "file_mode_wall_s": float(np.median(walls)),
                   "file_mode_x_realtime": audio_s / float(np.median(walls)),
-                  "scan_wrapper_ms": float(np.median(scan)), **kernel, **round_ms}))
+                  "scan_wrapper_ms": float(np.median(scan)), **kernel, **round_ms, **serve_ms}))
 '''
 
 

@@ -76,7 +76,7 @@ def _chunk(seed, plant=()):
 
 
 def _payloads(dispatched):
-    return [handle.numpy() for _, handle, _ in dispatched]
+    return [handle.numpy() for _, handle, *_ in dispatched]
 
 
 CASES = {
@@ -133,7 +133,7 @@ def test_dispatch_collect_async_pair(env):
     sharded = BankShardedBank(bank, logical_mesh(8))
     d0 = sharded.dispatch_chunk(c0, None)
     d1 = sharded.dispatch_chunk(c1, c0)  # in flight behind d0
-    assert all(h.is_ready() for _, h, _ in d0)
+    assert all(h.is_ready() for _, h, *_ in d0)
     assert sharded.collect_chunk(d0) == bank.process_chunk(c0, None)
     assert sharded.collect_chunk(d1) == bank.process_chunk(c1, c0)
 

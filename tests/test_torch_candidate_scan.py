@@ -185,7 +185,7 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
 
 def test_build_key_follows_sources_and_flags():
     sources = _build._sources()
-    assert [s.name for s in sources] == ["candidate_scan.cu"]
+    assert [s.name for s in sources] == ["candidate_scan.cu", "graph_conditional.cu"]
     key = _build._digest(sources)
     assert key == _build._digest(sources) and len(key) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -95,11 +95,26 @@ I16_ROWS = [(I16[:CHUNK], None), (I16[CHUNK:], I16[:CHUNK])]
 class RecordingBackend:
     """Stand-in for ``captured.CudaGraphBackend`` on any device: the
     capture records the callable and runs it once for the static output;
-    a replay runs it again into that output."""
+    a replay runs it again into that output. Its ``conditional`` reads the
+    predicate where the step runs, at capture and at each replay, as the
+    if-node's handle is set at replay, and counts the bodies it ran and
+    skipped."""
+
+    conditional_route = "stand-in"
 
     def __init__(self):
         self.captures = 0
         self.replays = 0
+        self.bodies = 0
+        self.skipped = 0
+
+    def conditional(self, pred, body):
+        assert pred.dim() == 0 and pred.dtype == torch.bool
+        if bool(pred):
+            self.bodies += 1
+            body()
+        else:
+            self.skipped += 1
 
     @staticmethod
     def check(device):
@@ -191,8 +206,8 @@ def test_keys_follow_class_rows_dtype_and_the_banks_switches(stand_in):
         (sw, 4, torch.float32), (sw, 2, torch.int16), (sw, 1, torch.float32)}
     for k in keys:
         assert (k.device, k.fused, k.scan, k.kernel_tier, k.overlap_save, k.packed_upload,
-                k.marker_gemm, k.consts) == (CPU, True, candidate_scan, True, True, True,
-                                             False, own)
+                k.marker_gemm, k.skip_empty_verify, k.consts) == (
+                    CPU, True, candidate_scan, True, True, True, False, True, own)
     assert bank.graphs._backend.captures == 3
 
 

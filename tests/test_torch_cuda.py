@@ -830,3 +830,53 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
     again = run()
     del junk
     assert _bitwise(again, eager)
+
+
+@pytest.mark.parametrize("hits", ["none", "both_groups"])
+def test_captured_verify_node_equals_no_node_and_eager(cuda, monkeypatch, hits):
+    """``APD_SKIP_EMPTY_VERIFY``: the captured one-row and round graphs
+    with the conditional node (the default) against a bank built with the
+    switch at 0 and against the eager step, on rounds with no candidate and
+    with hits in both groups: payloads bit for bit."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    if hits == "none":
+        rng = np.random.default_rng(7)
+        rounds = [[(0.01 * rng.standard_normal(10 * 8000)).astype(np.float32)
+                   for _ in range(4)]]
+    node = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    monkeypatch.setenv("APD_SKIP_EMPTY_VERIFY", "0")
+    none = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    monkeypatch.delenv("APD_SKIP_EMPTY_VERIFY")
+    assert node.skip_empty_verify and not none.skip_empty_verify
+    for mode in ("vmap", "scan"):
+        def run(bank, mode=mode):
+            return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
+                rounds[0], None, mode=mode)]
+
+        eager, got = _eager_then_captured(node, lambda: run(node))
+        assert all(_bitwise(g, eager) for g in got)
+        assert all(_bitwise(run(none), eager) for _ in range(2))
+    assert {s.key.skip_empty_verify for s in node.graphs.steps()} == {True}
+    assert {s.key.skip_empty_verify for s in none.graphs.steps()} == {False}
+
+
+def test_staging_buffers_are_pinned_and_recycled_on_the_card(cuda):
+    """A CUDA bank stages its rows in pinned host memory, uploads them
+    without blocking, and takes the same buffer again once the round is
+    collected; results equal the CPU bank's."""
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    cpu = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=10)._ensure_bank()
+    first = bank.dispatch_chunks_batch(rounds[0], None)
+    buffers = [rec[4] for rec in first]
+    assert all(torch.from_numpy(b).is_pinned() for b in buffers)
+    assert bank.collect_chunks_batch(first) == cpu.process_chunks_batch(rounds[0], None)
+    second = bank.dispatch_chunks_batch(rounds[1], None)
+    assert all(rec[4] is b for rec, b in zip(second, buffers))
+    assert bank.collect_chunks_batch(second) == cpu.process_chunks_batch(rounds[1], None)

@@ -340,7 +340,7 @@ def test_independent_rows_equal_rows_sent_alone(env):
     batch = bank.collect_chunks_batch(dispatched)
     for bi, (chunk, tail) in enumerate(rows):
         alone = bank.dispatch_chunk(chunk, tail)
-        for sw, handle, _ in alone:
+        for sw, handle, *_ in alone:
             assert np.array_equal(handle.numpy().view(np.int32), payload[sw][bi].view(np.int32))
         assert bank.collect_chunk(alone) == batch[bi]
     assert batch[2] == {"c": [], "m": []} and any(batch[0].values())

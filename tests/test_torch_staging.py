@@ -1,5 +1,6 @@
 """The upload staging of the port's bank: rows of 16-bit PCM cross as
-int16, and ``dispatch_phase_seconds`` splits a dispatch's host time.
+int16, rows are staged in recycled buffers, and ``dispatch_phase_seconds``
+splits a dispatch's host time.
 
 The JAX bank packs rows of 16-bit PCM into half the upload bytes
 (``models/bank.py`` with ``ops/packing``); the port uploads rows that
@@ -10,6 +11,12 @@ equality: with the upload the f32 form of the same samples took, with the
 row dispatched alone, between the two schedules, and (results) with the
 JAX bank on the same rows. The host library's ``pack_pcm16_into`` is held
 against the JAX package's pack.
+
+The staging pool is the JAX bank's ``_payload_pool``: a dispatch takes a
+(B, S) buffer by (dtype, B, S), writes each row and zeroes only the tail
+past the row, and the buffer comes back at collect, once the payload (every
+shard's) is on the host; at most 4 are kept a key. On a CUDA bank the
+buffers are pinned (tests/test_torch_cuda.py); here they are plain.
 """
 
 import dataclasses
@@ -24,9 +31,10 @@ from audio_pattern_detector_tpu.ops import packing as jpacking
 from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch import AudioClip, AudioPatternDetector, native
 from audio_pattern_detector_tpu_torch.models import bank as tbank_module
-from audio_pattern_detector_tpu_torch.models.bank import PatternBank
+from audio_pattern_detector_tpu_torch.models.bank import PatternBank, PayloadHandle
 from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY
 from audio_pattern_detector_tpu_torch.ops import packing as tpacking
+from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, RowSharding, make_mesh
 
 torch.set_num_threads(1)
 
@@ -200,3 +208,157 @@ def test_dispatch_phase_seconds_has_the_jax_keys_and_grows(env):
     bank.collect_chunks_batch(bank.dispatch_chunks_batch([exact[:CHUNK], exact[CHUNK:]], None))
     assert all(phases[k] > before[k] for k in phases)
     assert isinstance(bank, PatternBank)
+
+
+# ── The staging pool ──
+
+
+def _fresh_bank():
+    return AudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S)._ensure_bank()
+
+
+@pytest.fixture(scope="module")
+def jax_bank():
+    jclips = [jclip.AudioClip(**dataclasses.asdict(c)) for c in _clips()]
+    return JaxDetector(jclips, seconds_per_chunk=CHUNK_S)._ensure_bank()
+
+
+def _pooled(bank):
+    return [buf for bufs in bank._staging.values() for buf in bufs]
+
+
+def test_payload_staging_buffers_recycle():
+    """The twin of the JAX package's test of the same name
+    (tests/test_offline_scan.py): repeated batch scans reuse pooled
+    buffers, and a recycled buffer carries each scan's own samples, so each
+    scan finds its own hit and not the other's; the detections are the
+    JAX detector's."""
+    rng = np.random.default_rng(9)
+    clip = AudioClip(name="c", audio=(0.4 * rng.standard_normal(SR)).astype(np.float32),
+                     sample_rate=SR)
+    det = AudioPatternDetector(audio_clips=[clip], device="cpu", seconds_per_chunk=5)
+    bank = det._ensure_bank()
+    audio1 = (0.01 * rng.standard_normal(30 * SR)).astype(np.float32)
+    audio1[12 * SR : 13 * SR] += clip.audio
+    audio2 = (0.01 * rng.standard_normal(30 * SR)).astype(np.float32)
+    audio2[21 * SR : 22 * SR] += clip.audio
+
+    r1, _ = det.find_clip_in_array(audio1, batch_size=3)
+    assert bank._staging, "no staging buffers returned to the pool"
+    pooled = {k: [id(b) for b in v] for k, v in bank._staging.items()}
+    r2, _ = det.find_clip_in_array(audio2, batch_size=3)
+    assert any(abs(t - 12.0) < 0.01 for t in r1["c"]), r1
+    assert any(abs(t - 21.0) < 0.01 for t in r2["c"]), r2
+    assert not any(abs(t - 12.0) < 0.01 for t in r2["c"]), r2
+    reused = any(id(b) in ids for k, ids in pooled.items() for b in bank._staging.get(k, []))
+    assert reused, "second scan did not reuse any pooled staging buffer"
+    jdet = JaxDetector([jclip.AudioClip(**dataclasses.asdict(clip))], seconds_per_chunk=5)
+    assert (r1, r2) == tuple(jdet.find_clip_in_array(a, batch_size=3)[0]
+                             for a in (audio1, audio2))
+
+
+@pytest.mark.parametrize("mode", ["vmap", "scan"])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_a_recycled_buffer_keeps_nothing_of_the_last_round(env, jax_bank, mode, dtype):
+    """A round of two full rows, collected, then a round of a short row and
+    a zero-length row: the second round gets the first's buffer back, its
+    tails past each row are zero, and its payloads are a fresh bank's bit
+    for bit; its results are the JAX bank's."""
+    _, exact, pcm, off_grid = env
+    audio = pcm if dtype == "int16" else off_grid
+    bank, fresh = _fresh_bank(), _fresh_bank()
+    bank.collect_chunks_batch(bank.dispatch_chunks_batch(
+        [audio[CHUNK:]] * 2, None, mode=mode, prev_tails=[audio[:CHUNK]] * 2))
+    (buf,) = _pooled(bank)
+    s_len = buf.shape[1]
+    assert buf.dtype == (np.int16 if dtype == "int16" else np.float32)
+    assert (buf != 0).mean() > 0.9, "the first round left no samples to go stale"
+    rows, tails = [audio[: 3 * SR], audio[:0]], [None, None]
+    dispatched = bank.dispatch_chunks_batch(rows, None, mode=mode, prev_tails=tails)
+    assert all(rec[4] is buf for rec in dispatched) and not _pooled(bank)
+    assert not buf[0, 3 * SR :].any() and not buf[1].any() and buf.shape == (2, s_len)
+    want = fresh.dispatch_chunks_batch(rows, None, mode=mode, prev_tails=tails)
+    for a, b in zip(_payloads(dispatched), _payloads(want)):
+        assert a.tobytes() == b.tobytes()
+    got = bank.collect_chunks_batch(dispatched)
+    assert got == fresh.collect_chunks_batch(want)
+    assert got == jax_bank.collect_chunks_batch(
+        jax_bank.dispatch_chunks_batch(rows, None, mode=mode, prev_tails=tails))
+    assert _pooled(bank) == [buf]
+
+
+def test_rounds_in_flight_hold_distinct_buffers(env):
+    """Two rounds dispatched before either is collected stage in two
+    buffers; collected in the other order, each gives its own results, and
+    both buffers come back."""
+    _, exact, _, off_grid = env
+    bank = _fresh_bank()
+    first, second = [exact[:CHUNK], exact[CHUNK:]], [off_grid[:CHUNK], off_grid[CHUNK:]]
+    d1 = bank.dispatch_chunks_batch(first, None)
+    d2 = bank.dispatch_chunks_batch(second, None)
+    assert d1[0][4] is not d2[0][4] and not _pooled(bank)
+    assert bank.collect_chunks_batch(d2) == _fresh_bank().process_chunks_batch(second, None)
+    assert bank.collect_chunks_batch(d1) == _fresh_bank().process_chunks_batch(first, None)
+    assert {id(b) for b in _pooled(bank)} == {id(d1[0][4]), id(d2[0][4])}
+
+
+def test_the_pool_keeps_at_most_four_buffers_a_key(env):
+    """Six rounds in flight take six buffers; collected, four stay."""
+    _, exact, _, _ = env
+    bank = _fresh_bank()
+    chunks = [exact[:CHUNK], exact[CHUNK:]]
+    rounds = [bank.dispatch_chunks_batch(chunks, None) for _ in range(6)]
+    assert len({id(d[0][4]) for d in rounds}) == 6
+    for d in rounds:
+        bank.collect_chunks_batch(d)
+    assert [len(v) for v in bank._staging.values()] == [4]
+    # A round of another size is another key.
+    bank.collect_chunks_batch(bank.dispatch_chunks_batch(chunks[:1], None))
+    assert sorted(len(v) for v in bank._staging.values()) == [1, 4]
+
+
+def test_single_chunk_dispatch_recycles_at_collect(env):
+    """``dispatch_chunk`` stages through the same pool: the buffer is out
+    while the chunk is in flight and back after its collect."""
+    _, exact, _, _ = env
+    bank = _fresh_bank()
+    dispatched = bank.dispatch_chunk(exact[CHUNK:], exact[:CHUNK])
+    assert not _pooled(bank)
+    assert bank.collect_chunk(dispatched) == bank.process_chunk(exact[CHUNK:], exact[:CHUNK])
+    assert [id(b) for b in _pooled(bank)] == [id(dispatched[0][3])]
+
+
+@pytest.mark.parametrize("path", ["row_sharding", "bank_shards"])
+def test_a_sharded_round_recycles_only_after_every_part(env, monkeypatch, path):
+    """A round spread over two logical shards (``sharding=``), and a chunk
+    over a 2-shard bank (``BankShardedBank``): the staging buffer goes
+    back only after every shard's payload has reached the host."""
+    _, exact, _, off_grid = env
+    bank = _fresh_bank()
+    log = []
+    numpy, put = PayloadHandle.numpy, PatternBank._pool_put
+
+    def logging_numpy(self):
+        log.append("part")
+        return numpy(self)
+
+    def logging_put(self, buf):
+        log.append("put")
+        return put(self, buf)
+
+    monkeypatch.setattr(PayloadHandle, "numpy", logging_numpy)
+    monkeypatch.setattr(PatternBank, "_pool_put", logging_put)
+    mesh = make_mesh({"stream": 2}, devices=["cpu"] * 2)
+    if path == "row_sharding":
+        rows = [exact[:CHUNK], exact[CHUNK:], off_grid[:CHUNK], off_grid[CHUNK:]]
+        got = bank.collect_chunks_batch(
+            bank.dispatch_chunks_batch(rows, None, sharding=RowSharding(mesh)))
+        seen = list(log)
+        assert got == _fresh_bank().process_chunks_batch(rows, None)
+    else:
+        sharded = BankShardedBank(bank, make_mesh({"bank": 2}, devices=["cpu"] * 2))
+        got = sharded.collect_chunk(sharded.dispatch_chunk(exact[CHUNK:], exact[:CHUNK]))
+        seen = list(log)
+        assert got == _fresh_bank().process_chunk(exact[CHUNK:], exact[:CHUNK])
+    assert seen == ["part", "part", "put"] * len(bank.classes)
+    assert len(_pooled(bank)) == len(bank.classes)

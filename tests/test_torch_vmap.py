@@ -454,7 +454,7 @@ def test_vmap_rows_do_not_depend_on_their_round(env):
         np.testing.assert_array_equal(hs.numpy().view(np.int32), hb.numpy()[order].view(np.int32))
     for bi, (chunk, tail) in enumerate(rows):
         alone = bank.dispatch_chunk(chunk, tail)
-        for (sw, ha, _), (_, hb, *_) in zip(alone, batch):
+        for (sw, ha, *_), (_, hb, *_) in zip(alone, batch):
             np.testing.assert_array_equal(ha.numpy().view(np.int32), hb.numpy()[bi].view(np.int32))
 
 
