@@ -60,6 +60,8 @@ _SIGNATURES = {
     ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
     "apd_graph_if_end": ([_c_ptr], ctypes.c_int),
+    "apd_graph_while_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
+    "apd_graph_while_end": ([_c_ptr], ctypes.c_int),
 }
 
 

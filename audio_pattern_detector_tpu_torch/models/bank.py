@@ -62,15 +62,18 @@ folded into the clip axis where an op is row-wise ((B, G, L) correlations
 as (B * G, L) rows with per-row lengths), so the candidate-scan kernel
 launches once per group per round and memory is B times a step's.
 
-On a CUDA device every lean class step runs as a replay of a captured
-CUDA graph, the counterpart of the JAX bank's jitted class-step programs
+On a CUDA device every class step runs as a replay of a captured CUDA
+graph, the counterpart of the JAX bank's jitted class-step programs
 (``models/captured.py``): one graph per (device, class, B, upload dtype,
 tier, switches, constants), the batched form with B = 1 for one section.
 "scan" replays the B = 1 graph once per row, "vmap" the (B) graph once per
-round. ``capture=False`` (a constructor argument, and the ``capture``
-attribute) runs the eager step instead; the CPU has only the eager step.
-The general-plateau tier, the wide rerun and the host path sync with the
-host and stay eager.
+round. In the general-plateau tier the lane greedy's while loop and the
+two-tier verify's cond are CUDA conditional nodes inside the graph, so
+that tier's dispatch makes no host sync either. ``capture=False`` (a
+constructor argument, and the ``capture`` attribute) runs the eager step
+instead, whose general-plateau tier drives the same loops from the host;
+the CPU has only the eager step. The wide rerun and the host path run at collect time, sync with
+the host and stay eager.
 
 A ``"vmap"`` round can also be spread over a device mesh (``sharding=``):
 its rows split contiguously over the mesh's stream axis, each shard's rows
@@ -131,6 +134,7 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
 from audio_pattern_detector_tpu_torch.ops.devices import canonical_device, device_guard
 from audio_pattern_detector_tpu_torch.ops.packing import upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
+    Loop,
     PeakCandidates,
     ValidLen,
     f32,
@@ -160,6 +164,16 @@ _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
 # branch(pred, body): run body() where the 0-d device bool ``pred`` holds
 # (models/captured.py; the lean tail's skip of candidate-free groups).
 Branch = Callable[[torch.Tensor, Callable[[], Any]], None]
+# cond(pred, then_, else_): run then_() where the 0-d device bool ``pred``
+# holds, else else_() (the two-tier verify's lax.cond; on the device
+# models/captured.py, on the host host_cond).
+Cond = Callable[[torch.Tensor, Callable[[], Any], Callable[[], Any]], None]
+
+
+def host_cond(pred: torch.Tensor, then_: Callable[[], Any], else_: Callable[[], Any]) -> None:
+    """The host's :data:`Cond`: one sync, to read ``pred``."""
+    (then_ if bool(pred) else else_)()
+
 
 # Cumulative host seconds per dispatch_chunks_batch stage, process-wide:
 # each row's section parts (lookback and chunk), their copy into the
@@ -488,12 +502,12 @@ class PatternBank:
         switches, as an object to ``load(section, n_valid)`` and ``run()``:
         a (B, S) batch of ``rows`` sections with a (B,) length tensor, or
         one (S,) section with an int length (``rows=None``), in the upload
-        ``dtype``. With ``capture`` on and the lean tier (``height_min >
-        0``), the captured step of its key (``models/captured.py``); else
-        the eager step. ``consts`` replaces the class's own (loud,
-        group_consts): a replica on another device, or a bank shard's
-        slice. ``scan`` as in :func:`class_step`; ``fused=False`` returns
-        each group's payload."""
+        ``dtype``. With ``capture`` on, the captured step of its key
+        (``models/captured.py``), in the lean and the general-plateau tier
+        (``height_min <= 0``) alike; else the eager step. ``consts``
+        replaces the class's own (loud, group_consts): a replica on another
+        device, or a bank shard's slice. ``scan`` as in :func:`class_step`;
+        ``fused=False`` returns each group's payload."""
         cls = self.classes[sw]
         loud, group_consts = consts if consts is not None else (
             cls["loud"], tuple((g.corr, g.verify) for g in cls["groups"])
@@ -504,13 +518,13 @@ class PatternBank:
             kernel_tier=self.kernel_tier,
         )
         device = canonical_device(device)
-        if not (self.capture and self.height_min > 0):
+        if not self.capture:
             return EagerStep(fn, device)
         key = StepKey(
             device=device, sw=sw, rows=1 if rows is None else rows, dtype=dtype, fused=fused,
-            scan=scan, kernel_tier=self.kernel_tier, overlap_save=self.overlap_save,
-            packed_upload=self.packed_upload, marker_gemm=_marker_gemm_enabled(),
-            skip_empty_verify=self.skip_empty_verify,
+            scan=scan, general=self.height_min <= 0, kernel_tier=self.kernel_tier,
+            overlap_save=self.overlap_save, packed_upload=self.packed_upload,
+            marker_gemm=_marker_gemm_enabled(), skip_empty_verify=self.skip_empty_verify,
             consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
         )
         return self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
@@ -1113,6 +1127,8 @@ def rich_group_packed(
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
     self_corr_max: torch.Tensor,
     scan=candidate_scan,
+    loop: "Loop | None" = None,
+    cond: "Cond | None" = None,
 ) -> torch.Tensor:
     """General-plateau tier of one group, for ``height_min <= 0``: the
     packed payload of ``_class_step``'s rich branch.
@@ -1127,12 +1143,13 @@ def rich_group_packed(
     threshold's outputs go unread here, so the scan gets +inf: no finite
     sample reaches it, and the kernel runs none of its per-sample threshold
     tests (``height_min * self_corr_max <= 0`` would send every sample to
-    them)."""
+    them). ``loop`` and ``cond`` as in :func:`general_group_packed`."""
     no_threshold = torch.full_like(self_corr_max, float("inf"))
     _bmax, _count, _plateau, omax, _near = scan(corr, no_threshold, valid_len)
     corr_n = _normalised(corr, valid_len, torch.maximum(self_corr_max, omax).clamp_min(1e-38))
     return general_group_packed(
-        norm, corr_n, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts
+        norm, corr_n, valid_len, kind, m, k_detect, k_verify, height_min, verify_consts,
+        loop=loop, cond=cond,
     )
 
 
@@ -1146,38 +1163,67 @@ def general_group_packed(
     k_verify: int,
     height_min: float,
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
+    loop: "Loop | None" = None,
+    cond: "Cond | None" = None,
 ) -> torch.Tensor:
     """The general-plateau tier on a normalised correlation: the rest of
     :func:`rich_group_packed`, and the whole tier under ``APD_PALLAS=0``,
-    where ``bank_correlate`` normalises."""
-    cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect)
+    where ``bank_correlate`` normalises.
+
+    ``loop`` (the lane greedy's while loop) and ``cond`` (the two-tier
+    verify's) are a captured step's CUDA conditional nodes
+    (``models/captured.py``), so the tier makes no host sync; without them
+    both run on the host, as the eager step does."""
+    cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect, loop)
     half = (2 * m - 1) // 2
     keep = cand.alive & ~(cand.pos + half > row_limit(valid_len) + 5) & ~(cand.pos - half < -5)
     sv = torch.topk(torch.where(keep, -cand.pos, -_BIG), k_verify, dim=1).values
     vpos, valive = -sv, sv > -_BIG
-    accept = _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=True)
+    accept = _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=True,
+                            cond=cond)
     return _pack(vpos, valive & accept, cand.overflow | plateau_flag, keep.sum(dim=1) > k_verify)
 
 
-def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor) -> torch.Tensor:
+def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
+                     cond: "Cond | None" = None) -> torch.Tensor:
     """Verify only the first _SMALL_TIER lanes when every row's live lanes
-    fit there (compaction puts them first), else every lane; bitwise the
-    same accept bits either way. One host sync."""
+    fit there (compaction puts them first), else every lane, _SMALL_TIER
+    lanes at a time; bitwise the same accept bits either way, since each
+    lane's verdict reads only its own window. ``cond`` (by default
+    :func:`host_cond`, one host sync) picks the branch; each branch writes
+    the whole of ``accept``, allocated before it. A branch's working set is
+    one block's: the full-width verify of a 16-row flagship round would
+    hold gigabytes of windows, in a captured step in the bodies' own
+    graph pool."""
     kv = vpos.shape[1]
-    if int(valive.sum(dim=1).max()) <= _SMALL_TIER:
-        acc = verify_accept(vpos[:, :_SMALL_TIER], valive[:, :_SMALL_TIER])
-        return torch.cat([acc, acc.new_zeros((acc.shape[0], kv - _SMALL_TIER))], dim=1)
-    return verify_accept(vpos, valive)
+    small_fits = valive.sum(dim=1).amax() <= _SMALL_TIER
+    accept = torch.empty_like(valive)
+
+    def block(lo: int) -> None:
+        lanes = slice(lo, lo + _SMALL_TIER)
+        accept[:, lanes] = verify_accept(vpos[:, lanes], valive[:, lanes])
+
+    def small_tier() -> None:
+        block(0)
+        accept[:, _SMALL_TIER:] = False
+
+    def every_lane() -> None:
+        for lo in range(0, kv, _SMALL_TIER):
+            block(lo)
+
+    (cond or host_cond)(small_fits, small_tier, every_lane)
+    return accept
 
 
-def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool) -> torch.Tensor:
+def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool,
+                   cond: "Cond | None" = None) -> torch.Tensor:
     def verify_accept(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         if kind == "marker":
             return verify_marker(norm, p, a, verify_consts)
         return verify_normal(corr, p, a, verify_consts)[0]
 
     if two_tier and vpos.shape[1] > _SMALL_TIER:
-        return _two_tier_accept(verify_accept, vpos, valive)
+        return _two_tier_accept(verify_accept, vpos, valive, cond)
     return verify_accept(vpos, valive)
 
 
@@ -1251,6 +1297,8 @@ def class_step(
     wide: bool = False,
     kernel_tier: bool = True,
     branch: "Branch | None" = None,
+    loop: "Loop | None" = None,
+    cond: "Cond | None" = None,
 ) -> list[torch.Tensor]:
     """One sliding-window class over one section, or over the B sections
     of a round in one set of launches: packed payload per group, (G, 2K+2)
@@ -1269,7 +1317,10 @@ def class_step(
     normalised correlation and launch no kernel.
 
     ``branch`` reaches the lean tiers' verify tail (:func:`_lean_tail`); the
-    wide and general-plateau tiers verify unconditionally, as in JAX."""
+    wide and general-plateau tiers verify unconditionally, as in JAX.
+    ``loop`` and ``cond`` reach the general-plateau tier's lane greedy and
+    two-tier verify (:func:`general_group_packed`); the lean and wide tiers
+    take neither."""
     batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
@@ -1304,21 +1355,21 @@ def class_step(
         elif not kernel_tier:
             outs.append(
                 mask_group_packed(*args, branch=branch) if height_min > 0
-                else general_group_packed(*args)
+                else general_group_packed(*args, loop=loop, cond=cond)
             )
         elif height_min > 0:
             outs.append(lean_group_packed(*args, self_corr_max, scan, branch=branch))
         else:
-            outs.append(rich_group_packed(*args, self_corr_max, scan))
+            outs.append(rich_group_packed(*args, self_corr_max, scan, loop=loop, cond=cond))
     return outs
 
 
 def class_step_fused(section, n_valid, loud, group_consts, *, metas, height_min, scan=candidate_scan,
-                     kernel_tier=True, branch=None):
+                     kernel_tier=True, branch=None, loop=None, cond=None):
     """:func:`class_step` with every group's payload flattened into one
     vector per section: (total,), or (B, total) for a batch."""
     outs = class_step(
         section, n_valid, loud, group_consts, metas=metas, height_min=height_min, scan=scan,
-        kernel_tier=kernel_tier, branch=branch,
+        kernel_tier=kernel_tier, branch=branch, loop=loop, cond=cond,
     )
     return torch.cat([o.reshape(*section.shape[:-1], -1) for o in outs], dim=-1)

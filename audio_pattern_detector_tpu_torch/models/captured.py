@@ -14,8 +14,9 @@ payloads) is captured once per key into a CUDA graph and replayed:
   One section is B = 1, so one graph serves every length of a shape, as
   the JAX program does by tracing its length.
 * **Key** (:class:`StepKey`): device, sliding-window class, B, upload
-  dtype, fused or per-group payloads, the candidate scan, the lean tier
-  (kernel or ``APD_PALLAS=0`` mask), the bank's switches
+  dtype, fused or per-group payloads, the candidate scan, the tier (lean,
+  or general-plateau for ``height_min <= 0``) and its form (kernel or
+  ``APD_PALLAS=0`` mask), the bank's switches
   (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``), ``APD_MARKER_GEMM`` as
   it reads at the call, and the identity of the constants the step reads:
   a replica on another device or a bank shard's slice is another key, and
@@ -44,14 +45,26 @@ payloads) is captured once per key into a CUDA graph and replayed:
   round has a live lane. The eager first run verifies every group, so the
   cuFFT plans and the DFT matrix the body replays exist before the
   capture.
+* **The general-plateau tier's control flow stays on the device**: the
+  capture hands the step the backend's ``while_loop(pred, body)`` and
+  ``cond(pred, then_, else_)``, the counterparts of the JAX tier's
+  ``lax.while_loop`` (the lane greedy, JAX ``ops/peaks.py:282,323``) and
+  ``lax.cond`` (the two-tier verify, JAX ``models/bank.py:111-133``). A
+  while node re-runs its body graph while a device bool the body rewrites
+  holds; the two-way cond is two if-nodes, on ``pred`` and on ``~pred``.
+  Loop state lives in tensors allocated before the node and updated in
+  place. The eager first run takes both branches of each cond (the untaken
+  one first, :func:`both_branches`), so either body's cuFFT plans exist
+  before the capture.
 * **Launch accounting**: a replay makes no Python call of the kernel
   wrapper, so each graph records how many kernel launches its capture
   enqueued (the capture itself executes none and adds none to
   ``candidate_scan.launches``), and each replay adds that number.
 * **Memory**: one graph memory pool per device, shared by the bank's
   graphs on it (the widths of a tile ladder, both upload dtypes, both
-  schedules), on one capture stream per device, and one pool and side
-  stream per device for the conditional bodies. Graphs sharing a pool must
+  schedules), on one capture stream per device, and one pool
+  and side stream per device for the conditional bodies (nodes do not
+  nest: a body holds no node of its own). Graphs sharing a pool must
   not run at once: a bank's replays on a device are issued in order on the
   current stream, each payload copied out before the next replay.
 
@@ -82,6 +95,7 @@ class StepKey(NamedTuple):
     dtype: torch.dtype  # upload dtype of the section
     fused: bool  # one flat payload per row, or each group's
     scan: Callable  # the candidate scan the lean tier calls
+    general: bool  # the general-plateau tier (height_min <= 0), else the lean one
     kernel_tier: bool  # False: the APD_PALLAS=0 mask tier
     overlap_save: bool  # False: APD_NO_OVERLAP_SAVE=1
     packed_upload: bool  # False: APD_PACKED_UPLOAD=0
@@ -101,11 +115,10 @@ def _copy_out(out: Any) -> Any:
 
 
 class EagerStep:
-    """The class step run op by op (``capture=False``, the CPU, and every
-    tier that syncs with the host). A single section with an int length
-    runs the single-section form; a length tensor is copied into a buffer
-    of the step's own, as the captured step copies it into its static
-    input."""
+    """The class step run op by op (``capture=False`` and the CPU). A
+    single section with an int length runs the single-section form; a
+    length tensor is copied into a buffer of the step's own, as the
+    captured step copies it into its static input."""
 
     def __init__(self, fn: Callable, device: torch.device) -> None:
         self._fn = fn
@@ -168,8 +181,9 @@ class CudaGraphBackend:
             out = fn()
         return graph.replay, out
 
-    # How conditional() builds its node: the port's own C entry points
-    # around the capture (torch 2.11 has no conditional-node capture).
+    # How conditional(), cond() and while_loop() build their nodes: the
+    # port's own C entry points around the capture (torch 2.11 has no
+    # conditional-node capture).
     conditional_route = "csrc/graph_conditional.cu"
 
     def conditional(self, pred: torch.Tensor, body: Callable[[], Any]) -> None:
@@ -179,18 +193,43 @@ class CudaGraphBackend:
         node sets the node's handle from it). The body runs on the device's
         side stream, allocating from the bodies' pool. Raises outside a
         capture, and where the driver cannot make the node."""
+        self._node("if", pred, body)
+
+    def cond(self, pred: torch.Tensor, then_: Callable[[], Any],
+             else_: Callable[[], Any]) -> None:
+        """The two-way ``lax.cond``: ``then_`` as the body of an if-node on
+        ``pred``, ``else_`` as the body of a second if-node on ``~pred``
+        (computed before the first node, so ``then_`` cannot change it). Each
+        branch writes its results into tensors allocated before the call."""
+        not_pred = ~pred
+        self._node("if", pred, then_)
+        self._node("if", not_pred, else_)
+
+    def while_loop(self, pred: torch.Tensor, body: Callable[[], Any]) -> None:
+        """The ``lax.while_loop``: ``body``'s work becomes the body graph of
+        a CUDA while node, run at replay while the 0-d bool ``pred`` holds.
+        The node's handle is set from ``pred`` before the node (so a false
+        ``pred`` runs no body) and after each pass of the body, which must
+        rewrite ``pred`` in place. Loop state lives in tensors allocated
+        before the call and updated in place, since a graph's addresses are
+        fixed."""
+        self._node("while", pred, body)
+
+    def _node(self, kind: str, pred: torch.Tensor, body: Callable[[], Any]) -> None:
         from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
 
         if pred.dim() != 0 or pred.dtype != torch.bool or pred.device.type != "cuda":
-            raise ValueError("conditional: pred must be a 0-d bool tensor on a CUDA device")
+            raise ValueError(f"{kind} node: pred must be a 0-d bool tensor on a CUDA device")
         lib = load_kernels().lib
+        begin, end = ((lib.apd_graph_if_begin, lib.apd_graph_if_end) if kind == "if"
+                      else (lib.apd_graph_while_begin, lib.apd_graph_while_end))
         device = pred.device
         held = self._bodies.get(device)
         pool, side = held or (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
-        err = lib.apd_graph_if_begin(torch.cuda.current_stream(device).cuda_stream,
-                                     pred.data_ptr(), side.cuda_stream)
+        err = begin(torch.cuda.current_stream(device).cuda_stream, pred.data_ptr(),
+                    side.cuda_stream)
         if err:
-            raise RuntimeError(f"conditional node: capture of the if-node failed: CUDA error {err}")
+            raise RuntimeError(f"{kind} node: capture of the node failed: CUDA error {err}")
         # The graph's pool takes only the capture stream's allocations, and
         # a pool records one capture at a time: the body's go to its own.
         # Each recording takes a reference to the pool; the backend keeps
@@ -205,9 +244,9 @@ class CudaGraphBackend:
             torch._C._cuda_endAllocateToPool(device.index, pool)
             if held is not None:
                 torch._C._cuda_releasePool(device.index, pool)
-            end = lib.apd_graph_if_end(side.cuda_stream)
-        if end:
-            raise RuntimeError(f"conditional node: capture of the body failed: CUDA error {end}")
+            end_err = end(side.cuda_stream)
+        if end_err:
+            raise RuntimeError(f"{kind} node: capture of the body failed: CUDA error {end_err}")
 
     def __del__(self) -> None:
         # Every graph of this backend holds it, so none is left to replay:
@@ -217,6 +256,18 @@ class CudaGraphBackend:
                 torch._C._cuda_releasePool(device.index, pool)
             except (AttributeError, TypeError):  # torch torn down at interpreter exit
                 pass
+
+
+def both_branches(pred: torch.Tensor, then_: Callable[[], Any],
+                  else_: Callable[[], Any]) -> None:
+    """The two-way cond of a captured step's eager first run: the branch
+    ``pred`` does not take, then the one it takes. Each branch writes all
+    of its results, so the taken one's stand; and both have run once, so
+    the cuFFT plans and the DFT matrix either body replays exist before
+    the capture. Reads ``pred`` on the host: an eager run."""
+    taken, other = (then_, else_) if bool(pred) else (else_, then_)
+    other()
+    taken()
 
 
 class CapturedStep:
@@ -249,8 +300,9 @@ class CapturedStep:
         else:
             self.n_valid.fill_(n_valid)
 
-    def _step(self, branch: "Callable | None" = None) -> Any:
-        return self._fn(as_f32(self.section), self.n_valid, branch=branch)
+    def _step(self, branch: "Callable | None" = None, loop: "Callable | None" = None,
+              cond: "Callable | None" = None) -> Any:
+        return self._fn(as_f32(self.section), self.n_valid, branch=branch, loop=loop, cond=cond)
 
     def run(self) -> Any:
         """The payload of the loaded inputs, owned by the caller."""
@@ -266,12 +318,15 @@ class CapturedStep:
     def _first_run(self) -> Any:
         t0 = time.perf_counter()
         self._backend.check(self.device)
-        out = self._backend.warm_up(self.device, self._step)
+        general = self.key.general
+        out = self._backend.warm_up(
+            self.device, lambda: self._step(cond=both_branches if general else None))
         counted = candidate_scan.launches
         branch = self._backend.conditional if self.key.skip_empty_verify else None
+        loop, cond = (self._backend.while_loop, self._backend.cond) if general else (None, None)
         try:
             self._replay, self._out = self._backend.capture(
-                self.device, lambda: self._step(branch))
+                self.device, lambda: self._step(branch, loop, cond))
             self.launches = candidate_scan.launches - counted
         finally:
             candidate_scan.launches = counted  # a capture executes nothing

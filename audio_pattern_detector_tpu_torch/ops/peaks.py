@@ -12,10 +12,15 @@ Two tiers, as in the JAX package:
   while-loop exit test is not ported: in eager torch it would cost a
   device-to-host sync every round.
 * full (the wide rerun of flagged rows and the ``height_min <= 0`` tier):
-  the general plateau mask, top-k capture and the lane greedy. Its
-  ``while_loop``s become host loops over ``.item()`` tests, which sync the
-  device; that is acceptable there because the full tier runs at collect
-  time, after the payload has reached the host.
+  the general plateau mask, top-k capture and the lane greedy. Each
+  ``while_loop`` is one body over state in tensors updated in place, run
+  by a ``loop(pred, body)`` hook (:data:`Loop`): a captured class step
+  passes its backend's CUDA while node (``models/captured.py``), and the
+  loop stays on the device. Without the hook the host runs the same
+  body: the parallel filter syncs once per round (:func:`host_loop`), the
+  sequential one once, to read its pass count. That is the eager step's
+  form (the CPU, ``capture=False``, and the wide rerun, which runs at
+  collect time, after the payload has reached the host).
 
 The mask lean tier of ``APD_PALLAS=0`` seeds the same block-wise greedy
 from the full (G, L) candidate mask (:func:`greedy_survivors_blockwise`).
@@ -42,12 +47,25 @@ class PeakCandidates(NamedTuple):
     overflow: torch.Tensor  # (G,) bool: more raw candidates than K
 
 
+# Rows per pass of the plateau mask: its run bounds are (rows, L) int64
+# temporaries (cummax and cummin index in int64), a dozen of them live at
+# once. All 512 rows of a 16-row flagship round at once made them the
+# round's largest allocations (scripts/probe_general_memory.py).
+_PLATEAU_ROWS = 64
+
+
 def plateau_local_maxima_mask(x: torch.Tensor) -> torch.Tensor:
     """Plateau-midpoint local maxima of any run length (scipy semantics):
     a maximal run of equal values with strictly smaller neighbours on both
     sides flags its floor midpoint. ``x`` is (G, L) f32 with -inf at and
-    after each row's valid length."""
+    after each row's valid length. Rows are independent: they run
+    _PLATEAU_ROWS at a time."""
     g, l = x.shape
+    if g > _PLATEAU_ROWS:
+        out = torch.empty((g, l), dtype=torch.bool, device=x.device)
+        for lo in range(0, g, _PLATEAU_ROWS):
+            out[lo : lo + _PLATEAU_ROWS] = plateau_local_maxima_mask(x[lo : lo + _PLATEAU_ROWS])
+        return out
     idx = torch.arange(l, device=x.device)[None, :]
     edge = torch.ones((g, 1), dtype=torch.bool, device=x.device)
     neq_prev = torch.cat([edge, x[:, 1:] != x[:, :-1]], dim=1)
@@ -261,25 +279,60 @@ def select_candidates(x: torch.Tensor, peak_mask: torch.Tensor, k: int) -> PeakC
 # filter outweighs the sequential loop (the JAX package's threshold).
 PARALLEL_GREEDY_MAX_K = 2048
 
+# ``loop(pred, body)``: run ``body()`` while the 0-d device bool ``pred``
+# holds, ``body`` rewriting ``pred`` in place (``lax.while_loop``; on the
+# device ``CudaGraphBackend.while_loop``, on the host :func:`host_loop`).
+Loop = Callable[[torch.Tensor, Callable[[], None]], None]
 
-def _greedy_distance_sequential(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+
+def host_loop(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """The host's :data:`Loop`: one sync a pass, to read ``pred``."""
+    while bool(pred):
+        body()
+
+
+def _greedy_distance_sequential(
+    cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
+) -> torch.Tensor:
     """Sequential greedy over height-sorted lanes. Each row's alive lanes
-    are a prefix, so the loop stops at the bank-wide alive maximum."""
-    k = cand.pos.shape[1]
-    lane = torch.arange(k, device=cand.pos.device)[None, :]
-    n_alive = int(cand.alive.sum(dim=1).max()) if cand.alive.numel() else 0
-    keep = torch.ones_like(cand.alive)
-    for i in range(n_alive):
-        cur_alive = keep[:, i : i + 1] & cand.alive[:, i : i + 1]
-        d = (cand.pos - cand.pos[:, i : i + 1]).abs()
-        keep = keep & ~(cur_alive & (d < min_distance) & (lane != i))
-    return keep & cand.alive
+    are a prefix, so the loop runs ``while i < n_alive``, the bank-wide
+    alive maximum, lane ``i`` selected by a device index; without ``loop``
+    the host reads ``n_alive`` once and runs the body that many times.
+
+    The state is one int32 array: a lane's position while it is alive and
+    kept, SURVIVOR_POS_SENTINEL once it is dead or suppressed. A lane at the
+    sentinel is near no real position, so a dropped lane ``i`` suppresses
+    nothing, and a pass of the body is 8 kernels."""
+    dev = cand.pos.device
+    kept_pos = torch.where(cand.alive, cand.pos.to(torch.int32), SURVIVOR_POS_SENTINEL)
+    n_alive = (cand.alive.sum(dim=1).amax() if cand.alive.numel()
+               else torch.zeros((), dtype=torch.int64, device=dev))
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    go = i < n_alive
+
+    def body() -> None:
+        at = i.view(1)
+        near = (kept_pos - kept_pos.index_select(1, at)).abs_() < min_distance
+        near.index_fill_(1, at, False)
+        kept_pos.masked_fill_(near, SURVIVOR_POS_SENTINEL)
+        i.add_(1)
+        torch.lt(i, n_alive, out=go)
+
+    if loop is None:
+        for _ in range(int(n_alive)):
+            body()
+    else:
+        loop(go, body)
+    return kept_pos != SURVIVOR_POS_SENTINEL
 
 
-def _greedy_distance_parallel(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+def _greedy_distance_parallel(
+    cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
+) -> torch.Tensor:
     """Parallel fixed point of the greedy recurrence: keep(c) = alive(c)
     and no higher-priority kept candidate within ``min_distance``,
-    iterated from S = alive until S stops changing."""
+    iterated from S = alive ``while changed``, S updated in place
+    (``loop``, by default :func:`host_loop`)."""
     pos = cand.pos.to(torch.int32)
     k = pos.shape[1]
     lanes = torch.arange(k, device=pos.device)
@@ -287,19 +340,26 @@ def _greedy_distance_parallel(cand: PeakCandidates, min_distance: int) -> torch.
     conflict = ((pos[:, :, None] - pos[:, None, :]).abs() < min_distance) & higher[None]
     conflict &= cand.alive[:, None, :]
     s = cand.alive & ~(conflict & cand.alive[:, None, :]).any(dim=2)
-    while True:
+    changed = torch.ones((), dtype=torch.bool, device=pos.device)
+
+    def body() -> None:
         s_new = cand.alive & ~(conflict & s[:, None, :]).any(dim=2)
-        if not bool((s_new != s).any()):
-            return s & cand.alive
-        s = s_new
+        torch.any(s_new != s, out=changed)
+        s.copy_(s_new)
+
+    (loop or host_loop)(changed, body)
+    return s & cand.alive
 
 
-def greedy_distance_filter(cand: PeakCandidates, min_distance: int) -> torch.Tensor:
+def greedy_distance_filter(
+    cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
+) -> torch.Tensor:
     """Greedy tallest-first suppression over height-sorted lanes (scipy's
-    distance filter); the surviving-alive mask."""
+    distance filter); the surviving-alive mask. ``loop`` as in the
+    filters."""
     if cand.pos.shape[1] <= PARALLEL_GREEDY_MAX_K:
-        return _greedy_distance_parallel(cand, min_distance)
-    return _greedy_distance_sequential(cand, min_distance)
+        return _greedy_distance_parallel(cand, min_distance, loop)
+    return _greedy_distance_sequential(cand, min_distance, loop)
 
 
 ValidLen = "int | torch.Tensor"  # one length for every row, or a (G,) integer tensor
@@ -322,13 +382,15 @@ def find_peaks_device(
     height_min: float,
     distance: int,
     k: int,
+    loop: "Loop | None" = None,
 ) -> PeakCandidates:
     """find_peaks(height=height_min, distance=distance) over a bank, with
-    -inf at and after ``valid_len`` (no run extends into the padding)."""
+    -inf at and after ``valid_len`` (no run extends into the padding).
+    ``loop`` as in :func:`greedy_distance_filter`."""
     x = _masked(corr, valid_len)
     mask = plateau_local_maxima_mask(x) & (x >= f32(height_min))
     cand = select_candidates(x, mask, k)
-    keep = greedy_distance_filter(cand, distance)
+    keep = greedy_distance_filter(cand, distance, loop)
     return PeakCandidates(cand.pos, cand.height, keep, cand.overflow)
 
 
@@ -338,17 +400,18 @@ def find_peaks_device_fast(
     height_min: float,
     distance: int,
     k: int,
+    loop: "Loop | None" = None,
 ) -> tuple[PeakCandidates, torch.Tensor]:
     """:func:`find_peaks_device` with the short-run mask when
     ``height_min > 0``, plus a per-row flag for an equal run of length
     >= 4 at or above the threshold (the one case where that mask could
     differ from scipy). ``height_min <= 0`` takes the general mask and
-    never flags."""
+    never flags. ``loop`` as in :func:`greedy_distance_filter`."""
     if height_min <= 0:
-        cand = find_peaks_device(corr, valid_len, height_min, distance, k)
+        cand = find_peaks_device(corr, valid_len, height_min, distance, k, loop)
         return cand, torch.zeros(corr.shape[0], dtype=torch.bool, device=corr.device)
     hm = f32(height_min)
     x = _masked(corr, valid_len)
     cand = select_candidates(x, short_run_local_maxima_mask(x) & (x >= hm), k)
-    keep = greedy_distance_filter(cand, distance)
+    keep = greedy_distance_filter(cand, distance, loop)
     return PeakCandidates(cand.pos, cand.height, keep, cand.overflow), long_plateau_present(x, hm)

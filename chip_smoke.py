@@ -87,11 +87,16 @@ card and checks them:
    own ``match --stdin`` events (15 detections); a 5th client gets
    "server full"; after SIGINT the server reports a kernel launch and no
    jax. Prints the wall time per client;
-   3c. the general-plateau tier beside the lean one: the 16-row flagship
-   round dispatched through the bank at ``height_min = 0`` and at the
-   default, in turns, in both batch modes: host ms until the dispatch
-   returns (the general tier syncs there) and until the payload is on the
-   host, and the peak memory of each;
+   3c. the general-plateau tier (``height_min = 0``) as a captured step,
+   its lane greedy's while loops and its two-tier cond CUDA conditional
+   nodes, against its eager step (host loops) on the same bank: the 16-row
+   flagship round in both batch modes, payloads bit for bit; in turns, host
+   ms until the dispatch returns and until the payload is on the host (a
+   captured vmap dispatch must return in under half the time to its
+   payload), the device span of the dispatch; the key's capture seconds,
+   first-use peak and kept graph pools, the eager round's peak, one kernel
+   launch per group per replay (on the kernels line), profiled device-busy
+   ms of a captured and an eager vmap round, the lean tier's captured round;
    8 also runs the mesh entry points on logical shards of the card
    (``APD_TORCH_LOGICAL_DEVICES``): ``--mesh-time 4``, ``--mesh-time 2
    --mesh-bank 2`` and ``--mesh-stream 2`` over two files, stdout
@@ -181,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -887,54 +893,163 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     return launches, kernel_rows
 
 
-def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> None:
-    """Phase 3c: the flagship round (16 sections of 60 s, seeds 1-16)
-    dispatched through the bank at ``height_min = 0`` (the general-plateau
-    tier, which syncs with the device while it dispatches) beside the lean
-    tier at the default threshold, in turns (lean, general, general, lean;
-    one general turn in scan) in each batch mode. Timed: the host ms until ``dispatch_chunks_batch``
-    returns and until the payload is on the host; the peak memory above
-    the bank. Nothing is collected: at a threshold of 0 every row of noise
-    is flagged, and resolving them is the host path's time, not the
-    tier's. Both tiers fit an 80 GB card in both modes (the general tier's
-    vmap round peaks at 14.4 GB); running out of memory fails the run."""
+def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
+                          profile: "Path | None" = None) -> dict[str, int]:
+    """Phase 3c: the general-plateau tier (``height_min = 0``) as a captured
+    step, on the flagship round (16 sections of 60 s, seeds 1-16) in both
+    batch modes. Its lane greedy's while loops and its two-tier verify's
+    cond are CUDA conditional nodes of the graph (``csrc/graph_conditional.cu``);
+    the eager step (the same bank with ``capture`` off) drives the same
+    bodies from the host, syncing once per greedy and per fixed-point
+    round. In turns (eager, captured, captured, eager; twice in vmap),
+    after an eager reference run and the key's first use: the host ms
+    until ``dispatch_chunks_batch`` returns and until the payload is on
+    the host, and the device span of the dispatch (CUDA
+    events around it: the device's work, or its wait for the host); every
+    payload bitwise the eager reference's. Also the key's capture seconds,
+    the memory its first use peaked at and what the graph pools keep with
+    the cache emptied (the graph's and the bodies' apart), the eager
+    round's peak allocated and reserved, the kernel launches of one
+    captured round (one per group per replay: the kernels line's count,
+    from 0), the profiled device-busy ms of a captured and an eager vmap
+    round (a scan round's trace would hold about a million while-node
+    kernels), and the lean tier's captured round, timed first. Nothing is
+    collected: at a threshold of 0 every row of noise is flagged, and
+    resolving them is the host path's time, not the tier's. Returns the
+    launches by mode."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
+    tables = Path(tempfile.mkdtemp()) if profile is None else profile
     sr, chunk = 8000, 60 * 8000
     chunks = [(0.05 * np.random.default_rng(1 + i).standard_normal(chunk)).astype(np.float32)
               for i in range(ROUND_ROWS)]
-    banks = {"lean": make_detector(num_normal, num_marker, 60, dev, sr)._ensure_bank(),
-             "general": make_detector(num_normal, num_marker, 60, dev, sr,
-                                      height_min=0.0)._ensure_bank()}
+    gen = make_detector(num_normal, num_marker, 60, dev, sr, height_min=0.0)._ensure_bank()
+    groups = sum(len(c["groups"]) for c in gen.classes.values())
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
-    out: dict = {}
-    for mode in ("scan", "vmap"):
-        times: dict[str, list] = {"lean": [], "general": []}
-        peaks: dict[str, float] = {}
-        # One general turn in scan (11 s each on an H100), two in vmap.
-        for tier in ("lean", "general", "lean") if mode == "scan" else (
-                "lean", "general", "general", "lean"):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            dispatched = banks[tier].dispatch_chunks_batch(chunks, None, mode=mode)
-            t1 = time.perf_counter()
-            for rec in dispatched:
-                rec[1].numpy()
-            t2 = time.perf_counter()
-            times[tier].append(((t1 - t0) * 1e3, (t2 - t0) * 1e3))
-            peaks[tier] = (torch.cuda.max_memory_allocated() - resident) / 1e9
-            del dispatched
-        out[mode] = {tier: {"dispatch_returns_ms": [a for a, _ in v],
-                            "payload_on_host_ms": [b for _, b in v],
-                            "peak_mem_gb": peaks[tier]} for tier, v in times.items()}
+
+    def dispatch(bank, mode: str) -> tuple[list, float, float, float]:
+        """(payloads, ms until the dispatch returns, ms until the payloads
+        are on the host, device ms between events around the dispatch)."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dispatched = bank.dispatch_chunks_batch(chunks, None, mode=mode)
+        end.record()
+        t1 = time.perf_counter()
+        payloads = [rec[1].numpy().copy() for rec in dispatched]
+        t2 = time.perf_counter()
+        end.synchronize()
+        return payloads, (t1 - t0) * 1e3, (t2 - t0) * 1e3, start.elapsed_time(end)
+
+    def equal(a: list, b: list) -> bool:
+        return len(a) == len(b) and all(
+            x.shape == y.shape and np.array_equal(x.view(np.int32), y.view(np.int32))
+            for x, y in zip(a, b))
+
+    def pools_gb(backend) -> "dict[str, float] | None":
+        """GB reserved in the backend's graph pool and its bodies' pool, from
+        the allocator's segments (None where they carry no pool id)."""
+        segments = torch.cuda.memory_snapshot()
+        if not segments or "segment_pool_id" not in segments[0]:
+            return None
+        by_pool: dict = {}
+        for seg in segments:
+            key = tuple(seg["segment_pool_id"])
+            by_pool[key] = by_pool.get(key, 0) + seg["total_size"]
+        return {name: sum(by_pool.get(tuple(pool), 0) for pool, _ in held.values()) / 1e9
+                for name, held in (("graph", backend._devices), ("bodies", backend._bodies))}
+
+    out: dict = {"node_route": captured.CudaGraphBackend.conditional_route,
+                 "two_way_cond": "two if-nodes, on pred and on ~pred",
+                 "resident_gb": resident / 1e9}
+    # The lean tier's captured round first, for scale; its bank and graph
+    # pools go before the general tier's 16-row key is captured.
+    lean = make_detector(num_normal, num_marker, 60, dev, sr)._ensure_bank()
+    lean_ms = {}
+    for mode in ("vmap", "scan"):
+        lean.dispatch_chunks_batch(chunks, None, mode=mode)  # the key's first use
+        lean_ms[mode] = [dispatch(lean, mode)[2] for _ in range(2)]
+    del lean
+    torch.cuda.empty_cache()
+    launches: dict[str, int] = {}
+    for mode in ("vmap", "scan"):
+        rows = ROUND_ROWS if mode == "vmap" else 1
+        times: dict[str, list] = {"eager": [], "captured": []}
+        gen.capture = False
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eager_reserved = torch.cuda.memory_reserved()
+        ref, *t = dispatch(gen, mode)
+        if mode == "scan":  # a vmap round's first run makes its cuFFT plans: not a turn
+            times["eager"].append(t)
+        eager_peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        eager_peak_reserved = (torch.cuda.max_memory_reserved() - eager_reserved) / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        gen.capture = True
+        first, _, first_ms, _ = dispatch(gen, mode)
+        first_peak = (torch.cuda.max_memory_allocated() - alloc) / 1e9
+        torch.cuda.empty_cache()
+        pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+        split = pools_gb(gen.graphs._backend)
+        if not equal(first, ref):
+            raise AssertionError(f"general tier, {mode}: the captured first use differs from eager")
+        turns = ("captured", "captured", "eager") if mode == "scan" else (
+            ("eager", "captured", "captured", "eager") * 2)
+        for name in turns:
+            gen.capture = name == "captured"
+            candidate_scan.launches = 0
+            got, *t = dispatch(gen, mode)
+            if name == "captured":
+                launches[mode] = candidate_scan.launches
+                if launches[mode] != groups * (ROUND_ROWS // rows):
+                    raise AssertionError(f"general tier, {mode}: {launches[mode]} kernel launches "
+                                         f"in a captured round, want one per group per replay")
+            if not equal(got, ref):
+                raise AssertionError(f"general tier, {mode}: {name} payload differs from eager")
+            times[name].append(t)
+        (key,) = [s for s in gen.graphs.steps() if s.key.rows == rows]
+        if not key.key.general:
+            raise AssertionError("the general tier's key does not name its tier")
+        entry = {
+            **{f"{name}_{field}": [t[i] for t in v] for name, v in times.items()
+               for i, field in enumerate(("dispatch_returns_ms", "payload_on_host_ms",
+                                          "device_span_ms"))},
+            "captured_first_use_ms": first_ms, "capture_s": key.capture_seconds,
+            "replays_a_round": ROUND_ROWS // rows, "kernel_launches_a_round": launches[mode],
+            "first_use_peak_gb": first_peak, "pool_gb": pool_gb, "pools_gb_by_pool": split,
+            "eager_peak_gb": eager_peak, "eager_peak_reserved_gb": eager_peak_reserved,
+            "lean_captured_payload_on_host_ms": lean_ms[mode],
+        }
+        # The repaired fault: a captured dispatch returns long before its
+        # payload reaches the host (eager: within the final copy's time).
+        share = max(a / b for a, b, _ in times["captured"])
+        entry["captured_dispatch_share_of_payload_max"] = share
+        if mode == "vmap":
+            gen.capture = True
+            entry["profile_captured"] = profile_run(
+                lambda: dispatch(gen, mode), tables / "general_plateau_vmap_captured.txt")
+            gen.capture = False
+            entry["profile_eager"] = profile_run(
+                lambda: dispatch(gen, mode), tables / "general_plateau_vmap_eager.txt")
+            gen.capture = True
+            if share >= 0.5:
+                raise AssertionError(f"general tier, vmap: a captured dispatch took {share:.2f} "
+                                     "of the time to its payload")
+        out[mode] = entry
     phase("general_plateau", card=smi, clips=num_normal + num_marker, rows=ROUND_ROWS,
-          section_s=60,
-          resident_gb=resident / 1e9, **out)
-    del banks
+          section_s=60, payloads_equal_to_eager=True, **out)
+    del gen, key
+    gc.collect()  # the bank's graphs and their pools, tens of GB for the 16-row key
+    torch.cuda.empty_cache()
+    return launches
 
 
 def cbs_pcm() -> tuple[np.ndarray, int]:
@@ -2749,7 +2864,7 @@ def main(argv: "list[str] | None" = None) -> int:
     # ── 2b, 3b. The batched shapes: the kernel alone, then the flagship round ──
     batched_rows = phase_scan_batched(dev, smi)
     round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
-    phase_general_plateau(dev, smi)
+    general_launches = phase_general_plateau(dev, smi, profile=args.profile)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──
     built = []
@@ -2884,8 +2999,9 @@ def main(argv: "list[str] | None" = None) -> int:
     g, l, err, ms, plain_ms, bound_ms = kernel_rows[0]
     bg, bl, berr, bms, bplain_ms, bbound_ms = batched_rows[0]
     # Launches of the counted main-path runs, each counted from 0: file
-    # mode (phases 4-5), the batched flagship round (phase 3b), the
-    # serving session in both batch modes and on a stream mesh (phase 9),
+    # mode (phases 4-5), the batched flagship round (phase 3b), one
+    # captured general-plateau round in each mode (phase 3c), the serving
+    # session in both batch modes and on a stream mesh (phase 9),
     # the mesh paths (phase 11), the two processes' paths (phase 12, summed
     # over the processes) and the class-step switches that keep the kernel
     # tier (phase 13; the mask tier launches none). ``ms``, ``plain_ms``
@@ -2893,6 +3009,8 @@ def main(argv: "list[str] | None" = None) -> int:
     # stand beside them. No single PyTorch call computes the scan's five
     # outputs, so no library time.
     launches = {"file_mode": main_path_launches, "flagship_round_vmap": round_launches,
+                "general_plateau_vmap": general_launches["vmap"],
+                "general_plateau_scan": general_launches["scan"],
                 "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"],
                 "serving_stream_mesh": serving_launches["mesh"], **mesh_launches,
                 **multi_process_launches, "variants": variant_launches}

@@ -92,13 +92,19 @@ I16 = _pcm16(_audio(2, 20.0, normal=(3.0, 15.5)))
 I16_ROWS = [(I16[:CHUNK], None), (I16[CHUNK:], I16[:CHUNK])]
 
 
+# A predicate as the node's handle kernel reads it: kept aside, so that a
+# test that forbids host reads of tensors leaves the stand-in's nodes alone.
+_read_pred = torch.Tensor.__bool__
+
+
 class RecordingBackend:
     """Stand-in for ``captured.CudaGraphBackend`` on any device: the
     capture records the callable and runs it once for the static output;
-    a replay runs it again into that output. Its ``conditional`` reads the
-    predicate where the step runs, at capture and at each replay, as the
-    if-node's handle is set at replay, and counts the bodies it ran and
-    skipped."""
+    a replay runs it again into that output. Its ``conditional``,
+    ``cond`` and ``while_loop`` read the predicate where the step runs, at
+    capture and at each replay, as a node's handle is set at replay, and
+    count the bodies and branches they ran and skipped and the loop
+    iterations."""
 
     conditional_route = "stand-in"
 
@@ -107,14 +113,38 @@ class RecordingBackend:
         self.replays = 0
         self.bodies = 0
         self.skipped = 0
+        self.then_taken = 0
+        self.else_taken = 0
+        self.loops = 0
+        self.iterations = 0
+
+    @staticmethod
+    def _check(pred):
+        assert pred.dim() == 0 and pred.dtype == torch.bool
 
     def conditional(self, pred, body):
-        assert pred.dim() == 0 and pred.dtype == torch.bool
-        if bool(pred):
+        self._check(pred)
+        if _read_pred(pred):
             self.bodies += 1
             body()
         else:
             self.skipped += 1
+
+    def cond(self, pred, then_, else_):
+        self._check(pred)
+        if _read_pred(pred):
+            self.then_taken += 1
+            then_()
+        else:
+            self.else_taken += 1
+            else_()
+
+    def while_loop(self, pred, body):
+        self._check(pred)
+        self.loops += 1
+        while _read_pred(pred):
+            self.iterations += 1
+            body()
 
     @staticmethod
     def check(device):
@@ -205,9 +235,9 @@ def test_keys_follow_class_rows_dtype_and_the_banks_switches(stand_in):
     assert {(k.sw, k.rows, k.dtype) for k in keys} == {
         (sw, 4, torch.float32), (sw, 2, torch.int16), (sw, 1, torch.float32)}
     for k in keys:
-        assert (k.device, k.fused, k.scan, k.kernel_tier, k.overlap_save, k.packed_upload,
-                k.marker_gemm, k.skip_empty_verify, k.consts) == (
-                    CPU, True, candidate_scan, True, True, True, False, True, own)
+        assert (k.device, k.fused, k.scan, k.general, k.kernel_tier, k.overlap_save,
+                k.packed_upload, k.marker_gemm, k.skip_empty_verify, k.consts) == (
+                    CPU, True, candidate_scan, False, True, True, True, False, True, own)
     assert bank.graphs._backend.captures == 3
 
 
@@ -390,19 +420,25 @@ def test_vmap_round_is_one_replay_equal_to_eager(stand_in):
     assert [s.replays for s in bank.graphs.steps()] == [2, 2]
 
 
-def test_the_general_plateau_tier_and_the_wide_rerun_stay_eager(stand_in):
-    """``height_min <= 0`` (whose tier syncs with the host) captures
-    nothing; a flooded row's wide rerun runs eagerly beside the captured
-    lean step."""
+def test_the_general_plateau_tier_is_captured_and_the_wide_rerun_stays_eager(stand_in):
+    """``height_min <= 0`` captures its step too (its lane greedy's loops
+    and its two-tier cond are nodes of the graph: one key, its payload the
+    eager step's); a flooded row's wide rerun, which runs at collect time,
+    stays eager beside the captured lean step."""
     general = _bank(capture=True, height_min=0.0)
-    _dispatch(general, ROWS, "vmap")
-    assert general.graphs.steps() == []
+    got = [_payloads(_dispatch(general, ROWS, "vmap")) for _ in range(2)]
+    (step,) = general.graphs.steps()
+    assert step.key.general and step.replays == 1
+    general.capture = False
+    eager = _payloads(_dispatch(general, ROWS, "vmap"))
+    assert all(np.array_equal(_bits(g[sw]), _bits(eager[sw])) for g in got for sw in eager)
     bank = _bank(capture=True)
     # 18 copies 0.62 s apart: more than the lean tier's 16 lanes.
     flood = _audio(4, 30.0, normal=[9.05 + 0.62 * k for k in range(18)]).astype(np.float32)
     chunks = [flood[CHUNK : 2 * CHUNK], F32[:CHUNK]]
     results = bank.process_chunks_batch(chunks, flood[:CHUNK], mode="vmap")
     assert bank.row_reruns + bank.class_reruns >= 1 and len(results[0]["c"]) >= 16
+    assert {s.key.general for s in bank.graphs.steps()} == {False}
     bank.capture = False
     assert bank.process_chunks_batch(chunks, flood[:CHUNK], mode="vmap") == results
 
@@ -410,26 +446,16 @@ def test_the_general_plateau_tier_and_the_wide_rerun_stay_eager(stand_in):
 # ── The warmed lean step reads nothing on the host and uploads nothing ──
 
 
-@pytest.mark.parametrize("tier", ["kernel", "mask"])
-@pytest.mark.parametrize("rows", [1, 4])
-def test_warmed_lean_step_makes_no_host_sync_or_upload(monkeypatch, tier, rows):
-    """The batched lean step at B = 1 and B = 4, kernel and mask tier,
-    after a first run: no tensor value read on the host (``item``,
-    ``tolist``, ``bool()``, ``int()``, ``float()``, an index conversion,
-    ``cpu``, ``numpy``) and no host tensor made for the device
+def _forbid_host_reads(monkeypatch, what):
+    """Make every host read of a tensor's value (``item``, ``tolist``,
+    ``bool()``, ``int()``, ``float()``, an index conversion, ``cpu``,
+    ``numpy``) and every host tensor made for the device
     (``torch.tensor``, ``torch.from_numpy``, ``torch.as_tensor``,
-    ``pin_memory``): what a CUDA graph capture refuses."""
-    if tier == "mask":
-        monkeypatch.setenv("APD_PALLAS", "0")
-    bank = _bank()
-    monkeypatch.delenv("APD_PALLAS", raising=False)
-    (sw, _), = bank.classes.items()
-    sections, lens = _sections(bank, sw, ROWS[:rows])
-    want = bank.step(sw, sections, lens)
+    ``pin_memory``) raise: what a CUDA graph capture refuses."""
 
     def forbidden(name):
         def raise_(*a, **k):
-            raise AssertionError(f"the warmed lean step called {name}")
+            raise AssertionError(f"{what} called {name}")
         return raise_
 
     for name in ("item", "tolist", "__bool__", "__int__", "__float__", "__index__", "cpu",
@@ -437,9 +463,57 @@ def test_warmed_lean_step_makes_no_host_sync_or_upload(monkeypatch, tier, rows):
         monkeypatch.setattr(torch.Tensor, name, forbidden(f"Tensor.{name}"))
     for name in ("tensor", "from_numpy", "as_tensor"):
         monkeypatch.setattr(torch, name, forbidden(f"torch.{name}"))
+
+
+@pytest.mark.parametrize("tier", ["kernel", "mask"])
+@pytest.mark.parametrize("rows", [1, 4])
+def test_warmed_lean_step_makes_no_host_sync_or_upload(monkeypatch, tier, rows):
+    """The batched lean step at B = 1 and B = 4, kernel and mask tier,
+    after a first run: no tensor value read on the host and no host tensor
+    made for the device (:func:`_forbid_host_reads`)."""
+    if tier == "mask":
+        monkeypatch.setenv("APD_PALLAS", "0")
+    bank = _bank()
+    monkeypatch.delenv("APD_PALLAS", raising=False)
+    (sw, _), = bank.classes.items()
+    sections, lens = _sections(bank, sw, ROWS[:rows])
+    want = bank.step(sw, sections, lens)
+    _forbid_host_reads(monkeypatch, "the warmed lean step")
     got = bank.step(sw, sections, lens)
     monkeypatch.undo()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bank.kernel_tier is (tier == "kernel")
+
+
+@pytest.mark.parametrize("tier", ["kernel", "mask"])
+@pytest.mark.parametrize("rows", [1, 4])
+def test_warmed_general_step_makes_no_host_sync_or_upload(stand_in, monkeypatch, tier, rows):
+    """The general-plateau step (``height_min = 0``) at B = 1 and B = 4,
+    kernel and mask tier, captured and warmed: a replay reads no tensor on
+    the host and makes no host tensor for the device
+    (:func:`_forbid_host_reads`) outside the graph's nodes, whose
+    predicates the stand-in reads as a node's handle kernel does on the
+    card. Its eager step loops on the host; the replay's payload is its
+    payload."""
+    if tier == "mask":
+        monkeypatch.setenv("APD_PALLAS", "0")
+    bank = _bank(capture=True, height_min=0.0)
+    monkeypatch.delenv("APD_PALLAS", raising=False)
+    (sw, _), = bank.classes.items()
+    sections, lens = _sections(bank, sw, ROWS[:rows])
+    want = bank.step(sw, sections, lens)  # first use: eager, then the capture
+    _forbid_host_reads(monkeypatch, "the warmed general step")
+    got = bank.step(sw, sections, lens)
+    monkeypatch.undo()
+    (step,) = bank.graphs.steps()
+    assert step.key.general and step.replays == 1
+    assert bank.graphs._backend.iterations > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    bank.capture = False
+    with pytest.raises(AssertionError, match="the eager general step called Tensor"):
+        _forbid_host_reads(monkeypatch, "the eager general step")
+        bank.step(sw, sections, lens)
+    monkeypatch.undo()
     assert bank.kernel_tier is (tier == "kernel")
 
 

@@ -727,10 +727,13 @@ def test_captured_mask_tier_equals_eager(cuda, monkeypatch):
     assert [s.key.kernel_tier for s in bank.graphs.steps()] == [False]
 
 
-def test_captured_bank_and_stream_shards_equal_eager(cuda):
+@pytest.mark.parametrize("height_min", [None, 0.0], ids=["lean", "general"])
+def test_captured_bank_and_stream_shards_equal_eager(cuda, height_min):
     """A bank-sharded chunk on 3 logical shards (a graph per shard's slice)
     and a stream-sharded round on 2 (the shards share the bank's graph):
-    payloads bitwise the eager ones."""
+    payloads bitwise the eager ones, in the lean tier and in the
+    general-plateau tier, whose while and if bodies read the shard's
+    sliced constants."""
     import numpy as np
 
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
@@ -739,13 +742,15 @@ def test_captured_bank_and_stream_shards_equal_eager(cuda):
 
     clips, audio = _mesh_clips(np)
     sr = 8000
-    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10,
+                                     height_min=height_min)._ensure_bank()
     c0, c1 = audio[0, : 10 * sr], audio[0, 10 * sr : 20 * sr]
     sharded = BankShardedBank(bank, make_mesh({"bank": 3}, devices=[cuda] * 3))
     eager, got = _eager_then_captured(
         bank, lambda: [rec[1].numpy().copy() for rec in sharded.dispatch_chunk(c1, c0)])
     assert all(_bitwise(g, eager) for g in got)
     assert len({s.key.consts for s in bank.graphs.steps()}) == 3 * len(bank.classes)
+    assert {s.key.general for s in bank.graphs.steps()} == {height_min == 0.0}
 
     rows = RowSharding(make_mesh({"stream": 2}, devices=[cuda] * 2), "stream")
     chunks = [audio[0, : 10 * sr], audio[1, : 10 * sr], np.zeros(0, np.float32),
@@ -880,3 +885,98 @@ def test_staging_buffers_are_pinned_and_recycled_on_the_card(cuda):
     second = bank.dispatch_chunks_batch(rounds[1], None)
     assert all(rec[4] is b for rec, b in zip(second, buffers))
     assert bank.collect_chunks_batch(second) == cpu.process_chunks_batch(rounds[1], None)
+
+
+# ── The general-plateau tier's conditional nodes (csrc/graph_conditional.cu) ──
+
+
+def test_while_node_runs_zero_one_and_many_iterations(cuda):
+    """A captured ``CudaGraphBackend.while_loop`` whose body counts up to a
+    limit set between replays: no pass for a limit of 0, then 1, 2 and
+    1,000 passes, the state updated in place."""
+    from audio_pattern_detector_tpu_torch.models.captured import CudaGraphBackend
+
+    backend = CudaGraphBackend()
+    limit = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def step():
+        i = torch.zeros((), dtype=torch.int64, device=cuda)
+        total = torch.zeros((), dtype=torch.int64, device=cuda)
+        go = i < limit
+
+        def body():
+            i.add_(1)
+            total.add_(i * i)
+            torch.lt(i, limit, out=go)
+
+        backend.while_loop(go, body)
+        return torch.stack([i, total])
+
+    replay, out = backend.capture(cuda, step)
+    for n in (0, 1, 2, 1000, 0):
+        limit.fill_(n)
+        replay()
+        torch.cuda.synchronize()
+        assert out.tolist() == [n, sum(k * k for k in range(1, n + 1))]
+
+
+def test_two_way_cond_takes_each_side(cuda):
+    """A captured ``CudaGraphBackend.cond``: each replay runs the side its
+    predicate names (each side's body an FFT and an element-wise op, as
+    the verifiers' are), never both."""
+    from audio_pattern_detector_tpu_torch.models.captured import CudaGraphBackend
+
+    backend = CudaGraphBackend()
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    x = torch.randn(8, 512, device=cuda)
+    torch.fft.rfft(x)  # the plan exists before the capture
+
+    def step():
+        out = torch.full((8, 257), -1.0, device=cuda)
+        backend.cond(flag, lambda: out.copy_(torch.fft.rfft(x).abs()),
+                     lambda: out.copy_(torch.fft.rfft(x).angle()))
+        return out
+
+    replay, out = backend.capture(cuda, step)
+    for side in (True, False, False, True):
+        flag.fill_(side)
+        replay()
+        torch.cuda.synchronize()
+        spectrum = torch.fft.rfft(x)
+        assert torch.equal(out, spectrum.abs() if side else spectrum.angle())
+
+
+@pytest.mark.parametrize("tier", ["kernel", "mask"])
+@pytest.mark.parametrize("mode", ["vmap", "scan"])
+def test_captured_general_step_equals_eager(cuda, monkeypatch, tier, mode):
+    """``height_min = 0``: ``program`` gives the captured step, whose graph
+    holds the lane greedy's while nodes and the two-tier verify's if-nodes;
+    its round is bitwise the eager round, also after torch's cuFFT plan
+    cache is emptied, and on the CPU's results."""
+    from audio_pattern_detector_tpu_torch.models.captured import CapturedStep
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    if tier == "mask":
+        monkeypatch.setenv("APD_PALLAS", "0")
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10,
+                                     height_min=0.0)._ensure_bank()
+    cpu = TorchAudioPatternDetector(clips, device="cpu", seconds_per_chunk=10,
+                                    height_min=0.0)._ensure_bank()
+    monkeypatch.delenv("APD_PALLAS", raising=False)
+    (sw,) = bank.classes
+    assert isinstance(bank.program(sw, cuda, 4), CapturedStep)
+
+    def run(r=0):
+        return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
+            rounds[r], None, mode=mode)]
+
+    eager, got = _eager_then_captured(bank, run)
+    assert all(_bitwise(g, eager) for g in got)
+    assert {(s.key.general, s.key.kernel_tier) for s in bank.graphs.steps()} == {
+        (True, tier == "kernel")}
+    torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
+    torch.cuda.empty_cache()
+    assert _bitwise(run(), eager)
+    other = bank.dispatch_chunks_batch(rounds[1], None, mode=mode)
+    assert bank.collect_chunks_batch(other) == cpu.process_chunks_batch(rounds[1], None)

@@ -47,6 +47,19 @@ def test_plateau_local_maxima_mask_identical(seed, l, valid_len):
     np.testing.assert_array_equal(got, want)
 
 
+def test_plateau_mask_in_row_passes_identical_to_jax():
+    """More rows than one pass takes (two full passes and a short one),
+    each row with its own valid length: JAX's mask, row for row."""
+    g = 2 * tpeaks._PLATEAU_ROWS + 5
+    x = _plateau_rows(g, 700, 7, 700)
+    for gi in range(g):
+        x[gi, 400 + gi:] = -np.inf
+    want = np.asarray(jpeaks.plateau_local_maxima_mask(jnp.asarray(x)))
+    got = tpeaks.plateau_local_maxima_mask(_t(x)).numpy()
+    assert want[: tpeaks._PLATEAU_ROWS].any() and want[-5:].any()
+    np.testing.assert_array_equal(got, want)
+
+
 def _scored(g, l, n_cand, seed, tie_levels=None):
     """(G, L) -inf rows with ``n_cand`` finite entries each; with
     ``tie_levels`` every height is drawn from that small set (many ties)."""

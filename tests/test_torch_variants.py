@@ -217,7 +217,8 @@ def test_sequential_greedy_equals_parallel(monkeypatch, k, n_alive, l, m):
     routes = []
     for name in ("_greedy_distance_sequential", "_greedy_distance_parallel"):
         fn = getattr(tpeaks, name)
-        monkeypatch.setattr(tpeaks, name, lambda c, d, fn=fn, name=name: routes.append(name) or fn(c, d))
+        monkeypatch.setattr(tpeaks, name, lambda c, d, loop=None, fn=fn, name=name:
+                            routes.append(name) or fn(c, d, loop))
     np.testing.assert_array_equal(tpeaks.greedy_distance_filter(tc, m).numpy(), want)
     assert routes == ["_greedy_distance_parallel"]  # k is within PARALLEL_GREEDY_MAX_K
     assert 0 < want.sum() < alive.sum()
