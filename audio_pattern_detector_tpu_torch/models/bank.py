@@ -48,6 +48,12 @@ variable and read when the bank is built, as the JAX bank reads them:
   the captured graph (``models/captured.py``), which needs no host sync.
   The eager step, which has no node, always verifies; the payload is the
   same either way.
+* ``APD_GREEDY_UNROLL=1``: the captured lean step runs the block-wise
+  greedy's ``r_max`` rounds unrolled. By default (unset or "0", as in JAX)
+  the rounds are the body of a CUDA while node that exits once every row
+  is exhausted (``ops/peaks.py::greedy_survivors_from_blocks``), so a
+  candidate-free group runs none. The eager step always runs the unrolled
+  rounds; the payload is the same either way.
 
 ``APD_MARKER_GEMM`` acts inside the marker verifier and is read at each
 call (``ops/verify.py``). :meth:`PatternBank.step` runs a class step
@@ -67,13 +73,21 @@ graph, the counterpart of the JAX bank's jitted class-step programs
 (``models/captured.py``): one graph per (device, class, B, upload dtype,
 tier, switches, constants), the batched form with B = 1 for one section.
 "scan" replays the B = 1 graph once per row, "vmap" the (B) graph once per
-round. In the general-plateau tier the lane greedy's while loop and the
-two-tier verify's cond are CUDA conditional nodes inside the graph, so
-that tier's dispatch makes no host sync either. ``capture=False`` (a
-constructor argument, and the ``capture`` attribute) runs the eager step
-instead, whose general-plateau tier drives the same loops from the host;
-the CPU has only the eager step. The wide rerun and the host path run at collect time, sync with
-the host and stay eager.
+round. A graph keeps its memory pools for as long as its bank lives, about
+twice the eager round's peak, so no graph is wider than :data:`GRAPH_ROWS`:
+a round of more rows runs as replays of that width
+(:class:`models.captured.SplitRound`), each writing its rows of the round's
+payload, the last one's spare rows idle (zero-length). The eager step runs
+a wide round in the same W-row steps, so the two agree bit for bit at
+every width (cuFFT may round a batch of B rows otherwise than W-row ones).
+The lean greedy's rounds (unless ``APD_GREEDY_UNROLL=1``), and in the
+general-plateau tier the lane greedy's while loop and the two-tier
+verify's cond, are CUDA conditional nodes inside the graph, so no
+dispatch makes a host sync. ``capture=False`` (a constructor argument, and
+the ``capture`` attribute) runs the eager step instead, whose lean greedy
+runs its rounds unrolled and whose general-plateau tier drives the same
+loops from the host; the CPU has only the eager step. The wide rerun and
+the host path run at collect time, sync with the host and stay eager.
 
 A ``"vmap"`` round can also be spread over a device mesh (``sharding=``):
 its rows split contiguously over the mesh's stream axis, each shard's rows
@@ -112,6 +126,7 @@ from audio_pattern_detector_tpu_torch.models import hostpath
 from audio_pattern_detector_tpu_torch.models.captured import (
     CapturedStep,
     EagerStep,
+    SplitRound,
     StepGraphs,
     StepKey,
 )
@@ -161,6 +176,12 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
 
 _BIG = 2**30  # dead-lane position (== ops/peaks.SURVIVOR_POS_SENTINEL)
 _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
+
+# The widest round one class step runs. A captured key keeps its graph
+# pools, about twice its eager round's peak, for as long as its bank lives
+# (scripts/probe_general_memory.py); a wider round, captured or eager, is
+# steps of this width.
+GRAPH_ROWS = 16
 # branch(pred, body): run body() where the 0-d device bool ``pred`` holds
 # (models/captured.py; the lean tail's skip of candidate-free groups).
 Branch = Callable[[torch.Tensor, Callable[[], Any]], None]
@@ -288,6 +309,7 @@ class PatternBank:
         self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
         self.overlap_save = overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
         self.skip_empty_verify = os.environ.get("APD_SKIP_EMPTY_VERIFY", "1") != "0"
+        self.greedy_unroll = os.environ.get("APD_GREEDY_UNROLL", "0") == "1"
         # Staging buffers by (dtype, B, S), recycled at collect time.
         self._staging: dict[tuple[np.dtype, int, int], list[NDArray[Any]]] = {}
         # Captured class steps (models/captured.py): the default on a CUDA
@@ -497,14 +519,17 @@ class PatternBank:
         consts: "tuple[LoudnessConsts, tuple] | None" = None,
         scan=candidate_scan,
         fused: bool = True,
-    ) -> "CapturedStep | EagerStep":
+    ) -> "CapturedStep | SplitRound | EagerStep":
         """The class step of class ``sw`` on ``device`` under the bank's
         switches, as an object to ``load(section, n_valid)`` and ``run()``:
         a (B, S) batch of ``rows`` sections with a (B,) length tensor, or
         one (S,) section with an int length (``rows=None``), in the upload
         ``dtype``. With ``capture`` on, the captured step of its key
         (``models/captured.py``), in the lean and the general-plateau tier
-        (``height_min <= 0``) alike; else the eager step. ``consts``
+        (``height_min <= 0``) alike; else the eager step. For more rows
+        than :data:`GRAPH_ROWS`, a :class:`SplitRound` of steps of that
+        width, captured or eager as above: no width falls back to the eager
+        step, and both run a round in the same W-row steps. ``consts``
         replaces the class's own (loud, group_consts): a replica on another
         device, or a bank shard's slice. ``scan`` as in :func:`class_step`;
         ``fused=False`` returns each group's payload."""
@@ -518,16 +543,21 @@ class PatternBank:
             kernel_tier=self.kernel_tier,
         )
         device = canonical_device(device)
+        rows = 1 if rows is None else rows
+        width = min(rows, GRAPH_ROWS)
         if not self.capture:
-            return EagerStep(fn, device)
-        key = StepKey(
-            device=device, sw=sw, rows=1 if rows is None else rows, dtype=dtype, fused=fused,
-            scan=scan, general=self.height_min <= 0, kernel_tier=self.kernel_tier,
-            overlap_save=self.overlap_save, packed_upload=self.packed_upload,
-            marker_gemm=_marker_gemm_enabled(), skip_empty_verify=self.skip_empty_verify,
-            consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
-        )
-        return self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
+            step = EagerStep(fn, device, width)
+        else:
+            key = StepKey(
+                device=device, sw=sw, rows=width, dtype=dtype, fused=fused, scan=scan,
+                general=self.height_min <= 0, kernel_tier=self.kernel_tier,
+                overlap_save=self.overlap_save, packed_upload=self.packed_upload,
+                marker_gemm=_marker_gemm_enabled(), skip_empty_verify=self.skip_empty_verify,
+                greedy_unroll=self.greedy_unroll,
+                consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
+            )
+            step = self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
+        return step if width == rows else SplitRound(step, rows, width, fused)
 
     def step(
         self,
@@ -984,6 +1014,7 @@ def lean_group_packed(
     self_corr_max: torch.Tensor,  # (R,) f32
     scan=candidate_scan,
     branch: "Branch | None" = None,
+    loop: "Loop | None" = None,
 ) -> torch.Tensor:
     """Lean tier of one group: candidate scan, in-program greedy, verify.
 
@@ -993,8 +1024,10 @@ def lean_group_packed(
     the space every tier compares in, so unflagged rows are bitwise the
     full tier's. The scan's near-collapse flag routes the rows where f32
     division could make the two spaces disagree. ``branch`` as in
-    :func:`_lean_tail`; the normalised correlation only the normal
-    verifier reads is formed inside the verify.
+    :func:`_lean_tail`; the normal verifier normalises only the windows it
+    reads (``verify_normal``'s ``normalise``). ``loop`` runs the greedy's
+    rounds as a while loop (:func:`greedy_survivors_from_blocks`); without
+    it they are unrolled.
     """
     hm = f32(height_min)  # compares as JAX's f32 threshold
     g, l = corr.shape
@@ -1030,7 +1063,7 @@ def lean_group_packed(
 
     k_lanes = min(_SMALL_TIER, k_detect)
     pos, height, overflow = greedy_survivors_from_blocks(
-        bwork0, gather_scored, m, k_lanes, BLOCK
+        bwork0, gather_scored, m, k_lanes, BLOCK, loop
     )
     needs_full = ~plateau_min & (overflow | near)
     flag = torch.where(plateau_min, 1.0, torch.where(needs_full, 2.0, 0.0))
@@ -1052,6 +1085,7 @@ def mask_group_packed(
     height_min: float,
     verify_consts: "NormalVerifyConsts | MarkerVerifyConsts",
     branch: "Branch | None" = None,
+    loop: "Loop | None" = None,
 ) -> torch.Tensor:
     """Mask lean tier of one group (``APD_PALLAS=0``), the lean branch of
     the JAX ``_lean_group_packed``: the short-run candidate mask over the
@@ -1059,7 +1093,8 @@ def mask_group_packed(
     verify. No kernel runs. Flags: 1 = an equal run of 4 or more at the threshold
     (host path), 2 = more than 16 greedy survivors (wide rerun); this tier
     has no near-collapse flag, since it compares in one space only.
-    ``branch`` as in :func:`_lean_tail`."""
+    ``branch`` as in :func:`_lean_tail`, ``loop`` as in
+    :func:`lean_group_packed`."""
     hm = f32(height_min)
     x = torch.where(
         torch.arange(corr.shape[1], device=corr.device)[None, :] < row_limit(valid_len),
@@ -1068,7 +1103,7 @@ def mask_group_packed(
     plateau = long_plateau_present(x, hm)
     k_lanes = min(_SMALL_TIER, k_detect)
     scored = torch.where(short_run_local_maxima_mask(x) & (x >= hm), x, -math.inf)
-    pos, height, overflow = greedy_survivors_blockwise(scored, m, k_lanes)
+    pos, height, overflow = greedy_survivors_blockwise(scored, m, k_lanes, loop=loop)
     flag = torch.where(plateau, 1.0, torch.where(overflow, 2.0, 0.0))
     return _lean_tail(
         norm, corr, valid_len, kind, m, k_verify, verify_consts, pos, height, flag, k_lanes,
@@ -1216,11 +1251,14 @@ def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
 
 
 def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool,
-                   cond: "Cond | None" = None) -> torch.Tensor:
+                   cond: "Cond | None" = None, normalise=None) -> torch.Tensor:
+    """Accept bits of the group's lanes: the marker verifier reads the
+    section, the normal one the correlation (raw, with ``normalise``, as
+    :func:`verify_normal` takes it)."""
     def verify_accept(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         if kind == "marker":
             return verify_marker(norm, p, a, verify_consts)
-        return verify_normal(corr, p, a, verify_consts)[0]
+        return verify_normal(corr, p, a, verify_consts, normalise)[0]
 
     if two_tier and vpos.shape[1] > _SMALL_TIER:
         return _two_tier_accept(verify_accept, vpos, valive, cond)
@@ -1269,8 +1307,8 @@ def _lean_tail(
     valive = sv > -_BIG
 
     def verify() -> torch.Tensor:
-        corr_n = corr if denom is None else _normalised(corr, valid_len, denom)
-        return _verify_accept(kind, norm, corr_n, verify_consts, vpos, valive, two_tier=wide)
+        return _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier=wide,
+                              normalise=None if denom is None else (valid_len, denom))
 
     if branch is None:
         accept = verify()
@@ -1318,9 +1356,11 @@ def class_step(
 
     ``branch`` reaches the lean tiers' verify tail (:func:`_lean_tail`); the
     wide and general-plateau tiers verify unconditionally, as in JAX.
-    ``loop`` and ``cond`` reach the general-plateau tier's lane greedy and
-    two-tier verify (:func:`general_group_packed`); the lean and wide tiers
-    take neither."""
+    ``loop`` reaches the lean tiers' block-wise greedy (a while loop over
+    its rounds; without it they are unrolled) and the general-plateau
+    tier's lane greedy (without it, host loops); ``cond`` reaches that
+    tier's two-tier verify (:func:`general_group_packed`). The wide tier
+    takes neither."""
     batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)
@@ -1354,11 +1394,11 @@ def class_step(
             outs.append(wide_group_packed(*args))
         elif not kernel_tier:
             outs.append(
-                mask_group_packed(*args, branch=branch) if height_min > 0
+                mask_group_packed(*args, branch=branch, loop=loop) if height_min > 0
                 else general_group_packed(*args, loop=loop, cond=cond)
             )
         elif height_min > 0:
-            outs.append(lean_group_packed(*args, self_corr_max, scan, branch=branch))
+            outs.append(lean_group_packed(*args, self_corr_max, scan, branch=branch, loop=loop))
         else:
             outs.append(rich_group_packed(*args, self_corr_max, scan, loop=loop, cond=cond))
     return outs

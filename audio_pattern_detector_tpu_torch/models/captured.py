@@ -17,7 +17,8 @@ payloads) is captured once per key into a CUDA graph and replayed:
   dtype, fused or per-group payloads, the candidate scan, the tier (lean,
   or general-plateau for ``height_min <= 0``) and its form (kernel or
   ``APD_PALLAS=0`` mask), the bank's switches
-  (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``), ``APD_MARKER_GEMM`` as
+  (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``,
+  ``APD_SKIP_EMPTY_VERIFY``, ``APD_GREEDY_UNROLL``), ``APD_MARKER_GEMM`` as
   it reads at the call, and the identity of the constants the step reads:
   a replica on another device or a bank shard's slice is another key, and
   its graph holds those constants for as long as it lives.
@@ -30,7 +31,16 @@ payloads) is captured once per key into a CUDA graph and replayed:
 * **Replay**: copy the rows and lengths into the static inputs, replay on
   the current stream, copy the payload out of the static output (one small
   device copy), so that no later replay overwrites a payload a caller
-  holds.
+  holds. A call of fewer rows than B leaves the rest idle: zero samples,
+  zero length.
+* **Rounds wider than a graph** (:class:`SplitRound`): a graph keeps its
+  pools for its bank's life, so the bank caps a key's B
+  (``models/bank.py::GRAPH_ROWS``) and a round of more rows runs as
+  ceil(B / W) replays of the W-row key, each writing its rows of the
+  round's payload; the last replay's spare rows are idle and dropped. Idle
+  rows (rather than a second key of B mod W rows) keep one graph and one
+  set of static inputs per width. The eager step runs a wide round in the
+  same W-row steps, idle rows included, so the two agree bit for bit.
 * **Candidate-free groups skip the verify tail** (``APD_SKIP_EMPTY_VERIFY``,
   on by default, JAX ``models/bank.py:1306-1330``): the capture hands the
   step the backend's ``conditional(pred, body)``, and the lean tail captures
@@ -45,6 +55,13 @@ payloads) is captured once per key into a CUDA graph and replayed:
   round has a live lane. The eager first run verifies every group, so the
   cuFFT plans and the DFT matrix the body replays exist before the
   capture.
+* **The lean greedy's rounds are a while node** (``APD_GREEDY_UNROLL``
+  unset or "0", the JAX default, JAX ``ops/peaks.py:542-565``): the capture
+  hands the lean step the backend's ``while_loop(pred, body)``, the body one
+  round of ``ops/peaks.py::greedy_survivors_from_blocks``, so a group whose
+  rows have no candidate runs no round. ``APD_GREEDY_UNROLL=1`` captures the
+  ``r_max`` rounds unrolled. The eager first run always runs them unrolled:
+  every cuFFT plan and gather buffer exists before the capture either way.
 * **The general-plateau tier's control flow stays on the device**: the
   capture hands the step the backend's ``while_loop(pred, body)`` and
   ``cond(pred, then_, else_)``, the counterparts of the JAX tier's
@@ -79,6 +96,7 @@ from collections.abc import Callable
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
@@ -101,6 +119,7 @@ class StepKey(NamedTuple):
     packed_upload: bool  # False: APD_PACKED_UPLOAD=0
     marker_gemm: bool  # APD_MARKER_GEMM=1 at the call
     skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
+    greedy_unroll: bool  # APD_GREEDY_UNROLL=1: the lean greedy's rounds unrolled, no while node
     consts: tuple[int, ...]  # ids of the loudness and group constants
 
 
@@ -118,11 +137,14 @@ class EagerStep:
     """The class step run op by op (``capture=False`` and the CPU). A
     single section with an int length runs the single-section form; a
     length tensor is copied into a buffer of the step's own, as the
-    captured step copies it into its static input."""
+    captured step copies it into its static input. A batch of fewer than
+    ``rows`` rows (a :class:`SplitRound`'s last step) runs with the rest
+    idle, as the captured step of ``rows`` rows runs it."""
 
-    def __init__(self, fn: Callable, device: torch.device) -> None:
+    def __init__(self, fn: Callable, device: torch.device, rows: int = 1) -> None:
         self._fn = fn
         self.device = device
+        self.rows = rows
 
     def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
         self._section = section.to(self.device)
@@ -131,6 +153,10 @@ class EagerStep:
                 self._n_valid: "int | torch.Tensor" = torch.empty(
                     n_valid.shape, dtype=torch.int32, device=self.device)
             self._n_valid.copy_(n_valid, non_blocking=True)
+            idle = self.rows - n_valid.shape[0]
+            if idle > 0:
+                self._section = F.pad(self._section, (0, 0, 0, idle))
+                self._n_valid = F.pad(self._n_valid, (0, idle))
         else:
             self._n_valid = int(n_valid)
 
@@ -291,14 +317,21 @@ class CapturedStep:
         self.capture_seconds: "float | None" = None  # first use: eager run and capture
 
     def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
-        """Copy one call's rows ((B, S), or one (S,) row) and lengths into
-        the static inputs, in stream order: lengths from pinned host memory
-        (the dispatch path's) do not make the host wait for the stream."""
-        self.section.copy_(section.reshape(self.section.shape))
+        """Copy one call's rows ((n, S) with n <= B, or one (S,) row) and
+        lengths into the static inputs, in stream order: lengths from
+        pinned host memory (the dispatch path's) do not make the host wait
+        for the stream. Rows past the call's are idle: zero samples, zero
+        length."""
+        rows = section.reshape(-1, self.section.shape[1])
+        n = rows.shape[0]
+        self.section[:n].copy_(rows)
         if isinstance(n_valid, torch.Tensor):
-            self.n_valid.copy_(n_valid.reshape(self.n_valid.shape), non_blocking=True)
+            self.n_valid[:n].copy_(n_valid.reshape(n), non_blocking=True)
         else:
-            self.n_valid.fill_(n_valid)
+            self.n_valid[:n].fill_(n_valid)
+        if n < self.key.rows:
+            self.section[n:].zero_()
+            self.n_valid[n:].zero_()
 
     def _step(self, branch: "Callable | None" = None, loop: "Callable | None" = None,
               cond: "Callable | None" = None) -> Any:
@@ -323,7 +356,10 @@ class CapturedStep:
             self.device, lambda: self._step(cond=both_branches if general else None))
         counted = candidate_scan.launches
         branch = self._backend.conditional if self.key.skip_empty_verify else None
-        loop, cond = (self._backend.while_loop, self._backend.cond) if general else (None, None)
+        # The general tier's lane greedy and the lean greedy's rounds (unless
+        # unrolled) are while nodes; the general tier's two-tier verify a cond.
+        loop = self._backend.while_loop if general or not self.key.greedy_unroll else None
+        cond = self._backend.cond if general else None
         try:
             self._replay, self._out = self._backend.capture(
                 self.device, lambda: self._step(branch, loop, cond))
@@ -332,6 +368,36 @@ class CapturedStep:
             candidate_scan.launches = counted  # a capture executes nothing
         self.capture_seconds = time.perf_counter() - t0
         return out
+
+
+class SplitRound:
+    """A round of more rows than the widest graph: its W-row step
+    (:class:`CapturedStep` or :class:`EagerStep`) run once per W rows, the
+    steps' rows of the (B, total) payload (or of each group's round-major
+    (B * G, 2K+2) payload) joined in row order; the last step's spare rows
+    run idle and are dropped."""
+
+    def __init__(self, step: "CapturedStep | EagerStep", rows: int, width: int,
+                 fused: bool) -> None:
+        self.step = step
+        self.rows = rows
+        self.width = width
+        self.fused = fused
+        self.device = step.device
+
+    def load(self, section: torch.Tensor, n_valid: torch.Tensor) -> None:
+        self._section, self._n_valid = section, n_valid
+
+    def run(self) -> Any:
+        """The round's payload, owned by the caller."""
+        parts = []
+        for lo in range(0, self.rows, self.width):
+            hi = min(lo + self.width, self.rows)
+            self.step.load(self._section[lo:hi], self._n_valid[lo:hi])
+            out = self.step.run()
+            parts.append([t[: t.shape[0] // self.width * (hi - lo)] for t in _tensors(out)])
+        joined = [torch.cat(group) for group in zip(*parts)]
+        return joined[0] if self.fused else joined
 
 
 class StepGraphs:

@@ -7,10 +7,14 @@ is identical to its JAX counterpart on the same f32 input.
 Two tiers, as in the JAX package:
 
 * lean (every launch): the short-run masks and the block-wise greedy
-  ``greedy_survivors_from_blocks``, run as ``r_max`` statically unrolled
-  rounds (the JAX ``APD_GREEDY_UNROLL=1`` branch, identical results). Its
-  while-loop exit test is not ported: in eager torch it would cost a
-  device-to-host sync every round.
+  ``greedy_survivors_from_blocks`` in both of the JAX forms, with identical
+  results. Given a ``loop(pred, body)`` hook (:data:`Loop`) its rounds are
+  the body of a while loop that exits once every row is exhausted or
+  ``r_max`` rounds have run (the JAX default, ``APD_GREEDY_UNROLL`` unset
+  or "0"): a captured lean step passes its backend's CUDA while node, so a
+  candidate-free group runs no round. Without the hook it runs ``r_max``
+  statically unrolled rounds (the JAX ``APD_GREEDY_UNROLL=1`` branch): the
+  eager step's form, whose exit test would cost a host sync every round.
 * full (the wide rerun of flagged rows and the ``height_min <= 0`` tier):
   the general plateau mask, top-k capture and the lane greedy. Each
   ``while_loop`` is one body over state in tensors updated in place, run
@@ -152,12 +156,25 @@ def long_plateau_present(
 GatherScored = Callable[[torch.Tensor], "tuple[torch.Tensor, torch.Tensor]"]
 
 
+# ``loop(pred, body)``: run ``body()`` while the 0-d device bool ``pred``
+# holds, ``body`` rewriting ``pred`` in place (``lax.while_loop``; on the
+# device ``CudaGraphBackend.while_loop``, on the host :func:`host_loop`).
+Loop = Callable[[torch.Tensor, Callable[[], None]], None]
+
+
+def host_loop(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """The host's :data:`Loop`: one sync a pass, to read ``pred``."""
+    while bool(pred):
+        body()
+
+
 def greedy_survivors_from_blocks(
     bwork0: torch.Tensor,  # (G, nb) per-block max of the scored rows
     gather_scored: GatherScored,  # (G,) block ids -> ((G, W) vals, (G, W) positions)
     min_distance: int,
     r_max: int,
     block: int,
+    loop: "Loop | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact greedy tallest-first distance survivors over a block summary.
 
@@ -169,6 +186,21 @@ def greedy_survivors_from_blocks(
     drop fully suppressed blocks, recompute the <= 2 boundary blocks. A
     gathered max that disagrees with the seed refuses the round for that
     row, which then ends with ``overflow``.
+
+    Two forms, as in JAX, with identical results:
+
+    * ``loop`` given (the JAX ``lax.while_loop``): the state (``bwork``,
+      the kept lanes, a 0-d round counter ``r`` and the 0-d bool ``pred``)
+      is allocated before the loop and updated in place; the body is one
+      round, which writes column ``r`` of the kept lanes through the device
+      index and rewrites ``pred = (r < r_max) & any(bwork > -inf)``. A
+      captured step passes a CUDA while node, so a group whose rows have
+      no candidate runs no round.
+    * without it (``APD_GREEDY_UNROLL=1``, and the eager step): ``r_max``
+      unrolled rounds; an exhausted row's later rounds change nothing.
+
+    Either way the lanes past a row's last survivor hold the sentinels and
+    ``overflow`` is read from ``bwork`` after the rounds.
 
     Returns (pos (G, r_max) int64 in descending height order with the
     sentinel past each row's survivors, height (G, r_max) with -inf
@@ -188,8 +220,10 @@ def greedy_survivors_from_blocks(
 
     kept_pos = torch.full((g, r_max), SURVIVOR_POS_SENTINEL, dtype=torch.int64, device=dev)
     kept_h = torch.full((g, r_max), -math.inf, dtype=bwork0.dtype, device=dev)
-    bwork = bwork0
-    for r in range(r_max):
+
+    def round_step(bwork: torch.Tensor, r: "int | torch.Tensor") -> torch.Tensor:
+        """One round: writes column ``r`` (an int, or a 0-d device index)
+        of the kept lanes and returns the next ``bwork``."""
         bi = bwork.argmax(dim=1)
         bh = bwork.gather(1, bi[:, None])[:, 0]
         blkm, offs = masked_vals(bi, kept_pos)
@@ -197,8 +231,13 @@ def greedy_survivors_from_blocks(
         p = offs.gather(1, j[:, None])[:, 0]
         h = blkm.amax(dim=1)
         alive = (bh > -math.inf) & (h == bh)
-        kept_pos[:, r] = torch.where(alive, p, sentinel)
-        kept_h[:, r] = torch.where(alive, h, neg_inf)
+        new_pos, new_h = torch.where(alive, p, sentinel), torch.where(alive, h, neg_inf)
+        if isinstance(r, int):
+            kept_pos[:, r] = new_pos
+            kept_h[:, r] = new_h
+        else:
+            kept_pos.index_copy_(1, r.view(1), new_pos[:, None])
+            kept_h.index_copy_(1, r.view(1), new_h[:, None])
 
         lo = p - (m - 1)
         hi = p + (m - 1)
@@ -210,6 +249,23 @@ def greedy_survivors_from_blocks(
             cur = bwork.gather(1, b_edge[:, None])[:, 0]
             upd = torch.where(alive, torch.minimum(cur, mv.amax(dim=1)), cur)
             bwork = torch.where(barange == b_edge[:, None], upd[:, None], bwork)
+        return bwork
+
+    if loop is None:
+        bwork = bwork0
+        for r in range(r_max):
+            bwork = round_step(bwork, r)
+    else:
+        bwork = bwork0.clone()
+        r = torch.zeros((), dtype=torch.int64, device=dev)
+        pred = (r < r_max) & (bwork > -math.inf).any()
+
+        def body() -> None:
+            bwork.copy_(round_step(bwork, r))
+            r.add_(1)
+            pred.copy_((r < r_max) & (bwork > -math.inf).any())
+
+        loop(pred, body)
     overflow = (bwork > -math.inf).any(dim=1)
     return kept_pos, kept_h, overflow
 
@@ -222,11 +278,12 @@ def greedy_survivors_blockwise(
     min_distance: int,
     r_max: int,
     block: int = _BLOCK,
+    loop: "Loop | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact greedy-distance survivors for any raw candidate count, over a
     materialised (G, L) scored array: its block maxima seed
     :func:`greedy_survivors_from_blocks` and each round gathers its blocks
-    from it. Same returns as that function."""
+    from it. ``loop`` and the returns as in that function."""
     g, l = scored.shape
     nb = -(-l // block)
     padded = torch.nn.functional.pad(scored, (0, nb * block - l), value=-math.inf)
@@ -237,7 +294,8 @@ def greedy_survivors_blockwise(
         return slice_rows_windows(padded, starts[:, None], block)[:, 0, :], starts[:, None] + offs
 
     return greedy_survivors_from_blocks(
-        padded.reshape(g, nb, block).amax(dim=2), gather_block, min_distance, r_max, block
+        padded.reshape(g, nb, block).amax(dim=2), gather_block, min_distance, r_max, block,
+        loop,
     )
 
 
@@ -278,18 +336,6 @@ def select_candidates(x: torch.Tensor, peak_mask: torch.Tensor, k: int) -> PeakC
 # Above this lane count the (G, K, K) conflict matrix of the parallel
 # filter outweighs the sequential loop (the JAX package's threshold).
 PARALLEL_GREEDY_MAX_K = 2048
-
-# ``loop(pred, body)``: run ``body()`` while the 0-d device bool ``pred``
-# holds, ``body`` rewriting ``pred`` in place (``lax.while_loop``; on the
-# device ``CudaGraphBackend.while_loop``, on the host :func:`host_loop`).
-Loop = Callable[[torch.Tensor, Callable[[], None]], None]
-
-
-def host_loop(pred: torch.Tensor, body: Callable[[], None]) -> None:
-    """The host's :data:`Loop`: one sync a pass, to read ``pred``."""
-    while bool(pred):
-        body()
-
 
 def _greedy_distance_sequential(
     cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None

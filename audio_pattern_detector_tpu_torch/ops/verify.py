@@ -136,18 +136,36 @@ def verify_normal(
     pos: torch.Tensor,  # (R, K) candidate 'full' indices
     alive: torch.Tensor,  # (R, K) bool
     consts: NormalVerifyConsts,
+    normalise: "tuple[int | torch.Tensor, torch.Tensor] | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (accept, similarity, pearson_r), each (R, K). The rows are
     the group's G clips, or B rounds of them (R = B * G, round-major): row
-    r is held against the constants of clip r % G."""
+    r is held against the constants of clip r % G.
+
+    Each lane's window of the row zero-padded on both sides is gathered
+    from the row itself, with no padded copy in memory. ``normalise`` =
+    (valid_len, denom) takes ``corr`` as raw |corr| and normalises only
+    the windows read: zero at and past each row's ``valid_len`` (an int or
+    an (R,) tensor), divided by the row's ``denom``, bitwise the values of
+    the whole row normalised so."""
     r_rows, k = pos.shape
     g = consts.ds_clip.shape[0]
     lead = (r_rows // g, g, k)  # the per-clip constants broadcast over B and K
     m, lc, ps = consts.clip_len, consts.corr_len, consts.partition_size
 
-    corrp = F.pad(corr, (_PAD + m - 1, _PAD + m))
-    start = (pos - (m - 1) + (_PAD + m - 1)).clamp(0, corrp.shape[1] - lc)
-    slices = slice_rows_windows(corrp, start, lc)  # (R, K, lc)
+    front = _PAD + m - 1  # zeros before the row; _PAD + m after it
+    l = corr.shape[1]
+    start = (pos - (m - 1) + front).clamp(0, l + front + _PAD + m - lc)
+    valid_len, denom = (l, None) if normalise is None else normalise
+    idx = (start - front)[..., None] + torch.arange(lc, device=corr.device)  # (R, K, lc)
+    limit = valid_len[:, None, None] if isinstance(valid_len, torch.Tensor) else valid_len
+    outside = (idx < 0) | (idx >= l) | (idx >= limit)
+    # In place where it can be: these (R, K, lc) arrays are the verify's
+    # largest, and a captured body keeps their peak in its pool.
+    slices = torch.gather(corr[:, None, :].expand(r_rows, k, l), 2, idx.clamp_(0, l - 1))
+    slices.masked_fill_(outside, 0.0)
+    if denom is not None:
+        slices.div_(denom[:, None, None])
     slices = slices / slices.amax(dim=-1, keepdim=True).clamp_min(1e-38)
 
     diffs = slices[:, :, : 10 * ps].reshape(*lead, 10, ps) - consts.corr_clip_partitions[:, None]

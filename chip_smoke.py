@@ -168,8 +168,35 @@ card and checks them:
    pinned host allocations of a first and of a steady 16-row serving round
    (none in a steady one). A node that cannot be captured raises. It runs
    before 15;
+17. rounds wider than a graph: a key's graph is at most ``GRAPH_ROWS``
+   (W) rows, and a wider round is ceil(B / W) replays of it (the eager
+   step runs it in the same W-row steps). On the flagship bank,
+   general-plateau vmap rounds of 96 and 112 rows and a lean one of 128:
+   each eager round first (its peak memory), then captured twice, payloads
+   bit for bit the eager round's, one kernel launch per group per replay,
+   the peak memory reserved with the pools included and what the pools
+   keep; then in each tier, captured, in turns, W + 1 rows against W rows
+   and B = 4W as one graph of B rows against 4 replays, host ms to the
+   payload and the dispatch's device span. Nothing falls back to the eager
+   step;
+18. the lean greedy's rounds as a CUDA while node (``APD_GREEDY_UNROLL``
+   unset, the JAX default) against the unrolled rounds
+   (``APD_GREEDY_UNROLL=1``): payloads bit for bit between the forms, a
+   bank whose while nodes count their passes and the eager step, on the
+   flagship step's candidate-free section and a hit-bearing one, and on
+   16-row rounds without and with a hit-bearing row; the while node's
+   passes (none on candidate-free material) and each form's device ms from
+   CUDA events, in turns;
+19. the 17 real broadcast captures of ``sample_audios/regressions/``
+   (tests/test_real_data_regressions.py's cases, read from its source)
+   through ``match_pattern`` on the card and on the CPU: equal detections
+   and totals, flagged rows by route, the share of scanned samples at or
+   above the threshold;
 15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
+
+Every phase line starts with ``seconds``: the wall seconds since the
+previous phase line.
 
 ``python3 chip_smoke.py --profile DIR`` adds phases that run the
 flagship step, the flagship round and one 16-row serving round in both
@@ -212,8 +239,15 @@ SCAN_SHAPES = ((32, 495_999), (32, 489_999))  # flagship normal / marker groups
 TIMED_RUNS = 30
 
 
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def phase(name: str, **numbers) -> None:
-    print(f"[{name}] " + json.dumps(numbers), flush=True)
+    """One phase line: its name and JSON numbers, led by ``seconds``, the
+    wall seconds since the previous phase line (or the script's start)."""
+    now = time.perf_counter()
+    seconds, _PHASE_CLOCK[0] = now - _PHASE_CLOCK[0], now
+    print(f"[{name}] " + json.dumps({"seconds": seconds, **numbers}), flush=True)
 
 
 def make_scan_input(g: int, l: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -893,6 +927,48 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     return launches, kernel_rows
 
 
+def timed_dispatch(bank, chunks: list, mode: str) -> tuple[list, float, float, float]:
+    """(payloads, ms until ``dispatch_chunks_batch`` returns, ms until the
+    payloads are on the host, device ms between CUDA events around the
+    dispatch)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    dispatched = bank.dispatch_chunks_batch(chunks, None, mode=mode)
+    end.record()
+    t1 = time.perf_counter()
+    payloads = [rec[1].numpy().copy() for rec in dispatched]
+    t2 = time.perf_counter()
+    end.synchronize()
+    return payloads, (t1 - t0) * 1e3, (t2 - t0) * 1e3, start.elapsed_time(end)
+
+
+def arrays_equal(a: list, b: list) -> bool:
+    """Two lists of host payloads equal bit for bit."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x.view(np.int32), y.view(np.int32))
+        for x, y in zip(a, b))
+
+
+def pools_gb(backend) -> "dict[str, float] | None":
+    """GB reserved in a graph backend's graph pool and its bodies' pool, from
+    the allocator's segments (None where they carry no pool id)."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    by_pool: dict = {}
+    for seg in segments:
+        key = tuple(seg["segment_pool_id"])
+        by_pool[key] = by_pool.get(key, 0) + seg["total_size"]
+    return {name: sum(by_pool.get(tuple(pool), 0) for pool, _ in held.values()) / 1e9
+            for name, held in (("graph", backend._devices), ("bodies", backend._bodies))}
+
+
 def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
                           profile: "Path | None" = None) -> dict[str, int]:
     """Phase 3c: the general-plateau tier (``height_min = 0``) as a captured
@@ -924,46 +1000,17 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 
     tables = Path(tempfile.mkdtemp()) if profile is None else profile
-    sr, chunk = 8000, 60 * 8000
-    chunks = [(0.05 * np.random.default_rng(1 + i).standard_normal(chunk)).astype(np.float32)
-              for i in range(ROUND_ROWS)]
+    sr = 8000
+    chunks = noise_chunks(ROUND_ROWS)
     gen = make_detector(num_normal, num_marker, 60, dev, sr, height_min=0.0)._ensure_bank()
     groups = sum(len(c["groups"]) for c in gen.classes.values())
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
 
     def dispatch(bank, mode: str) -> tuple[list, float, float, float]:
-        """(payloads, ms until the dispatch returns, ms until the payloads
-        are on the host, device ms between events around the dispatch)."""
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        dispatched = bank.dispatch_chunks_batch(chunks, None, mode=mode)
-        end.record()
-        t1 = time.perf_counter()
-        payloads = [rec[1].numpy().copy() for rec in dispatched]
-        t2 = time.perf_counter()
-        end.synchronize()
-        return payloads, (t1 - t0) * 1e3, (t2 - t0) * 1e3, start.elapsed_time(end)
+        return timed_dispatch(bank, chunks, mode)
 
-    def equal(a: list, b: list) -> bool:
-        return len(a) == len(b) and all(
-            x.shape == y.shape and np.array_equal(x.view(np.int32), y.view(np.int32))
-            for x, y in zip(a, b))
-
-    def pools_gb(backend) -> "dict[str, float] | None":
-        """GB reserved in the backend's graph pool and its bodies' pool, from
-        the allocator's segments (None where they carry no pool id)."""
-        segments = torch.cuda.memory_snapshot()
-        if not segments or "segment_pool_id" not in segments[0]:
-            return None
-        by_pool: dict = {}
-        for seg in segments:
-            key = tuple(seg["segment_pool_id"])
-            by_pool[key] = by_pool.get(key, 0) + seg["total_size"]
-        return {name: sum(by_pool.get(tuple(pool), 0) for pool, _ in held.values()) / 1e9
-                for name, held in (("graph", backend._devices), ("bodies", backend._bodies))}
+    equal = arrays_equal
 
     out: dict = {"node_route": captured.CudaGraphBackend.conditional_route,
                  "two_way_cond": "two if-nodes, on pred and on ~pred",
@@ -2725,6 +2772,350 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
     torch.cuda.empty_cache()
 
 
+def noise_chunks(rows: int, seconds: int = 60, sr: int = 8000) -> list[np.ndarray]:
+    """``rows`` 60 s chunks of seeded noise (numpy seeds 1..rows), as phase
+    3c and ``scripts/probe_general_memory.py`` make them: no candidate in the
+    lean tier, every row flagged at a threshold of 0."""
+    return [(0.05 * np.random.default_rng(1 + i).standard_normal(seconds * sr))
+            .astype(np.float32) for i in range(rows)]
+
+
+SPLIT_WIDTHS = {"general": (96, 112), "lean": (128,)}  # phase 17's captured rounds
+
+
+def phase_split_rounds(dev, smi: str, num_normal: int = 32, num_marker: int = 32
+                       ) -> dict[str, int]:
+    """Phase 17: rounds wider than a graph. A key keeps its graph pools for
+    its bank's life, so no graph is wider than ``GRAPH_ROWS`` (W) and a
+    round of B > W rows is ceil(B / W) replays of the W-row key; the eager
+    step runs it in the same W-row steps. On the flagship bank, in each
+    tier (general: ``height_min = 0``), vmap rounds of seeded noise rows:
+    every eager round first (its peak allocated and reserved); then the
+    captured round twice (the key's first use, then replays), payloads bit
+    for bit the eager round's, the peak memory reserved while it ran (the
+    pools included), what the pools keep, and one kernel launch per group
+    per replay. The widths: 96 and 112 rows in the general tier (the
+    captured one-graph round ran out of memory there before the split), 128
+    in the lean tier (the widest eager one-batch round of
+    ``scripts/probe_general_memory.py``'s table; one graph of 128 rows ran
+    out). Then, captured, in turns (W, W + 1, W + 1, W, twice): W + 1 rows
+    (a replay and one of a single row and W - 1 idle rows) against W rows;
+    and B = 4W as one graph of B rows (W raised for its calls; bitwise the
+    eager round as one batch of B rows) against 4 replays of the W-row
+    graph (bitwise the eager round) on the same bank (one, split, split,
+    one, twice): host ms to the payload and the device span of the
+    dispatch (CUDA events). Returns the kernel launches of the captured
+    split rounds by tier and width."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models import bank as bank_module
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    w = bank_module.GRAPH_ROWS
+    b = 4 * w
+
+    def dispatch(bank, chunks: list, width: int = w) -> tuple:
+        bank_module.GRAPH_ROWS = width
+        try:
+            return timed_dispatch(bank, chunks, "vmap")
+        finally:
+            bank_module.GRAPH_ROWS = w
+
+    def turns(bank, names: tuple, chunks: dict, widths: dict, want: dict) -> dict:
+        times: dict = {name: [] for name in names}
+        for name in (names[0], names[1], names[1], names[0]) * 2:
+            payloads, _, ms, span = dispatch(bank, chunks[name], widths[name])
+            if not arrays_equal(payloads, want[name]):
+                raise AssertionError(f"split rounds, {name}: payload differs from the eager "
+                                     "round of its schedule")
+            times[name].append((ms, span))
+        return {name: {"payload_on_host_ms": median_and_range([t[0] for t in v]),
+                       "device_span_ms": median_and_range([t[1] for t in v])}
+                for name, v in times.items()}
+
+    out: dict = {}
+    launches: dict[str, int] = {}
+    for tier, widths in SPLIT_WIDTHS.items():
+        general = tier == "general"
+        bank = make_detector(num_normal, num_marker, 60, dev,
+                             height_min=0.0 if general else None)._ensure_bank()
+        groups = sum(len(c["groups"]) for c in bank.classes.values())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        entry: dict = {"graph_rows": w, "resident_gb": resident / 1e9}
+        chunks = {rows: noise_chunks(rows) for rows in (*widths, w, w + 1, b)}
+        eager: dict = {}
+        # Every eager round first: a captured key's pools stay until the
+        # bank goes.
+        bank.capture = False
+        for rows in (*widths, w, w + 1, b):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reserved = torch.cuda.memory_reserved()
+            eager[rows], _, ms, span = dispatch(bank, chunks[rows])
+            entry[f"eager_{rows}"] = {
+                "payload_on_host_ms": ms, "device_span_ms": span,
+                "peak_allocated_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9,
+                "peak_reserved_gb": (torch.cuda.max_memory_reserved() - reserved) / 1e9}
+        one_batch = dispatch(bank, chunks[b], b)[0]
+        torch.cuda.empty_cache()
+        bank.capture = True
+        for rows in widths:
+            torch.cuda.reset_peak_memory_stats()
+            first, _, first_ms, _ = dispatch(bank, chunks[rows])
+            candidate_scan.launches = 0
+            got, _, ms, span = dispatch(bank, chunks[rows])
+            launches[f"{tier}_{rows}"] = candidate_scan.launches
+            replays = -(-rows // w)
+            if not (arrays_equal(first, eager[rows]) and arrays_equal(got, eager[rows])):
+                raise AssertionError(f"split round, {tier}, {rows} rows: payload differs from "
+                                     "the eager round")
+            if candidate_scan.launches != groups * replays:
+                raise AssertionError(f"split round, {tier}, {rows} rows: {candidate_scan.launches}"
+                                     f" kernel launches, want {groups * replays}")
+            torch.cuda.empty_cache()
+            entry[f"captured_{rows}"] = {
+                "replays": replays, "first_use_ms": first_ms, "payload_on_host_ms": ms,
+                "device_span_ms": span, "kernel_launches": candidate_scan.launches,
+                "equal_to_eager": True,
+                "peak_reserved_gb_pools_included": torch.cuda.max_memory_reserved() / 1e9,
+                "reserved_gb_after": torch.cuda.memory_reserved() / 1e9,
+                "pools_gb": pools_gb(bank.graphs._backend)}
+        # W + 1 rows against W rows: the cost of a remainder of one row.
+        names = {f"rows_{w}": w, f"rows_{w + 1}": w + 1}
+        entry[f"rows_{w + 1}_vs_{w}"] = turns(
+            bank, tuple(names), {n: chunks[r] for n, r in names.items()},
+            dict.fromkeys(names, w), {n: eager[r] for n, r in names.items()})
+        # B = 4W: one graph of B rows against 4 replays of the W-row graph.
+        dispatch(bank, chunks[b], b)  # the B-row key's first use
+        entry[f"rows_{b}_one_graph_vs_{b // w}_replays"] = turns(
+            bank, ("one_graph", "split"), {"one_graph": chunks[b], "split": chunks[b]},
+            {"one_graph": b, "split": w}, {"one_graph": one_batch, "split": eager[b]})
+        torch.cuda.empty_cache()
+        entry[f"rows_{b}_pools_gb_both_keys"] = pools_gb(bank.graphs._backend)
+        entry["keys_rows"] = sorted(s.key.rows for s in bank.graphs.steps())
+        out[tier] = entry
+        del bank
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("split_rounds", card=smi, clips=num_normal + num_marker, section_s=60,
+          payloads_equal_to_eager=True, falls_back_to_eager=False, **out)
+    return launches
+
+
+def pass_counting_backend():
+    """A ``CudaGraphBackend`` whose while nodes count their passes on the
+    device: each node's body adds one to a counter of its own after the
+    body's work (one more small kernel a pass). The graph zeroes its
+    counters before its nodes (a counter made without a kernel would share
+    its memory with the graph's earlier temporaries), so ``passes()``
+    reads each node's passes in its graph's last replay."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.models.captured import CudaGraphBackend
+
+    class PassCounting(CudaGraphBackend):
+        def __init__(self) -> None:
+            super().__init__()
+            self.counters: list = []
+
+        def while_loop(self, pred, body) -> None:
+            passes = torch.zeros((), dtype=torch.int64, device=pred.device)
+            self.counters.append(passes)
+
+            def counted() -> None:
+                body()
+                passes.add_(1)
+
+            super().while_loop(pred, counted)
+
+        def passes(self) -> list[int]:
+            torch.cuda.synchronize()
+            return [int(c) for c in self.counters]
+
+    return PassCounting
+
+
+def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict:
+    """Phase 18: the lean greedy's rounds as a CUDA while node (the JAX
+    default, ``APD_GREEDY_UNROLL`` unset or "0") against its 16 unrolled
+    rounds (``APD_GREEDY_UNROLL=1``). Three flagship banks: the while form,
+    the unrolled form and the while form on a backend whose while nodes
+    count their passes (``pass_counting_backend``). Payloads bit for bit
+    between the two forms, the counting bank and the eager step on the
+    flagship step's candidate-free section, a section with hits in both
+    groups (phase 16's), a candidate-free 16-row vmap round and one whose
+    row 5 is the hit-bearing section. The while node's passes a replay (per
+    greedy, summed over groups) on each, and the device ms a call from CUDA
+    events around 5 calls (3 for a round), in turns (while, unrolled,
+    unrolled, while, twice). Returns the kernel launches of the timed
+    calls by form."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    banks = {}
+    for name, unroll in (("while", "0"), ("unrolled", "1")):
+        with switches({"APD_GREEDY_UNROLL": unroll}):
+            banks[name] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
+    saved = captured.StepGraphs.backend
+    captured.StepGraphs.backend = pass_counting_backend()
+    try:
+        banks["counted"] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
+    finally:
+        captured.StepGraphs.backend = saved
+    if banks["while"].greedy_unroll or not banks["unrolled"].greedy_unroll:
+        raise AssertionError("APD_GREEDY_UNROLL was not read at the bank's construction")
+    bank = banks["while"]
+    sw, sr = 1, bank.sample_rate
+    s_len = bank.classes[sw]["section_len"]
+    groups = bank.classes[sw]["groups"]
+    rng = np.random.default_rng(1)
+    flagship = torch.from_numpy((0.05 * rng.standard_normal(s_len)).astype(np.float32)).to(dev)
+    both = rerun_sections(bank)["clear"].copy()
+    both[20 * sr : 21 * sr] += next(g for g in groups if g.kind == "normal").clips_np[0]
+    both = torch.from_numpy(both).to(dev)
+    rows = torch.stack([
+        torch.from_numpy((0.05 * np.random.default_rng(1 + i).standard_normal(s_len))
+                         .astype(np.float32)) for i in range(ROUND_ROWS)]).to(dev)
+    mixed = rows.clone()
+    mixed[ROUND_ROWS // 3] = both
+    n_valids = torch.full((ROUND_ROWS,), s_len, dtype=torch.int32, device=dev)
+    paths = {
+        "flagship_step_candidate_free": (lambda b: b.step(sw, flagship, s_len), 5),
+        "flagship_step_hits_in_both_groups": (lambda b: b.step(sw, both, s_len), 5),
+        "round_vmap_candidate_free": (lambda b: b.step(sw, rows, n_valids), 3),
+        "round_vmap_one_hit_row": (lambda b: b.step(sw, mixed, n_valids), 3),
+    }
+    out: dict = {}
+    launches = {"while": 0, "unrolled": 0}
+    for pname, (fn, reps) in paths.items():
+        bank.capture = False
+        want = fn(bank)
+        bank.capture = True
+        counted = banks["counted"]
+        fn(counted)  # first use
+        got = {"counted": fn(counted)}
+        passes = counted.graphs._backend.passes()[-2:]  # the replayed key's two greedies
+        for name in ("while", "unrolled"):
+            got[name] = [fn(banks[name]) for _ in range(2)]  # first use, then a replay
+        for name, payloads in got.items():
+            if not all(payloads_equal(p, want) for p in (
+                    payloads if isinstance(payloads, list) else [payloads])):
+                raise AssertionError(f"{pname}, {name}: payload differs from the eager step's")
+
+        def ms(name: str) -> float:
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn(banks[name])
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+
+        times: dict[str, list[float]] = {"while": [], "unrolled": []}
+        for name in ("while", "unrolled", "unrolled", "while") * 2:
+            before_launches = candidate_scan.launches
+            times[name].append(ms(name))
+            launches[name] += candidate_scan.launches - before_launches
+        out[pname] = {"while_node_passes_by_greedy": [p for p in passes if p],
+                      "while_node_passes": sum(passes),
+                      "device_ms_median_min_max": {k: median_and_range(v)
+                                                   for k, v in times.items()}}
+    if out["flagship_step_candidate_free"]["while_node_passes"] or out[
+            "round_vmap_candidate_free"]["while_node_passes"]:
+        raise AssertionError(f"a candidate-free replay passed the while node: {out}")
+    if not out["flagship_step_hits_in_both_groups"]["while_node_passes"]:
+        raise AssertionError("the hit-bearing section passed no round of the while node")
+    out["keys_greedy_unroll"] = {name: sorted({s.key.greedy_unroll for s in b.graphs.steps()})
+                                 for name, b in banks.items()}
+    phase("greedy_forms", card=smi, clips=num_normal + num_marker, payloads_equal=True,
+          while_route=captured.CudaGraphBackend.conditional_route, **out)
+    del banks, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def regression_cases() -> list[tuple[str, str]]:
+    """(pattern, audio) of the 17 cases of tests/test_real_data_regressions.py,
+    read from that file's module-level assignments (importing it would
+    import the JAX package), evaluated with ``os`` and the corpus root."""
+    import ast
+
+    tree = ast.parse((ROOT / "tests" / "test_real_data_regressions.py").read_text())
+    names: dict = {"os": os, "SAMPLE_AUDIOS": str(AUDIO)}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and all(isinstance(t, ast.Name) for t in node.targets):
+            exec(compile(ast.Module(body=[node], type_ignores=[]), "cases", "exec"), names)
+    return [(pattern, audio) for pattern, audio, _ in names["CASES"]]
+
+
+def phase_corpus(dev) -> int:
+    """Phase 19: the 17 real broadcast captures of ``sample_audios/regressions/``
+    (tests/test_real_data_regressions.py's cases) through the port's
+    ``match_pattern`` on the card and on the CPU in this process: each
+    case's detections and total equal. (tests/test_torch_corpus.py holds the
+    CPU run to the JAX package, exactly.) Prints each case's detections,
+    the flagged rows of the card runs by route (row rerun, class rerun,
+    escalated, host path) and the share of the scan's valid samples at or
+    above the row's threshold over the kernel launches of the card runs
+    (each case's first chunk is its key's eager first use; replays of
+    later chunks call no wrapper and are not counted there). Returns the
+    card runs' kernel launches."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch import match as match_module
+    from audio_pattern_detector_tpu_torch.match import match_pattern
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+
+    built: list = []
+    build_detector = match_module.TorchEngineOptions.build_detector
+
+    def recording_build(self, clips):
+        det = build_detector(self, clips)
+        built.append(det)
+        return det
+
+    cases, above, valid = [], 0, 0
+    launches = 0
+    for pattern, audio in regression_cases():
+        cpu = match_pattern(audio, [pattern], device="cpu")
+        match_module.TorchEngineOptions.build_detector = recording_build
+        try:
+            with captured_scan_inputs(limit=10**6) as scans:
+                before = candidate_scan.launches
+                card = match_pattern(audio, [pattern], device=dev.type)
+                torch.cuda.synchronize()
+                launches += candidate_scan.launches - before
+        finally:
+            match_module.TorchEngineOptions.build_detector = build_detector
+        if card != cpu:
+            raise AssertionError(f"{audio}: the card's {card} differs from the CPU's {cpu}")
+        for corr, thr, valid_len in scans:
+            lens = (valid_len.to(torch.int64) if isinstance(valid_len, torch.Tensor) else
+                    torch.full((corr.shape[0],), valid_len, dtype=torch.int64, device=corr.device))
+            mask = torch.arange(corr.shape[1], device=corr.device)[None, :] < lens[:, None]
+            above += int((mask & (corr >= thr[:, None])).sum())
+            valid += int(lens.clamp(0, corr.shape[1]).sum())
+        scans.clear()
+        bank = built[-1]._bank
+        cases.append({"audio": os.path.relpath(audio, AUDIO),
+                      "pattern": os.path.basename(pattern),
+                      "detections_s": sorted(t for ts in card[0].values() for t in ts),
+                      "routes_row_class_escalated_host": routes(bank)})
+    totals = [sum(c["routes_row_class_escalated_host"][i] for c in cases) for i in range(4)]
+    phase("corpus_regressions", cases=len(cases), equal_to_cpu=True, kernel_launches=launches,
+          flagged_rows_row_class_escalated_host=totals,
+          share_of_samples_at_or_above_threshold=above / max(valid, 1),
+          samples_scanned=valid, per_case=cases)
+    return launches
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the torch port on one CUDA card.")
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -2989,6 +3380,9 @@ def main(argv: "list[str] | None" = None) -> int:
     variant_launches = phase_variants(dev, smi)
     phase_captured(dev, smi, profile=args.profile)
     phase_skip_verify_and_staging(dev, smi, profile=args.profile)
+    split_launches = phase_split_rounds(dev, smi)
+    greedy_launches = phase_greedy_forms(dev, smi)
+    corpus_launches = phase_corpus(dev)
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:
@@ -3003,8 +3397,10 @@ def main(argv: "list[str] | None" = None) -> int:
     # captured general-plateau round in each mode (phase 3c), the serving
     # session in both batch modes and on a stream mesh (phase 9),
     # the mesh paths (phase 11), the two processes' paths (phase 12, summed
-    # over the processes) and the class-step switches that keep the kernel
-    # tier (phase 13; the mask tier launches none). ``ms``, ``plain_ms``
+    # over the processes), the class-step switches that keep the kernel
+    # tier (phase 13; the mask tier launches none), the captured split
+    # rounds (phase 17), both greedy forms' timed calls (phase 18) and the
+    # regression corpus on the card (phase 19). ``ms``, ``plain_ms``
     # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
     # stand beside them. No single PyTorch call computes the scan's five
     # outputs, so no library time.
@@ -3013,7 +3409,10 @@ def main(argv: "list[str] | None" = None) -> int:
                 "general_plateau_scan": general_launches["scan"],
                 "serving_scan": serving_launches["scan"], "serving_vmap": serving_launches["vmap"],
                 "serving_stream_mesh": serving_launches["mesh"], **mesh_launches,
-                **multi_process_launches, "variants": variant_launches}
+                **multi_process_launches, "variants": variant_launches,
+                **{f"split_round_{k}": v for k, v in split_launches.items()},
+                **{f"greedy_forms_{k}": v for k, v in greedy_launches.items()},
+                "corpus_regressions": corpus_launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"a path of the run launched no kernel: {launches}")
     print(json.dumps({"kernels": [{

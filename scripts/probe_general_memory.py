@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Device memory of the general-plateau tier's vmap round, by width, on the card.
+"""Device memory of a captured class step's vmap round, by width, on the card.
 
-    python3 scripts/probe_general_memory.py [--rows 16 24 32] [--attribute 16]
+    python3 scripts/probe_general_memory.py [--tier general|lean]
+                                            [--rows 16 24 32] [--attribute 16]
                                             [--checkout DIR ...]
 
 For each checkout (default: this one) and each width B, one subprocess,
 run from the checkout's own directory, builds the flagship detector (64
-clips, 60 s chunks) at ``height_min = 0`` and dispatches one vmap round of
-B seeded 60 s chunks (numpy seeds 1..B, as chip_smoke phase 3c): first
-eager (``capture`` off), then captured (the key's first use). It prints one
-JSON line: the eager round's peak allocated and reserved GB, the GB that
-the captured key's graph pool and bodies' pool keep with the cache
-emptied (from the allocator's segments), the capture seconds, and whether
-the captured payload is bitwise the eager one. A width that runs out of
-device memory reports where (``oom``: "eager" or "captured") instead.
+clips, 60 s chunks) in the tier asked for (``general``: ``height_min = 0``;
+``lean``: the detector's default threshold) and dispatches one vmap round
+of B seeded 60 s chunks (numpy seeds 1..B, as chip_smoke phase 3c): first
+eager (``capture`` off), then captured (the key's first use), each as one
+step of B rows (the bank's widest step, where the checkout has one, is
+raised to B for the run). It prints one JSON line: the eager round's
+peak allocated and reserved GB, the GB that the captured key's graph pool
+and bodies' pool keep with the cache emptied (from the allocator's
+segments), the capture seconds, and whether the captured payload is
+bitwise the eager one. A width that runs out of device memory reports
+where (``oom``: "eager" or "captured") instead.
 
 With ``--attribute B``, the width-B run also records the allocator's
 history during the captured first use and sums the segments it created in
@@ -41,16 +45,20 @@ from collections import defaultdict
 import numpy as np
 import torch
 from audio_pattern_detector_tpu_torch.flagship import make_detector
+from audio_pattern_detector_tpu_torch.models import bank as bank_module
 
-rows, attribute = int(sys.argv[1]), sys.argv[2] == "1"
+rows, attribute, tier = int(sys.argv[1]), sys.argv[2] == "1", sys.argv[3]
+if hasattr(bank_module, "GRAPH_ROWS"):  # one step of B rows, eager and captured
+    bank_module.GRAPH_ROWS = max(rows, bank_module.GRAPH_ROWS)
 dev = torch.device("cuda")
 sr, chunk = 8000, 60 * 8000
 chunks = [(0.05 * np.random.default_rng(1 + i).standard_normal(chunk)).astype(np.float32)
           for i in range(rows)]
-bank = make_detector(32, 32, 60, dev, sr, height_min=0.0)._ensure_bank()
+bank = make_detector(32, 32, 60, dev, sr,
+                     height_min=0.0 if tier == "general" else None)._ensure_bank()
 torch.cuda.synchronize()
 resident = torch.cuda.memory_allocated()
-out = {"rows": rows, "resident_gb": resident / 1e9}
+out = {"tier": tier, "rows": rows, "resident_gb": resident / 1e9}
 
 
 def run():
@@ -133,6 +141,7 @@ print(json.dumps(out), flush=True)
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tier", choices=("general", "lean"), default="general")
     parser.add_argument("--rows", type=int, nargs="+", default=[16, 24, 32])
     parser.add_argument("--attribute", type=int, default=None,
                         help="record the allocator's history at this width")
@@ -146,7 +155,8 @@ def main() -> int:
     for checkout in args.checkout or [str(ROOT)]:
         for rows in args.rows:
             proc = subprocess.run(
-                [sys.executable, "-c", PROBE, str(rows), "1" if rows == args.attribute else "0"],
+                [sys.executable, "-c", PROBE, str(rows), "1" if rows == args.attribute else "0",
+                 args.tier],
                 cwd=checkout, capture_output=True, text=True)
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
             if proc.returncode or not lines:

@@ -980,3 +980,76 @@ def test_captured_general_step_equals_eager(cuda, monkeypatch, tier, mode):
     assert _bitwise(run(), eager)
     other = bank.dispatch_chunks_batch(rounds[1], None, mode=mode)
     assert bank.collect_chunks_batch(other) == cpu.process_chunks_batch(rounds[1], None)
+
+
+# ── Captured rounds wider than a graph, and the lean greedy's while node ──
+
+
+def test_captured_general_round_wider_than_its_graph_equals_eager(cuda):
+    """``height_min = 0``, a vmap round of ``GRAPH_ROWS`` + 3 rows: two
+    replays of the W-row graph (the second with W - 3 idle rows), one key,
+    bitwise the eager round's (in the same W-row steps); no eager step runs
+    in a replay's place."""
+    from audio_pattern_detector_tpu_torch.models import bank as bank_module
+    from audio_pattern_detector_tpu_torch.models.captured import SplitRound
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    w = bank_module.GRAPH_ROWS
+    chunks = [c for r in rounds * (w // 12 + 2) for c in r][: w + 3]
+    bank = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10,
+                                     height_min=0.0)._ensure_bank()
+    (sw,) = bank.classes
+    assert isinstance(bank.program(sw, cuda, w + 3), SplitRound)
+
+    def run():
+        return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
+            chunks, None, mode="vmap", prev_tails=[None] * len(chunks))]
+
+    eager, got = _eager_then_captured(bank, run)
+    assert all(_bitwise(g, eager) for g in got)
+    (step,) = bank.graphs.steps()
+    assert step.key.general and step.key.rows == w and step.replays == 2 * 2 - 1
+
+
+def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, monkeypatch):
+    """The lean greedy's rounds as a while node (``APD_GREEDY_UNROLL`` unset)
+    against the unrolled rounds (``=1``), a one-row and a 4-row graph each:
+    payloads bitwise equal to each other and to the eager step on a silent
+    round and on one with hits; the 4-row graph's while nodes pass no round
+    on the silent one and some on the other (counted on the device, a
+    replay at a time)."""
+    import numpy as np
+
+    from chip_smoke import pass_counting_backend
+
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+
+    clips, rounds = _capture_clips()
+    rng = np.random.default_rng(7)
+    silent = [(0.01 * rng.standard_normal(10 * 8000)).astype(np.float32) for _ in range(4)]
+    banks = {}
+    monkeypatch.setattr(captured.StepGraphs, "backend", pass_counting_backend())
+    banks["while"] = TorchAudioPatternDetector(clips, device=cuda,
+                                               seconds_per_chunk=10)._ensure_bank()
+    monkeypatch.setattr(captured.StepGraphs, "backend", captured.CudaGraphBackend)
+    monkeypatch.setenv("APD_GREEDY_UNROLL", "1")
+    banks["unrolled"] = TorchAudioPatternDetector(clips, device=cuda,
+                                                  seconds_per_chunk=10)._ensure_bank()
+    monkeypatch.delenv("APD_GREEDY_UNROLL")
+    counting = banks["while"].graphs._backend
+    for mode in ("vmap", "scan"):
+        for name, chunks in (("silent", silent), ("hits", rounds[0])):
+            def run(bank, chunks=chunks, mode=mode):
+                return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
+                    chunks, None, mode=mode, prev_tails=[None] * 4)]
+
+            eager, got = _eager_then_captured(banks["while"], lambda: run(banks["while"]))
+            assert all(_bitwise(g, eager) for g in got)
+            assert all(_bitwise(run(banks["unrolled"]), eager) for _ in range(2))
+            if mode == "vmap":  # the 4-row key's two greedies: its last two counters
+                passes = sum(counting.passes()[-2:])
+                assert (passes == 0) if name == "silent" else (passes > 0), (name, passes)
+    assert {s.key.greedy_unroll for s in banks["while"].graphs.steps()} == {False}
+    assert {s.key.greedy_unroll for s in banks["unrolled"].graphs.steps()} == {True}
