@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The ``.cu`` sources under ``audio_pattern_detector_tpu_torch/csrc/`` are
-compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain
-C interface, loaded with ``ctypes``. The build runs at first use and is
+compiled by ``nvcc`` for ``sm_90a``, one process a source, all at once,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs at first use and is
 keyed by a hash of the sources and flags: a changed source builds a new
 library, an unchanged one is loaded as built. There is no fallback: a
 missing ``nvcc`` or a failed build raises.
@@ -56,6 +57,15 @@ _SIGNATURES = {
     "apd_candidate_scan": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int,
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        ctypes.c_int,
+    ),
+    "apd_lane_greedy": (
+        [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr],
+        ctypes.c_int,
+    ),
+    "apd_lean_greedy": (
+        [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr, ctypes.c_float,
+         _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
@@ -115,6 +125,43 @@ def _bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; their output, or raise for the first that
+    failed."""
+    outputs = [(cmd, proc.returncode, out) for cmd, proc in procs
+               for out in [proc.communicate()[0]]]
+    for cmd, code, out in outputs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{out}")
+    return "".join(out for _, _, out in outputs)
+
+
+def _build(sources: list[Path], target: Path) -> str:
+    """Compile each source to an object with its own nvcc, all at once,
+    then link them into ``target``; returns nvcc's output. The library is
+    written to a private name and renamed, so concurrent first uses never
+    load a half-written one."""
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in sources:
+            cmd = [nvcc, *compile_flags, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log = _run(procs)
+        tmp = work / target.name
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(work / f"{src.stem}.o") for src in sources)]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))])
+        os.replace(tmp, target)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
+
+
 def load_kernels() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     global _loaded
@@ -128,20 +175,8 @@ def load_kernels() -> KernelLibrary:
     log = ""
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Build to a private name, then rename: concurrent first uses
-        # never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(sources, target)
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, target)
     _loaded = KernelLibrary(_bind(target), target, build_seconds, log)
     return _loaded

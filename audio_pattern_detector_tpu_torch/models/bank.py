@@ -48,12 +48,16 @@ variable and read when the bank is built, as the JAX bank reads them:
   the captured graph (``models/captured.py``), which needs no host sync.
   The eager step, which has no node, always verifies; the payload is the
   same either way.
-* ``APD_GREEDY_UNROLL=1``: the captured lean step runs the block-wise
-  greedy's ``r_max`` rounds unrolled. By default (unset or "0", as in JAX)
-  the rounds are the body of a CUDA while node that exits once every row
-  is exhausted (``ops/peaks.py::greedy_survivors_from_blocks``), so a
-  candidate-free group runs none. The eager step always runs the unrolled
-  rounds; the payload is the same either way.
+* ``APD_GREEDY_UNROLL=1``: the block-wise greedy's plain version runs its
+  ``r_max`` rounds unrolled. By default (unset or "0", as in JAX) a
+  captured step runs them as the body of a while loop that exits once
+  every row is exhausted (``ops/peaks.py::greedy_survivors_from_blocks``),
+  so a candidate-free group runs none. The plain version runs on the CPU
+  and in the mask tier (``APD_PALLAS=0``, whose captured step holds the
+  CUDA while node); the kernel tier on a card runs the greedy's CUDA
+  kernel (``ops/lean_greedy.py``), one launch a group, whatever the switch
+  says. The eager step always runs the unrolled rounds; the payload is the
+  same either way.
 
 ``APD_MARKER_GEMM`` acts inside the marker verifier and is read at each
 call (``ops/verify.py``). :meth:`PatternBank.step` runs a class step
@@ -80,13 +84,16 @@ a round of more rows runs as replays of that width
 payload, the last one's spare rows idle (zero-length). The eager step runs
 a wide round in the same W-row steps, so the two agree bit for bit at
 every width (cuFFT may round a batch of B rows otherwise than W-row ones).
-The lean greedy's rounds (unless ``APD_GREEDY_UNROLL=1``), and in the
-general-plateau tier the lane greedy's while loop and the two-tier
-verify's cond, are CUDA conditional nodes inside the graph, so no
-dispatch makes a host sync. ``capture=False`` (a constructor argument, and
-the ``capture`` attribute) runs the eager step instead, whose lean greedy
-runs its rounds unrolled and whose general-plateau tier drives the same
-loops from the host; the CPU has only the eager step. The wide rerun and
+The two greedy filters are CUDA kernels on a card, one launch a group
+(``ops/lean_greedy.py``, ``ops/lane_greedy.py``); the mask tier's lean
+greedy (unless ``APD_GREEDY_UNROLL=1``), the verify tail's skip and, in
+the general-plateau tier, the two-tier verify's cond are CUDA conditional
+nodes inside the graph, so no dispatch makes a host sync.
+``capture=False`` (a constructor argument, and the ``capture`` attribute)
+runs the eager step instead, whose mask-tier greedy runs its rounds
+unrolled and whose general-plateau cond reads its predicate on the host;
+the CPU has only the eager step, whose plain greedies drive their loops
+from the host. The wide rerun and
 the host path run at collect time, sync with the host and stay eager.
 
 A ``"vmap"`` round can also be spread over a device mesh (``sharding=``):
@@ -130,7 +137,7 @@ from audio_pattern_detector_tpu_torch.models.captured import (
     StepGraphs,
     StepKey,
 )
-from audio_pattern_detector_tpu_torch.ops.candidate_scan import BLOCK, candidate_scan
+from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 from audio_pattern_detector_tpu_torch.ops.consts import consts_to_device
 from audio_pattern_detector_tpu_torch.ops.correlate import (
     CorrelationBankConsts,
@@ -147,6 +154,7 @@ from audio_pattern_detector_tpu_torch.ops.loudness import (
     loudness_normalize_device,
 )
 from audio_pattern_detector_tpu_torch.ops.devices import canonical_device, device_guard
+from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 from audio_pattern_detector_tpu_torch.ops.packing import upload_rows
 from audio_pattern_detector_tpu_torch.ops.peaks import (
     Loop,
@@ -156,14 +164,11 @@ from audio_pattern_detector_tpu_torch.ops.peaks import (
     find_peaks_device_fast,
     greedy_distance_filter,
     greedy_survivors_blockwise,
-    greedy_survivors_from_blocks,
     long_plateau_present,
-    plateau_run_mask,
     row_limit,
     short_run_local_maxima_mask,
     topk_sparse,
 )
-from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 from audio_pattern_detector_tpu_torch.ops.verify import (
     MarkerVerifyConsts,
     NormalVerifyConsts,
@@ -548,12 +553,17 @@ class PatternBank:
         if not self.capture:
             step = EagerStep(fn, device, width)
         else:
+            # APD_GREEDY_UNROLL picks a form of the plain lean greedy, which
+            # runs on the CPU and in the mask tier; on a card the kernel
+            # tier's greedy is a kernel, so both values capture one graph.
+            unroll = self.greedy_unroll and self.height_min > 0 and (
+                device.type != "cuda" or not self.kernel_tier)
             key = StepKey(
                 device=device, sw=sw, rows=width, dtype=dtype, fused=fused, scan=scan,
                 general=self.height_min <= 0, kernel_tier=self.kernel_tier,
                 overlap_save=self.overlap_save, packed_upload=self.packed_upload,
                 marker_gemm=_marker_gemm_enabled(), skip_empty_verify=self.skip_empty_verify,
-                greedy_unroll=self.greedy_unroll,
+                greedy_unroll=unroll,
                 consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
             )
             step = self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
@@ -1025,46 +1035,16 @@ def lean_group_packed(
     full tier's. The scan's near-collapse flag routes the rows where f32
     division could make the two spaces disagree. ``branch`` as in
     :func:`_lean_tail`; the normal verifier normalises only the windows it
-    reads (``verify_normal``'s ``normalise``). ``loop`` runs the greedy's
-    rounds as a while loop (:func:`greedy_survivors_from_blocks`); without
-    it they are unrolled.
+    reads (``verify_normal``'s ``normalise``). The greedy is
+    ``ops/lean_greedy.py::lean_greedy``: on a card one kernel launch for
+    the group, its rounds inside it; on the CPU the plain version, whose
+    rounds ``loop`` runs as a while loop (without it they are unrolled).
     """
     hm = f32(height_min)  # compares as JAX's f32 threshold
-    g, l = corr.shape
-    dev = corr.device
-    lim = row_limit(valid_len)
-    neg_inf = torch.full((), -math.inf, device=dev)
     bmax, _count, plateau_min, omax, near = scan(corr, hm * self_corr_max, valid_len)
     denom = torch.maximum(self_corr_max, omax).clamp_min(1e-38)
-    qb = bmax / denom[:, None]
-    bwork0 = torch.where(qb >= hm, qb, neg_inf)
-
-    w = BLOCK + 4
-    corr_w = F.pad(corr, (0, w - l)) if l < w else corr  # windows must fit the row
-    woffs = torch.arange(w, device=dev)[None, :]
-    neg1 = torch.full((g, 1), -math.inf, device=dev)
-    neg2 = torch.full((g, 2), -math.inf, device=dev)
-
-    def gather_scored(b_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        start = (b_idx * BLOCK - 2).clamp(0, max(l - w, 0))
-        xw = slice_rows_windows(corr_w, start[:, None], w)[:, 0, :]
-        c = start[:, None] + woffs  # global positions, ascending
-        xq = torch.where(c < lim, xw / denom[:, None], neg_inf)
-        xm1 = torch.cat([neg1, xq[:, :-1]], dim=1)
-        xm2 = torch.cat([neg2, xq[:, :-2]], dim=1)
-        xp1 = torch.cat([xq[:, 1:], neg1], dim=1)
-        xp2 = torch.cat([xq[:, 2:], neg2], dim=1)
-        runs = plateau_run_mask(
-            xq, xm2, xm1, xp1, xp2, torch.isfinite(xp1), torch.isfinite(xp2), left_ok=c > 1
-        )
-        lo = b_idx[:, None] * BLOCK
-        mask = runs & (c >= lo) & (c < lo + BLOCK) & (c > 0) & torch.isfinite(xq) & (xq >= hm)
-        return torch.where(mask, xq, neg_inf), c
-
     k_lanes = min(_SMALL_TIER, k_detect)
-    pos, height, overflow = greedy_survivors_from_blocks(
-        bwork0, gather_scored, m, k_lanes, BLOCK, loop
-    )
+    pos, height, overflow = lean_greedy(corr, valid_len, bmax, denom, hm, m, k_lanes, loop)
     needs_full = ~plateau_min & (overflow | near)
     flag = torch.where(plateau_min, 1.0, torch.where(needs_full, 2.0, 0.0))
 
@@ -1205,10 +1185,11 @@ def general_group_packed(
     :func:`rich_group_packed`, and the whole tier under ``APD_PALLAS=0``,
     where ``bank_correlate`` normalises.
 
-    ``loop`` (the lane greedy's while loop) and ``cond`` (the two-tier
-    verify's) are a captured step's CUDA conditional nodes
-    (``models/captured.py``), so the tier makes no host sync; without them
-    both run on the host, as the eager step does."""
+    The lane greedy (:func:`greedy_distance_filter`) is one kernel launch a
+    group on a card; on the CPU ``loop`` runs its plain version's while
+    loop. ``cond`` (the two-tier verify's) is a captured step's pair of
+    CUDA if-nodes (``models/captured.py``), so the tier makes no host sync;
+    without it the host reads the predicate, as the eager step does."""
     cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect, loop)
     half = (2 * m - 1) // 2
     keep = cand.alive & ~(cand.pos + half > row_limit(valid_len) + 5) & ~(cand.pos - half < -5)
@@ -1352,15 +1333,17 @@ def class_step(
 
     ``kernel_tier=False`` (the bank's ``APD_PALLAS=0``) runs the mask tiers
     (:func:`mask_group_packed`, :func:`general_group_packed`), which read the
-    normalised correlation and launch no kernel.
+    normalised correlation and launch no candidate scan (the general tier's
+    lane greedy stays a kernel, as the JAX lane greedy is XLA in both).
 
     ``branch`` reaches the lean tiers' verify tail (:func:`_lean_tail`); the
     wide and general-plateau tiers verify unconditionally, as in JAX.
     ``loop`` reaches the lean tiers' block-wise greedy (a while loop over
     its rounds; without it they are unrolled) and the general-plateau
-    tier's lane greedy (without it, host loops); ``cond`` reaches that
-    tier's two-tier verify (:func:`general_group_packed`). The wide tier
-    takes neither."""
+    tier's lane greedy (without it, host loops) where they run their plain
+    versions: the mask tier, and the CPU (the kernels need neither);
+    ``cond`` reaches that tier's two-tier verify
+    (:func:`general_group_packed`). The wide tier takes neither."""
     batched = section.dim() == 2
     lufs = integrated_loudness_device(section, n_valid, loud)
     norm = loudness_normalize_device(section, lufs)

@@ -55,28 +55,37 @@ payloads) is captured once per key into a CUDA graph and replayed:
   round has a live lane. The eager first run verifies every group, so the
   cuFFT plans and the DFT matrix the body replays exist before the
   capture.
-* **The lean greedy's rounds are a while node** (``APD_GREEDY_UNROLL``
-  unset or "0", the JAX default, JAX ``ops/peaks.py:542-565``): the capture
-  hands the lean step the backend's ``while_loop(pred, body)``, the body one
-  round of ``ops/peaks.py::greedy_survivors_from_blocks``, so a group whose
-  rows have no candidate runs no round. ``APD_GREEDY_UNROLL=1`` captures the
+* **The two greedy filters are kernels** (``ops/lean_greedy.py``,
+  ``ops/lane_greedy.py``): the lean kernel tier's block-wise greedy and the
+  general-plateau tier's lane greedy are one launch a group in the graph,
+  each row's loop inside the launch, where the JAX bank's
+  ``lax.while_loop`` forms run in its program. So on a card a kernel-tier key
+  holds no while node, and ``APD_GREEDY_UNROLL`` (which picks between two
+  forms of the plain version with identical results) is not part of its
+  key: both switch values capture the same graph.
+* **The mask tier's lean greedy is a while node** (``APD_PALLAS=0`` with
+  ``APD_GREEDY_UNROLL`` unset or "0", the JAX default, JAX
+  ``ops/peaks.py:542-565``): the capture hands the step the backend's
+  ``while_loop(pred, body)``, the body one round of
+  ``ops/peaks.py::greedy_survivors_from_blocks``, so a group whose rows
+  have no candidate runs no round. ``APD_GREEDY_UNROLL=1`` captures the
   ``r_max`` rounds unrolled. The eager first run always runs them unrolled:
-  every cuFFT plan and gather buffer exists before the capture either way.
-* **The general-plateau tier's control flow stays on the device**: the
-  capture hands the step the backend's ``while_loop(pred, body)`` and
-  ``cond(pred, then_, else_)``, the counterparts of the JAX tier's
-  ``lax.while_loop`` (the lane greedy, JAX ``ops/peaks.py:282,323``) and
-  ``lax.cond`` (the two-tier verify, JAX ``models/bank.py:111-133``). A
-  while node re-runs its body graph while a device bool the body rewrites
-  holds; the two-way cond is two if-nodes, on ``pred`` and on ``~pred``.
-  Loop state lives in tensors allocated before the node and updated in
-  place. The eager first run takes both branches of each cond (the untaken
-  one first, :func:`both_branches`), so either body's cuFFT plans exist
-  before the capture.
+  every gather buffer exists before the capture either way.
+* **The general-plateau tier's cond stays on the device**: the capture
+  hands the step the backend's ``cond(pred, then_, else_)``, the
+  counterpart of the JAX tier's ``lax.cond`` (the two-tier verify, JAX
+  ``models/bank.py:111-133``): two if-nodes, on ``pred`` and on ``~pred``.
+  A while node (``while_loop(pred, body)``, the mask tier's greedy above)
+  re-runs its body graph while a device bool the body rewrites holds; loop
+  state lives in tensors allocated before the node and updated in place.
+  The eager first run takes both branches of each cond (the untaken one
+  first, :func:`both_branches`), so either body's cuFFT plans exist before
+  the capture.
 * **Launch accounting**: a replay makes no Python call of the kernel
-  wrapper, so each graph records how many kernel launches its capture
-  enqueued (the capture itself executes none and adds none to
-  ``candidate_scan.launches``), and each replay adds that number.
+  wrappers, so each graph records how many launches of each kernel
+  (:data:`COUNTED`) its capture enqueued (the capture itself executes none
+  and adds none to a wrapper's ``launches``), and each replay adds those
+  numbers.
 * **Memory**: one graph memory pool per device, shared by the bank's
   graphs on it (the widths of a tile ladder, both upload dtypes, both
   schedules), on one capture stream per device, and one pool
@@ -100,7 +109,12 @@ import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
+from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32
+
+# The kernel wrappers whose ``launches`` a replay adds to.
+COUNTED = (candidate_scan, lane_greedy, lean_greedy)
 
 
 class StepKey(NamedTuple):
@@ -119,7 +133,7 @@ class StepKey(NamedTuple):
     packed_upload: bool  # False: APD_PACKED_UPLOAD=0
     marker_gemm: bool  # APD_MARKER_GEMM=1 at the call
     skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
-    greedy_unroll: bool  # APD_GREEDY_UNROLL=1: the lean greedy's rounds unrolled, no while node
+    greedy_unroll: bool  # APD_GREEDY_UNROLL=1 where it acts: the plain lean greedy's rounds unrolled
     consts: tuple[int, ...]  # ids of the loudness and group constants
 
 
@@ -312,9 +326,14 @@ class CapturedStep:
             self.n_valid = torch.zeros((key.rows,), dtype=torch.int32, device=self.device)
         self._replay: "Callable[[], None] | None" = None
         self._out: Any = None
-        self.launches = 0  # kernel launches one replay makes
+        self.kernel_launches = dict.fromkeys(COUNTED, 0)  # each wrapper's launches a replay
         self.replays = 0
         self.capture_seconds: "float | None" = None  # first use: eager run and capture
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches one replay makes, every kernel counted."""
+        return sum(self.kernel_launches.values())
 
     def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
         """Copy one call's rows ((n, S) with n <= B, or one (S,) row) and
@@ -342,9 +361,10 @@ class CapturedStep:
         with device_guard(self.device):
             if self._replay is None:
                 return self._first_run()
-            before = candidate_scan.launches
+            before = {wrapper: wrapper.launches for wrapper in COUNTED}
             self._replay()
-            candidate_scan.launches = before + self.launches
+            for wrapper, n in self.kernel_launches.items():
+                wrapper.launches = before[wrapper] + n
             self.replays += 1
             return _copy_out(self._out)
 
@@ -354,18 +374,21 @@ class CapturedStep:
         general = self.key.general
         out = self._backend.warm_up(
             self.device, lambda: self._step(cond=both_branches if general else None))
-        counted = candidate_scan.launches
+        counted = {wrapper: wrapper.launches for wrapper in COUNTED}
         branch = self._backend.conditional if self.key.skip_empty_verify else None
-        # The general tier's lane greedy and the lean greedy's rounds (unless
-        # unrolled) are while nodes; the general tier's two-tier verify a cond.
+        # A plain greedy's loop (the mask tier's lean greedy unless unrolled,
+        # and on a stand-in backend the plain greedies of every tier) is a
+        # while node; the general tier's two-tier verify a cond. The kernels
+        # take neither.
         loop = self._backend.while_loop if general or not self.key.greedy_unroll else None
         cond = self._backend.cond if general else None
         try:
             self._replay, self._out = self._backend.capture(
                 self.device, lambda: self._step(branch, loop, cond))
-            self.launches = candidate_scan.launches - counted
+            self.kernel_launches = {w: w.launches - n for w, n in counted.items()}
         finally:
-            candidate_scan.launches = counted  # a capture executes nothing
+            for wrapper, n in counted.items():
+                wrapper.launches = n  # a capture executes nothing
         self.capture_seconds = time.perf_counter() - t0
         return out
 

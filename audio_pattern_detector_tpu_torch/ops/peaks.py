@@ -11,20 +11,19 @@ Two tiers, as in the JAX package:
   results. Given a ``loop(pred, body)`` hook (:data:`Loop`) its rounds are
   the body of a while loop that exits once every row is exhausted or
   ``r_max`` rounds have run (the JAX default, ``APD_GREEDY_UNROLL`` unset
-  or "0"): a captured lean step passes its backend's CUDA while node, so a
-  candidate-free group runs no round. Without the hook it runs ``r_max``
-  statically unrolled rounds (the JAX ``APD_GREEDY_UNROLL=1`` branch): the
-  eager step's form, whose exit test would cost a host sync every round.
+  or "0"); without the hook it runs ``r_max`` statically unrolled rounds
+  (the JAX ``APD_GREEDY_UNROLL=1`` branch), with identical results. It is
+  the plain version of the kernel tier's greedy on the CPU
+  (``ops/lean_greedy.py``, whose CUDA kernel runs on a card whatever the
+  switch says) and the greedy of the mask lean tier (``APD_PALLAS=0``),
+  whose captured step passes its backend's CUDA while node.
 * full (the wide rerun of flagged rows and the ``height_min <= 0`` tier):
-  the general plateau mask, top-k capture and the lane greedy. Each
-  ``while_loop`` is one body over state in tensors updated in place, run
-  by a ``loop(pred, body)`` hook (:data:`Loop`): a captured class step
-  passes its backend's CUDA while node (``models/captured.py``), and the
-  loop stays on the device. Without the hook the host runs the same
-  body: the parallel filter syncs once per round (:func:`host_loop`), the
-  sequential one once, to read its pass count. That is the eager step's
-  form (the CPU, ``capture=False``, and the wide rerun, which runs at
-  collect time, after the payload has reached the host).
+  the general plateau mask, top-k capture and the lane greedy,
+  :func:`greedy_distance_filter`, which routes through
+  ``ops/lane_greedy.py``: one kernel launch a group on a card, the JAX
+  package's while loops in plain torch ops on the CPU (there, ``loop`` runs
+  them as in the lean greedy; without it the host drives the body, as the
+  eager step does).
 
 The mask lean tier of ``APD_PALLAS=0`` seeds the same block-wise greedy
 from the full (G, L) candidate mask (:func:`greedy_survivors_blockwise`).
@@ -39,6 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+from audio_pattern_detector_tpu_torch.ops.loops import Loop
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 
 SURVIVOR_POS_SENTINEL = 2**30  # dead survivor slots
@@ -154,18 +155,6 @@ def long_plateau_present(
 
 
 GatherScored = Callable[[torch.Tensor], "tuple[torch.Tensor, torch.Tensor]"]
-
-
-# ``loop(pred, body)``: run ``body()`` while the 0-d device bool ``pred``
-# holds, ``body`` rewriting ``pred`` in place (``lax.while_loop``; on the
-# device ``CudaGraphBackend.while_loop``, on the host :func:`host_loop`).
-Loop = Callable[[torch.Tensor, Callable[[], None]], None]
-
-
-def host_loop(pred: torch.Tensor, body: Callable[[], None]) -> None:
-    """The host's :data:`Loop`: one sync a pass, to read ``pred``."""
-    while bool(pred):
-        body()
 
 
 def greedy_survivors_from_blocks(
@@ -333,79 +322,15 @@ def select_candidates(x: torch.Tensor, peak_mask: torch.Tensor, k: int) -> PeakC
     return PeakCandidates(pos, height, torch.isfinite(height), peak_mask.sum(dim=1) > k)
 
 
-# Above this lane count the (G, K, K) conflict matrix of the parallel
-# filter outweighs the sequential loop (the JAX package's threshold).
-PARALLEL_GREEDY_MAX_K = 2048
-
-def _greedy_distance_sequential(
-    cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
-) -> torch.Tensor:
-    """Sequential greedy over height-sorted lanes. Each row's alive lanes
-    are a prefix, so the loop runs ``while i < n_alive``, the bank-wide
-    alive maximum, lane ``i`` selected by a device index; without ``loop``
-    the host reads ``n_alive`` once and runs the body that many times.
-
-    The state is one int32 array: a lane's position while it is alive and
-    kept, SURVIVOR_POS_SENTINEL once it is dead or suppressed. A lane at the
-    sentinel is near no real position, so a dropped lane ``i`` suppresses
-    nothing, and a pass of the body is 8 kernels."""
-    dev = cand.pos.device
-    kept_pos = torch.where(cand.alive, cand.pos.to(torch.int32), SURVIVOR_POS_SENTINEL)
-    n_alive = (cand.alive.sum(dim=1).amax() if cand.alive.numel()
-               else torch.zeros((), dtype=torch.int64, device=dev))
-    i = torch.zeros((), dtype=torch.int64, device=dev)
-    go = i < n_alive
-
-    def body() -> None:
-        at = i.view(1)
-        near = (kept_pos - kept_pos.index_select(1, at)).abs_() < min_distance
-        near.index_fill_(1, at, False)
-        kept_pos.masked_fill_(near, SURVIVOR_POS_SENTINEL)
-        i.add_(1)
-        torch.lt(i, n_alive, out=go)
-
-    if loop is None:
-        for _ in range(int(n_alive)):
-            body()
-    else:
-        loop(go, body)
-    return kept_pos != SURVIVOR_POS_SENTINEL
-
-
-def _greedy_distance_parallel(
-    cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
-) -> torch.Tensor:
-    """Parallel fixed point of the greedy recurrence: keep(c) = alive(c)
-    and no higher-priority kept candidate within ``min_distance``,
-    iterated from S = alive ``while changed``, S updated in place
-    (``loop``, by default :func:`host_loop`)."""
-    pos = cand.pos.to(torch.int32)
-    k = pos.shape[1]
-    lanes = torch.arange(k, device=pos.device)
-    higher = lanes[None, :] < lanes[:, None]  # (K, K): j < i
-    conflict = ((pos[:, :, None] - pos[:, None, :]).abs() < min_distance) & higher[None]
-    conflict &= cand.alive[:, None, :]
-    s = cand.alive & ~(conflict & cand.alive[:, None, :]).any(dim=2)
-    changed = torch.ones((), dtype=torch.bool, device=pos.device)
-
-    def body() -> None:
-        s_new = cand.alive & ~(conflict & s[:, None, :]).any(dim=2)
-        torch.any(s_new != s, out=changed)
-        s.copy_(s_new)
-
-    (loop or host_loop)(changed, body)
-    return s & cand.alive
-
-
 def greedy_distance_filter(
     cand: PeakCandidates, min_distance: int, loop: "Loop | None" = None
 ) -> torch.Tensor:
     """Greedy tallest-first suppression over height-sorted lanes (scipy's
-    distance filter); the surviving-alive mask. ``loop`` as in the
-    filters."""
-    if cand.pos.shape[1] <= PARALLEL_GREEDY_MAX_K:
-        return _greedy_distance_parallel(cand, min_distance, loop)
-    return _greedy_distance_sequential(cand, min_distance, loop)
+    distance filter); the surviving-alive mask. The one routing point of
+    every caller (the general-plateau tier, the wide and escalated reruns):
+    ``ops/lane_greedy.py::lane_greedy``, the kernel on a card, the plain
+    version with ``loop`` on the CPU."""
+    return lane_greedy(cand.pos, cand.alive, min_distance, loop)
 
 
 ValidLen = "int | torch.Tensor"  # one length for every row, or a (G,) integer tensor

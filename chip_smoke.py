@@ -55,8 +55,10 @@ card and checks them:
    the 1,024-lane cap: an escalated rerun; one marker hit: no rerun). Every
    flagged row's detections must equal the exact host path's; the route
    counters must show each route. Prints the ms of a row and a class
-   rerun and whether a row rerun's payload equals the same row of a class
-   rerun bit for bit (cuFFT at batch 1 and batch G);
+   rerun, of a capped and an escalated marker row beside PR 11's, the lane
+   greedy's launches over the routes (on the kernels line) and whether a
+   row rerun's payload equals the same row of a class rerun bit for bit
+   (cuFFT at batch 1 and batch G);
 8. every single-process entry point of the port's CLI in a subprocess
    (``--stdin``, ``--multiplexed-stdin``, ``--offline-batch 4`` and
    ``--stream-batch 4``, each in ``scan`` and in ``vmap`` mode,
@@ -88,15 +90,16 @@ card and checks them:
    "server full"; after SIGINT the server reports a kernel launch and no
    jax. Prints the wall time per client;
    3c. the general-plateau tier (``height_min = 0``) as a captured step,
-   its lane greedy's while loops and its two-tier cond CUDA conditional
-   nodes, against its eager step (host loops) on the same bank: the 16-row
-   flagship round in both batch modes, payloads bit for bit; in turns, host
-   ms until the dispatch returns and until the payload is on the host (a
-   captured vmap dispatch must return in under half the time to its
-   payload), the device span of the dispatch; the key's capture seconds,
-   first-use peak and kept graph pools, the eager round's peak, one kernel
-   launch per group per replay (on the kernels line), profiled device-busy
-   ms of a captured and an eager vmap round, the lean tier's captured round;
+   its lane greedy one kernel launch a group and its two-tier cond two CUDA
+   if-nodes, against its eager step on the same bank: the 16-row flagship
+   round in both batch modes, payloads bit for bit; in turns, host ms until
+   the dispatch returns and until the payload is on the host (a captured
+   vmap dispatch must return in under half the time to its payload), the
+   device span of the dispatch, beside PR 11's; the key's capture seconds,
+   first-use peak and kept graph pools, the eager round's peak, one scan
+   and one lane greedy launch per group per replay (on the kernels line),
+   profiled device-busy ms of a captured and an eager vmap round, the lean
+   tier's captured round;
    8 also runs the mesh entry points on logical shards of the card
    (``APD_TORCH_LOGICAL_DEVICES``): ``--mesh-time 4``, ``--mesh-time 2
    --mesh-bank 2`` and ``--mesh-stream 2`` over two files, stdout
@@ -179,19 +182,30 @@ card and checks them:
    and B = 4W as one graph of B rows against 4 replays, host ms to the
    payload and the dispatch's device span. Nothing falls back to the eager
    step;
-18. the lean greedy's rounds as a CUDA while node (``APD_GREEDY_UNROLL``
-   unset, the JAX default) against the unrolled rounds
-   (``APD_GREEDY_UNROLL=1``): payloads bit for bit between the forms, a
-   bank whose while nodes count their passes and the eager step, on the
-   flagship step's candidate-free section and a hit-bearing one, and on
-   16-row rounds without and with a hit-bearing row; the while node's
-   passes (none on candidate-free material) and each form's device ms from
-   CUDA events, in turns;
+18. the lean greedy under both values of ``APD_GREEDY_UNROLL`` (which
+   picks a form of its plain version; the card runs its kernel either
+   way): payloads bit for bit between a bank built under each, a bank whose
+   while nodes count their passes and the eager step, on the flagship
+   step's candidate-free section and a hit-bearing one, and on 16-row
+   rounds without and with a hit-bearing row; no graph holds a while node,
+   one key field for both values, one lean greedy launch per group per
+   replay; each bank's device ms from CUDA events, in turns, beside PR 11's
+   while-node and unrolled forms;
 19. the 17 real broadcast captures of ``sample_audios/regressions/``
    (tests/test_real_data_regressions.py's cases, read from its source)
    through ``match_pattern`` on the card and on the CPU: equal detections
    and totals, flagged rows by route, the share of scanned samples at or
-   above the threshold;
+   above the threshold, the lean greedy's launches and inputs;
+20. the greedy kernels (``greedy_kernels``): the lean greedy
+   (``csrc/lean_greedy.cu``) and the lane greedy (``csrc/lane_greedy.cu``)
+   bitwise against their plain versions on the flagship step's and a 16-row
+   round's own launches with and without hits (the lean tier's, and the
+   general-plateau tier's at ``height_min = 0``), the CPU tests' named
+   cases, phase 19's regression captures and K = 1,024, 4,728 and 16,384
+   lanes; device ms (CUDA events around a graph of calls), wrapper ms,
+   plain ms, the bound from each input's own work and its share, and each
+   kernel's launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18,
+   19, counted from 0 around each);
 15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
@@ -206,7 +220,8 @@ to DIR.
 
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
-a JSON line of per-kernel numbers and the JSON status line.
+a JSON line of per-kernel numbers (the candidate scan, the lane greedy and
+the lean greedy) and the JSON status line.
 """
 
 from __future__ import annotations
@@ -216,6 +231,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import select
 import signal
@@ -327,6 +343,167 @@ def low_thresholds(thr: np.ndarray) -> np.ndarray:
     row's own."""
     k = np.arange(len(thr)) % 3
     return np.where(k == 0, 0.0, np.where(k == 1, -0.5, thr)).astype(np.float32)
+
+
+# ── The greedy kernels' inputs (phase greedy_kernels and the tests) ──
+
+LANE_GREEDY_KS = (1024, 4728, 16384)  # a capped rerun, the flagship marker group, the widest
+
+
+def lane_greedy_input(g: int, k: int, n_alive: list[int], l: int, m: int,
+                      seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(pos (G, K) int64, alive (G, K) bool) as the full tier hands them to
+    the lane greedy: row r's first ``n_alive[r]`` lanes alive, in priority
+    order (height descending, ties to the lower position), at distinct
+    positions in [0, l) packed in clusters (lanes within ``m`` of each
+    other, so suppression chains run); the dead lanes hold garbage int32
+    positions."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(-2**31, 2**31 - 1, size=(g, k), dtype=np.int64)
+    alive = np.zeros((g, k), dtype=bool)
+    for r, n in enumerate(n_alive):
+        centers = rng.integers(0, l, size=n // 4 + 1)
+        near = centers[:, None] + rng.integers(-m, m + 1, size=(len(centers), 6))
+        spots = np.unique(np.clip(near, 0, l - 1))
+        if len(spots) < n:
+            spots = np.union1d(spots, rng.choice(l, size=n, replace=False))
+        p = rng.choice(spots, size=n, replace=False)
+        h = rng.choice(np.float32([0.3, 0.5, 0.7, 0.9]), n)
+        order = np.lexsort((p, -h))
+        pos[r, :n] = p[order]
+        alive[r, :n] = True
+    return pos, alive
+
+
+# The lean greedy's named inputs: each case is held at both clip lengths
+# (m below and above the 512-sample block).
+LEAN_GREEDY_CASES = (
+    "no_candidate", "fewer_than_r_max", "exactly_r_max", "overflow", "refused_round",
+    "rows_finish_apart", "short_row_300", "short_row_40", "valid_len_at_block_edge",
+    "plateaus_at_hm",
+)
+LEAN_GREEDY_MS = (40, 700)
+LEAN_HM = 0.25  # exact in f32
+LEAN_R_MAX = 16  # the lean tier's lanes (models/bank.py::_SMALL_TIER)
+
+
+def lean_greedy_case(name: str, m: int) -> dict:
+    """One named input of the lean greedy: raw |corr| rows (seeded noise
+    below the threshold, candidates planted), ``valid_len`` (an int, or a
+    (G,) int32 array), the rows' self-correlation maxima ``scm`` (the
+    normaliser is max(scm, observed max)), ``hm``, ``m``, ``r_max`` and
+    ``edits``: (row, block, raw value) writes into the scan's block maxima
+    (a seed its block does not hold refuses the round)."""
+    rng = np.random.default_rng(len(name) * 1000 + m)
+    gap = 2 * m + 60  # peaks this far apart all survive
+    l = {"short_row_300": 300, "short_row_40": 40, "valid_len_at_block_edge": 4096,
+         "plateaus_at_hm": 4096}.get(name, max(8192, 21 * gap + 700))
+    rows = {"rows_finish_apart": 3, "valid_len_at_block_edge": 3}.get(name, 2)
+    corr = (np.abs(rng.standard_normal((rows, l))) * 0.02).astype(np.float32)
+    scm = np.full(rows, 0.7, dtype=np.float32)
+    valid_len: "int | np.ndarray" = l
+    edits: list[tuple[int, int, float]] = []
+
+    def spread(row: int, n: int, start: int = 300) -> None:
+        for i in range(n):
+            corr[row, start + i * gap] = np.float32(0.95 - 0.02 * i)
+
+    if name == "fewer_than_r_max":
+        spread(0, 3)
+        spread(1, 1, start=1000)
+    elif name == "exactly_r_max":
+        spread(0, LEAN_R_MAX)
+    elif name == "overflow":
+        spread(0, LEAN_R_MAX + 4)
+        spread(1, 2)
+    elif name == "refused_round":
+        spread(0, 3)
+        spread(1, 2)
+        # A block without a candidate seeded between the first and second
+        # peaks: round 0 keeps a survivor, round 1 is refused.
+        edits.append((0, (300 + 5 * gap) // 512 + 1, 0.94))
+    elif name == "rows_finish_apart":
+        spread(1, 2)
+        spread(2, 7)
+        for i in range(3):  # shorter neighbours within m: suppressed
+            corr[2, 300 + i * gap + max(m // 2, 2)] = np.float32(0.6)
+    elif name in ("short_row_300", "short_row_40"):
+        for row in range(rows):
+            for p, h in ((5, 0.9), (l // 2, 0.8), (l - 3, 0.7)):
+                corr[row, p] = np.float32(h - 0.1 * row)
+    elif name == "valid_len_at_block_edge":  # the block edge at 1024, and one either side
+        for row in range(rows):
+            corr[row, 1022] = np.float32(0.9)
+            corr[row, 1026] = np.float32(0.8)
+            corr[row, 3000] = np.float32(0.7)
+        corr[2, 1023:1025] = np.float32(0.5)  # a run of 2 ending at the last valid sample
+        valid_len = np.array([1023, 1024, 1025], dtype=np.int32)
+    elif name == "plateaus_at_hm":
+        scm[:] = 1.0  # the normaliser is 1: quotients are the samples
+        v = np.float32(LEAN_HM)
+        for row in range(rows):
+            corr[row, 0:3] = v  # run of 3 from index 0: its midpoint 1 is no candidate
+            corr[row, 100:102] = v  # run of 2: candidate 100
+            corr[row, 300:303] = v  # run of 3: candidate 301
+            corr[row, 500] = np.nextafter(v, 0, dtype=np.float32)  # below hm
+            corr[row, 700:704] = v  # run of 4: none
+            corr[row, 511:513] = v  # run of 2 across a block edge: candidate 511
+            corr[row, 1023:1026] = v  # run of 3 across a block edge: candidate 1024
+            corr[row, 2000 + 200 * row] = np.float32(0.9)
+    return {"corr": corr, "valid_len": valid_len, "scm": scm, "hm": LEAN_HM, "m": m,
+            "r_max": LEAN_R_MAX, "edits": edits}
+
+
+def random_lean_greedy_case(seed: int, g: int, l: int, m: int, r_max: int,
+                            per_row: bool, edits: int) -> dict:
+    """A seeded lean greedy input in :func:`lean_greedy_case`'s form: rows of
+    low noise with peaks and runs of 2-3 equal samples at a few heights
+    (ties in both argmaxes), lengths per row or one for all, and ``edits``
+    random writes into the block maxima (seeds raised or lowered: refused
+    rounds)."""
+    rng = np.random.default_rng(seed)
+    levels = np.float32([0.2, 0.25, 0.5, 0.5, 0.75, 1.0])
+    corr = (np.abs(rng.standard_normal((g, l))) * 0.05).astype(np.float32)
+    for r in range(g):
+        for p in rng.integers(0, l, size=int(rng.integers(0, 12))):
+            corr[r, p : p + int(rng.integers(1, 4))] = rng.choice(levels)
+    lens = rng.integers(0, l + 1, size=g).astype(np.int32)
+    nb = -(-l // 512)
+    return {"corr": corr, "valid_len": lens if per_row else int(lens[0]),
+            "scm": rng.choice(np.float32([0.3, 0.7, 1.0]), size=g),
+            "hm": float(rng.choice(np.float32([0.25, 0.5]))), "m": m, "r_max": r_max,
+            "edits": [(int(rng.integers(0, g)), int(rng.integers(0, nb)),
+                       float(rng.choice(levels))) for _ in range(edits)]}
+
+
+def lean_greedy_inputs(case: dict, dev, scan) -> tuple:
+    """(corr, valid_len, bmax, denom, hm, m, r_max) on ``dev`` for the lean
+    greedy, its block maxima and observed maxima from ``scan`` (the
+    candidate scan or its plain version), ``case``'s edits applied."""
+    import torch
+
+    corr = torch.from_numpy(case["corr"]).to(dev)
+    vl = case["valid_len"]
+    valid_len = torch.from_numpy(vl).to(dev) if isinstance(vl, np.ndarray) else vl
+    scm = torch.from_numpy(case["scm"]).to(dev)
+    bmax, _count, _plateau, omax, _near = scan(corr, case["hm"] * scm, valid_len)
+    for row, b, v in case["edits"]:
+        bmax[row, b] = v
+    denom = torch.maximum(scm, omax).clamp_min(1e-38)
+    return corr, valid_len, bmax, denom, case["hm"], case["m"], case["r_max"]
+
+
+def greedy_outputs_equal(a, b) -> bool:
+    """Bitwise: every output of one greedy against another's (float as bits)."""
+    import torch
+
+    a = [a] if isinstance(a, torch.Tensor) else list(a)
+    b = [b] if isinstance(b, torch.Tensor) else list(b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.view(torch.int32) if x.dtype == torch.float32 else x,
+            y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for x, y in zip(a, b))
 
 
 def check_scan_edges(dev, shapes) -> int:
@@ -825,6 +1002,7 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
         candidate_scan,
         candidate_scan_reference,
     )
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
     from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate_abs
     from audio_pattern_detector_tpu_torch.ops.loudness import (
         integrated_loudness_device,
@@ -835,17 +1013,21 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    candidate_scan.launches = 0
+    candidate_scan.launches = lean_greedy.launches = 0
     pv = step("vmap")
     torch.cuda.synchronize()
     launches = candidate_scan.launches
+    GREEDY_PATH_LAUNCHES["lean_greedy"]["flagship_round_vmap"] = lean_greedy.launches
     peak = torch.cuda.max_memory_allocated()
     pv_bytes = pv.numel() * pv.element_size()
     torch.cuda.reset_peak_memory_stats()
-    candidate_scan.launches = 0
+    candidate_scan.launches = lean_greedy.launches = 0
     ps = step("scan")
     torch.cuda.synchronize()
     scan_launches = candidate_scan.launches
+    if (lean_greedy.launches, GREEDY_PATH_LAUNCHES["lean_greedy"]["flagship_round_vmap"]) != (
+            scan_launches, launches):
+        raise AssertionError("the lean greedy did not launch once per scan launch in a round")
     scan_peak = torch.cuda.max_memory_allocated() - pv_bytes  # the vmap payload is still held
     # A replay calls no Python of the kernel's wrapper: the eager step on
     # the same bank records the launches' inputs (phase 14 holds the two
@@ -973,11 +1155,11 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
                           profile: "Path | None" = None) -> dict[str, int]:
     """Phase 3c: the general-plateau tier (``height_min = 0``) as a captured
     step, on the flagship round (16 sections of 60 s, seeds 1-16) in both
-    batch modes. Its lane greedy's while loops and its two-tier verify's
-    cond are CUDA conditional nodes of the graph (``csrc/graph_conditional.cu``);
-    the eager step (the same bank with ``capture`` off) drives the same
-    bodies from the host, syncing once per greedy and per fixed-point
-    round. In turns (eager, captured, captured, eager; twice in vmap),
+    batch modes. Its lane greedy is one kernel launch a group
+    (``csrc/lane_greedy.cu``) and its two-tier verify's cond two CUDA
+    if-nodes of the graph (``csrc/graph_conditional.cu``); the eager step
+    (the same bank with ``capture`` off) reads the cond's predicate on the
+    host. In turns (eager, captured, captured, eager; twice in vmap),
     after an eager reference run and the key's first use: the host ms
     until ``dispatch_chunks_batch`` returns and until the payload is on
     the host, and the device span of the dispatch (CUDA
@@ -985,11 +1167,11 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
     payload bitwise the eager reference's. Also the key's capture seconds,
     the memory its first use peaked at and what the graph pools keep with
     the cache emptied (the graph's and the bodies' apart), the eager
-    round's peak allocated and reserved, the kernel launches of one
-    captured round (one per group per replay: the kernels line's count,
-    from 0), the profiled device-busy ms of a captured and an eager vmap
-    round (a scan round's trace would hold about a million while-node
-    kernels), and the lean tier's captured round, timed first. Nothing is
+    round's peak allocated and reserved, the launches of each kernel in one
+    captured round (the scan and the lane greedy, one per group per replay:
+    the kernels line's counts, from 0), the profiled device-busy ms of a
+    captured and an eager vmap round, the lean tier's captured round, timed
+    first, and PR 11's time to the payload beside this run's. Nothing is
     collected: at a threshold of 0 every row of noise is flagged, and
     resolving them is the host path's time, not the tier's. Returns the
     launches by mode."""
@@ -998,6 +1180,7 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
     from audio_pattern_detector_tpu_torch.flagship import make_detector
     from audio_pattern_detector_tpu_torch.models import captured
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
 
     tables = Path(tempfile.mkdtemp()) if profile is None else profile
     sr = 8000
@@ -1052,13 +1235,16 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
             ("eager", "captured", "captured", "eager") * 2)
         for name in turns:
             gen.capture = name == "captured"
-            candidate_scan.launches = 0
+            candidate_scan.launches = lane_greedy.launches = 0
             got, *t = dispatch(gen, mode)
             if name == "captured":
                 launches[mode] = candidate_scan.launches
-                if launches[mode] != groups * (ROUND_ROWS // rows):
-                    raise AssertionError(f"general tier, {mode}: {launches[mode]} kernel launches "
-                                         f"in a captured round, want one per group per replay")
+                lane = GREEDY_PATH_LAUNCHES["lane_greedy"][f"general_plateau_{mode}"] = (
+                    lane_greedy.launches)
+                if launches[mode] != groups * (ROUND_ROWS // rows) or lane != launches[mode]:
+                    raise AssertionError(
+                        f"general tier, {mode}: {launches[mode]} scan and {lane} lane greedy "
+                        "launches in a captured round, want one each per group per replay")
             if not equal(got, ref):
                 raise AssertionError(f"general tier, {mode}: {name} payload differs from eager")
             times[name].append(t)
@@ -1071,6 +1257,9 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
                                           "device_span_ms"))},
             "captured_first_use_ms": first_ms, "capture_s": key.capture_seconds,
             "replays_a_round": ROUND_ROWS // rows, "kernel_launches_a_round": launches[mode],
+            "lane_greedy_launches_a_round":
+                GREEDY_PATH_LAUNCHES["lane_greedy"][f"general_plateau_{mode}"],
+            "pr11_captured_payload_on_host_ms": PR11_MS[f"general_plateau_{mode}_payload_on_host"],
             "first_use_peak_gb": first_peak, "pool_gb": pool_gb, "pools_gb_by_pool": split,
             "eager_peak_gb": eager_peak, "eager_peak_reserved_gb": eager_peak_reserved,
             "lean_captured_payload_on_host_ms": lean_ms[mode],
@@ -1260,11 +1449,12 @@ def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) 
     from audio_pattern_detector_tpu_torch.flagship import make_bank
     from audio_pattern_detector_tpu_torch.models.bank import _split_fused, unpack_group
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
 
     bank = make_bank(num_normal, num_marker, chunk_seconds=60, device=dev)
     groups = bank.classes[1]["groups"]
     want_route = {"row": 0, "class": 1, "escalated": 2, "clear": None}
-    candidate_scan.launches = 0
+    candidate_scan.launches = lane_greedy.launches = 0
     sections = rerun_sections(bank)
     for name, audio in sections.items():
         before = routes(bank)
@@ -1300,6 +1490,9 @@ def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) 
               host_path_ms_per_row=float(np.median(host_ms)) if host_ms else None,
               detections={k: len(v) for k, v in got.items() if v}, equal_to_host_path=True)
     lean_launches = candidate_scan.launches
+    lane = GREEDY_PATH_LAUNCHES["lane_greedy"]["wide_rerun"] = lane_greedy.launches
+    if lane < 3:  # a row, a class and an escalated rerun, at least one group each
+        raise AssertionError(f"the reruns launched the lane greedy {lane} times")
 
     normal = next(gi for gi, g in enumerate(groups) if g.kind == "normal")
     marker = next(gi for gi, g in enumerate(groups) if g.kind == "marker")
@@ -1319,7 +1512,10 @@ def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) 
               **reps),
           class_rerun_ms=cuda_ms(lambda: bank._full_tier_packed(1, sections["class"]), **reps),
           row_payload_bitwise_equal_to_class_rerun=row_vs_class,
-          lean_kernel_launches=lean_launches, host_path_rows=bank.host_path_rows)
+          lean_kernel_launches=lean_launches, lane_greedy_launches=lane,
+          host_path_rows=bank.host_path_rows,
+          pr11_escalated_row_rerun_ms=PR11_MS["wide_rerun_escalated_row"],
+          pr11_marker_row_rerun_ms=PR11_MS["wide_rerun_marker_row"])
     del bank, sections
 
 
@@ -2938,27 +3134,30 @@ def pass_counting_backend():
 
 
 def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict:
-    """Phase 18: the lean greedy's rounds as a CUDA while node (the JAX
-    default, ``APD_GREEDY_UNROLL`` unset or "0") against its 16 unrolled
-    rounds (``APD_GREEDY_UNROLL=1``). Three flagship banks: the while form,
-    the unrolled form and the while form on a backend whose while nodes
-    count their passes (``pass_counting_backend``). Payloads bit for bit
-    between the two forms, the counting bank and the eager step on the
-    flagship step's candidate-free section, a section with hits in both
-    groups (phase 16's), a candidate-free 16-row vmap round and one whose
-    row 5 is the hit-bearing section. The while node's passes a replay (per
-    greedy, summed over groups) on each, and the device ms a call from CUDA
-    events around 5 calls (3 for a round), in turns (while, unrolled,
-    unrolled, while, twice). Returns the kernel launches of the timed
-    calls by form."""
+    """Phase 18: the lean greedy under ``APD_GREEDY_UNROLL`` unset (the JAX
+    default: a while loop over the rounds) and "1" (the rounds unrolled).
+    Those pick a form of the greedy's plain version; on the card the kernel
+    tier runs the greedy's kernel (``csrc/lean_greedy.cu``, one launch a
+    group) whatever the switch says. Three flagship banks: one built under
+    each value and one on a backend whose while nodes count their passes
+    (``pass_counting_backend``). Payloads bit for bit between the three and
+    the eager step on the flagship step's candidate-free section, a section
+    with hits in both groups (phase 16's), a candidate-free 16-row vmap
+    round and one whose row 5 is the hit-bearing section; no graph holds a
+    while node, both banks' keys have the same ``greedy_unroll``; the lean
+    greedy's launches a replay; the device ms a call from CUDA events
+    around 5 calls (3 for a round), in turns (default, unroll switch,
+    unroll switch, default, twice), beside PR 11's while-node and unrolled
+    forms. Returns the kernel launches of the timed calls by bank."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
     from audio_pattern_detector_tpu_torch.models import captured
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
     banks = {}
-    for name, unroll in (("while", "0"), ("unrolled", "1")):
+    for name, unroll in (("default", "0"), ("unroll_switch", "1")):
         with switches({"APD_GREEDY_UNROLL": unroll}):
             banks[name] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
     saved = captured.StepGraphs.backend
@@ -2967,9 +3166,9 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
         banks["counted"] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
     finally:
         captured.StepGraphs.backend = saved
-    if banks["while"].greedy_unroll or not banks["unrolled"].greedy_unroll:
+    if banks["default"].greedy_unroll or not banks["unroll_switch"].greedy_unroll:
         raise AssertionError("APD_GREEDY_UNROLL was not read at the bank's construction")
-    bank = banks["while"]
+    bank = banks["default"]
     sw, sr = 1, bank.sample_rate
     s_len = bank.classes[sw]["section_len"]
     groups = bank.classes[sw]["groups"]
@@ -2991,20 +3190,17 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
         "round_vmap_one_hit_row": (lambda b: b.step(sw, mixed, n_valids), 3),
     }
     out: dict = {}
-    launches = {"while": 0, "unrolled": 0}
+    launches = {"default": 0, "unroll_switch": 0}
+    lean_launches = 0
     for pname, (fn, reps) in paths.items():
         bank.capture = False
         want = fn(bank)
         bank.capture = True
-        counted = banks["counted"]
-        fn(counted)  # first use
-        got = {"counted": fn(counted)}
-        passes = counted.graphs._backend.passes()[-2:]  # the replayed key's two greedies
-        for name in ("while", "unrolled"):
+        got = {}
+        for name in ("counted", "default", "unroll_switch"):
             got[name] = [fn(banks[name]) for _ in range(2)]  # first use, then a replay
         for name, payloads in got.items():
-            if not all(payloads_equal(p, want) for p in (
-                    payloads if isinstance(payloads, list) else [payloads])):
+            if not all(payloads_equal(p, want) for p in payloads):
                 raise AssertionError(f"{pname}, {name}: payload differs from the eager step's")
 
         def ms(name: str) -> float:
@@ -3017,28 +3213,338 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
             end.synchronize()
             return start.elapsed_time(end) / reps
 
-        times: dict[str, list[float]] = {"while": [], "unrolled": []}
-        for name in ("while", "unrolled", "unrolled", "while") * 2:
-            before_launches = candidate_scan.launches
+        times: dict[str, list[float]] = {"default": [], "unroll_switch": []}
+        for name in ("default", "unroll_switch", "unroll_switch", "default") * 2:
+            before = (candidate_scan.launches, lean_greedy.launches)
             times[name].append(ms(name))
-            launches[name] += candidate_scan.launches - before_launches
-        out[pname] = {"while_node_passes_by_greedy": [p for p in passes if p],
-                      "while_node_passes": sum(passes),
-                      "device_ms_median_min_max": {k: median_and_range(v)
-                                                   for k, v in times.items()}}
-    if out["flagship_step_candidate_free"]["while_node_passes"] or out[
-            "round_vmap_candidate_free"]["while_node_passes"]:
-        raise AssertionError(f"a candidate-free replay passed the while node: {out}")
-    if not out["flagship_step_hits_in_both_groups"]["while_node_passes"]:
-        raise AssertionError("the hit-bearing section passed no round of the while node")
-    out["keys_greedy_unroll"] = {name: sorted({s.key.greedy_unroll for s in b.graphs.steps()})
-                                 for name, b in banks.items()}
+            launches[name] += candidate_scan.launches - before[0]
+            lean_launches += lean_greedy.launches - before[1]
+        out[pname] = {"device_ms_median_min_max": {k: median_and_range(v)
+                                                   for k, v in times.items()},
+                      "pr11_while_node_ms": PR11_MS["greedy_forms_while_node"][pname],
+                      "pr11_unrolled_ms": PR11_MS["greedy_forms_unrolled"][pname]}
+    if banks["counted"].graphs._backend.counters:
+        raise AssertionError("a kernel-tier graph holds a while node")
+    keys = {name: sorted({s.key.greedy_unroll for s in b.graphs.steps()})
+            for name, b in banks.items()}
+    if any(k != [False] for k in keys.values()):
+        raise AssertionError(f"the kernel tier's keys name APD_GREEDY_UNROLL: {keys}")
+    per_replay = {f"rows_{s.key.rows}": s.kernel_launches[lean_greedy]
+                  for s in bank.graphs.steps()}
+    if any(n != len(groups) for n in per_replay.values()) or lean_launches != sum(
+            launches.values()):
+        raise AssertionError(f"lean greedy launches a replay {per_replay}, timed {lean_launches}, "
+                             f"scans {launches}: want one per group per replay")
+    GREEDY_PATH_LAUNCHES["lean_greedy"]["greedy_forms"] = lean_launches
     phase("greedy_forms", card=smi, clips=num_normal + num_marker, payloads_equal=True,
-          while_route=captured.CudaGraphBackend.conditional_route, **out)
+          while_nodes=0, keys_greedy_unroll=keys, lean_greedy_launches_a_replay=per_replay,
+          **out)
     del banks, bank
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# Launches of each greedy kernel on the paths that run it, each counted
+# from 0 around its run (phases 3b, 3c, 4-5, 7, 18, 19): the kernels line.
+GREEDY_PATH_LAUNCHES: dict[str, dict[str, int]] = {"lean_greedy": {}, "lane_greedy": {}}
+
+# PR 11's figures of the paths this slice's kernels run on (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md §6), printed beside this run's.
+PR11_MS = {
+    "general_plateau_vmap_payload_on_host": [351.0, 362.0],
+    "general_plateau_scan_payload_on_host": [1667.0, 1688.0],
+    "wide_rerun_escalated_row": [211.0, 580.0],
+    "wide_rerun_marker_row": 33.6,
+    "greedy_forms_while_node": {"flagship_step_candidate_free": 1.47,
+                                "flagship_step_hits_in_both_groups": 3.26,
+                                "round_vmap_candidate_free": 13.74,
+                                "round_vmap_one_hit_row": 24.39},
+    "greedy_forms_unrolled": {"flagship_step_candidate_free": 15.49,
+                              "flagship_step_hits_in_both_groups": 13.56,
+                              "round_vmap_candidate_free": 34.64,
+                              "round_vmap_one_hit_row": 43.30},
+}
+PEAK_SCALAR_OPS = 67e12  # H100 SXM, f32 outside the tensor cores: the issue rate bound
+
+
+@contextlib.contextmanager
+def recorded_greedy_inputs(limit: int = 10**6):
+    """Inside the block, copies of the inputs of the first ``limit``
+    launches of each greedy kernel land in the yielded dict, by kernel
+    name: (corr, valid_len, bmax, denom, hm, m, r_max) for the lean
+    greedy, (pos, alive, min_distance) for the lane greedy. The launches
+    and their counts are unchanged; a replay calls no wrapper, so only
+    eager steps (a key's first use among them) are recorded."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops import lane_greedy as lane_module
+    from audio_pattern_detector_tpu_torch.ops import lean_greedy as lean_module
+
+    seen: dict[str, list] = {"lean_greedy": [], "lane_greedy": []}
+    launches = {"lean_greedy": lean_module._launch, "lane_greedy": lane_module._launch}
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def recorder(name: str):
+        def recording(*args):
+            if len(seen[name]) < limit and not torch.cuda.is_current_stream_capturing():
+                seen[name].append(tuple(copy(a) for a in args))
+            return launches[name](*args)
+        return recording
+
+    lean_module._launch, lane_module._launch = recorder("lean_greedy"), recorder("lane_greedy")
+    try:
+        yield seen
+    finally:
+        lean_module._launch = launches["lean_greedy"]
+        lane_module._launch = launches["lane_greedy"]
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """The device milliseconds of one call of ``fn``: CUDA events around
+    replays of a graph of ``calls`` back-to-back calls (no host time
+    between them), median of ``reps`` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def lean_greedy_bound(args, out) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, windows read) of one lean greedy call: the
+    bytes this input needs (the block maxima, the normalisers and per-row
+    lengths read once; the windows of 516 samples its rounds read, three a
+    kept survivor and one a refused round; the outputs written once) over
+    the memory rate. Its operations (a few compares a window sample) are
+    below that."""
+    import torch
+
+    corr, valid_len, bmax, denom, _hm, _m, r_max = args
+    _pos, height, overflow = out
+    g = corr.shape[0]
+    kept = torch.isfinite(height).sum(dim=1)
+    refused = overflow & (kept < r_max)
+    windows = int(3 * kept.sum() + refused.sum())
+    nbytes = (bmax.numel() * 4 + g * 4 + (g * 4 if isinstance(valid_len, torch.Tensor) else 0)
+              + windows * WINDOW_BYTES + g * r_max * 12 + g)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", windows
+
+
+WINDOW_BYTES = 516 * 4
+
+
+def lane_greedy_bound(pos, alive, keep) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, compares) of one lane greedy call: the
+    larger of its bytes (positions and alive flags read once, the mask
+    written once) over the memory rate and of the compares this input
+    needs (each kept lane against the later lanes of its row up to the
+    row's last alive lane) over the card's scalar rate."""
+    import torch
+
+    g, k = pos.shape
+    lanes = torch.arange(1, k + 1, device=pos.device)
+    n = (alive * lanes).amax(dim=1, keepdim=True) if k else torch.zeros((g, 1), device=pos.device)
+    compares = int(torch.where(keep, n - lanes, 0).sum()) if k else 0
+    by_bytes = g * k * 10 / HBM_BYTES_PER_S * 1e3
+    by_ops = compares / PEAK_SCALAR_OPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", compares
+
+
+def lane_inputs_from_lean(args, k: int = 4096) -> tuple:
+    """Lane greedy inputs from a lean greedy input's rows, as the general
+    tier would make them at a threshold of 0: the normalised rows (-inf at
+    and past the valid length), their general plateau maxima at or above
+    0, the ``k`` tallest in priority order."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.peaks import (
+        plateau_local_maxima_mask,
+        row_limit,
+        select_candidates,
+    )
+
+    corr, valid_len, _bmax, denom, _hm, m, _r = args
+    idx = torch.arange(corr.shape[1], device=corr.device)[None, :]
+    x = torch.where(idx < row_limit(valid_len), corr / denom[:, None], -math.inf)
+    cand = select_candidates(x, plateau_local_maxima_mask(x) & (x >= 0.0), min(k, x.shape[1]))
+    return cand.pos.contiguous(), cand.alive.contiguous(), m
+
+
+def phase_greedy_kernels(dev, smi: str, corpus_inputs: list, num_normal: int = 32,
+                         num_marker: int = 32) -> dict:
+    """Phase 20 (``greedy_kernels``): each greedy kernel bitwise against its
+    plain version on the card, on the inputs the paths give it:
+
+    * the lean greedy (``csrc/lean_greedy.cu``) on the flagship step's and
+      the 16-row round's own launches (eager steps of the flagship bank
+      record them), candidate-free and with hits (phase 18's sections), on
+      the named cases of the CPU tests at m = 40 and 700, and on phase 19's
+      regression captures (every launch of their card runs' eager steps);
+    * the lane greedy (``csrc/lane_greedy.cu``) on the general-plateau
+      tier's flagship step and 16-row round (``height_min = 0``, without
+      and with hits), on lanes made from the regression captures' rows as
+      that tier would make them, and at K = 1,024, 4,728 and 16,384 lanes
+      of 32 rows of clustered positions.
+
+    For the timed inputs: the kernel's device ms (CUDA events around a
+    graph of 20 calls), the wrapper's ms (events around 20 eager calls),
+    the plain version's ms, the bound and its share (bytes over 3.35 TB/s,
+    or compares over the card's scalar rate, from this input's own work),
+    and the kernel's launches on the paths that run it (counted there).
+    Measurement launches are not counted. Returns the kernels line's
+    numbers by kernel."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy, lane_greedy_reference
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy, lean_greedy_reference
+
+    counts = (lane_greedy.launches, lean_greedy.launches)
+    sr = 8000
+    out: dict = {"lean_greedy": {}, "lane_greedy": {}}
+    line: dict = {}
+
+    def sections(bank) -> dict:
+        s_len = bank.classes[1]["section_len"]
+        groups = bank.classes[1]["groups"]
+        rng = np.random.default_rng(1)
+        silent = torch.from_numpy((0.05 * rng.standard_normal(s_len)).astype(np.float32)).to(dev)
+        both = rerun_sections(bank)["clear"].copy()
+        both[20 * sr : 21 * sr] += next(g for g in groups if g.kind == "normal").clips_np[0]
+        both = torch.from_numpy(both).to(dev)
+        rows = torch.stack([
+            torch.from_numpy((0.05 * np.random.default_rng(1 + i).standard_normal(s_len))
+                             .astype(np.float32)) for i in range(ROUND_ROWS)]).to(dev)
+        mixed = rows.clone()
+        mixed[ROUND_ROWS // 3] = both
+        lens = torch.full((ROUND_ROWS,), s_len, dtype=torch.int32, device=dev)
+        return {"flagship_step_candidate_free": (silent, s_len),
+                "flagship_step_hits_in_both_groups": (both, s_len),
+                "round_vmap_candidate_free": (rows, lens),
+                "round_vmap_one_hit_row": (mixed, lens)}
+
+    def path_inputs(height_min: "float | None") -> dict:
+        bank = make_detector(num_normal, num_marker, 60, dev, sr,
+                             height_min=height_min)._ensure_bank()
+        bank.capture = False  # eager steps call the wrappers: their inputs are recorded
+        got = {}
+        for name, (section, n_valid) in sections(bank).items():
+            with recorded_greedy_inputs() as seen:
+                bank.step(1, section, n_valid)
+                torch.cuda.synchronize()
+            got[name] = seen
+        del bank
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    def check(kernel: str, source: str, args: tuple, timed: bool) -> dict:
+        wrapper, plain = ((lean_greedy, lean_greedy_reference) if kernel == "lean_greedy"
+                          else (lane_greedy, lane_greedy_reference))
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if not greedy_outputs_equal(got, want):
+            raise AssertionError(f"{kernel}, {source}: the kernel differs from its plain version")
+        if kernel == "lean_greedy":
+            bound, by, work = lean_greedy_bound(args, got)
+            shape = list(args[0].shape)
+            entry = {"shape": shape, "survivors": int(torch.isfinite(got[1]).sum()),
+                     "overflow_rows": int(got[2].sum()), "windows_read": work}
+        else:
+            bound, by, work = lane_greedy_bound(args[0], args[1], got)
+            entry = {"shape": list(args[0].shape), "alive": int(args[1].sum()),
+                     "kept": int(got.sum()), "compares": work}
+        entry.update(bitwise_equal=True, bound_ms=bound, bound_by=by)
+        if timed:
+            dev_ms = graph_ms(lambda: wrapper(*args))
+            plain_big = kernel == "lane_greedy" and args[0].shape[1] > 2048
+            entry.update(
+                device_ms=dev_ms, share_of_bound=bound / dev_ms if dev_ms else None,
+                wrapper_ms=cuda_ms(lambda: wrapper(*args), 20),
+                plain_ms=cuda_ms(lambda: plain(*args), 1 if plain_big else 5,
+                                 reps=1 if plain_big else 5))
+        return entry
+
+    # The lean greedy on the flagship paths' own launches, then its named
+    # cases and the regression captures.
+    recorded = path_inputs(None)  # the detector's default threshold: the lean tier
+    for name, seen in recorded.items():
+        for gi, args in enumerate(seen["lean_greedy"]):
+            out["lean_greedy"][f"{name}_group_{gi}"] = check("lean_greedy", name, args, True)
+        if seen["lane_greedy"]:
+            raise AssertionError(f"{name}: the lean tier ran the lane greedy")
+    del recorded
+    named = 0
+    for case in LEAN_GREEDY_CASES:
+        for m in LEAN_GREEDY_MS:
+            args = lean_greedy_inputs(lean_greedy_case(case, m), dev, candidate_scan)
+            check("lean_greedy", case, args, False)
+            named += 1
+    out["lean_greedy"]["named_cases_bitwise"] = named
+    for args in corpus_inputs:
+        check("lean_greedy", "regression capture", args, False)
+        check("lane_greedy", "regression capture", lane_inputs_from_lean(args), False)
+    out["lean_greedy"]["regression_launches_bitwise"] = len(corpus_inputs)
+    out["lane_greedy"]["regression_rows_bitwise"] = len(corpus_inputs)
+    del corpus_inputs
+
+    # The lane greedy on the general-plateau tier's own launches.
+    recorded = path_inputs(0.0)
+    for name, seen in recorded.items():
+        for gi, args in enumerate(seen["lane_greedy"]):
+            out["lane_greedy"][f"{name}_group_{gi}"] = check("lane_greedy", name, args, True)
+    del recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LANE_GREEDY_KS:
+        n_alive = [k if r % 2 == 0 else k // 3 for r in range(32)]
+        pos, alive = lane_greedy_input(32, k, n_alive, 495_999, 2000, seed=k)
+        args = (torch.from_numpy(pos).to(dev), torch.from_numpy(alive).to(dev), 2000)
+        out["lane_greedy"][f"k_{k}"] = check("lane_greedy", f"K = {k}", args, True)
+
+    lane_greedy.launches, lean_greedy.launches = counts  # measurement launches do not count
+    for kernel in ("lean_greedy", "lane_greedy"):
+        paths = GREEDY_PATH_LAUNCHES[kernel]
+        out[kernel]["launches_by_path"] = paths
+        if not paths or min(paths.values()) < 1:
+            raise AssertionError(f"{kernel}: a path that runs it launched it no time: {paths}")
+    phase("greedy_kernels", card=smi, clips=num_normal + num_marker, tolerance="bitwise",
+          **out)
+    # The kernels line: each kernel at the hit-bearing 16-row round's own
+    # launch that does the most work (the group with the most windows read,
+    # or the most compares).
+    for kernel, work in (("lean_greedy", "windows_read"), ("lane_greedy", "compares")):
+        e = max((v for k, v in out[kernel].items() if k.startswith("round_vmap_one_hit_row")),
+                key=lambda v: v[work])
+        line[kernel] = {"launches": sum(GREEDY_PATH_LAUNCHES[kernel].values()), "ms": e["device_ms"],
+                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                        "bound_by": e["bound_by"], "shape": e["shape"],
+                        "wrapper_ms": e["wrapper_ms"],
+                        "launches_by_path": GREEDY_PATH_LAUNCHES[kernel]}
+    return line
 
 
 def regression_cases() -> list[tuple[str, str]]:
@@ -3055,7 +3561,7 @@ def regression_cases() -> list[tuple[str, str]]:
     return [(pattern, audio) for pattern, audio, _ in names["CASES"]]
 
 
-def phase_corpus(dev) -> int:
+def phase_corpus(dev) -> tuple[int, list]:
     """Phase 19: the 17 real broadcast captures of ``sample_audios/regressions/``
     (tests/test_real_data_regressions.py's cases) through the port's
     ``match_pattern`` on the card and on the CPU in this process: each
@@ -3066,12 +3572,16 @@ def phase_corpus(dev) -> int:
     above the row's threshold over the kernel launches of the card runs
     (each case's first chunk is its key's eager first use; replays of
     later chunks call no wrapper and are not counted there). Returns the
-    card runs' kernel launches."""
+    card runs' candidate-scan launches and the inputs of the lean greedy's
+    launches in the same eager steps (phase 20 holds the kernels to their
+    plain versions on them); the lean greedy's launches go to the kernels
+    line."""
     import torch
 
     from audio_pattern_detector_tpu_torch import match as match_module
     from audio_pattern_detector_tpu_torch.match import match_pattern
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
     built: list = []
     build_detector = match_module.TorchEngineOptions.build_detector
@@ -3082,16 +3592,19 @@ def phase_corpus(dev) -> int:
         return det
 
     cases, above, valid = [], 0, 0
-    launches = 0
+    launches = lean_launches = 0
+    lean_inputs: list = []
     for pattern, audio in regression_cases():
         cpu = match_pattern(audio, [pattern], device="cpu")
         match_module.TorchEngineOptions.build_detector = recording_build
         try:
-            with captured_scan_inputs(limit=10**6) as scans:
-                before = candidate_scan.launches
+            with captured_scan_inputs(limit=10**6) as scans, recorded_greedy_inputs() as greedy:
+                before = (candidate_scan.launches, lean_greedy.launches)
                 card = match_pattern(audio, [pattern], device=dev.type)
                 torch.cuda.synchronize()
-                launches += candidate_scan.launches - before
+                launches += candidate_scan.launches - before[0]
+                lean_launches += lean_greedy.launches - before[1]
+            lean_inputs += greedy["lean_greedy"]
         finally:
             match_module.TorchEngineOptions.build_detector = build_detector
         if card != cpu:
@@ -3109,11 +3622,14 @@ def phase_corpus(dev) -> int:
                       "detections_s": sorted(t for ts in card[0].values() for t in ts),
                       "routes_row_class_escalated_host": routes(bank)})
     totals = [sum(c["routes_row_class_escalated_host"][i] for c in cases) for i in range(4)]
+    if lean_launches != launches:
+        raise AssertionError(f"corpus: {lean_launches} lean greedy launches, {launches} scans")
+    GREEDY_PATH_LAUNCHES["lean_greedy"]["corpus_regressions"] = lean_launches
     phase("corpus_regressions", cases=len(cases), equal_to_cpu=True, kernel_launches=launches,
-          flagged_rows_row_class_escalated_host=totals,
+          lean_greedy_launches=lean_launches, flagged_rows_row_class_escalated_host=totals,
           share_of_samples_at_or_above_threshold=above / max(valid, 1),
           samples_scanned=valid, per_case=cases)
-    return launches
+    return launches, lean_inputs
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -3134,6 +3650,8 @@ def main(argv: "list[str] | None" = None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    if args.profile is not None:
+        args.profile.mkdir(parents=True, exist_ok=True)  # phase 3c writes there first
 
     from audio_pattern_detector_tpu_torch.match import _auto_perf_plan, _load_pattern_clips
     from audio_pattern_detector_tpu_torch import cli
@@ -3143,6 +3661,8 @@ def main(argv: "list[str] | None" = None) -> int:
         candidate_scan,
         candidate_scan_reference,
     )
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
     dev = torch.device("cuda")
     # The run must write nothing into the JAX package (compared at the end).
@@ -3267,7 +3787,7 @@ def main(argv: "list[str] | None" = None) -> int:
         return det
 
     cli.TorchEngineOptions.build_detector = recording_build
-    candidate_scan.launches = 0
+    candidate_scan.launches = lean_greedy.launches = lane_greedy.launches = 0
 
     rthk = AUDIO / "rthk_section_with_beep.wav"
     expect_events(["--pattern-file", str(CLIPS / "rthk_beep.apd.toml")], rthk,
@@ -3294,6 +3814,9 @@ def main(argv: "list[str] | None" = None) -> int:
         batched = run_cli(["match", *pattern, str(tiled)])
         wall = time.perf_counter() - t
         main_path_launches = candidate_scan.launches
+        main_path_greedy = {"lean_greedy": lean_greedy.launches,
+                            "lane_greedy": lane_greedy.launches}
+        GREEDY_PATH_LAUNCHES["lean_greedy"]["file_mode"] = lean_greedy.launches
         batched_launches = main_path_launches - golden_launches
         groups = sum(len(c["groups"]) for c in built[-1]._bank.classes.values())
         # An explicit --chunk-seconds turns the file-mode batching off
@@ -3327,8 +3850,14 @@ def main(argv: "list[str] | None" = None) -> int:
                 f"kernel launches: {golden_launches} in the golden flows, "
                 f"{batched_launches} in the batched run (want {want_batched})"
             )
+        # The lean greedy runs in every lean group step, beside the scan (the
+        # lane greedy only where a flagged row reruns).
+        if main_path_greedy["lean_greedy"] != main_path_launches:
+            raise AssertionError(f"greedy launches on the main path: {main_path_greedy}, "
+                                 f"scan launches {main_path_launches}")
         host_rows = sum(d._bank.host_path_rows for d in built if d._bank is not None)
         phase("kernel_use", candidate_scan_launches=main_path_launches,
+              greedy_launches=main_path_greedy,
               golden_launches=golden_launches, batched_launches=batched_launches,
               host_path_rows=host_rows, detectors=len(built))
 
@@ -3353,7 +3882,6 @@ def main(argv: "list[str] | None" = None) -> int:
 
         # ── Optional: where the time goes ──
         if args.profile is not None:
-            args.profile.mkdir(parents=True, exist_ok=True)
             step, bank = flagship_step(dev)
             step()
             phase("profile_flagship_step",
@@ -3382,7 +3910,9 @@ def main(argv: "list[str] | None" = None) -> int:
     phase_skip_verify_and_staging(dev, smi, profile=args.profile)
     split_launches = phase_split_rounds(dev, smi)
     greedy_launches = phase_greedy_forms(dev, smi)
-    corpus_launches = phase_corpus(dev)
+    corpus_launches, corpus_lean_inputs = phase_corpus(dev)
+    greedy_line = phase_greedy_kernels(dev, smi, corpus_lean_inputs)
+    del corpus_lean_inputs
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:
@@ -3403,7 +3933,9 @@ def main(argv: "list[str] | None" = None) -> int:
     # regression corpus on the card (phase 19). ``ms``, ``plain_ms``
     # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
     # stand beside them. No single PyTorch call computes the scan's five
-    # outputs, so no library time.
+    # outputs, so no library time. The greedy kernels' numbers are phase
+    # 20's on a 16-row round's own launch, their launches those of the paths
+    # that run them (GREEDY_PATH_LAUNCHES); no PyTorch call computes either.
     launches = {"file_mode": main_path_launches, "flagship_round_vmap": round_launches,
                 "general_plateau_vmap": general_launches["vmap"],
                 "general_plateau_scan": general_launches["scan"],
@@ -3415,6 +3947,10 @@ def main(argv: "list[str] | None" = None) -> int:
                 "corpus_regressions": corpus_launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"a path of the run launched no kernel: {launches}")
+    greedy_sources = {"lean_greedy": ("audio_pattern_detector_tpu_torch/csrc/lean_greedy.cu",
+                                      "audio_pattern_detector_tpu/ops/peaks.py:459"),
+                      "lane_greedy": ("audio_pattern_detector_tpu_torch/csrc/lane_greedy.cu",
+                                      "audio_pattern_detector_tpu/ops/peaks.py:327")}
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(launches.values()),
@@ -3423,7 +3959,9 @@ def main(argv: "list[str] | None" = None) -> int:
         "library_ms": None, "launches_by_path": launches,
         "batched_shape": [bg, bl], "batched_ms": bms, "batched_plain_ms": bplain_ms,
         "batched_bound_ms": bbound_ms,
-    }]}), flush=True)
+    }, *({"name": name, "route": "cuda", "source": greedy_sources[name][0],
+          "replaces": greedy_sources[name][1], "max_abs_err": 0.0, "library_ms": None,
+          **greedy_line[name]} for name in ("lane_greedy", "lean_greedy"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,4 +1,4 @@
-"""The port on a CUDA card: the candidate-scan kernel and the main path.
+"""The port on a CUDA card: its kernels and the main path.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports no jax, so it runs where jax is not installed:
@@ -22,12 +22,20 @@ from chip_smoke import (
     BATCHED_SCAN_SHAPES,
     EDGE_LENGTHS,
     EDGE_WIDE,
+    LANE_GREEDY_KS,
+    LEAN_GREEDY_CASES,
+    LEAN_GREEDY_MS,
     WIDE_ROWS,
     batched_scan_input,
     check_scan_edges,
     check_scan_equal,
     edge_shapes,
+    greedy_outputs_equal,
+    lane_greedy_input,
+    lean_greedy_case,
+    lean_greedy_inputs,
     make_scan_input,
+    random_lean_greedy_case,
     reference_in_row_chunks,
 )
 
@@ -682,19 +690,24 @@ def _bitwise(a, b):
 def test_captured_flagship_step_equals_eager(cuda):
     """The flagship step (one section, each group's payload) as a replay of
     its one-row graph: bitwise the eager step's; the first use counts its
-    eager run's launches, each replay its graph's two."""
+    eager run's launches, each replay its graph's four (the scan and the
+    lean greedy, a group each)."""
     from audio_pattern_detector_tpu_torch.flagship import flagship_step
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
     step, bank = flagship_step(cuda)
     assert bank.capture is True
-    before = candidate_scan.launches
+    before = (candidate_scan.launches, lean_greedy.launches)
     eager, got = _eager_then_captured(bank, step, calls=3)
-    assert candidate_scan.launches - before == 2 * 4
+    assert (candidate_scan.launches - before[0], lean_greedy.launches - before[1]) == (
+        2 * 4, 2 * 4)
     assert all(_bitwise(g, eager) for g in got)
     (captured,) = bank.graphs.steps()
     assert (captured.key.rows, captured.key.fused, captured.launches, captured.replays) == (
-        1, False, 2, 2)
+        1, False, 4, 2)
+    assert captured.kernel_launches == {candidate_scan: 2, lane_greedy: 0, lean_greedy: 2}
 
 
 @pytest.mark.parametrize("mode", ["vmap", "scan"])
@@ -1013,12 +1026,14 @@ def test_captured_general_round_wider_than_its_graph_equals_eager(cuda):
 
 
 def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, monkeypatch):
-    """The lean greedy's rounds as a while node (``APD_GREEDY_UNROLL`` unset)
-    against the unrolled rounds (``=1``), a one-row and a 4-row graph each:
-    payloads bitwise equal to each other and to the eager step on a silent
-    round and on one with hits; the 4-row graph's while nodes pass no round
-    on the silent one and some on the other (counted on the device, a
-    replay at a time)."""
+    """The lean greedy's two forms under ``APD_GREEDY_UNROLL`` (unset, and
+    "1"), a one-row and a 4-row graph each, on a silent round and on one
+    with hits: in the kernel tier both values run the lean greedy's kernel
+    (no while node in any graph, one key field) and in the mask tier
+    (``APD_PALLAS=0``) the rounds are a while node or unrolled; payloads
+    bitwise equal to each other and to the eager step. The mask tier's
+    4-row graph's while nodes pass no round on the silent round and some
+    on the other (counted on the device, a replay at a time)."""
     import numpy as np
 
     from chip_smoke import pass_counting_backend
@@ -1030,26 +1045,119 @@ def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, mo
     rng = np.random.default_rng(7)
     silent = [(0.01 * rng.standard_normal(10 * 8000)).astype(np.float32) for _ in range(4)]
     banks = {}
-    monkeypatch.setattr(captured.StepGraphs, "backend", pass_counting_backend())
-    banks["while"] = TorchAudioPatternDetector(clips, device=cuda,
-                                               seconds_per_chunk=10)._ensure_bank()
-    monkeypatch.setattr(captured.StepGraphs, "backend", captured.CudaGraphBackend)
-    monkeypatch.setenv("APD_GREEDY_UNROLL", "1")
-    banks["unrolled"] = TorchAudioPatternDetector(clips, device=cuda,
-                                                  seconds_per_chunk=10)._ensure_bank()
-    monkeypatch.delenv("APD_GREEDY_UNROLL")
-    counting = banks["while"].graphs._backend
+    for name, switches in (("kernel", {}), ("kernel_unrolled", {"APD_GREEDY_UNROLL": "1"}),
+                           ("mask", {"APD_PALLAS": "0"}),
+                           ("mask_unrolled", {"APD_PALLAS": "0", "APD_GREEDY_UNROLL": "1"})):
+        with monkeypatch.context() as mp:
+            for var, value in switches.items():
+                mp.setenv(var, value)
+            mp.setattr(captured.StepGraphs, "backend", pass_counting_backend())
+            banks[name] = TorchAudioPatternDetector(clips, device=cuda,
+                                                    seconds_per_chunk=10)._ensure_bank()
     for mode in ("vmap", "scan"):
         for name, chunks in (("silent", silent), ("hits", rounds[0])):
             def run(bank, chunks=chunks, mode=mode):
                 return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
                     chunks, None, mode=mode, prev_tails=[None] * 4)]
 
-            eager, got = _eager_then_captured(banks["while"], lambda: run(banks["while"]))
-            assert all(_bitwise(g, eager) for g in got)
-            assert all(_bitwise(run(banks["unrolled"]), eager) for _ in range(2))
-            if mode == "vmap":  # the 4-row key's two greedies: its last two counters
-                passes = sum(counting.passes()[-2:])
+            for tier in ("kernel", "mask"):
+                eager, got = _eager_then_captured(banks[tier], lambda: run(banks[tier]))
+                assert all(_bitwise(g, eager) for g in got)
+                assert all(_bitwise(run(banks[f"{tier}_unrolled"]), eager) for _ in range(2))
+            if mode == "vmap":  # the mask tier's 4-row key's two greedies: its last two counters
+                passes = sum(banks["mask"].graphs._backend.passes()[-2:])
                 assert (passes == 0) if name == "silent" else (passes > 0), (name, passes)
-    assert {s.key.greedy_unroll for s in banks["while"].graphs.steps()} == {False}
-    assert {s.key.greedy_unroll for s in banks["unrolled"].graphs.steps()} == {True}
+    for name in ("kernel", "kernel_unrolled"):
+        assert banks[name].graphs._backend.counters == []  # no while node
+    keys = {name: {s.key.greedy_unroll for s in bank.graphs.steps()}
+            for name, bank in banks.items()}
+    assert keys == {"kernel": {False}, "kernel_unrolled": {False}, "mask": {False},
+                    "mask_unrolled": {True}}
+
+
+# ── The greedy kernels against their plain versions ──
+
+
+@pytest.mark.parametrize("m", LEAN_GREEDY_MS)
+@pytest.mark.parametrize("name", LEAN_GREEDY_CASES)
+def test_lean_greedy_kernel_bitwise_equals_plain_version(cuda, name, m):
+    """``csrc/lean_greedy.cu`` on the named cases (the CPU tests hold the
+    plain version to the JAX lean group on the same ones): one launch,
+    every output bitwise the plain version's on the same device inputs."""
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import (
+        lean_greedy,
+        lean_greedy_reference,
+    )
+
+    args = lean_greedy_inputs(lean_greedy_case(name, m), cuda, candidate_scan)
+    before = lean_greedy.launches
+    got = lean_greedy(*args)
+    torch.cuda.synchronize()
+    assert lean_greedy.launches == before + 1
+    assert greedy_outputs_equal(got, lean_greedy_reference(*args))
+
+
+def test_lean_greedy_kernel_bitwise_on_seeded_inputs(cuda):
+    """60 seeded inputs of the CPU tests' random form (short and long rows,
+    m up to 900, r_max 1-16, per-row lengths, raised and lowered seeds)."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import (
+        lean_greedy,
+        lean_greedy_reference,
+    )
+
+    rng = np.random.default_rng(12)
+    for seed in range(60):
+        case = random_lean_greedy_case(
+            seed, int(rng.integers(1, 40)), int(rng.choice([3, 40, 515, 516, 517, 2200, 20_000])),
+            int(rng.integers(1, 900)), int(rng.integers(1, 17)), bool(seed % 2),
+            int(rng.integers(0, 3)))
+        args = lean_greedy_inputs(case, cuda, candidate_scan)
+        assert greedy_outputs_equal(lean_greedy(*args), lean_greedy_reference(*args)), seed
+
+
+@pytest.mark.parametrize("k", [1, 64, 2048, 2049, *LANE_GREEDY_KS])
+def test_lane_greedy_kernel_bitwise_equals_plain_version(cuda, k):
+    """``csrc/lane_greedy.cu`` on clustered lanes (a full row, a third, none;
+    dead lanes with garbage positions): one launch, the plain version's
+    mask in both of its forms."""
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import (
+        _greedy_distance_parallel,
+        _greedy_distance_sequential,
+        lane_greedy,
+        lane_greedy_reference,
+    )
+
+    pos, alive = lane_greedy_input(3, k, [k, k // 3, 0], max(40 * k, 4000), 300, seed=k)
+    pos_d, alive_d = torch.from_numpy(pos).to(cuda), torch.from_numpy(alive).to(cuda)
+    before = lane_greedy.launches
+    got = lane_greedy(pos_d, alive_d, 300)
+    torch.cuda.synchronize()
+    assert lane_greedy.launches == before + 1
+    assert torch.equal(got, lane_greedy_reference(pos_d, alive_d, 300))
+    if k <= 4728:
+        other = _greedy_distance_sequential if k <= 2048 else _greedy_distance_parallel
+        assert torch.equal(got, other(pos_d, alive_d, 300))
+    if k > 1:
+        assert 0 < int(got.sum()) < int(alive.sum())
+
+
+def test_greedy_kernels_refuse_what_does_not_fit_and_count_no_launch(cuda):
+    """Past the shared memory a block may take, each wrapper raises
+    ValueError before a launch."""
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+    from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+
+    before = (lane_greedy.launches, lean_greedy.launches)
+    k = 46_285
+    with pytest.raises(ValueError, match="shared memory"):
+        lane_greedy(torch.zeros((1, k), dtype=torch.int64, device=cuda),
+                    torch.zeros((1, k), dtype=torch.bool, device=cuda), 5)
+    corr = torch.zeros((1, 1024), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        lean_greedy(corr, 1024, torch.zeros((1, 2), device=cuda), torch.ones(1, device=cuda),
+                    0.25, 5, 20_000)
+    assert (lane_greedy.launches, lean_greedy.launches) == before

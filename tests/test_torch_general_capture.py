@@ -41,6 +41,7 @@ from audio_pattern_detector_tpu.ops import peaks as jpeaks
 from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch.models import bank as tbank_module
 from audio_pattern_detector_tpu_torch.models import captured
+from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
 from audio_pattern_detector_tpu_torch.ops import peaks as tpeaks
 from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
 from audio_pattern_detector_tpu_torch.parallel.mesh import RowSharding
@@ -109,7 +110,7 @@ def test_loop_hook_greedy_identical_to_host_loop_and_jax(case):
     np.testing.assert_array_equal(hooked.numpy(), want)
     np.testing.assert_array_equal(tpeaks.greedy_distance_filter(tc, m).numpy(), want)
     assert backend.loops == 1
-    if k > tpeaks.PARALLEL_GREEDY_MAX_K:
+    if k > tlane.PARALLEL_GREEDY_MAX_K:
         assert backend.iterations == alive.sum(axis=1).max()
     else:
         assert backend.iterations >= 1  # the JAX loop's state starts "changed"
@@ -121,9 +122,10 @@ def test_loop_hook_greedy_identical_to_host_loop_and_jax(case):
     else:
         assert not want.any()
     # The other filter agrees through its hook as well.
-    other = (tpeaks._greedy_distance_parallel if k > tpeaks.PARALLEL_GREEDY_MAX_K
-             else tpeaks._greedy_distance_sequential)
-    np.testing.assert_array_equal(other(tc, m, loop=RecordingBackend().while_loop).numpy(), want)
+    other = (tlane._greedy_distance_parallel if k > tlane.PARALLEL_GREEDY_MAX_K
+             else tlane._greedy_distance_sequential)
+    np.testing.assert_array_equal(
+        other(tc.pos, tc.alive, m, loop=RecordingBackend().while_loop).numpy(), want)
 
 
 @pytest.mark.parametrize("height_min", [0.0, -0.5])

@@ -1,0 +1,400 @@
+"""The two greedy filters' wrappers on the CPU: the lane greedy
+(``ops/lane_greedy.py``) and the lean block-wise survivors
+(``ops/lean_greedy.py``).
+
+On a CUDA card each wrapper launches its kernel (``csrc/lane_greedy.cu``,
+``csrc/lean_greedy.cu``); on the CPU it runs its plain version, and it
+never falls back from one to the other. Here, on the CPU:
+
+* each wrapper equals its plain version (both loop forms) and the JAX
+  package's function on the same numpy inputs: the JAX
+  ``greedy_distance_filter`` at K = 64, 2048, 2049 and 4,728 with dense
+  clusters and dead lanes holding garbage positions; the JAX lean group
+  (``_lean_group_packed_pallas``, its candidate scan in interpret mode, as
+  the JAX tests run it, stopped at its greedy's outputs) on the named
+  cases of ``chip_smoke.LEAN_GREEDY_CASES`` at m = 40 and 700: no
+  candidate, fewer than ``r_max``, exactly ``r_max``, overflow, a refused
+  round, rows finishing apart, rows shorter than the 516-sample window,
+  ``valid_len`` at a block edge and one either side, and plateaus of 2 and
+  3 samples at the threshold;
+* a numpy transliteration of each kernel's per-row algorithm (the row's
+  own exit, the lane-by-lane sweep), kept here and not in the package,
+  against the plain version on hypothesis-generated inputs;
+* a library whose launch returns a CUDA error makes the wrapper raise, and
+  what does not fit the kernel's shared memory is refused before a launch.
+
+Tolerance: none. Every output is an integer, a mask, or a height that is a
+quotient rounded as IEEE division, held bit for bit. The kernels against
+their plain versions on the card: tests/test_torch_cuda.py and
+``chip_smoke.py``'s ``greedy_kernels`` phase.
+"""
+
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from audio_pattern_detector_tpu.models import bank as jbank
+from audio_pattern_detector_tpu.ops import pallas_peaks as jpallas
+from audio_pattern_detector_tpu.ops import peaks as jpeaks
+from audio_pattern_detector_tpu_torch.kernels import _build
+from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
+from audio_pattern_detector_tpu_torch.ops import lean_greedy as tlean
+from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan_reference
+from chip_smoke import (
+    LEAN_GREEDY_CASES,
+    LEAN_GREEDY_MS,
+    lane_greedy_input,
+    lean_greedy_case,
+    lean_greedy_inputs,
+    random_lean_greedy_case,
+)
+from tests.test_torch_capture import RecordingBackend
+
+torch.set_num_threads(1)
+
+SENTINEL = 2**30
+BLOCK, WINDOW = 512, 516
+
+
+# ── Numpy transliterations of the kernels' per-row algorithms ──
+
+
+def np_lane_greedy(pos: np.ndarray, alive: np.ndarray, m: int) -> np.ndarray:
+    """csrc/lane_greedy.cu row by row: walk the lanes up to the row's last
+    alive one; each lane still kept clears every later kept lane within
+    ``m``, one lane at a time."""
+    keep = np.zeros(alive.shape, dtype=bool)
+    for r in range(pos.shape[0]):
+        kept = alive[r].copy()
+        live = np.flatnonzero(kept)
+        n = int(live[-1]) + 1 if len(live) else 0
+        p = pos[r].astype(np.int32).astype(np.int64)  # the kernel's int32 positions
+        for i in range(n):
+            if not kept[i]:
+                continue
+            for j in range(i + 1, n):
+                if kept[j] and abs(int(p[j]) - int(p[i])) < m:
+                    kept[j] = False
+        keep[r] = kept
+    return keep
+
+
+def np_lean_greedy(corr, valid_len, bmax, denom, hm, m, r_max):
+    """csrc/lean_greedy.cu row by row: the seeds, then rounds until the
+    row's bwork is exhausted, a round is refused or ``r_max`` rounds ran."""
+    g, l = corr.shape
+    nb = bmax.shape[1]
+    lens = np.broadcast_to(np.asarray(valid_len, dtype=np.int64), (g,))
+    pos = np.full((g, r_max), SENTINEL, dtype=np.int64)
+    height = np.full((g, r_max), -np.inf, dtype=np.float32)
+    overflow = np.zeros(g, dtype=bool)
+    hm = np.float32(hm)
+    for r in range(g):
+        d = np.float32(denom[r])
+        q = (bmax[r] / d).astype(np.float32)
+        bwork = np.where(q >= hm, q, np.float32(-np.inf)).astype(np.float32)
+
+        def window(b):
+            start = min(max(b * BLOCK - 2, 0), max(l - WINDOW, 0))
+            c = start + np.arange(WINDOW)
+            x = np.where(c < l, corr[r, np.minimum(c, l - 1)], np.float32(0))
+            xq = np.where(c < lens[r], (x / d).astype(np.float32), np.float32(-np.inf))
+            pad = np.full(2, -np.inf, dtype=np.float32)
+            ext = np.concatenate([pad, xq, pad])
+            xm2, xm1, xp1, xp2 = ext[:-4], ext[1:-3], ext[3:-1], ext[4:]
+            fin1, fin2 = np.isfinite(xp1), np.isfinite(xp2)
+            runs = (((xm1 < xq) & (xp1 < xq) & fin1)
+                    | ((xm1 < xq) & (xp1 == xq) & (xp2 < xq) & fin2)
+                    | ((xm2 < xq) & (xm1 == xq) & (xp1 == xq) & (xp2 < xq) & fin2 & (c > 1)))
+            mask = (runs & (c >= b * BLOCK) & (c < (b + 1) * BLOCK) & (c > 0)
+                    & np.isfinite(xq) & (xq >= hm))
+            supp = (np.abs(c[:, None] - pos[r][None, :]) < m).any(axis=1)
+            v = np.where(mask & ~supp, xq, np.float32(-np.inf))
+            j = int(np.argmax(v))  # the first maximum
+            return start, v[j], j
+
+        for k in range(r_max):
+            bi = int(np.argmax(bwork))
+            bh = bwork[bi]
+            if not bh > -np.inf:
+                break  # exhausted
+            start, h, j = window(bi)
+            if h != bh:
+                break  # refused: the state stays, so the round would repeat
+            p = start + j
+            pos[r, k], height[r, k] = p, h
+            lo, hi = p - (m - 1), p + (m - 1)
+            b0 = np.arange(nb) * BLOCK
+            bwork[(b0 >= lo) & (b0 + BLOCK - 1 <= hi)] = -np.inf
+            for edge in (lo, hi):
+                be = 0 if edge < 0 else min(edge // BLOCK, nb - 1)
+                bwork[be] = min(bwork[be], window(be)[1])
+        overflow[r] = bool((bwork > -np.inf).any())
+    return pos, height, overflow
+
+
+# ── The lane greedy ──
+
+
+def _jax_lane(pos, alive, m):
+    height = np.where(alive, np.float32(1.0), np.float32(-np.inf))
+    jc = jpeaks.PeakCandidates(jnp.asarray(pos), jnp.asarray(height), jnp.asarray(alive),
+                               jnp.zeros(pos.shape[0], dtype=bool))
+    return np.asarray(jpeaks.greedy_distance_filter(jc, m))
+
+
+LANE_CASES = {
+    # k: (alive counts per row, row length, m)
+    64: ([40, 64, 0], 4000, 90),
+    2048: ([300, 2048], 60_000, 200),  # the parallel form's largest K
+    2049: ([2049, 700], 60_000, 200),  # the sequential form's smallest K
+    4728: ([4728, 1500], 200_000, 400),  # the flagship marker group's lanes
+}
+
+
+@pytest.mark.parametrize("k", sorted(LANE_CASES))
+def test_lane_greedy_equals_its_plain_version_and_jax(k):
+    n_alive, l, m = LANE_CASES[k]
+    pos, alive = lane_greedy_input(len(n_alive), k, n_alive, l, m, seed=k)
+    want = _jax_lane(pos, alive, m)
+    tp, ta = torch.from_numpy(pos), torch.from_numpy(alive)
+    before = tlane.lane_greedy.launches
+    got = tlane.lane_greedy(tp, ta, m)
+    assert tlane.lane_greedy.launches == before  # the plain version counts nothing
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tlane.lane_greedy_reference(tp, ta, m).numpy(), want)
+    backend = RecordingBackend()
+    np.testing.assert_array_equal(
+        tlane.lane_greedy(tp, ta, m, loop=backend.while_loop).numpy(), want)
+    assert backend.loops == 1
+    if k <= 2049:  # the transliteration's Python loops stay short
+        np.testing.assert_array_equal(np_lane_greedy(pos, alive, m), want)
+    # Suppression ran, every kept lane is alive, and a dead row keeps nothing.
+    assert not (want & ~alive).any()
+    assert (want.sum(axis=1) < alive.sum(axis=1))[np.array(n_alive) > 0].all()
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    g=st.integers(1, 4),
+    k=st.integers(1, 48),
+    m=st.integers(1, 40),
+    l=st.integers(8, 300),
+    data=st.data(),
+)
+def test_lane_transliteration_equals_the_plain_version(g, k, m, l, data):
+    """Per-row exit and the lane-by-lane sweep against the plain version in
+    both forms (parallel and sequential, whatever K), on prefixes of
+    alive lanes at positions that may repeat and cluster."""
+    n_alive = data.draw(st.lists(st.integers(0, k), min_size=g, max_size=g))
+    seed = data.draw(st.integers(0, 2**32 - 1))
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(-2**31, 2**31 - 1, size=(g, k), dtype=np.int64)
+    alive = np.arange(k)[None, :] < np.array(n_alive)[:, None]
+    pos[alive] = rng.integers(0, l, size=int(alive.sum()))
+    want = np_lane_greedy(pos, alive, m)
+    tp, ta = torch.from_numpy(pos), torch.from_numpy(alive)
+    np.testing.assert_array_equal(tlane.lane_greedy(tp, ta, m).numpy(), want)
+    np.testing.assert_array_equal(tlane._greedy_distance_parallel(tp, ta, m).numpy(), want)
+    np.testing.assert_array_equal(tlane._greedy_distance_sequential(tp, ta, m).numpy(), want)
+
+
+# ── The lean block-wise survivors ──
+
+
+class _Stop(Exception):
+    pass
+
+
+def _jax_lean(case: dict, valid_len: int, rows: slice, monkeypatch) -> list[np.ndarray]:
+    """The JAX lean group on ``rows`` of the case with one valid length:
+    its candidate scan in interpret mode (the case's block-maximum edits
+    applied to what it returns), its greedy's (pos, height, overflow); the
+    group stops there, before its verify tail."""
+    scan = jpallas.candidate_scan
+    greedy = jpeaks.greedy_survivors_from_blocks
+    lo = rows.start
+    got = {}
+
+    def edited_scan(corr, thr, vl, **kw):
+        out = scan(corr, thr, vl, **kw)
+        bmax = np.asarray(out[0]).copy()
+        for row, b, v in case["edits"]:
+            if rows.start <= row < rows.stop:
+                bmax[row - lo, b] = v
+        return (jnp.asarray(bmax), *out[1:])
+
+    def recorded(*args, **kwargs):
+        got["out"] = [np.asarray(x) for x in greedy(*args, **kwargs)]
+        raise _Stop
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jpallas, "candidate_scan", edited_scan)
+        mp.setattr(jpeaks, "greedy_survivors_from_blocks", recorded)
+        with pytest.raises(_Stop):
+            jbank._lean_group_packed_pallas(
+                None, jnp.asarray(case["corr"][rows]), jnp.int32(valid_len), "normal",
+                case["m"], 64, 64, case["hm"], None, jnp.asarray(case["scm"][rows]))
+    return got["out"]
+
+
+def _jax_lean_rows(case: dict, monkeypatch) -> list[np.ndarray]:
+    """The JAX lean group's greedy outputs for every row: in one call with
+    the case's one valid length, or row by row with each row's own."""
+    g = case["corr"].shape[0]
+    vl = case["valid_len"]
+    if not isinstance(vl, np.ndarray):
+        return _jax_lean(case, vl, slice(0, g), monkeypatch)
+    parts = [_jax_lean(case, int(vl[r]), slice(r, r + 1), monkeypatch) for r in range(g)]
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+def _as_np(out) -> list[np.ndarray]:
+    return [t.numpy() for t in out]
+
+
+def _same(got: list[np.ndarray], want: list[np.ndarray]) -> None:
+    pos, height, overflow = got
+    np.testing.assert_array_equal(pos, want[0].astype(np.int64))
+    np.testing.assert_array_equal(height.view(np.int32), want[1].astype(np.float32).view(np.int32))
+    np.testing.assert_array_equal(overflow, want[2])
+
+
+@pytest.mark.parametrize("m", LEAN_GREEDY_MS)
+@pytest.mark.parametrize("name", LEAN_GREEDY_CASES)
+def test_lean_greedy_equals_its_plain_version_and_the_jax_lean_group(monkeypatch, name, m):
+    case = lean_greedy_case(name, m)
+    args = lean_greedy_inputs(case, torch.device("cpu"), candidate_scan_reference)
+    want = _jax_lean_rows(case, monkeypatch)
+    before = tlean.lean_greedy.launches
+    got = _as_np(tlean.lean_greedy(*args))
+    assert tlean.lean_greedy.launches == before  # the plain version counts nothing
+    _same(got, want)
+    _same(_as_np(tlean.lean_greedy_reference(*args)), want)
+    backend = RecordingBackend()
+    _same(_as_np(tlean.lean_greedy(*args, loop=backend.while_loop)), want)
+    corr, valid_len, bmax, denom, hm, _, r_max = args
+    vl = valid_len.numpy() if isinstance(valid_len, torch.Tensor) else valid_len
+    _same(list(np_lean_greedy(corr.numpy(), vl, bmax.numpy(), denom.numpy(), hm, m, r_max)),
+          want)
+    pos, height, overflow = got
+    kept = np.isfinite(height).sum(axis=1)
+    assert (pos[~np.isfinite(height)] == SENTINEL).all()
+    # What each case is for.
+    if name == "no_candidate":
+        assert kept.tolist() == [0, 0] and not overflow.any()
+    elif name == "exactly_r_max":
+        assert kept[0] == case["r_max"] and not overflow[0]
+    elif name == "overflow":
+        assert kept[0] == case["r_max"] and overflow.tolist() == [True, False]
+    elif name == "refused_round":
+        assert kept[0] == 1 and overflow.tolist() == [True, False]
+    elif name == "rows_finish_apart":
+        assert kept.tolist() == [0, 2, 7] and not overflow.any()
+    elif name == "fewer_than_r_max":
+        assert kept.tolist() == [3, 1]
+    elif name == "plateaus_at_hm":
+        assert {100, 301, 511, 1024} <= set(pos[0].tolist()) if m < 512 else kept[0] >= 1
+        assert not {1, 500, 701} & set(pos[0].tolist())
+    elif name == "valid_len_at_block_edge":
+        assert 1022 not in pos[0] and 1022 in pos[1] and 1022 in pos[2]
+    else:  # rows shorter than the window
+        assert (kept >= 1).all()
+
+
+@settings(max_examples=40, deadline=None)
+@given(
+    seed=st.integers(0, 2**32 - 1),
+    g=st.integers(1, 3),
+    l=st.integers(3, 2200),
+    m=st.integers(1, 900),
+    r_max=st.integers(1, 5),
+    per_row=st.booleans(),
+    edits=st.integers(0, 2),
+)
+def test_lean_transliteration_equals_the_plain_version(seed, g, l, m, r_max, per_row, edits):
+    """The kernel's per-row rounds (the row's own exit at exhaustion or at
+    its first refused round) against the plain version in both forms, on
+    rows of planted peaks and short plateaus at a few heights (ties in
+    both argmaxes), per-row lengths, and block maxima that are the scan's
+    or, now and then, raised or lowered (refused rounds)."""
+    case = random_lean_greedy_case(seed, g, l, m, r_max, per_row, edits)
+    args = lean_greedy_inputs(case, torch.device("cpu"), candidate_scan_reference)
+    corr, valid_len, bmax, denom, hm, _, _ = args
+    vl = valid_len.numpy() if isinstance(valid_len, torch.Tensor) else valid_len
+    want = np_lean_greedy(corr.numpy(), vl, bmax.numpy(), denom.numpy(), hm, m, r_max)
+    for out in (tlean.lean_greedy(*args),
+                tlean.lean_greedy(*args, loop=RecordingBackend().while_loop)):
+        _same(_as_np(out), list(want))
+
+
+# ── No fallback ──
+
+
+def _stub(monkeypatch, code: int):
+    lib = types.SimpleNamespace(apd_lane_greedy=lambda *a: code, apd_lean_greedy=lambda *a: code)
+    monkeypatch.setattr(_build, "load_kernels", lambda: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+
+
+def test_a_launch_that_returns_a_cuda_error_raises(monkeypatch):
+    """The launch path with a library whose entry points return a CUDA
+    error (700, an illegal address): each wrapper raises, counts no launch
+    and runs no plain version in its place."""
+    _stub(monkeypatch, 700)
+    monkeypatch.setattr(tlane, "lane_greedy_reference", lambda *a: pytest.fail("fell back"))
+    monkeypatch.setattr(tlean, "lean_greedy_reference", lambda *a: pytest.fail("fell back"))
+    pos, alive = lane_greedy_input(2, 64, [40, 10], 4000, 90, seed=1)
+    before = (tlane.lane_greedy.launches, tlean.lean_greedy.launches)
+    with pytest.raises(RuntimeError, match="lane_greedy kernel launch failed: CUDA error 700"):
+        tlane._launch(torch.from_numpy(pos), torch.from_numpy(alive), 90)
+    case = lean_greedy_case("fewer_than_r_max", 40)
+    args = lean_greedy_inputs(case, torch.device("cpu"), candidate_scan_reference)
+    with pytest.raises(RuntimeError, match="lean_greedy kernel launch failed: CUDA error 700"):
+        tlean._launch(*args)
+    assert (tlane.lane_greedy.launches, tlean.lean_greedy.launches) == before
+    _stub(monkeypatch, 0)  # a launch that succeeds is counted
+    tlane._launch(torch.from_numpy(pos), torch.from_numpy(alive), 90)
+    tlean._launch(*args)
+    assert (tlane.lane_greedy.launches, tlean.lean_greedy.launches) == (
+        before[0] + 1, before[1] + 1)
+    tlane.lane_greedy.launches, tlean.lean_greedy.launches = before
+
+
+def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
+    """Shared memory past what a block may take (K = 46,285 lanes; 20,000
+    survivor lanes), wrong types, shapes and layouts, and lengths outside
+    the row raise ValueError without touching the library; an unsupported
+    device raises too."""
+    _stub(monkeypatch, 0)
+    monkeypatch.setattr(_build, "load_kernels", lambda: pytest.fail("reached the library"))
+    k = 46_285
+    with pytest.raises(ValueError, match="shared memory"):
+        tlane._launch(torch.zeros((1, k), dtype=torch.int64), torch.zeros((1, k), dtype=bool), 5)
+    tlane_ok = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        tlane._launch(tlane_ok.int(), torch.zeros((2, 8), dtype=bool), 5)
+    with pytest.raises(ValueError, match="alive"):
+        tlane._launch(tlane_ok, torch.zeros((2, 4), dtype=bool), 5)
+    case = lean_greedy_case("fewer_than_r_max", 40)
+    corr, valid_len, bmax, denom, hm, m, _ = lean_greedy_inputs(
+        case, torch.device("cpu"), candidate_scan_reference)
+    with pytest.raises(ValueError, match="shared memory"):
+        tlean._launch(corr, valid_len, bmax, denom, hm, m, 20_000)
+    with pytest.raises(ValueError, match="bmax"):
+        tlean._launch(corr, valid_len, bmax[:, :-1], denom, hm, m, 16)
+    with pytest.raises(ValueError, match="valid_len"):
+        tlean._launch(corr, corr.shape[1] + 1, bmax, denom, hm, m, 16)
+    with pytest.raises(ValueError, match="per-row valid_len"):
+        tlean._launch(corr, torch.zeros(2, dtype=torch.int64), bmax, denom, hm, m, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlane.lane_greedy(tlane_ok.to("meta"), torch.zeros((2, 8), dtype=bool, device="meta"), 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlean.lean_greedy(corr.to("meta"), 5, bmax, denom, hm, m, 16)
+

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from audio_pattern_detector_tpu.ops import peaks as jpeaks
+from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
 from audio_pattern_detector_tpu_torch.ops import peaks as tpeaks
 
 torch.set_num_threads(1)
@@ -159,9 +160,11 @@ def test_greedy_distance_filter_identical(k, n_alive, l, m):
     np.testing.assert_array_equal(tpeaks.greedy_distance_filter(tc, m).numpy(), want)
     assert want.sum() > 0 and (want.sum(axis=1) < alive.sum(axis=1)).any()
     if k <= 2048:  # the other variant must agree as well
-        np.testing.assert_array_equal(tpeaks._greedy_distance_sequential(tc, m).numpy(), want)
+        np.testing.assert_array_equal(
+            tlane._greedy_distance_sequential(tc.pos, tc.alive, m).numpy(), want)
     else:
-        np.testing.assert_array_equal(tpeaks._greedy_distance_parallel(tc, m).numpy(), want)
+        np.testing.assert_array_equal(
+            tlane._greedy_distance_parallel(tc.pos, tc.alive, m).numpy(), want)
 
 
 @pytest.mark.parametrize("height_min", [0.0, -0.5, 0.25, 0.45])

@@ -49,6 +49,7 @@ from audio_pattern_detector_tpu_torch.models.detector import (
     TorchAudioPatternDetector,
 )
 from audio_pattern_detector_tpu_torch.ops import candidate_scan as tscan
+from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
 from audio_pattern_detector_tpu_torch.ops import peaks as tpeaks
 from audio_pattern_detector_tpu_torch.ops import verify as tverify
 from audio_pattern_detector_tpu_torch.ops.consts import consts_from_numpy
@@ -212,13 +213,13 @@ def test_sequential_greedy_equals_parallel(monkeypatch, k, n_alive, l, m):
                                torch.zeros(len(n_alive), dtype=torch.bool))
     want = np.asarray(jpeaks._greedy_distance_parallel(jc, m))
     np.testing.assert_array_equal(np.asarray(jpeaks._greedy_distance_sequential(jc, m)), want)
-    np.testing.assert_array_equal(tpeaks._greedy_distance_parallel(tc, m).numpy(), want)
-    np.testing.assert_array_equal(tpeaks._greedy_distance_sequential(tc, m).numpy(), want)
+    for form in (tlane._greedy_distance_parallel, tlane._greedy_distance_sequential):
+        np.testing.assert_array_equal(form(tc.pos, tc.alive, m).numpy(), want)
     routes = []
     for name in ("_greedy_distance_sequential", "_greedy_distance_parallel"):
-        fn = getattr(tpeaks, name)
-        monkeypatch.setattr(tpeaks, name, lambda c, d, loop=None, fn=fn, name=name:
-                            routes.append(name) or fn(c, d, loop))
+        fn = getattr(tlane, name)
+        monkeypatch.setattr(tlane, name, lambda p, a, d, loop=None, fn=fn, name=name:
+                            routes.append(name) or fn(p, a, d, loop))
     np.testing.assert_array_equal(tpeaks.greedy_distance_filter(tc, m).numpy(), want)
     assert routes == ["_greedy_distance_parallel"]  # k is within PARALLEL_GREEDY_MAX_K
     assert 0 < want.sum() < alive.sum()
@@ -324,7 +325,7 @@ def test_switch_matches_the_jax_bank(monkeypatch, case):
 
     routes = {"gemm": 0, "sequential": 0, "scan": 0}
     for key, module, name in (("gemm", tverify, "_rfft_power_gemm"),
-                              ("sequential", tpeaks, "_greedy_distance_sequential"),
+                              ("sequential", tlane, "_greedy_distance_sequential"),
                               ("scan", tscan, "candidate_scan_reference")):
         fn = getattr(module, name)
 
