@@ -51,6 +51,7 @@ NVCC_FLAGS = (
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
+_c_i64 = ctypes.c_longlong
 
 # C signatures of the library's entry points (csrc/*.cu ``extern "C"``).
 _SIGNATURES = {
@@ -66,6 +67,17 @@ _SIGNATURES = {
     "apd_lean_greedy": (
         [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr, ctypes.c_float,
          _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        ctypes.c_int,
+    ),
+    "apd_verify_normal": (
+        [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+         _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
+         ctypes.c_float, ctypes.c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        ctypes.c_int,
+    ),
+    "apd_verify_marker": (
+        [_c_ptr, _c_int, _c_int, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_i64, _c_int,
+         _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),

@@ -172,12 +172,12 @@ from audio_pattern_detector_tpu_torch.ops.peaks import (
 from audio_pattern_detector_tpu_torch.ops.verify import (
     MarkerVerifyConsts,
     NormalVerifyConsts,
-    _marker_gemm_enabled,
     build_marker_verify_consts,
     build_normal_verify_consts,
     verify_marker,
     verify_normal,
 )
+from audio_pattern_detector_tpu_torch.ops.verify_marker import _marker_gemm_enabled
 
 _BIG = 2**30  # dead-lane position (== ops/peaks.SURVIVOR_POS_SENTINEL)
 _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
@@ -1201,31 +1201,32 @@ def general_group_packed(
 
 
 def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
-                     cond: "Cond | None" = None) -> torch.Tensor:
+                     cond: "Cond | None" = None, width: int = _SMALL_TIER) -> torch.Tensor:
     """Verify only the first _SMALL_TIER lanes when every row's live lanes
-    fit there (compaction puts them first), else every lane, _SMALL_TIER
+    fit there (compaction puts them first), else every lane, ``width``
     lanes at a time; bitwise the same accept bits either way, since each
     lane's verdict reads only its own window. ``cond`` (by default
     :func:`host_cond`, one host sync) picks the branch; each branch writes
     the whole of ``accept``, allocated before it. A branch's working set is
-    one block's: the full-width verify of a 16-row flagship round would
-    hold gigabytes of windows, in a captured step in the bodies' own
-    graph pool."""
+    one block's where the verifier makes every lane's windows (the plain
+    versions, and the marker verifier's spectra): the full-width verify of
+    a 16-row flagship round would hold gigabytes of them, in a captured
+    step in the bodies' own graph pool."""
     kv = vpos.shape[1]
     small_fits = valive.sum(dim=1).amax() <= _SMALL_TIER
     accept = torch.empty_like(valive)
 
-    def block(lo: int) -> None:
-        lanes = slice(lo, lo + _SMALL_TIER)
+    def block(lo: int, n: int) -> None:
+        lanes = slice(lo, lo + n)
         accept[:, lanes] = verify_accept(vpos[:, lanes], valive[:, lanes])
 
     def small_tier() -> None:
-        block(0)
+        block(0, _SMALL_TIER)
         accept[:, _SMALL_TIER:] = False
 
     def every_lane() -> None:
-        for lo in range(0, kv, _SMALL_TIER):
-            block(lo)
+        for lo in range(0, kv, width):
+            block(lo, width)
 
     (cond or host_cond)(small_fits, small_tier, every_lane)
     return accept
@@ -1242,7 +1243,10 @@ def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool
         return verify_normal(corr, p, a, verify_consts, normalise)[0]
 
     if two_tier and vpos.shape[1] > _SMALL_TIER:
-        return _two_tier_accept(verify_accept, vpos, valive, cond)
+        # On a card the normal verifier's kernel reads only live lanes'
+        # windows and makes no array of them: its full branch is one launch.
+        width = vpos.shape[1] if kind == "normal" and vpos.is_cuda else _SMALL_TIER
+        return _two_tier_accept(verify_accept, vpos, valive, cond, width)
     return verify_accept(vpos, valive)
 
 

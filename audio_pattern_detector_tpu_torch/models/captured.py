@@ -85,7 +85,12 @@ payloads) is captured once per key into a CUDA graph and replayed:
   wrappers, so each graph records how many launches of each kernel
   (:data:`COUNTED`) its capture enqueued (the capture itself executes none
   and adds none to a wrapper's ``launches``), and each replay adds those
-  numbers.
+  numbers. The verifiers' kernels run inside conditional bodies (the lean
+  tail's if-node, the two-tier verify's cond), which a replay runs or
+  skips on the device: a replay adds only the launches outside bodies,
+  and ``body_launches`` lists each body's, for a caller that counts the
+  bodies that ran from the payload (a lean group's body ran where the
+  group has a position below the sentinel).
 * **Memory**: one graph memory pool per device, shared by the bank's
   graphs on it (the widths of a tile ladder, both upload dtypes, both
   schedules), on one capture stream per device, and one pool
@@ -112,9 +117,11 @@ from audio_pattern_detector_tpu_torch.ops.devices import device_guard
 from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
 from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32
+from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
+from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
 # The kernel wrappers whose ``launches`` a replay adds to.
-COUNTED = (candidate_scan, lane_greedy, lean_greedy)
+COUNTED = (candidate_scan, lane_greedy, lean_greedy, verify_normal, verify_marker)
 
 
 class StepKey(NamedTuple):
@@ -326,14 +333,33 @@ class CapturedStep:
             self.n_valid = torch.zeros((key.rows,), dtype=torch.int32, device=self.device)
         self._replay: "Callable[[], None] | None" = None
         self._out: Any = None
-        self.kernel_launches = dict.fromkeys(COUNTED, 0)  # each wrapper's launches a replay
+        # Each wrapper's launches a replay outside conditional bodies, and
+        # each body's launches, in the order the capture met the bodies.
+        self.kernel_launches = dict.fromkeys(COUNTED, 0)
+        self.body_launches: list[dict] = []
         self.replays = 0
         self.capture_seconds: "float | None" = None  # first use: eager run and capture
 
     @property
     def launches(self) -> int:
-        """Kernel launches one replay makes, every kernel counted."""
+        """Kernel launches one replay makes outside conditional bodies,
+        every kernel counted."""
         return sum(self.kernel_launches.values())
+
+    def _recorded(self, body: Callable[[], Any]) -> Callable[[], None]:
+        """``body`` adding the launches it makes when captured to a new
+        entry of ``body_launches``."""
+        if self._replay is not None:  # a stand-in backend's replay runs the step again
+            return body
+        launched: dict = {}
+        self.body_launches.append(launched)
+
+        def run() -> None:
+            before = {w: w.launches for w in COUNTED}
+            body()
+            launched.update({w: w.launches - n for w, n in before.items() if w.launches != n})
+
+        return run
 
     def load(self, section: torch.Tensor, n_valid: "int | torch.Tensor") -> None:
         """Copy one call's rows ((n, S) with n <= B, or one (S,) row) and
@@ -375,17 +401,25 @@ class CapturedStep:
         out = self._backend.warm_up(
             self.device, lambda: self._step(cond=both_branches if general else None))
         counted = {wrapper: wrapper.launches for wrapper in COUNTED}
-        branch = self._backend.conditional if self.key.skip_empty_verify else None
+        backend = self._backend
+
+        def branch(pred, body) -> None:
+            backend.conditional(pred, self._recorded(body))
+
+        def two_way(pred, then_, else_) -> None:
+            backend.cond(pred, self._recorded(then_), self._recorded(else_))
+
         # A plain greedy's loop (the mask tier's lean greedy unless unrolled,
         # and on a stand-in backend the plain greedies of every tier) is a
         # while node; the general tier's two-tier verify a cond. The kernels
         # take neither.
-        loop = self._backend.while_loop if general or not self.key.greedy_unroll else None
-        cond = self._backend.cond if general else None
+        loop = backend.while_loop if general or not self.key.greedy_unroll else None
         try:
-            self._replay, self._out = self._backend.capture(
-                self.device, lambda: self._step(branch, loop, cond))
-            self.kernel_launches = {w: w.launches - n for w, n in counted.items()}
+            self._replay, self._out = backend.capture(self.device, lambda: self._step(
+                branch if self.key.skip_empty_verify else None, loop,
+                two_way if general else None))
+            in_bodies = {w: sum(b.get(w, 0) for b in self.body_launches) for w in COUNTED}
+            self.kernel_launches = {w: w.launches - n - in_bodies[w] for w, n in counted.items()}
         finally:
             for wrapper, n in counted.items():
                 wrapper.launches = n  # a capture executes nothing

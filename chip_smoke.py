@@ -206,6 +206,17 @@ card and checks them:
    plain ms, the bound from each input's own work and its share, and each
    kernel's launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18,
    19, counted from 0 around each);
+21. the verify kernels (``verify_kernels``): ``csrc/verify_normal.cu`` and
+   ``csrc/verify_marker.cu`` against their plain versions on the flagship
+   step's and a 16-row round's own hit-bearing calls (both schedules, each
+   captured against eager), the general-plateau round's, the escalated
+   marker row's, phase 19's regression captures' and the CPU tests' named
+   cases: accept bitwise, similarity and r within tolerance on live lanes;
+   device ms (a graph of 20 calls), wrapper ms, plain ms, bound and share;
+   the hit-bearing round's verify tail in device ms split between the
+   verifiers, with the kernels and with the plain versions; each kernel's
+   launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18, 19; a
+   replay's conditional bodies counted from its payload);
 15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
@@ -220,8 +231,8 @@ to DIR.
 
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
-a JSON line of per-kernel numbers (the candidate scan, the lane greedy and
-the lean greedy) and the JSON status line.
+a JSON line of per-kernel numbers (the candidate scan, the lane greedy, the
+lean greedy and the two verifiers) and the JSON status line.
 """
 
 from __future__ import annotations
@@ -504,6 +515,332 @@ def greedy_outputs_equal(a, b) -> bool:
             x.view(torch.int32) if x.dtype == torch.float32 else x,
             y.view(torch.int32) if y.dtype == torch.float32 else y)
         for x, y in zip(a, b))
+
+
+# ── The verify kernels' inputs and arithmetic (phase verify_kernels and the tests) ──
+
+VERIFY_SR = 8000
+# Named inputs of each verifier (verify_normal_case, verify_marker_case).
+VERIFY_NORMAL_CASES = ("hit_and_misses", "short_clip", "row_ends", "dead_lanes", "all_live",
+                       "zero_variance", "rounds")
+VERIFY_MARKER_CASES = ("tone_hits", "no_frames", "row_ends", "dead_lanes", "all_live", "rounds")
+# Threads of a CTA in csrc/verify_normal.cu and csrc/verify_marker.cu: the
+# order of their sums (np_block_sum).
+VERIFY_NORMAL_THREADS = 512
+VERIFY_MARKER_THREADS = 256
+
+
+def self_correlations(clips: np.ndarray) -> np.ndarray:
+    """(G, 2m - 1) f32: each clip's |full self-correlation| over its
+    maximum, the form of the bank's correlation clips."""
+    cc = np.stack([np.abs(np.correlate(c.astype(np.float64), c.astype(np.float64), "full"))
+                   for c in clips])
+    return (cc / cc.max(axis=1, keepdims=True)).astype(np.float32)
+
+
+def verify_normal_case(name: str) -> dict:
+    """One named input of the normal verifier at 8 kHz: ``corr`` (R, L) f32
+    rows (noise, with clips' self-correlations planted as hits), ``pos``
+    (R, K) int64, ``alive`` (R, K), the clips' ``cc``, ``m``, and the
+    normaliser (``valid_len``: None, an int or an (R,) int32 array;
+    ``denom``: None or (R,) f32, ``corr`` then raw). Lanes 0-2 of each row
+    are a hit, one sample off it and a plateau. Rows are round-major:
+    R = B * G, row r against clip r % G. Clips are 0.5 s (m = 4,000, the
+    normal verifier) or, for ``short_clip``, 0.25 s (the short-clip
+    verifier)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    m = 2000 if name == "short_clip" else 4000
+    g, k = 2, 16
+    b = 3 if name == "rounds" else 1
+    r_rows = b * g
+    cc = self_correlations(rng.standard_normal((g, m)).astype(np.float32))
+    l = 3 * VERIFY_SR + 2 * m - 1  # the 'full' correlation of a 3 s section
+    noise = 0.002 if name == "short_clip" else 0.05  # a short clip's r reads its whole window
+    corr = (np.abs(rng.standard_normal((r_rows, l))) * noise).astype(np.float32)
+    pos = rng.integers(m, l - m, (r_rows, k)).astype(np.int64)
+    alive = rng.random((r_rows, k)) < 0.7
+
+    def plant(r: int, p: int, clip: int, scale: float = 0.9) -> None:
+        lo, hi = p - (m - 1), p + m
+        src = cc[clip, max(0, -lo): (2 * m - 1) - max(0, hi - l)]
+        corr[r, max(lo, 0): min(hi, l)] = np.maximum(corr[r, max(lo, 0): min(hi, l)],
+                                                     scale * src)
+
+    for r in range(r_rows):
+        hit = int(rng.integers(2 * m, l - 2 * m))
+        plant(r, hit, r % g)
+        miss = hit + 3 * m // 2 if hit + 3 * m // 2 < l - m else hit - 3 * m // 2
+        pos[r, :3] = [hit, hit + 1, miss]  # the hit, one off, a miss
+        corr[r, miss - m // 2: miss + m // 2] = 0.9  # a plateau, not the clip's shape: refused
+        alive[r, :3] = True
+    valid_len: "int | np.ndarray | None" = None
+    denom = None
+    if name == "row_ends":
+        # Windows clipped at both ends of the row, hits at both ends.
+        for r in range(r_rows):
+            plant(r, m - 1, r % g)
+            plant(r, l - m, r % g)
+            pos[r, 3:10] = [m - 1, l - m, 0, 1, l - 1, l + 3, -3]
+            alive[r, 3:10] = True
+        valid_len = l - 5
+        denom = np.float32([1.7, 0.4])
+        corr *= denom[:, None]
+    elif name == "dead_lanes":
+        alive[:, 1:] = False
+        alive[0, 5] = True
+        pos[~alive] = rng.integers(-2**40, 2**40, int((~alive).sum()))  # garbage
+    elif name == "all_live":
+        alive[:] = True
+    elif name == "zero_variance":
+        corr[1] = 0.0  # every window of row 1 is zero: smax clamps, r is 0
+        corr[0, 5000:5000 + 2 * m] = 0.0
+        pos[0, 3] = 5000 + m
+        alive[:, 3] = True
+    elif name == "rounds":
+        valid_len = rng.integers(l // 2, l + 1, r_rows).astype(np.int32)
+        valid_len[3] = 0
+        valid_len[4] = pos[4, 0] + 10  # cuts the hit's window
+        denom = rng.uniform(0.3, 2.0, r_rows).astype(np.float32)
+        corr *= denom[:, None]
+    return {"corr": corr, "pos": pos, "alive": alive, "cc": cc, "m": m, "sr": VERIFY_SR,
+            "valid_len": valid_len, "denom": denom}
+
+
+def verify_normal_inputs(case: dict, dev) -> tuple:
+    """(corr, pos, alive, consts, normalise) on ``dev`` for the normal
+    verifier, its constants built by the port from the case's clips."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.verify import build_normal_verify_consts
+
+    consts = build_normal_verify_consts(case["cc"], case["m"], case["sr"], dev)
+    normalise = None
+    if case["denom"] is not None:
+        vl = case["valid_len"]
+        normalise = (torch.from_numpy(vl).to(dev) if isinstance(vl, np.ndarray) else int(vl),
+                     torch.from_numpy(case["denom"]).to(dev))
+    return (torch.from_numpy(case["corr"]).to(dev), torch.from_numpy(case["pos"]).to(dev),
+            torch.from_numpy(case["alive"]).to(dev), consts, normalise)
+
+
+def np_block_sum(terms: np.ndarray, threads: int) -> np.float32:
+    """The f32 sum a CTA of ``threads`` takes in the verify kernels: thread
+    t adds terms t, t + threads, ... in turn; each warp folds its 32 sums
+    by xor shuffles (16, 8, 4, 2, 1: lane i adds lane i + half); the warp
+    sums, zero-padded to 32, fold the same way."""
+    terms = np.asarray(terms, dtype=np.float32).ravel()
+    rows = max(-(-len(terms) // threads), 1)
+    padded = np.zeros(rows * threads, dtype=np.float32)
+    padded[: len(terms)] = terms
+    acc = np.zeros(threads, dtype=np.float32)
+    for row in padded.reshape(rows, threads):
+        acc = acc + row
+    return np_warp_fold(np_warp_fold(acc.reshape(-1, 32)))[0]
+
+
+def np_warp_fold(v: np.ndarray) -> np.ndarray:
+    """Each row of 32 lanes (zero-padded to 32) folded as a warp's xor
+    shuffles fold it: (rows,) f32."""
+    v = np.asarray(v, dtype=np.float32)
+    if v.ndim == 1:
+        v = np.concatenate([v, np.zeros(32 - len(v), np.float32)])[None, :]
+    while v.shape[1] > 1:
+        half = v.shape[1] // 2
+        v = v[:, :half] + v[:, half:]
+    return v[:, 0]
+
+
+def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None):
+    """csrc/verify_normal.cu lane by lane in numpy, in its order of
+    arithmetic: (accept, sim, r), sim and r NaN on dead lanes."""
+    f32 = np.float32
+    t = VERIFY_NORMAL_THREADS
+    ccp = consts.corr_clip_partitions.cpu().numpy()
+    ds_clip = consts.ds_clip.cpu().numpy()
+    seg_a, seg_b = consts.seg_a.cpu().numpy(), consts.seg_b.cpu().numpy()
+    g_n, ds_n = ds_clip.shape
+    m, lc, ps = consts.clip_len, consts.corr_len, consts.partition_size
+    r_rows, k = pos.shape
+    l = corr.shape[1]
+    front = 8 + m - 1
+    upper = l + front + 8 + m - lc
+    accept = np.zeros((r_rows, k), dtype=bool)
+    sim = np.full((r_rows, k), np.nan, dtype=np.float32)
+    r_out = np.full((r_rows, k), np.nan, dtype=np.float32)
+    for r in range(r_rows):
+        g = r % g_n
+        lim = l if valid_len is None else int(np.broadcast_to(valid_len, (r_rows,))[r])
+        hi = min(lim, l)
+        dn = None if denom is None else f32(denom[r])
+        for j in range(k):
+            if not alive[r, j]:
+                continue
+            start = min(max(int(pos[r, j]) - (m - 1) + front, 0), upper)
+            idx = start - front + np.arange(lc)
+            inside = (idx >= 0) & (idx < hi)
+            raw = np.where(inside, corr[r, np.clip(idx, 0, l - 1)], f32(0))
+            smax = max(_np_div(raw.max(), dn), f32(1e-38))
+            v = (_np_div(raw, dn) / smax).astype(f32)
+            sums = []
+            for p in range(10):
+                d = (v[p * ps:(p + 1) * ps] - ccp[g, p]).astype(f32)
+                sums.append(np_block_sum(d * d, t))
+            mse = [f32(s / f32(ps)) for s in sums]
+            whole = f32(0)
+            for x in mse:
+                whole = f32(whole + x)
+            whole = f32(whole / f32(10))
+            mid = f32(f32(mse[4] + mse[5]) / f32(2))
+            s_val = whole if consts.is_short else min(whole, mid)
+            lo = consts.win_lo + seg_a
+            hi_b = consts.win_lo + seg_b + (1 << consts.k_level)
+            bm = np.array([raw[a:b].max() for a, b in zip(lo, hi_b)], dtype=np.float32)
+            x = (_np_div(bm, dn) / smax).astype(f32)
+            y = ds_clip[g]
+            mx = f32(np_block_sum(x, t) / f32(ds_n))
+            my = f32(np_block_sum(y, t) / f32(ds_n))
+            dx, dy = (x - mx).astype(f32), (y - my).astype(f32)
+            cov, sxx, syy = (np_block_sum(a, t) for a in (dx * dy, dx * dx, dy * dy))
+            den = np.sqrt(f32(sxx * syy))
+            rv = f32(cov / max(den, f32(1e-38))) if den > 0 else f32(0)
+            sim[r, j], r_out[r, j] = s_val, rv
+            accept[r, j] = bool(s_val <= f32(0.02)) and bool(rv >= f32(0.9))
+    return accept, sim, r_out
+
+
+def _np_div(x, dn):
+    """x / dn in f32, or x where there is no divisor."""
+    x = np.asarray(x, dtype=np.float32)
+    return x if dn is None else (x / dn).astype(np.float32)
+
+
+def verify_marker_case(name: str) -> dict:
+    """One named input of the marker verifier at 8 kHz: ``section`` (S,) or
+    (B, S) f32, ``pos`` (R, K) int64, ``alive`` (R, K), the clips'
+    ``dom`` frequencies, their ``params`` and ``m``. Clips are 0.25 s tones
+    (m = 2,000: 18 frames of 25 ms), or for ``no_frames`` 20 ms (m = 160,
+    shorter than one frame). Tones of each clip's frequency are planted;
+    lanes sit on them, one sample off and elsewhere."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    m = 160 if name == "no_frames" else 2000
+    dom = np.array([941.0, 1040.0])
+    g, k = 2, 12
+    b = 3 if name == "rounds" else 1
+    s_len = 4 * VERIFY_SR
+    sections = (0.01 * rng.standard_normal((b, s_len))).astype(np.float32)
+    pos = rng.integers(0, s_len + m - 1, (b * g, k)).astype(np.int64)
+    alive = rng.random((b * g, k)) < 0.7
+    t = np.arange(m) / VERIFY_SR
+    for bi in range(b):
+        for gi in range(g):
+            off = VERIFY_SR // 2 + gi * (s_len // 2) + 97 * bi
+            sections[bi, off:off + m] += (0.8 * np.sin(2 * np.pi * dom[gi] * t)).astype(np.float32)
+            hit = off + m - 1
+            r = bi * g + gi
+            pos[r, :3] = [hit, hit - 40, hit + 3]
+            alive[r, :3] = True
+            pos[bi * g + (gi + 1) % g, 3] = hit  # the other clip's tone: refused
+            alive[bi * g + (gi + 1) % g, 3] = True
+    if name == "row_ends":
+        pos[:, 4:8] = [0, 1, s_len + m - 2, s_len + m + 4]
+        alive[:, 4:8] = True
+    elif name == "dead_lanes":
+        alive[:, 2:] = False
+        pos[~alive] = rng.integers(-2**40, 2**40, int((~alive).sum()))
+    elif name == "all_live":
+        alive[:] = True
+    params = [{}, {"minimum_band_purity": 0.9, "minimum_longest_active_run": 6}]
+    if name == "no_frames":  # clip 1 accepts without frames
+        params[1] = {"minimum_active_frame_ratio": 0.0, "minimum_longest_active_run": 0,
+                     "minimum_active_frame_mean_purity": 0.0}
+    return {"section": sections[0] if b == 1 else sections, "pos": pos, "alive": alive,
+            "dom": dom, "params": params, "m": m, "sr": VERIFY_SR}
+
+
+def verify_marker_inputs(case: dict, dev) -> tuple:
+    """(section, pos, alive, consts) on ``dev`` for the marker verifier."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.verify import build_marker_verify_consts
+
+    consts = build_marker_verify_consts(case["m"], case["sr"], case["dom"], case["params"], dev)
+    return (torch.from_numpy(case["section"]).to(dev), torch.from_numpy(case["pos"]).to(dev),
+            torch.from_numpy(case["alive"]).to(dev), consts)
+
+
+def np_marker_decisions(spectra, alive, consts) -> np.ndarray:
+    """csrc/verify_marker.cu lane by lane in numpy, in its order of
+    arithmetic, from :class:`MarkerSpectra` (any device): accept (R, K)."""
+    f32 = np.float32
+    t = VERIFY_MARKER_THREADS
+    whole = spectra.whole.cpu().numpy()
+    b, g_n, k, _, fw = whole.shape
+    whole = whole.reshape(b * g_n, k, 3, fw)
+    frames = None if spectra.frames is None else spectra.frames.cpu().numpy()
+    if frames is not None:
+        frames = frames.reshape(b * g_n, k, *frames.shape[3:])
+    band_whole = consts.band_whole.cpu().numpy()
+    band_frame = consts.band_frame.cpu().numpy()
+    freqs_whole, freqs_frame = consts.freqs_whole.cpu().numpy(), consts.freqs_frame.cpu().numpy()
+    dom_all, lock_all = consts.dom_freq.cpu().numpy(), consts.lock_hz.cpu().numpy()
+    thr_all = consts.thresholds.cpu().numpy()
+
+    def purity(band_e, e):
+        return f32(band_e / max(e, f32(1e-38))) if e > 0 else f32(0)
+
+    accept = np.zeros(alive.shape, dtype=bool)
+    for r in range(b * g_n):
+        g = r % g_n
+        dom = dom_all[g]
+        for j in range(k):
+            if not alive[r, j]:
+                continue
+            pur = []
+            for s in range(3):
+                x = whole[r, j, s]
+                p = (x * x).astype(f32) if spectra.whole_is_magnitude else x
+                pur.append(purity(np_block_sum(np.where(band_whole[g], p, f32(0)), t),
+                                  np_block_sum(p, t)))
+            detected = freqs_whole[np.argmax(whole[r, j, 1])]  # the first maximum
+            freq_ok = abs(f32(detected - dom)) <= f32(f32(0.05) * max(abs(detected), dom))
+            n_frames = 0 if frames is None else frames.shape[2]
+            frame_count = active_count = run = longest = 0
+            pur_sum = f32(0)
+            for fi in range(n_frames):
+                x = frames[r, j, fi]
+                p = (x * x).astype(f32) if spectra.frames_is_magnitude else x
+                e = np_warp_sum(p)
+                fp = purity(np_warp_sum(np.where(band_frame[g], p, f32(0))), e)
+                locked = abs(f32(freqs_frame[np.argmax(x)] - dom)) <= lock_all[g]
+                if e > 0:
+                    frame_count += 1
+                if e > 0 and locked and fp >= f32(0.55):
+                    active_count += 1
+                    pur_sum = f32(pur_sum + fp)
+                    run += 1
+                    longest = max(longest, run)
+                else:
+                    run = 0
+            mean_purity = f32(pur_sum / f32(active_count)) if active_count else f32(0)
+            ratio = f32(f32(active_count) / f32(frame_count)) if frame_count else f32(0)
+            th = thr_all[g]
+            accept[r, j] = bool(freq_ok and pur[1] >= th[0] and ratio >= th[1]
+                                and f32(longest) >= th[2] and mean_purity >= th[3]
+                                and min(pur[0], pur[2]) <= th[4] and max(pur[0], pur[2]) <= th[5])
+    return accept
+
+
+def np_warp_sum(terms: np.ndarray) -> np.float32:
+    """The f32 sum of one warp in csrc/verify_marker.cu: lane l adds terms
+    l, l + 32, ... in turn, then the xor fold of np_warp_fold."""
+    terms = np.asarray(terms, dtype=np.float32)
+    rows = max(-(-len(terms) // 32), 1)
+    padded = np.zeros(rows * 32, dtype=np.float32)
+    padded[: len(terms)] = terms
+    acc = np.zeros(32, dtype=np.float32)
+    for row in padded.reshape(rows, 32):
+        acc = acc + row
+    return np_warp_fold(acc[None, :])[0]
 
 
 def check_scan_edges(dev, shapes) -> int:
@@ -1014,8 +1351,9 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     candidate_scan.launches = lean_greedy.launches = 0
-    pv = step("vmap")
-    torch.cuda.synchronize()
+    with counted_verify_launches("flagship_round_vmap", lambda: [bank]):
+        pv = step("vmap")
+        torch.cuda.synchronize()
     launches = candidate_scan.launches
     GREEDY_PATH_LAUNCHES["lean_greedy"]["flagship_round_vmap"] = lean_greedy.launches
     peak = torch.cuda.max_memory_allocated()
@@ -1233,10 +1571,17 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
             raise AssertionError(f"general tier, {mode}: the captured first use differs from eager")
         turns = ("captured", "captured", "eager") if mode == "scan" else (
             ("eager", "captured", "captured", "eager") * 2)
+        path = f"general_plateau_{mode}"
         for name in turns:
             gen.capture = name == "captured"
             candidate_scan.launches = lane_greedy.launches = 0
-            got, *t = dispatch(gen, mode)
+            counting = contextlib.nullcontext()
+            if gen.capture:  # one captured round's launches, as the lane greedy's
+                for counts in VERIFY_PATH_LAUNCHES.values():
+                    counts.pop(path, None)
+                counting = counted_verify_launches(path, lambda: [gen])
+            with counting:
+                got, *t = dispatch(gen, mode)
             if name == "captured":
                 launches[mode] = candidate_scan.launches
                 lane = GREEDY_PATH_LAUNCHES["lane_greedy"][f"general_plateau_{mode}"] = (
@@ -1456,39 +1801,40 @@ def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) 
     want_route = {"row": 0, "class": 1, "escalated": 2, "clear": None}
     candidate_scan.launches = lane_greedy.launches = 0
     sections = rerun_sections(bank)
-    for name, audio in sections.items():
-        before = routes(bank)
-        dispatched = bank.dispatch_chunk(audio, None)
-        flat = dispatched[0][1].numpy()
-        flagged = []
-        for g, packed in zip(groups, _split_fused(flat, groups)):
-            _, _, host_fb, needs_full = unpack_group(packed, g.k_verify)
-            flagged += [(g, ci) for ci in np.flatnonzero(host_fb | needs_full)]
-        t = time.perf_counter()
-        got = bank.collect_chunk(dispatched)
-        collect_s = time.perf_counter() - t
-        delta = tuple(a - b for a, b in zip(routes(bank), before))
-        host_ms = []
-        for g, ci in flagged:
+    with counted_verify_launches("wide_rerun", lambda: [bank]):
+        for name, audio in sections.items():
+            before = routes(bank)
+            dispatched = bank.dispatch_chunk(audio, None)
+            flat = dispatched[0][1].numpy()
+            flagged = []
+            for g, packed in zip(groups, _split_fused(flat, groups)):
+                _, _, host_fb, needs_full = unpack_group(packed, g.k_verify)
+                flagged += [(g, ci) for ci in np.flatnonzero(host_fb | needs_full)]
             t = time.perf_counter()
-            want = hostpath.process_section_host(
-                audio_section=audio, clip=g.clips_np[ci], correlation_clip=g.corr_clips_np[ci],
-                correlation_clip_absolute_max=float(g.self_max_np[ci]), sr=bank.sample_rate,
-                height_min=bank.height_min, is_short_clip=g.clip_len / bank.sample_rate < 0.5,
-                tone_frequency=g.tone_freqs[ci], verification_params=g.verification_params[ci],
-            )
-            host_ms.append((time.perf_counter() - t) * 1e3)
-            if got[g.names[ci]] != want:
-                raise AssertionError(f"{name}: {g.names[ci]} {got[g.names[ci]]} != host {want}")
-        route = want_route[name]
-        if delta[3] != 0 or (route is None and (flagged or any(delta))) or (
-            route is not None and delta[route] < 1
-        ) or (name == "row" and delta[1] != 0):
-            raise AssertionError(f"{name}: routes (row, class, escalated, host) {delta}")
-        phase("wide_rerun_route", section=name, flagged_rows=[g.names[ci] for g, ci in flagged],
-              routes_row_class_escalated_host=delta, collect_s=collect_s,
-              host_path_ms_per_row=float(np.median(host_ms)) if host_ms else None,
-              detections={k: len(v) for k, v in got.items() if v}, equal_to_host_path=True)
+            got = bank.collect_chunk(dispatched)
+            collect_s = time.perf_counter() - t
+            delta = tuple(a - b for a, b in zip(routes(bank), before))
+            host_ms = []
+            for g, ci in flagged:
+                t = time.perf_counter()
+                want = hostpath.process_section_host(
+                    audio_section=audio, clip=g.clips_np[ci], correlation_clip=g.corr_clips_np[ci],
+                    correlation_clip_absolute_max=float(g.self_max_np[ci]), sr=bank.sample_rate,
+                    height_min=bank.height_min, is_short_clip=g.clip_len / bank.sample_rate < 0.5,
+                    tone_frequency=g.tone_freqs[ci], verification_params=g.verification_params[ci],
+                )
+                host_ms.append((time.perf_counter() - t) * 1e3)
+                if got[g.names[ci]] != want:
+                    raise AssertionError(f"{name}: {g.names[ci]} {got[g.names[ci]]} != host {want}")
+            route = want_route[name]
+            if delta[3] != 0 or (route is None and (flagged or any(delta))) or (
+                route is not None and delta[route] < 1
+            ) or (name == "row" and delta[1] != 0):
+                raise AssertionError(f"{name}: routes (row, class, escalated, host) {delta}")
+            phase("wide_rerun_route", section=name, flagged_rows=[g.names[ci] for g, ci in flagged],
+                  routes_row_class_escalated_host=delta, collect_s=collect_s,
+                  host_path_ms_per_row=float(np.median(host_ms)) if host_ms else None,
+                  detections={k: len(v) for k, v in got.items() if v}, equal_to_host_path=True)
     lean_launches = candidate_scan.launches
     lane = GREEDY_PATH_LAUNCHES["lane_greedy"]["wide_rerun"] = lane_greedy.launches
     if lane < 3:  # a row, a class and an escalated rerun, at least one group each
@@ -2311,7 +2657,7 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     from audio_pattern_detector_tpu_torch.flagship import make_detector
     from audio_pattern_detector_tpu_torch.models.bank import _split_fused
     from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
-    from audio_pattern_detector_tpu_torch.ops import verify
+    from audio_pattern_detector_tpu_torch.ops import verify_marker
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
     from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate
     from audio_pattern_detector_tpu_torch.ops.loudness import (
@@ -2431,9 +2777,9 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     exact = torch.from_numpy(np.abs(np.fft.rfft(x.cpu().double().numpy(), axis=-1)) ** 2)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        gemm = verify._rfft_power_gemm(x, m).cpu().double()
+        gemm = verify_marker._rfft_power_gemm(x, m).cpu().double()
         precision_kept = torch.backends.cuda.matmul.allow_tf32
-        mat = verify._dft_matrix(m, x.device)
+        mat = verify_marker._dft_matrix(m, x.device)
         proj = (x @ mat).cpu().double()  # the same product with TF32 allowed, unguarded
         tf32 = proj[:, : m // 2 + 1] ** 2 + proj[:, m // 2 + 1 :] ** 2
     finally:
@@ -3216,7 +3562,8 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
         times: dict[str, list[float]] = {"default": [], "unroll_switch": []}
         for name in ("default", "unroll_switch", "unroll_switch", "default") * 2:
             before = (candidate_scan.launches, lean_greedy.launches)
-            times[name].append(ms(name))
+            with counted_verify_launches("greedy_forms", lambda: list(banks.values())):
+                times[name].append(ms(name))
             launches[name] += candidate_scan.launches - before[0]
             lean_launches += lean_greedy.launches - before[1]
         out[pname] = {"device_ms_median_min_max": {k: median_and_range(v)
@@ -3300,6 +3647,131 @@ def recorded_greedy_inputs(limit: int = 10**6):
     finally:
         lean_module._launch = launches["lean_greedy"]
         lane_module._launch = launches["lane_greedy"]
+
+
+# Launches of each verify kernel on the paths that run it, each counted
+# from 0 around its run (phases 3b, 3c, 4-5, 7, 18, 19): the kernels line.
+VERIFY_PATH_LAUNCHES: dict[str, dict[str, int]] = {"verify_normal": {}, "verify_marker": {}}
+
+
+def verify_counts() -> dict[str, int]:
+    """Each verify kernel's launches its wrapper counted so far: eager
+    steps', and replays' outside conditional bodies."""
+    from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
+    from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
+
+    return {"verify_normal": verify_normal.launches, "verify_marker": verify_marker.launches}
+
+
+def replay_body_launches(step, payload, groups) -> dict[str, int]:
+    """The verify launches one replay of the captured ``step`` made inside
+    its conditional bodies, read from the payload it returned. A lean
+    group's if-node body ran where the group has a live lane (a position
+    below the sentinel). The general tier's two-tier cond, a pair of bodies
+    for a group of more than 16 verify lanes, ran its first (16 lanes)
+    where no row of the group has more live lanes, else its second (every
+    lane). A body's launches are those its capture recorded
+    (``CapturedStep.body_launches``)."""
+    from audio_pattern_detector_tpu_torch.models.bank import _BIG, _SMALL_TIER, _split_fused
+
+    if step.key.fused:
+        flat = payload.cpu().numpy()
+        per_group = _split_fused(flat.reshape(-1, flat.shape[-1]), groups)
+    else:
+        per_group = [p.cpu().numpy() for p in payload]
+    bodies = iter(step.body_launches)
+    ran = []
+    for g, p in zip(groups, per_group):
+        live = (p.reshape(-1, 2 * g.k_verify + 2)[:, : g.k_verify] < _BIG).sum(axis=1)
+        if step.key.general:
+            if g.k_verify > _SMALL_TIER:
+                small, every = next(bodies), next(bodies)
+                ran.append(small if live.max() <= _SMALL_TIER else every)
+        elif step.key.skip_empty_verify:
+            body = next(bodies)
+            if live.any():
+                ran.append(body)
+    if next(bodies, None) is not None:
+        raise AssertionError("a captured step holds more conditional bodies than its groups")
+    counts = {"verify_normal": 0, "verify_marker": 0}
+    for body in ran:
+        for wrapper, n in body.items():
+            counts[wrapper.__name__] += n
+    return counts
+
+
+@contextlib.contextmanager
+def counted_verify_launches(path: str, banks):
+    """Adds each verify kernel's launches inside the block to
+    VERIFY_PATH_LAUNCHES[kernel][path]: those its wrapper counted, and
+    those of the conditional bodies each replay ran, from the payload the
+    replay returned (:func:`replay_body_launches`). ``banks()`` gives the
+    banks whose steps run in the block."""
+    from audio_pattern_detector_tpu_torch.models.captured import CapturedStep
+
+    replays = []
+    run = CapturedStep.run
+
+    def recording_run(self):
+        replay = self._replay is not None
+        out = run(self)
+        if replay:
+            replays.append((self, out))
+        return out
+
+    before = verify_counts()
+    CapturedStep.run = recording_run
+    try:
+        yield
+    finally:
+        CapturedStep.run = run
+    counts = {name: n - before[name] for name, n in verify_counts().items()}
+    for step, out in replays:
+        groups = next(b.classes[step.key.sw]["groups"] for b in banks()
+                      if step in b.graphs.steps())
+        for name, n in replay_body_launches(step, out, groups).items():
+            counts[name] += n
+    for name, n in counts.items():
+        VERIFY_PATH_LAUNCHES[name][path] = VERIFY_PATH_LAUNCHES[name].get(path, 0) + n
+
+
+@contextlib.contextmanager
+def recorded_verify_inputs(limit: int = 4):
+    """Inside the block, the inputs of the first ``limit`` calls of each
+    verifier that have a live lane land in the yielded dict, by kernel
+    name, as the bank calls them: (corr, pos, alive, consts, normalise) and
+    (section, pos, alive, consts). The calls run as they would; a replay
+    calls no Python, so only eager steps (a key's first use among them) are
+    recorded."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.models import bank as bank_module
+
+    seen: dict[str, list] = {"verify_normal": [], "verify_marker": []}
+    calls = {"verify_normal": bank_module.verify_normal,
+             "verify_marker": bank_module.verify_marker}
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(copy(y) for y in x) if isinstance(x, tuple) else x
+
+    def recorder(name: str):
+        def recording(*args):
+            alive = args[2]
+            capturing = alive.is_cuda and torch.cuda.is_current_stream_capturing()
+            if len(seen[name]) < limit and not capturing and bool(alive.any()):
+                seen[name].append(tuple(copy(a) for a in args))
+            return calls[name](*args)
+        return recording
+
+    bank_module.verify_normal = recorder("verify_normal")
+    bank_module.verify_marker = recorder("verify_marker")
+    try:
+        yield seen
+    finally:
+        bank_module.verify_normal = calls["verify_normal"]
+        bank_module.verify_marker = calls["verify_marker"]
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -3547,6 +4019,315 @@ def phase_greedy_kernels(dev, smi: str, corpus_inputs: list, num_normal: int = 3
     return line
 
 
+def verify_normal_bound(args) -> dict:
+    """The normal verifier's bound from one call's inputs: the bytes it must
+    move over the memory rate, at the call's own live lanes and with every
+    lane live. A live lane reads its window of lc samples and its position;
+    the clips with a live lane (row r's clip is r % G) read their
+    partitions and downsampled window once, the bin bounds once, the rows
+    with a live lane their length and normaliser once; every lane reads its
+    flag and writes accept, similarity and r. Its operations (a few a window
+    sample) are below that."""
+    corr, pos, alive, consts, normalise = args
+    r_rows, k = pos.shape
+    g, ds_n = consts.ds_clip.shape
+    lc, ps = consts.corr_len, consts.partition_size
+    row_bytes = 0 if normalise is None else 4 + (0 if isinstance(normalise[0], int) else 4)
+
+    def ms(lanes: int, rows: int, clips: int) -> float:
+        moved = (lanes * (lc * 4 + 8) + clips * (10 * ps + ds_n) * 4
+                 + (2 * ds_n * 8 if lanes else 0) + rows * row_bytes + r_rows * k * (1 + 9))
+        return moved / HBM_BYTES_PER_S * 1e3
+
+    live_rows = alive.any(dim=1)
+    live_clips = int(live_rows.reshape(-1, g).any(dim=0).sum())
+    live = int(alive.sum())
+    return {"live_lanes": live, "lanes": r_rows * k, "live_clips": live_clips, "clips": g,
+            "bound_ms": ms(live, int(live_rows.sum()), live_clips),
+            "bound_ms_every_lane_live": ms(r_rows * k, r_rows, g),
+            "bound_by": "bytes"}
+
+
+def verify_marker_bound(spectra, alive, consts) -> dict:
+    """The marker decisions' bound from one call's inputs: each live lane's
+    spectra (3 whole windows and F frames); the band masks and thresholds of
+    the clips with a live lane (row r's clip is r % G) and the frequency
+    grids, read once; every lane's flag read and accept written once; over
+    the memory rate (the operations, a few a bin, are below)."""
+    b, g, k, _, fw = spectra.whole.shape
+    n_frames, ff = (0, 0) if spectra.frames is None else spectra.frames.shape[3:]
+    live = int(alive.sum())
+    live_clips = int(alive.any(dim=1).reshape(-1, g).any(dim=0).sum())
+    moved = (live * (3 * fw + n_frames * ff) * 4 + live_clips * ((fw + ff) + 8 * 4)
+             + ((fw + ff) * 4 if live else 0) + 2 * b * g * k)
+    return {"live_lanes": live, "lanes": b * g * k, "live_clips": live_clips, "clips": g,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def normal_plain_in_blocks(corr, pos, alive, consts, normalise, block: int = 16):
+    """The normal verifier's plain version run 16 lanes at a time (as the
+    two-tier verify runs it): its (R, K, lc) arrays stay a block's."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal_reference
+
+    parts = [verify_normal_reference(corr, pos[:, lo:lo + block].contiguous(),
+                                     alive[:, lo:lo + block].contiguous(), consts, normalise)
+             for lo in range(0, pos.shape[1], block)]
+    return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+
+@contextlib.contextmanager
+def timed_verify_calls():
+    """Inside the block, CUDA events around every verifier call the bank
+    makes, and around the marker verifier's spectra and decisions; yields
+    a function that returns the device ms of each (after a sync)."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.models import bank as bank_module
+    from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
+
+    spans: dict[str, list] = {"verify_normal": [], "verify_marker": [], "marker_spectra": [],
+                              "marker_decisions": []}
+    saved = {"verify_normal": (bank_module, bank_module.verify_normal),
+             "verify_marker": (bank_module, bank_module.verify_marker),
+             "marker_spectra": (vm, vm.marker_spectra),
+             "marker_decisions": (vm, vm.marker_decisions)}
+
+    def timed(name: str, fn):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    for name, (module, fn) in saved.items():
+        setattr(module, name, timed(name, fn))
+
+    def totals() -> dict[str, float]:
+        torch.cuda.synchronize()
+        return {f"{k}_ms": sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()} | {
+            f"{k}_calls": len(v) for k, v in spans.items()}
+
+    try:
+        yield totals
+    finally:
+        for name, (module, fn) in saved.items():
+            setattr(module, name, fn)
+
+
+def phase_verify_kernels(dev, smi: str, corpus_inputs: dict, num_normal: int = 32,
+                         num_marker: int = 32) -> dict:
+    """Phase 21 (``verify_kernels``): each verify kernel against its plain
+    version on the card, on the inputs the paths give it:
+
+    * the flagship bank's hit-bearing step (hits in both groups) and a
+      16-row round whose row 5 is that section, in both schedules (``vmap``
+      one step, ``scan`` row by row), each captured and eager (payloads
+      bitwise; the eager steps' verifier calls are recorded);
+    * the general-plateau tier's (``height_min = 0``) 16-row round with the
+      hit-bearing row, the escalated marker row of phase 7 at its full
+      4,728 lanes, phase 19's regression captures (their eager steps'
+      calls), and the named cases of the CPU tests (the marker with the
+      FFT's and the DFT-GEMM's spectra).
+
+    Gates: accept bitwise, similarity and r within ``SIM_RTOL`` / ``R_ATOL``
+    on live lanes. For the hit-bearing inputs: the kernel's device ms (CUDA
+    events around a graph of 20 calls), the wrapper's ms (events around 20
+    eager calls), the plain version's ms, the bound at the call's own live
+    lanes (and, for the normal verifier, at every lane live) and the
+    share. Then the device ms of the hit-bearing 16-row round's verify tail
+    split between the verifiers (CUDA events around each call of an eager
+    round; the marker's spectra and decisions apart), with the kernels and
+    with the plain versions in their place, beside the round's own. Returns
+    the kernels line's numbers by kernel."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_bank, make_detector
+    from audio_pattern_detector_tpu_torch.models import bank as bank_module
+    from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
+    from audio_pattern_detector_tpu_torch.ops import verify_normal as vn
+
+    counts = verify_counts()
+    out: dict = {"verify_normal": {}, "verify_marker": {}}
+    errs = {"verify_normal": 0.0, "verify_marker": 0.0}
+    sr = 8000
+
+    def check_normal(source: str, args, timed: bool) -> dict:
+        corr, pos, alive, consts, normalise = args
+        got = vn.verify_normal(*args)
+        want = (normal_plain_in_blocks(*args) if pos.shape[1] > 16
+                else vn.verify_normal_reference(*args))
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"verify_normal, {source}: accept differs from the plain version")
+        sim_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-30))[alive].max()) \
+            if bool(alive.any()) else 0.0
+        r_err = float((got[2] - want[2]).abs()[alive].max()) if bool(alive.any()) else 0.0
+        if sim_err > vn.SIM_RTOL or r_err > vn.R_ATOL:
+            raise AssertionError(f"verify_normal, {source}: similarity {sim_err} or r {r_err} "
+                                 "past the tolerance")
+        errs["verify_normal"] = max(errs["verify_normal"], r_err)
+        entry = {"shape": [*pos.shape, consts.corr_len], "accepted": int(got[0].sum()),
+                 "sim_rel_err": sim_err, "r_abs_err": r_err, **verify_normal_bound(args)}
+        if timed:
+            dev_ms = graph_ms(lambda: vn.verify_normal(*args))
+            plain = (lambda: normal_plain_in_blocks(*args)) if pos.shape[1] > 16 else (
+                lambda: vn.verify_normal_reference(*args))
+            entry.update(device_ms=dev_ms, share_of_bound=entry["bound_ms"] / dev_ms,
+                         wrapper_ms=cuda_ms(lambda: vn.verify_normal(*args), 20),
+                         plain_ms=cuda_ms(plain, 3, reps=3))
+        return entry
+
+    def check_marker(source: str, args, timed: bool) -> dict:
+        section, pos, alive, consts = args
+        sp = vm.marker_spectra(section, pos, consts)
+        got = vm.marker_decisions(sp, alive, consts)
+        want = vm.marker_decisions_reference(sp, alive, consts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"verify_marker, {source}: accept differs from the plain version")
+        entry = {"shape": list(sp.whole.shape), "frames": 0 if sp.frames is None
+                 else sp.frames.shape[3], "accepted": int(got.sum()),
+                 **verify_marker_bound(sp, alive, consts)}
+        if timed:
+            dev_ms = graph_ms(lambda: vm.marker_decisions(sp, alive, consts))
+            entry.update(device_ms=dev_ms, share_of_bound=entry["bound_ms"] / dev_ms,
+                         wrapper_ms=cuda_ms(lambda: vm.marker_decisions(sp, alive, consts), 20),
+                         plain_ms=cuda_ms(lambda: vm.marker_decisions_reference(sp, alive, consts),
+                                          5),
+                         spectra_ms=cuda_ms(lambda: vm.marker_spectra(section, pos, consts), 5),
+                         whole_verifier_ms=cuda_ms(lambda: vm.verify_marker(*args), 5),
+                         whole_plain_verifier_ms=cuda_ms(
+                             lambda: vm.verify_marker_reference(*args), 5))
+        return entry
+
+    def check_all(source: str, seen: dict, timed: bool) -> None:
+        for i, args in enumerate(seen["verify_normal"]):
+            out["verify_normal"][f"{source}_{i}"] = check_normal(source, args, timed)
+        for i, args in enumerate(seen["verify_marker"]):
+            out["verify_marker"][f"{source}_{i}"] = check_marker(source, args, timed)
+
+    # The flagship bank's hit-bearing step and round, both schedules,
+    # captured against eager.
+    bank = make_detector(num_normal, num_marker, 60, dev, sr)._ensure_bank()
+    s_len = bank.classes[1]["section_len"]
+    groups = bank.classes[1]["groups"]
+    both = rerun_sections(bank)["clear"].copy()
+    both[20 * sr: 21 * sr] += next(g for g in groups if g.kind == "normal").clips_np[0]
+    both_t = torch.from_numpy(both).to(dev)
+    rows = torch.stack([torch.from_numpy((0.05 * np.random.default_rng(1 + i).standard_normal(
+        s_len)).astype(np.float32)) for i in range(ROUND_ROWS)]).to(dev)
+    rows[ROUND_ROWS // 3] = both_t
+    lens = torch.full((ROUND_ROWS,), s_len, dtype=torch.int32, device=dev)
+    paths = {"flagship_step": lambda: bank.step(1, both_t, s_len),
+             "round_vmap": lambda: bank.step(1, rows, lens),
+             "round_scan": lambda: [bank.step(1, rows[i], s_len) for i in range(ROUND_ROWS)]}
+    captured_equal = {}
+    for name, fn in paths.items():
+        bank.capture = False
+        with recorded_verify_inputs() as seen:
+            want = fn()
+            torch.cuda.synchronize()
+        bank.capture = True
+        got = [fn() for _ in range(2)]  # the first use, then a replay
+        captured_equal[name] = all(payloads_equal(g, want) for g in got)
+        if not captured_equal[name]:
+            raise AssertionError(f"verify_kernels, {name}: captured payload differs from eager")
+        if not (seen["verify_normal"] and seen["verify_marker"]):
+            raise AssertionError(f"verify_kernels, {name}: a verifier saw no live lane")
+        check_all(name, seen, timed=name != "round_scan")
+        del seen
+
+    # The verify tail's device time in an eager hit-bearing round, split
+    # between the verifiers, with the kernels and with the plain versions.
+    bank.capture = False
+    split = {}
+    for form in ("kernels", "plain", "kernels", "plain"):
+        if form == "plain":
+            bank_module.verify_normal = vn.verify_normal_reference
+            bank_module.verify_marker = vm.verify_marker_reference
+        try:
+            with timed_verify_calls() as totals:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                bank.step(1, rows, lens)
+                end.record()
+                t = totals()
+        finally:
+            bank_module.verify_normal = vn.verify_normal
+            bank_module.verify_marker = vm.verify_marker
+        t["round_ms"] = start.elapsed_time(end)
+        split.setdefault(form, []).append(t)
+    del bank, rows, both_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The general-plateau round, the escalated marker row, the regression
+    # captures and the named cases.
+    gen = make_detector(num_normal, num_marker, 60, dev, sr, height_min=0.0)._ensure_bank()
+    gen.capture = False
+    grows = torch.stack([torch.from_numpy((0.05 * np.random.default_rng(1 + i).standard_normal(
+        s_len)).astype(np.float32)) for i in range(ROUND_ROWS)]).to(dev)
+    grows[ROUND_ROWS // 3] = torch.from_numpy(both).to(dev)
+    with recorded_verify_inputs(limit=2) as seen:
+        gen.step(1, grows, lens)
+        torch.cuda.synchronize()
+    check_all("general_round_vmap", seen, timed=True)
+    del gen, grows, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    rb = make_bank(num_normal, num_marker, chunk_seconds=60, device=dev)
+    marker_gi = next(gi for gi, g in enumerate(rb.classes[1]["groups"]) if g.kind == "marker")
+    escalated = rerun_sections(rb)["escalated"]
+    with recorded_verify_inputs(limit=3) as seen:
+        rb._full_tier_row(1, marker_gi, 0, escalated, capped=False)
+        torch.cuda.synchronize()
+    check_all("escalated_marker_row", seen, timed=True)
+    del rb, seen
+    check_all("corpus", corpus_inputs, timed=False)
+    named = 0
+    for name in VERIFY_NORMAL_CASES:
+        check_normal(name, verify_normal_inputs(verify_normal_case(name), dev), False)
+        named += 1
+    for spectra in ("0", "1"):
+        with switches({"APD_MARKER_GEMM": spectra}):
+            for name in VERIFY_MARKER_CASES:
+                check_marker(name, verify_marker_inputs(verify_marker_case(name), dev), False)
+                named += 1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vn.verify_normal.launches = counts["verify_normal"]  # measurement launches do not count
+    vm.verify_marker.launches = counts["verify_marker"]
+    for kernel in ("verify_normal", "verify_marker"):
+        paths_seen = VERIFY_PATH_LAUNCHES[kernel]
+        out[kernel]["launches_by_path"] = paths_seen
+        if not paths_seen or min(paths_seen.values()) < 1:
+            raise AssertionError(f"{kernel}: a path that runs it launched it no time: {paths_seen}")
+    phase("verify_kernels", card=smi, clips=num_normal + num_marker,
+          accept="bitwise", sim_rtol=vn.SIM_RTOL, r_atol=vn.R_ATOL,
+          captured_equals_eager=captured_equal, named_cases=named,
+          corpus_launches={k: len(v) for k, v in corpus_inputs.items()},
+          hit_bearing_round_verify_tail_device_ms=split, **out)
+    # The kernels line: each kernel at the hit-bearing 16-row round's own
+    # launch (vmap).
+    line = {}
+    for kernel in ("verify_normal", "verify_marker"):
+        e = out[kernel]["round_vmap_0"]
+        line[kernel] = {"launches": sum(VERIFY_PATH_LAUNCHES[kernel].values()),
+                        "ms": e["device_ms"], "plain_ms": e["plain_ms"],
+                        "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+                        "shape": e["shape"], "live_lanes": e["live_lanes"],
+                        "wrapper_ms": e["wrapper_ms"], "max_abs_err": errs[kernel],
+                        "launches_by_path": VERIFY_PATH_LAUNCHES[kernel]}
+    return line
+
+
 def regression_cases() -> list[tuple[str, str]]:
     """(pattern, audio) of the 17 cases of tests/test_real_data_regressions.py,
     read from that file's module-level assignments (importing it would
@@ -3561,7 +4342,7 @@ def regression_cases() -> list[tuple[str, str]]:
     return [(pattern, audio) for pattern, audio, _ in names["CASES"]]
 
 
-def phase_corpus(dev) -> tuple[int, list]:
+def phase_corpus(dev) -> tuple[int, list, dict]:
     """Phase 19: the 17 real broadcast captures of ``sample_audios/regressions/``
     (tests/test_real_data_regressions.py's cases) through the port's
     ``match_pattern`` on the card and on the CPU in this process: each
@@ -3594,17 +4375,23 @@ def phase_corpus(dev) -> tuple[int, list]:
     cases, above, valid = [], 0, 0
     launches = lean_launches = 0
     lean_inputs: list = []
+    verify_inputs: dict[str, list] = {"verify_normal": [], "verify_marker": []}
     for pattern, audio in regression_cases():
         cpu = match_pattern(audio, [pattern], device="cpu")
         match_module.TorchEngineOptions.build_detector = recording_build
         try:
-            with captured_scan_inputs(limit=10**6) as scans, recorded_greedy_inputs() as greedy:
+            with captured_scan_inputs(limit=10**6) as scans, recorded_greedy_inputs() as greedy, \
+                    recorded_verify_inputs(limit=64) as verify, \
+                    counted_verify_launches("corpus_regressions",
+                                            lambda: [d._bank for d in built]):
                 before = (candidate_scan.launches, lean_greedy.launches)
                 card = match_pattern(audio, [pattern], device=dev.type)
                 torch.cuda.synchronize()
                 launches += candidate_scan.launches - before[0]
                 lean_launches += lean_greedy.launches - before[1]
             lean_inputs += greedy["lean_greedy"]
+            for kernel, calls in verify.items():
+                verify_inputs[kernel] += calls
         finally:
             match_module.TorchEngineOptions.build_detector = build_detector
         if card != cpu:
@@ -3622,14 +4409,21 @@ def phase_corpus(dev) -> tuple[int, list]:
                       "detections_s": sorted(t for ts in card[0].values() for t in ts),
                       "routes_row_class_escalated_host": routes(bank)})
     totals = [sum(c["routes_row_class_escalated_host"][i] for c in cases) for i in range(4)]
+    # A verifier whose kind of clip no capture's bank holds runs on no path here.
+    kinds = {g.kind for det in built for cls in det._bank.classes.values() for g in cls["groups"]}
+    for kind in ("normal", "marker"):
+        if kind not in kinds:
+            del VERIFY_PATH_LAUNCHES[f"verify_{kind}"]["corpus_regressions"]
     if lean_launches != launches:
         raise AssertionError(f"corpus: {lean_launches} lean greedy launches, {launches} scans")
     GREEDY_PATH_LAUNCHES["lean_greedy"]["corpus_regressions"] = lean_launches
     phase("corpus_regressions", cases=len(cases), equal_to_cpu=True, kernel_launches=launches,
           lean_greedy_launches=lean_launches, flagged_rows_row_class_escalated_host=totals,
           share_of_samples_at_or_above_threshold=above / max(valid, 1),
-          samples_scanned=valid, per_case=cases)
-    return launches, lean_inputs
+          samples_scanned=valid,
+          verify_launches={k: v.get("corpus_regressions") for k, v in VERIFY_PATH_LAUNCHES.items()},
+          per_case=cases)
+    return launches, lean_inputs, verify_inputs
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -3663,6 +4457,8 @@ def main(argv: "list[str] | None" = None) -> int:
     )
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+    from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
+    from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
     dev = torch.device("cuda")
     # The run must write nothing into the JAX package (compared at the end).
@@ -3788,6 +4584,11 @@ def main(argv: "list[str] | None" = None) -> int:
 
     cli.TorchEngineOptions.build_detector = recording_build
     candidate_scan.launches = lean_greedy.launches = lane_greedy.launches = 0
+    verify_normal.launches = verify_marker.launches = 0
+    # The verifiers' launches of the golden flows and the batched run.
+    file_mode_verify = contextlib.ExitStack()
+    file_mode_verify.enter_context(
+        counted_verify_launches("file_mode", lambda: [d._bank for d in built]))
 
     rthk = AUDIO / "rthk_section_with_beep.wav"
     expect_events(["--pattern-file", str(CLIPS / "rthk_beep.apd.toml")], rthk,
@@ -3817,6 +4618,7 @@ def main(argv: "list[str] | None" = None) -> int:
         main_path_greedy = {"lean_greedy": lean_greedy.launches,
                             "lane_greedy": lane_greedy.launches}
         GREEDY_PATH_LAUNCHES["lean_greedy"]["file_mode"] = lean_greedy.launches
+        file_mode_verify.close()
         batched_launches = main_path_launches - golden_launches
         groups = sum(len(c["groups"]) for c in built[-1]._bank.classes.values())
         # An explicit --chunk-seconds turns the file-mode batching off
@@ -3910,9 +4712,11 @@ def main(argv: "list[str] | None" = None) -> int:
     phase_skip_verify_and_staging(dev, smi, profile=args.profile)
     split_launches = phase_split_rounds(dev, smi)
     greedy_launches = phase_greedy_forms(dev, smi)
-    corpus_launches, corpus_lean_inputs = phase_corpus(dev)
+    corpus_launches, corpus_lean_inputs, corpus_verify_inputs = phase_corpus(dev)
     greedy_line = phase_greedy_kernels(dev, smi, corpus_lean_inputs)
     del corpus_lean_inputs
+    verify_line = phase_verify_kernels(dev, smi, corpus_verify_inputs)
+    del corpus_verify_inputs
 
     jax_pkg_after = tree_snapshot(jax_pkg) if jax_pkg.is_dir() else {}
     if jax_pkg_after != jax_pkg_before:
@@ -3950,7 +4754,11 @@ def main(argv: "list[str] | None" = None) -> int:
     greedy_sources = {"lean_greedy": ("audio_pattern_detector_tpu_torch/csrc/lean_greedy.cu",
                                       "audio_pattern_detector_tpu/ops/peaks.py:459"),
                       "lane_greedy": ("audio_pattern_detector_tpu_torch/csrc/lane_greedy.cu",
-                                      "audio_pattern_detector_tpu/ops/peaks.py:327")}
+                                      "audio_pattern_detector_tpu/ops/peaks.py:327"),
+                      "verify_normal": ("audio_pattern_detector_tpu_torch/csrc/verify_normal.cu",
+                                        "audio_pattern_detector_tpu/ops/verify.py:154"),
+                      "verify_marker": ("audio_pattern_detector_tpu_torch/csrc/verify_marker.cu",
+                                        "audio_pattern_detector_tpu/ops/verify.py:324")}
     print(json.dumps({"kernels": [{
         "name": "candidate_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(launches.values()),
@@ -3961,7 +4769,10 @@ def main(argv: "list[str] | None" = None) -> int:
         "batched_bound_ms": bbound_ms,
     }, *({"name": name, "route": "cuda", "source": greedy_sources[name][0],
           "replaces": greedy_sources[name][1], "max_abs_err": 0.0, "library_ms": None,
-          **greedy_line[name]} for name in ("lane_greedy", "lean_greedy"))]}), flush=True)
+          **greedy_line[name]} for name in ("lane_greedy", "lean_greedy")),
+        *({"name": name, "route": "cuda", "source": greedy_sources[name][0],
+           "replaces": greedy_sources[name][1], "library_ms": None,
+           **verify_line[name]} for name in ("verify_normal", "verify_marker"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -25,6 +25,8 @@ from chip_smoke import (
     LANE_GREEDY_KS,
     LEAN_GREEDY_CASES,
     LEAN_GREEDY_MS,
+    VERIFY_MARKER_CASES,
+    VERIFY_NORMAL_CASES,
     WIDE_ROWS,
     batched_scan_input,
     check_scan_edges,
@@ -36,7 +38,13 @@ from chip_smoke import (
     lean_greedy_inputs,
     make_scan_input,
     random_lean_greedy_case,
+    np_marker_decisions,
+    np_verify_normal,
     reference_in_row_chunks,
+    verify_marker_case,
+    verify_marker_inputs,
+    verify_normal_case,
+    verify_normal_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -609,7 +617,7 @@ def test_marker_gemm_runs_at_f32_with_tf32_allowed(cuda):
     and the process's setting comes back unchanged."""
     import numpy as np
 
-    from audio_pattern_detector_tpu_torch.ops.verify import _rfft_power_gemm
+    from audio_pattern_detector_tpu_torch.ops.verify_marker import _rfft_power_gemm
 
     x = np.random.default_rng(5).standard_normal((512, 2000)).astype(np.float32)
     exact = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1)) ** 2
@@ -696,6 +704,8 @@ def test_captured_flagship_step_equals_eager(cuda):
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+    from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
+    from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
     step, bank = flagship_step(cuda)
     assert bank.capture is True
@@ -707,7 +717,14 @@ def test_captured_flagship_step_equals_eager(cuda):
     (captured,) = bank.graphs.steps()
     assert (captured.key.rows, captured.key.fused, captured.launches, captured.replays) == (
         1, False, 4, 2)
-    assert captured.kernel_launches == {candidate_scan: 2, lane_greedy: 0, lean_greedy: 2}
+    # The verifiers launch inside each group's conditional body, which a
+    # replay runs where the group has a live lane: counted from the payload
+    # (chip_smoke.counted_verify_launches), not by a replay.
+    assert captured.kernel_launches == {candidate_scan: 2, lane_greedy: 0, lean_greedy: 2,
+                                        verify_normal: 0, verify_marker: 0}
+    assert sorted(len(b) for b in captured.body_launches) == [1, 1]
+    assert {w: n for b in captured.body_launches for w, n in b.items()} == {
+        verify_normal: 1, verify_marker: 1}
 
 
 @pytest.mark.parametrize("mode", ["vmap", "scan"])
@@ -825,7 +842,7 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
     import gc
 
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
-    from audio_pattern_detector_tpu_torch.ops import verify
+    from audio_pattern_detector_tpu_torch.ops import verify_marker
 
     monkeypatch.setenv("APD_MARKER_GEMM", "1")
     clips, rounds = _capture_clips()
@@ -837,7 +854,7 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
     eager, got = _eager_then_captured(bank, run)
     assert all(_bitwise(g, eager) for g in got)
     assert [s.key.marker_gemm for s in bank.graphs.steps()] == [True] * len(bank.classes)
-    verify._dft_matrix.cache_clear()
+    verify_marker._dft_matrix.cache_clear()
     torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1161,3 +1178,137 @@ def test_greedy_kernels_refuse_what_does_not_fit_and_count_no_launch(cuda):
         lean_greedy(corr, 1024, torch.zeros((1, 2), device=cuda), torch.ones(1, device=cuda),
                     0.25, 5, 20_000)
     assert (lane_greedy.launches, lean_greedy.launches) == before
+
+
+# ── The verify kernels against their plain versions ──
+
+
+@pytest.mark.parametrize("name", VERIFY_NORMAL_CASES)
+def test_verify_normal_kernel_equals_plain_version(cuda, name):
+    """``csrc/verify_normal.cu`` on the named cases (the CPU tests hold the
+    plain version to the JAX verifier on the same ones): one launch, accept
+    bitwise the plain version's, similarity and r within its tolerance on
+    live lanes and bitwise the numpy transliteration of the kernel's order,
+    NaN on dead lanes."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops import verify_normal as vn
+
+    case = verify_normal_case(name)
+    args = verify_normal_inputs(case, cuda)
+    before = vn.verify_normal.launches
+    got = [t.cpu().numpy() for t in vn.verify_normal(*args)]
+    assert vn.verify_normal.launches == before + 1
+    want = [t.cpu().numpy() for t in vn.verify_normal_reference(*args)]
+    live = case["alive"]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1][live], want[1][live], rtol=vn.SIM_RTOL, atol=1e-9)
+    np.testing.assert_allclose(got[2][live], want[2][live], rtol=0, atol=vn.R_ATOL)
+    assert np.isnan(got[1][~live]).all() and np.isnan(got[2][~live]).all()
+    order = np_verify_normal(case["corr"], case["pos"], live, args[3], case["valid_len"],
+                             case["denom"])
+    np.testing.assert_array_equal(got[0], order[0])
+    for a, b in zip(got[1:], order[1:]):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("spectra", ["fft", "gemm"])
+@pytest.mark.parametrize("name", VERIFY_MARKER_CASES)
+def test_verify_marker_kernel_equals_plain_version(cuda, monkeypatch, name, spectra):
+    """``csrc/verify_marker.cu`` on the named cases with the FFT's and the
+    DFT-GEMM's spectra: one launch, accept bitwise the plain decisions' on
+    the same spectra and the numpy transliteration's, and the whole
+    verifier's."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
+
+    monkeypatch.setenv("APD_MARKER_GEMM", "1" if spectra == "gemm" else "0")
+    case = verify_marker_case(name)
+    section, pos, alive, consts = verify_marker_inputs(case, cuda)
+    sp = vm.marker_spectra(section, pos, consts)
+    before = vm.verify_marker.launches
+    got = vm.marker_decisions(sp, alive, consts)
+    assert vm.verify_marker.launches == before + 1
+    want = vm.marker_decisions_reference(sp, alive, consts)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), np_marker_decisions(sp, case["alive"], consts))
+    assert torch.equal(vm.verify_marker(section, pos, alive, consts),
+                       vm.verify_marker_reference(section, pos, alive, consts))
+    assert bool(got.any())
+
+
+def test_verify_kernels_refuse_what_they_do_not_take_and_count_no_launch(cuda):
+    """A per-row length of another type and more frames than the marker
+    kernel's shared memory holds raise ValueError before a launch."""
+    from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
+    from audio_pattern_detector_tpu_torch.ops import verify_normal as vn
+
+    before = (vn.verify_normal.launches, vm.verify_marker.launches)
+    corr, pos, alive, consts, (lens, denom) = verify_normal_inputs(verify_normal_case("rounds"),
+                                                                   cuda)
+    with pytest.raises(ValueError, match="per-row valid_len"):
+        vn.verify_normal(corr, pos, alive, consts, (lens.long(), denom))
+    section, mpos, malive, mconsts = verify_marker_inputs(verify_marker_case("tone_hits"), cuda)
+    sp = vm.marker_spectra(section, mpos, mconsts)
+    many = vm.MarkerSpectra(sp.whole, True,
+                            torch.zeros((*sp.whole.shape[:3], 7000, 101), device=cuda), True)
+    with pytest.raises(ValueError, match="shared memory"):
+        vm.marker_decisions(many, malive, mconsts)
+    assert (vn.verify_normal.launches, vm.verify_marker.launches) == before
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+def test_verify_kernels_in_the_captured_verify_node(cuda, rows):
+    """The verify kernels launched inside the if-node bodies of a captured
+    lean step: payloads bitwise the eager step's on sections with hits in
+    both groups, in one group and in none; a replay adds no verify launch
+    of its own, and counted from the payloads each verifier's body ran
+    (one launch) where its group shows a live lane."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.flagship import make_detector
+    from audio_pattern_detector_tpu_torch.models.bank import _split_fused
+    from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
+    from audio_pattern_detector_tpu_torch.ops import verify_normal as vn
+    from chip_smoke import VERIFY_PATH_LAUNCHES, counted_verify_launches, rerun_sections
+
+    bank = make_detector(6, 4, 60, cuda)._ensure_bank()  # rerun_sections reads 6 normal clips
+    sw = 1
+    s_len = bank.classes[sw]["section_len"]
+    groups = bank.classes[sw]["groups"]
+    rng = np.random.default_rng(3)
+    quiet = (0.05 * rng.standard_normal(s_len)).astype(np.float32)
+    both = rerun_sections(bank)["clear"].copy()
+    both[20 * 8000: 21 * 8000] += next(g for g in groups if g.kind == "normal").clips_np[0]
+    sections = {"both": both, "quiet": quiet}
+
+    def run(section):
+        if rows == 1:
+            return bank.step(sw, torch.from_numpy(section).to(cuda), s_len)
+        batch = np.stack([quiet] * (rows - 1) + [section])
+        return bank.step(sw, torch.from_numpy(batch).to(cuda),
+                         torch.full((rows,), s_len, dtype=torch.int32, device=cuda))
+
+    bank.capture = False
+    want = {k: run(v) for k, v in sections.items()}
+    bank.capture = True
+    run(both)  # the key's first use: eager, then the capture
+    (step,) = bank.graphs.steps()
+    assert step.kernel_launches[vn.verify_normal] == step.kernel_launches[vm.verify_marker] == 0
+    assert step.body_launches == [{vn.verify_normal if g.kind == "normal" else vm.verify_marker: 1}
+                                  for g in groups]
+    before = (vn.verify_normal.launches, vm.verify_marker.launches)
+    expect = {"normal": 0, "marker": 0}
+    path = f"card_test_{rows}"
+    with counted_verify_launches(path, lambda: [bank]):
+        for name in ("both", "quiet", "both", "quiet"):
+            got = run(sections[name])
+            assert torch.equal(got.view(torch.int32), want[name].view(torch.int32)), name
+            flat = got.cpu().numpy().reshape(-1, got.shape[-1])
+            for g, p in zip(groups, _split_fused(flat, groups)):
+                expect[g.kind] += int((p[..., : g.k_verify] < 2**30).any())
+    assert (vn.verify_normal.launches, vm.verify_marker.launches) == before
+    counted = tuple(VERIFY_PATH_LAUNCHES[f"verify_{k}"].pop(path) for k in ("normal", "marker"))
+    assert counted == (expect["normal"], expect["marker"]) and min(counted) >= 2
+

@@ -52,6 +52,7 @@ from audio_pattern_detector_tpu_torch.ops import candidate_scan as tscan
 from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
 from audio_pattern_detector_tpu_torch.ops import peaks as tpeaks
 from audio_pattern_detector_tpu_torch.ops import verify as tverify
+from audio_pattern_detector_tpu_torch.ops import verify_marker as tverify_marker
 from audio_pattern_detector_tpu_torch.ops.consts import consts_from_numpy
 from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, ShardedDetector, make_mesh
 from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
@@ -105,7 +106,7 @@ def test_rfft_power_gemm_within_tolerance(shape):
     allowed = matmul.allow_tf32
     matmul.allow_tf32 = True  # a process that allows TF32
     try:
-        got = tverify._rfft_power_gemm(_t(x), n).numpy()
+        got = tverify_marker._rfft_power_gemm(_t(x), n).numpy()
         # The setting comes back, and the process-wide getter still reads it.
         assert matmul.allow_tf32 and torch.get_float32_matmul_precision() == "high"
     finally:
@@ -118,9 +119,9 @@ def test_rfft_power_gemm_within_tolerance(shape):
 
 
 def test_marker_gemm_switch_and_verifier(monkeypatch):
-    assert not tverify._marker_gemm_enabled()
+    assert not tverify_marker._marker_gemm_enabled()
     monkeypatch.setenv("APD_MARKER_GEMM", "0")
-    assert not tverify._marker_gemm_enabled()
+    assert not tverify_marker._marker_gemm_enabled()
     m, freq = 2000, 941.0
     tone = np.sin(2 * np.pi * freq * np.arange(m) / SR).astype(np.float32)
     section = (0.01 * np.random.default_rng(2).standard_normal(4 * SR)).astype(np.float32)
@@ -134,10 +135,11 @@ def test_marker_gemm_switch_and_verifier(monkeypatch):
     jc = jverify.build_marker_verify_consts(m, SR, np.array([freq, 1040.0]), [{}, {}])
     fft = tverify.verify_marker(_t(section), _t(pos).long(), _t(alive), _carry(jc)).numpy()
     monkeypatch.setenv("APD_MARKER_GEMM", "1")
-    assert tverify._marker_gemm_enabled() and jverify._marker_gemm_enabled()
+    assert tverify_marker._marker_gemm_enabled() and jverify._marker_gemm_enabled()
     calls = []
-    gemm = tverify._rfft_power_gemm
-    monkeypatch.setattr(tverify, "_rfft_power_gemm", lambda x, n: calls.append(n) or gemm(x, n))
+    gemm = tverify_marker._rfft_power_gemm
+    monkeypatch.setattr(tverify_marker, "_rfft_power_gemm",  # where the marker spectra call it
+                        lambda x, n: calls.append(n) or gemm(x, n))
     want = np.asarray(jverify.verify_marker(jnp.asarray(section), jnp.asarray(pos),
                                             jnp.asarray(alive), jc))
     got = tverify.verify_marker(_t(section), _t(pos).long(), _t(alive), _carry(jc)).numpy()
@@ -324,7 +326,7 @@ def test_switch_matches_the_jax_bank(monkeypatch, case):
             assert all(g.corr.num_segments > 1 for g in cls["groups"])
 
     routes = {"gemm": 0, "sequential": 0, "scan": 0}
-    for key, module, name in (("gemm", tverify, "_rfft_power_gemm"),
+    for key, module, name in (("gemm", tverify_marker, "_rfft_power_gemm"),
                               ("sequential", tlane, "_greedy_distance_sequential"),
                               ("scan", tscan, "candidate_scan_reference")):
         fn = getattr(module, name)
