@@ -72,12 +72,14 @@ _SIGNATURES = {
     "apd_verify_normal": (
         [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
          _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-         ctypes.c_float, ctypes.c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+         ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_verify_marker": (
-        [_c_ptr, _c_int, _c_int, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_i64, _c_int,
-         _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_ptr, _c_i64, _c_int, _c_int, _c_int, _c_int,
+         _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+         _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+         _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),

@@ -59,8 +59,10 @@ variable and read when the bank is built, as the JAX bank reads them:
   says. The eager step always runs the unrolled rounds; the payload is the
   same either way.
 
-``APD_MARKER_GEMM`` acts inside the marker verifier and is read at each
-call (``ops/verify.py``). :meth:`PatternBank.step` runs a class step
+``APD_MARKER_GEMM`` picks the plain marker verifier's spectra, which the
+CPU runs, and is read at each call (``ops/verify_marker.py``); on a card
+the marker verifier is one fused kernel that makes its own spectra,
+whatever the switch says. :meth:`PatternBank.step` runs a class step
 under the bank's switches: the dispatch paths, the mesh paths and the
 flagship probes all go through it.
 
@@ -562,7 +564,8 @@ class PatternBank:
                 device=device, sw=sw, rows=width, dtype=dtype, fused=fused, scan=scan,
                 general=self.height_min <= 0, kernel_tier=self.kernel_tier,
                 overlap_save=self.overlap_save, packed_upload=self.packed_upload,
-                marker_gemm=_marker_gemm_enabled(), skip_empty_verify=self.skip_empty_verify,
+                marker_gemm=_marker_gemm_enabled() and device.type != "cuda",
+                skip_empty_verify=self.skip_empty_verify,
                 greedy_unroll=unroll,
                 consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
             )
@@ -1209,9 +1212,8 @@ def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
     :func:`host_cond`, one host sync) picks the branch; each branch writes
     the whole of ``accept``, allocated before it. A branch's working set is
     one block's where the verifier makes every lane's windows (the plain
-    versions, and the marker verifier's spectra): the full-width verify of
-    a 16-row flagship round would hold gigabytes of them, in a captured
-    step in the bodies' own graph pool."""
+    versions): the full-width verify of a 16-row flagship round would hold
+    gigabytes of them, in a captured step in the bodies' own graph pool."""
     kv = vpos.shape[1]
     small_fits = valive.sum(dim=1).amax() <= _SMALL_TIER
     accept = torch.empty_like(valive)
@@ -1243,9 +1245,9 @@ def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool
         return verify_normal(corr, p, a, verify_consts, normalise)[0]
 
     if two_tier and vpos.shape[1] > _SMALL_TIER:
-        # On a card the normal verifier's kernel reads only live lanes'
-        # windows and makes no array of them: its full branch is one launch.
-        width = vpos.shape[1] if kind == "normal" and vpos.is_cuda else _SMALL_TIER
+        # On a card each verifier's kernel reads only live lanes' windows
+        # and makes no array of them: its full branch is one launch.
+        width = vpos.shape[1] if vpos.is_cuda else _SMALL_TIER
         return _two_tier_accept(verify_accept, vpos, valive, cond, width)
     return verify_accept(vpos, valive)
 

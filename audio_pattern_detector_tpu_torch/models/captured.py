@@ -19,13 +19,15 @@ payloads) is captured once per key into a CUDA graph and replayed:
   ``APD_PALLAS=0`` mask), the bank's switches
   (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``,
   ``APD_SKIP_EMPTY_VERIFY``, ``APD_GREEDY_UNROLL``), ``APD_MARKER_GEMM`` as
-  it reads at the call, and the identity of the constants the step reads:
+  it reads at the call where it acts (off a card: a card's marker verifier
+  is its fused kernel either way), and the identity of the constants the
+  step reads:
   a replica on another device or a bank shard's slice is another key, and
   its graph holds those constants for as long as it lives.
 * **First use** copies the call's rows and lengths into the static inputs,
   runs the step eagerly on the device's capture stream (which builds the
-  cuFFT plans, the kernel's per-device attributes and the DFT matrix), then
-  captures it into the device's graph memory pool. The eager run's payload
+  cuFFT plans, the kernels' per-device attributes and the marker kernel's
+  FFT plans), then captures it into the device's graph memory pool. The eager run's payload
   is the call's result, so a key's first call costs one step on the card,
   as every later call does.
 * **Replay**: copy the rows and lengths into the static inputs, replay on
@@ -53,8 +55,8 @@ payloads) is captured once per key into a CUDA graph and replayed:
   takes only the capture stream's allocations. A round's graph (B > 1)
   tests all its rows at once: it skips a group only where no row of the
   round has a live lane. The eager first run verifies every group, so the
-  cuFFT plans and the DFT matrix the body replays exist before the
-  capture.
+  plans and tables the body replays (the marker kernel's FFT plans) exist
+  before the capture.
 * **The two greedy filters are kernels** (``ops/lean_greedy.py``,
   ``ops/lane_greedy.py``): the lean kernel tier's block-wise greedy and the
   general-plateau tier's lane greedy are one launch a group in the graph,
@@ -138,7 +140,7 @@ class StepKey(NamedTuple):
     kernel_tier: bool  # False: the APD_PALLAS=0 mask tier
     overlap_save: bool  # False: APD_NO_OVERLAP_SAVE=1
     packed_upload: bool  # False: APD_PACKED_UPLOAD=0
-    marker_gemm: bool  # APD_MARKER_GEMM=1 at the call
+    marker_gemm: bool  # APD_MARKER_GEMM=1 at the call, off a card (a card runs the fused kernel)
     skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
     greedy_unroll: bool  # APD_GREEDY_UNROLL=1 where it acts: the plain lean greedy's rounds unrolled
     consts: tuple[int, ...]  # ids of the loudness and group constants
@@ -310,8 +312,8 @@ def both_branches(pred: torch.Tensor, then_: Callable[[], Any],
     """The two-way cond of a captured step's eager first run: the branch
     ``pred`` does not take, then the one it takes. Each branch writes all
     of its results, so the taken one's stand; and both have run once, so
-    the cuFFT plans and the DFT matrix either body replays exist before
-    the capture. Reads ``pred`` on the host: an eager run."""
+    the plans and tables either body replays exist before the capture.
+    Reads ``pred`` on the host: an eager run."""
     taken, other = (then_, else_) if bool(pred) else (else_, then_)
     other()
     taken()

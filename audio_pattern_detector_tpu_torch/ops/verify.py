@@ -16,9 +16,10 @@ over (bank, candidate); dead lanes are masked, never branched on.
 Per-clip static structure is built here, on the host in f64 with the same
 numpy expressions as the JAX package. The two verifiers live beside their
 CUDA kernels and are re-exported here: ``ops/verify_normal.py``
-(``csrc/verify_normal.cu``) and ``ops/verify_marker.py`` (the spectra, from
-``torch.fft`` or under ``APD_MARKER_GEMM=1`` the DFT-GEMM, then the
-decisions, ``csrc/verify_marker.cu``). Each launches its kernel for CUDA
+(``csrc/verify_normal.cu``) and ``ops/verify_marker.py`` (one fused kernel,
+``csrc/verify_marker.cu``, that makes live lanes' spectra and decides; its
+plain version takes the spectra from ``torch.fft`` or under
+``APD_MARKER_GEMM=1`` the DFT-GEMM). Each launches its kernel for CUDA
 tensors, under every switch, and runs its plain version for CPU tensors.
 """
 

@@ -1,28 +1,28 @@
-"""The marker-tone verifier: its spectra, and its decisions as a CUDA kernel
-with a plain version.
+"""The marker-tone verifier: one fused CUDA kernel, and its plain version.
 
 Counterpart of the JAX package's ``ops/verify.py::verify_marker``. The
 matched segment and both flanks are one 3m slice of the section; their
 whole-window Hann spectra and the matched segment's 25 ms / 50 %-hop frame
-spectra come from ``torch.fft.rfft`` (the JAX package's ``jnp.fft.rfft``,
-outside any Pallas kernel), or, under ``APD_MARKER_GEMM=1``, the power
-spectra from one real-DFT matrix product each (the JAX package's DFT-GEMM,
-on by default only on a TPU, so off here; the port reads the variable at
-each call, the JAX package when it traces). :func:`marker_spectra` makes
-them for every lane.
+spectra decide, with six per-clip thresholds, whether a lane is a marker
+tone.
 
-The decisions after the spectra (band purity per window, the match
-window's frequency, per-frame lock and purity, the frame statistics, six
-per-clip thresholds) are ``csrc/verify_marker.cu`` for CUDA tensors, one
-launch a call, and :func:`marker_decisions_reference` for CPU tensors;
-:func:`verify_marker` never falls back from one to the other. The kernel
-decides only live lanes; the accept bits are equal to the plain version's
-(its sums are taken in another order, which its header states).
+On a CUDA device :func:`verify_marker` is one launch of
+``csrc/verify_marker.cu``, which makes the spectra of live lanes itself (its
+FFT plans: ``ops/marker_fft.py``) and decides on them; nothing but the
+accept bits leaves it. On the CPU it runs the plain version,
+:func:`verify_marker_reference`: :func:`marker_spectra` for every lane
+(``torch.fft.rfft``, the JAX package's ``jnp.fft.rfft``, or under
+``APD_MARKER_GEMM=1`` the power spectra from one real-DFT matrix product
+each, the JAX package's DFT-GEMM, on by default only on a TPU; read at each
+call), then :func:`marker_decisions_reference`. It never falls back from
+one to the other. The kernel's spectra are not torch's bits (another FFT);
+its accept bits are held equal to the plain version's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import os
 from typing import TYPE_CHECKING, NamedTuple
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
+from audio_pattern_detector_tpu_torch.ops.marker_fft import MAX_FRAMES, marker_plan
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 from audio_pattern_detector_tpu_torch.ops.verify_normal import WINDOW_PAD, check_operand
 
@@ -41,17 +42,6 @@ if TYPE_CHECKING:
 # The DFT-GEMM runs only up to this transform length: its (n, n + 2)
 # matrix grows quadratically (67 MB at 4,096).
 _GEMM_MAX_N = 4096
-
-# Shared memory the kernel's per-frame results take: 2 floats a frame,
-# within the 48 KB a block has without opting in.
-_MAX_FRAMES = 48 * 1024 // 8
-
-
-# The DFT matrices that captured CUDA graphs read (models/captured.py): a
-# graph holds the matrix's address, so a matrix read while a graph is
-# captured stays here for the life of the process, whatever the cache below
-# evicts.
-_CAPTURED_DFT: dict[tuple[int, torch.device], torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=16)
@@ -75,8 +65,6 @@ def _rfft_power_gemm(x: torch.Tensor, n: int) -> torch.Tensor:
     process's setting restored. Callers gate on ``n <= _GEMM_MAX_N``."""
     f = n // 2 + 1
     mat = _dft_matrix(n, x.device)
-    if x.is_cuda and torch.cuda.is_current_stream_capturing():
-        _CAPTURED_DFT[(n, x.device)] = mat
     with _full_f32_matmul():
         proj = x.reshape(-1, n) @ mat
     re, im = proj[:, :f], proj[:, f:]
@@ -172,7 +160,7 @@ def _band_purity(power: torch.Tensor, band: torch.Tensor) -> tuple[torch.Tensor,
 def marker_decisions_reference(
     spectra: MarkerSpectra, alive: torch.Tensor, consts: "MarkerVerifyConsts"
 ) -> torch.Tensor:
-    """The kernel's function in plain torch ops (any device), for every
+    """The kernel's decisions in plain torch ops (any device), for every
     lane: the accept mask (R, K) from the spectra of (B, G, K) lanes."""
     whole = spectra.whole
     b, g, k = whole.shape[:3]
@@ -239,53 +227,82 @@ def verify_marker_reference(
     return marker_decisions_reference(marker_spectra(section, pos, consts), alive, consts)
 
 
-def marker_decisions(
-    spectra: MarkerSpectra, alive: torch.Tensor, consts: "MarkerVerifyConsts"
-) -> torch.Tensor:
-    """The accept mask (R, K) from the spectra: one launch of
-    ``csrc/verify_marker.cu`` (CUDA tensors only; it raises on anything
-    else and on a CUDA error)."""
+def _launch(section: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
+            consts: "MarkerVerifyConsts", probe: "torch.Tensor | None" = None) -> torch.Tensor:
+    """The accept mask (R, K): one launch of ``csrc/verify_marker.cu`` (CUDA
+    tensors only; it raises on anything else and on a CUDA error).
+    ``probe``, a (R, K, 3 Fw + F Ff) f32 tensor, receives the kernel's
+    magnitudes of live lanes (for tests; no path passes it)."""
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
 
-    whole, frames = spectra.whole, spectra.frames
-    if whole.dim() != 5 or whole.shape[3] != 3:
-        raise ValueError("verify_marker: the whole-window spectra must be (B, G, K, 3, Fw)")
-    dev = whole.device
-    b, g, k, _, fw = whole.shape
-    r_rows = b * g
-    alive = alive.contiguous()  # a block of lanes is a column slice
-    check_operand("whole", whole, (b, g, k, 3, fw), torch.float32, dev, "verify_marker")
+    dev = section.device
+    if consts.frame_count > MAX_FRAMES:
+        raise ValueError(f"verify_marker: {consts.frame_count} frames, past the {MAX_FRAMES} the "
+                         "kernel's shared memory takes")
+    if section.dtype != torch.float32 or section.dim() not in (1, 2) or not section.is_contiguous():
+        raise ValueError("verify_marker: section must be a contiguous (S,) or (B, S) float32 "
+                         "tensor")
+    sections = section.reshape(-1, section.shape[-1])
+    b, s_len = sections.shape
+    if pos.dim() != 2:
+        raise ValueError("verify_marker: pos must be (R, K)")
+    # A block of lanes is a column slice: copied to its own rows.
+    pos, alive = pos.contiguous(), alive.contiguous()
+    r_rows, k = pos.shape
+    g = consts.dom_freq.shape[0]
+    if r_rows != b * g:
+        raise ValueError(f"verify_marker: {r_rows} rows are not {b} rounds of {g} clips")
+    check_operand("pos", pos, (r_rows, k), torch.int64, dev, "verify_marker")
     check_operand("alive", alive, (r_rows, k), torch.bool, dev, "verify_marker")
-    n_frames, ff = (0, 1) if frames is None else frames.shape[3:]
-    if frames is not None:
-        check_operand("frames", frames, (b, g, k, n_frames, ff), torch.float32, dev,
-                      "verify_marker")
-        check_operand("freqs_frame", consts.freqs_frame, (ff,), torch.float32, dev, "verify_marker")
-        check_operand("band_frame", consts.band_frame, (g, ff), torch.bool, dev, "verify_marker")
-    if n_frames > _MAX_FRAMES:
-        raise ValueError(f"verify_marker: {n_frames} frames need {n_frames * 8} bytes of shared "
-                         f"memory, past the {_MAX_FRAMES * 8} the kernel takes")
+    m, wl, n_frames = consts.clip_len, consts.frame_len, consts.frame_count
+    fw, ff = m // 2 + 1, wl // 2 + 1
+    check_operand("hann_whole", consts.hann_whole, (m,), torch.float32, dev, "verify_marker")
     check_operand("freqs_whole", consts.freqs_whole, (fw,), torch.float32, dev, "verify_marker")
     check_operand("band_whole", consts.band_whole, (g, fw), torch.bool, dev, "verify_marker")
     check_operand("dom_freq", consts.dom_freq, (g,), torch.float32, dev, "verify_marker")
     check_operand("lock_hz", consts.lock_hz, (g,), torch.float32, dev, "verify_marker")
     check_operand("thresholds", consts.thresholds, (g, 6), torch.float32, dev, "verify_marker")
-    if k >= 2**31 or fw >= 2**31 or ff >= 2**31:
-        raise ValueError(f"verify_marker: {k} lanes or {fw} bins outside int32")
+    if n_frames > 0:
+        check_operand("hann_frame", consts.hann_frame, (wl,), torch.float32, dev, "verify_marker")
+        check_operand("freqs_frame", consts.freqs_frame, (ff,), torch.float32, dev,
+                      "verify_marker")
+        check_operand("band_frame", consts.band_frame, (g, ff), torch.bool, dev, "verify_marker")
+        hop = consts.frame_starts[1] - consts.frame_starts[0] if n_frames > 1 else 0
+        if tuple(consts.frame_starts) != tuple(i * hop for i in range(n_frames)) or (
+                consts.frame_starts[-1] + wl > m):
+            raise ValueError("verify_marker: the frames must start at 0, hop, 2 hop, ... "
+                             "inside the match window")
+    else:
+        hop = 0
+    if r_rows * k >= 2**31:
+        raise ValueError(f"verify_marker: {r_rows * k} lanes, past the kernel's int32 ranks")
+    if probe is not None:
+        check_operand("probe", probe, (r_rows, k, 3 * fw + n_frames * ff), torch.float32, dev,
+                      "verify_marker")
+    plan = marker_plan(m, wl, n_frames, dev)  # raises past the kernel's frames or passes
+    lay = plan.layout
     lib = load_kernels().lib
     with device_guard(dev):
         accept = torch.empty((r_rows, k), dtype=torch.bool, device=dev)
         if r_rows == 0 or k == 0:
             return accept
-        frames_ptr = None if frames is None else frames.data_ptr()
-        freqs_frame = None if frames is None else consts.freqs_frame.data_ptr()
-        band_frame = None if frames is None else consts.band_frame.data_ptr()
+        grid, workspace = 0, None
+        if not lay.on_chip:
+            # One slot per resident CTA: a CTA a streaming multiprocessor.
+            grid = min(r_rows * k, torch.cuda.get_device_properties(dev).multi_processor_count)
+            workspace = torch.empty(grid * lay.slot, dtype=torch.float32, device=dev)
+        hann_frame = consts.hann_frame if n_frames > 0 else consts.hann_whole
+        freqs_frame = consts.freqs_frame if n_frames > 0 else consts.freqs_whole
+        band_frame = consts.band_frame if n_frames > 0 else consts.band_whole
         err = lib.apd_verify_marker(
-            whole.data_ptr(), int(spectra.whole_is_magnitude), fw, frames_ptr,
-            int(spectra.frames_is_magnitude), n_frames, ff, alive.data_ptr(), r_rows, k, g,
-            consts.freqs_whole.data_ptr(), consts.band_whole.data_ptr(),
-            consts.dom_freq.data_ptr(), consts.lock_hz.data_ptr(), freqs_frame, band_frame,
-            consts.thresholds.data_ptr(), accept.data_ptr(),
+            sections.data_ptr(), b, s_len, pos.data_ptr(), alive.data_ptr(), r_rows, k, g, m,
+            hop, n_frames, ctypes.addressof(plan.whole), ctypes.addressof(plan.frame),
+            plan.tables.data_ptr(), lay.window, lay.whole_batch, lay.frame_batch, lay.buffer,
+            int(lay.on_chip), None if workspace is None else workspace.data_ptr(), grid,
+            consts.hann_whole.data_ptr(), hann_frame.data_ptr(), consts.freqs_whole.data_ptr(),
+            consts.band_whole.data_ptr(), consts.dom_freq.data_ptr(), consts.lock_hz.data_ptr(),
+            freqs_frame.data_ptr(), band_frame.data_ptr(), consts.thresholds.data_ptr(),
+            accept.data_ptr(), None if probe is None else probe.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -303,16 +320,16 @@ def verify_marker(
     """Returns the accept mask (R, K). The rows are the group's G clips
     over one section, or B rounds of them over a (B, S) batch (R = B * G,
     round-major): row r reads section r // G and the constants of clip
-    r % G. The spectra are torch's on any device; the decisions are the
-    CUDA kernel for CUDA tensors and the plain version for CPU tensors."""
+    r % G. The fused CUDA kernel for CUDA tensors (spectra and decisions
+    of live lanes), the plain version for CPU tensors."""
     if section.device.type == "cuda":
-        return marker_decisions(marker_spectra(section, pos, consts), alive, consts)
+        return _launch(section, pos, alive, consts)
     if section.device.type == "cpu":
         return verify_marker_reference(section, pos, alive, consts)
     raise ValueError(f"verify_marker: unsupported device {section.device}")
 
 
-# Kernels the card ran: one per launch (marker_decisions), and for each
+# Kernels the card ran: one per launch (_launch), and for each
 # replay of a captured class step the launches its graph holds, a
 # conditional body's only where the body ran (models/captured.py). The
 # plain version counts nothing.

@@ -141,8 +141,10 @@ card and checks them:
    on a 16-row round of int16 chunks and on phase 9's streams: payloads
    and detections equal to the default's (the mask tier has no
    near-collapse flag), f32 intermediates within tolerance, the DFT-GEMM
-   at f32 with TF32 allowed; ms per round beside the default's,
-   kernel launches (0 under ``APD_PALLAS=0``);
+   (the plain marker verifier's spectra) at f32 with TF32 allowed; on the
+   card ``APD_MARKER_GEMM`` runs the same fused marker kernel as the
+   default (its launches and keys recorded); ms per round beside the
+   default's, kernel launches (0 under ``APD_PALLAS=0``);
 14. the captured class step (``models/captured.py``; every phase above
    runs it, the port's default on the card) against the eager one on the
    same bank (its ``capture`` switched off): payloads bit for bit on the
@@ -207,16 +209,22 @@ card and checks them:
    kernel's launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18,
    19, counted from 0 around each);
 21. the verify kernels (``verify_kernels``): ``csrc/verify_normal.cu`` and
-   ``csrc/verify_marker.cu`` against their plain versions on the flagship
-   step's and a 16-row round's own hit-bearing calls (both schedules, each
-   captured against eager), the general-plateau round's, the escalated
-   marker row's, phase 19's regression captures' and the CPU tests' named
-   cases: accept bitwise, similarity and r within tolerance on live lanes;
-   device ms (a graph of 20 calls), wrapper ms, plain ms, bound and share;
-   the hit-bearing round's verify tail in device ms split between the
-   verifiers, with the kernels and with the plain versions; each kernel's
-   launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18, 19; a
-   replay's conditional bodies counted from its payload);
+   the fused ``csrc/verify_marker.cu`` (spectra and decisions) against
+   their plain versions on the flagship step's and a 16-row round's own
+   hit-bearing calls (both schedules, each captured against eager), the
+   general-plateau round's, the escalated marker row's, phase 19's
+   regression captures' and the CPU tests' named cases (the marker's under
+   both ``APD_MARKER_GEMM`` values of the plain version, and a 2 s marker
+   in the kernel's global-workspace form): accept bitwise, similarity and r
+   within tolerance on live lanes, the marker kernel's magnitudes within
+   1e-5 of each window's largest bin of the exact (f64) rfft (torch's
+   own error beside it); device ms (a graph of
+   20 calls), wrapper ms, plain ms, bound (bytes or operations) and share,
+   and for the marker kernel ``torch.fft.rfft`` over the live lanes'
+   windows; the hit-bearing round's verify tail in device ms split between
+   the verifiers, with the kernels and with the plain versions; each
+   kernel's launches on the paths that run it (phases 3b, 3c, 4-5, 7, 18,
+   19; a replay's conditional bodies counted from its payload);
 15. isolation: no file under ``audio_pattern_detector_tpu/`` changed during
    the run, and no subprocess imported jax or the JAX package.
 
@@ -523,10 +531,11 @@ VERIFY_SR = 8000
 # Named inputs of each verifier (verify_normal_case, verify_marker_case).
 VERIFY_NORMAL_CASES = ("hit_and_misses", "short_clip", "row_ends", "dead_lanes", "all_live",
                        "zero_variance", "rounds")
-VERIFY_MARKER_CASES = ("tone_hits", "no_frames", "row_ends", "dead_lanes", "all_live", "rounds")
+VERIFY_MARKER_CASES = ("tone_hits", "no_frames", "row_ends", "dead_lanes", "all_live", "rounds",
+                       "long_marker")
 # Threads of a CTA in csrc/verify_normal.cu and csrc/verify_marker.cu: the
 # order of their sums (np_block_sum).
-VERIFY_NORMAL_THREADS = 512
+VERIFY_NORMAL_THREADS = 256
 VERIFY_MARKER_THREADS = 256
 
 
@@ -650,9 +659,12 @@ def np_warp_fold(v: np.ndarray) -> np.ndarray:
     return v[:, 0]
 
 
-def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None):
+def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None, parts: int = 1):
     """csrc/verify_normal.cu lane by lane in numpy, in its order of
-    arithmetic: (accept, sim, r), sim and r NaN on dead lanes."""
+    arithmetic: (accept, sim, r), sim and r NaN on dead lanes. ``parts``
+    is the kernel's form: 1 (a CTA a lane) or its cluster's CTAs (each a
+    contiguous chunk of the window; a partition's sum is its chunks' sums
+    added in order to 0)."""
     f32 = np.float32
     t = VERIFY_NORMAL_THREADS
     ccp = consts.corr_clip_partitions.cpu().numpy()
@@ -681,10 +693,18 @@ def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None):
             raw = np.where(inside, corr[r, np.clip(idx, 0, l - 1)], f32(0))
             smax = max(_np_div(raw.max(), dn), f32(1e-38))
             v = (_np_div(raw, dn) / smax).astype(f32)
+            sq = np.zeros(lc, dtype=np.float32)
+            d = (v[:10 * ps] - ccp[g].reshape(-1)).astype(f32)
+            sq[:10 * ps] = d * d
+            chunk = -(-lc // parts)
             sums = []
             for p in range(10):
-                d = (v[p * ps:(p + 1) * ps] - ccp[g, p]).astype(f32)
-                sums.append(np_block_sum(d * d, t))
+                total = f32(0)
+                for c in range(parts):
+                    c_lo, c_hi = max(p * ps, c * chunk), min((p + 1) * ps, (c + 1) * chunk)
+                    total = f32(total + (np_block_sum(sq[c_lo:c_hi], t) if c_hi > c_lo
+                                         else f32(0)))
+                sums.append(total)
             mse = [f32(s / f32(ps)) for s in sums]
             whole = f32(0)
             for x in mse:
@@ -719,14 +739,16 @@ def verify_marker_case(name: str) -> dict:
     (B, S) f32, ``pos`` (R, K) int64, ``alive`` (R, K), the clips'
     ``dom`` frequencies, their ``params`` and ``m``. Clips are 0.25 s tones
     (m = 2,000: 18 frames of 25 ms), or for ``no_frames`` 20 ms (m = 160,
-    shorter than one frame). Tones of each clip's frequency are planted;
-    lanes sit on them, one sample off and elsewhere."""
+    shorter than one frame), or for ``long_marker`` 2 s (m = 16,000: a work
+    area past the kernel's shared memory, its global-workspace form). Tones
+    of each clip's frequency are planted; lanes sit on them, one sample off
+    and elsewhere."""
     rng = np.random.default_rng(sum(map(ord, name)) + 7)
-    m = 160 if name == "no_frames" else 2000
+    m = {"no_frames": 160, "long_marker": 16_000}.get(name, 2000)
     dom = np.array([941.0, 1040.0])
     g, k = 2, 12
     b = 3 if name == "rounds" else 1
-    s_len = 4 * VERIFY_SR
+    s_len = max(4 * VERIFY_SR, 2 * (m + VERIFY_SR))
     sections = (0.01 * rng.standard_normal((b, s_len))).astype(np.float32)
     pos = rng.integers(0, s_len + m - 1, (b * g, k)).astype(np.int64)
     alive = rng.random((b * g, k)) < 0.7
@@ -841,6 +863,133 @@ def np_warp_sum(terms: np.ndarray) -> np.float32:
     for row in padded.reshape(rows, 32):
         acc = acc + row
     return np_warp_fold(acc[None, :])[0]
+
+
+def _np_cmul(ar, ai, br, bi):
+    """A complex product in f32, each product rounded: (a.x b.x - a.y b.y,
+    a.x b.y + a.y b.x)."""
+    f32 = np.float32
+    ar, ai, br, bi = (np.asarray(x, dtype=f32) for x in (ar, ai, br, bi))
+    return (ar * br - ai * bi).astype(f32), (ar * bi + ai * br).astype(f32)
+
+
+def np_stockham(re, im, radices, twiddles):
+    """csrc/verify_marker.cu's Stockham passes over (batch, L) f32 complex
+    values: pass with radix R after p points reads x_r = in[i + r L / R],
+    k = i mod p, multiplies x_r by W[r k L / (p R)], takes the R-point DFT
+    (radix 2 and 4 exact add/sub, others y_s = x_0 + sum_r x_r W[(r s mod R)
+    L / R] in r order) and writes out[(i - k) R + k + s p]."""
+    f32 = np.float32
+    L = re.shape[1]
+    wr, wi = twiddles[0::2], twiddles[1::2]
+    p = 1
+    for R in radices:
+        T = L // R
+        i = np.arange(T)
+        k = i % p
+        xr = [re[:, i + r * T] for r in range(R)]
+        xi = [im[:, i + r * T] for r in range(R)]
+        for r in range(1, R):
+            t = r * k * (L // (p * R))
+            xr[r], xi[r] = _np_cmul(xr[r], xi[r], wr[t], wi[t])
+        yr, yi = [None] * R, [None] * R
+        if R == 2:
+            yr[0], yi[0] = xr[0] + xr[1], xi[0] + xi[1]
+            yr[1], yi[1] = xr[0] - xr[1], xi[0] - xi[1]
+        elif R == 4:
+            t0r, t0i, t1r, t1i = xr[0] + xr[2], xi[0] + xi[2], xr[0] - xr[2], xi[0] - xi[2]
+            t2r, t2i, t3r, t3i = xr[1] + xr[3], xi[1] + xi[3], xr[1] - xr[3], xi[1] - xi[3]
+            yr[0], yi[0], yr[2], yi[2] = t0r + t2r, t0i + t2i, t0r - t2r, t0i - t2i
+            yr[1], yi[1], yr[3], yi[3] = t1r + t3i, t1i - t3r, t1r - t3i, t1i + t3r
+        else:
+            for s_ in range(R):
+                ar, ai = xr[0], xi[0]
+                for r in range(1, R):
+                    t = ((r * s_) % R) * T
+                    pr, pi_ = _np_cmul(xr[r], xi[r], wr[t], wi[t])
+                    ar, ai = (ar + pr).astype(f32), (ai + pi_).astype(f32)
+                yr[s_], yi[s_] = ar, ai
+        j = (i - k) * R + k
+        re, im = np.empty_like(re), np.empty_like(im)
+        for s_ in range(R):
+            re[:, j + s_ * p], im[:, j + s_ * p] = yr[s_], yi[s_]
+        p *= R
+    return re, im
+
+
+def np_rfft_magnitudes(x: np.ndarray, plan) -> np.ndarray:
+    """The fused marker kernel's magnitude rfft of (batch, n) f32 windowed
+    samples on an ``ops/marker_fft.py`` plan, in its order of arithmetic
+    (csrc/verify_marker.cu ``rfft_magnitudes``): (batch, n // 2 + 1) f32."""
+    from audio_pattern_detector_tpu_torch.ops.marker_fft import plan_tables
+
+    f32 = np.float32
+    x = np.asarray(x, dtype=f32)
+    tables = plan_tables(plan)
+    w = tables["twiddles"]
+    n_, L = plan.size, plan.work
+    zr, zi = (x[:, 0::2], x[:, 1::2]) if plan.half else (x, np.zeros_like(x))
+    re = np.zeros((x.shape[0], L), f32)
+    im = np.zeros((x.shape[0], L), f32)
+    if plan.bluestein:
+        c = tables["chirp"]
+        re[:, :n_], im[:, :n_] = _np_cmul(zr, zi, c[0::2], c[1::2])
+        re, im = np_stockham(re, im, plan.radices, w)
+        cs = tables["chirp_spectrum"]
+        re, im = _np_cmul(re, im, cs[0::2], cs[1::2])
+        im = -im
+        re, im = np_stockham(re, im, plan.radices, w)
+        zr, zi = _np_cmul(c[0::2], c[1::2], re[:, :n_], -im[:, :n_])
+    else:
+        re[:, :n_], im[:, :n_] = zr, zi
+        zr, zi = np_stockham(re, im, plan.radices, w)
+    k = np.arange(plan.bins)
+    if plan.half:
+        ur, ui = zr[:, k % n_], zi[:, k % n_]
+        vr, vi = zr[:, (n_ - k) % n_], -zi[:, (n_ - k) % n_]
+        er, ei = ur + vr, ui + vi
+        post = tables["post"]
+        tr, ti = _np_cmul(post[0::2][k], post[1::2][k], ur - vr, ui - vi)
+        xr, xi = ((er + ti) * f32(0.5)).astype(f32), ((ei - tr) * f32(0.5)).astype(f32)
+    else:
+        xr, xi = zr[:, : plan.bins], zi[:, : plan.bins]
+    return np.sqrt((xr * xr + xi * xi).astype(f32)).astype(f32)
+
+
+def np_marker_spectra(section, pos, consts):
+    """The fused marker kernel's spectra of every lane in numpy, as a
+    :class:`MarkerSpectra` of magnitudes (torch tensors on the CPU): the
+    window of the zero-padded section, the Hann products and the
+    transforms of ``np_rfft_magnitudes`` on the kernel's plans."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.marker_fft import real_plan
+    from audio_pattern_detector_tpu_torch.ops.verify_marker import MarkerSpectra
+
+    f32 = np.float32
+    sections = np.asarray(section, dtype=f32).reshape(-1, np.shape(section)[-1])
+    pos = np.asarray(pos)
+    b, s_len = sections.shape
+    r_rows, k = pos.shape
+    g = r_rows // b
+    m, wl = consts.clip_len, consts.frame_len
+    pad = 8 + m
+    secp = np.pad(sections, ((0, 0), (pad, pad)))
+    start = np.minimum(np.maximum(pos - (m - 1) + 8, 0), secp.shape[1] - 3 * m)
+    rows = np.repeat(np.arange(b), g * k).reshape(r_rows, k)
+    seg3 = secp[rows[..., None], start[..., None] + np.arange(3 * m)]  # (R, K, 3m)
+    hann_whole = consts.hann_whole.cpu().numpy()
+    whole = np_rfft_magnitudes((seg3.reshape(-1, m) * hann_whole).astype(f32), real_plan(m))
+    whole = whole.reshape(b, g, k, 3, -1)
+    frames = None
+    if consts.frame_count > 0:
+        match = seg3[..., m:2 * m]
+        starts = np.asarray(consts.frame_starts)
+        stacked = match[..., starts[:, None] + np.arange(wl)]  # (R, K, F, wl)
+        stacked = (stacked * consts.hann_frame.cpu().numpy()).astype(f32)
+        frames = np_rfft_magnitudes(stacked.reshape(-1, wl), real_plan(wl))
+        frames = torch.from_numpy(frames.reshape(b, g, k, consts.frame_count, -1))
+    return MarkerSpectra(torch.from_numpy(whole), True, frames, True)
 
 
 def check_scan_edges(dev, shapes) -> int:
@@ -2681,7 +2830,9 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
                 det = make_detector(num_normal, num_marker, 60, dev)
                 bank = det._ensure_bank()
                 candidate_scan.launches = 0
-                payload = round_payload(bank)
+                marker_before = verify_marker.verify_marker.launches
+                payload = round_payload(bank)  # the key's first use: eager, then the capture
+                marker_launches = verify_marker.verify_marker.launches - marker_before
                 _audios, rounds, _ = serving_streams(det, det.target_sample_rate)
                 session = MultiStreamSession(det, 16, tile=16, batch_mode="vmap")
                 torch.cuda.synchronize()
@@ -2701,6 +2852,9 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
                        "routes": routes(bank), "kernel_tier": bank.kernel_tier,
                        "upload_dtype": str(bank._section_rows(10, [chunks[0][:10]]).dtype),
                        "ms_per_round": float(np.median(ms[1:])), "session_wall_s": session_wall,
+                       "marker_kernel_launches_first_use": marker_launches,
+                       "key_marker_gemm": sorted({st.key.marker_gemm
+                                                  for st in bank.graphs.steps()}),
                        "bank": bank, "det": det}
                 if tf32 and not torch.backends.cuda.matmul.allow_tf32:
                     raise AssertionError("the DFT-GEMM left TF32 switched off process-wide")
@@ -2730,6 +2884,16 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
             raise AssertionError(f"{name}: phase 9's streams differ from the default run")
         if dev.type == "cuda" and (res["launches"] == 0) != mask:
             raise AssertionError(f"{name}: {res['launches']} kernel launches")
+        if dev.type == "cuda" and name == "marker_gemm" and (
+                res["key_marker_gemm"] != [False] or res["marker_kernel_launches_first_use"]
+                != base["marker_kernel_launches_first_use"] or
+                res["marker_kernel_launches_first_use"] < 1):
+            # On a card the marker verifier is its fused kernel whatever the
+            # switch says: the same launches, the same key, the same payload.
+            raise AssertionError(f"marker_gemm: key {res['key_marker_gemm']}, "
+                                 f"{res['marker_kernel_launches_first_use']} marker kernel "
+                                 f"launches against the default's "
+                                 f"{base['marker_kernel_launches_first_use']}")
         results[name] = res
         if not mask:
             total_launches += res["launches"]
@@ -2799,8 +2963,14 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
           variants={name: {"ms_per_round": r["ms_per_round"], "session_wall_s": r["session_wall_s"],
                            "kernel_launches": r["launches"], "kernel_tier": r["kernel_tier"],
                            "upload_dtype": r["upload_dtype"], "routes": r["routes"],
-                           "near_flags_hidden": r["near_flags_hidden"]}
+                           "near_flags_hidden": r["near_flags_hidden"],
+                           "marker_kernel_launches_first_use":
+                               r["marker_kernel_launches_first_use"],
+                           "key_marker_gemm": r["key_marker_gemm"]}
                     for name, r in results.items()},
+          default_marker_kernel_launches_first_use=base["marker_kernel_launches_first_use"],
+          marker_gemm_on_card="the fused marker kernel, as the default: the switch picks only "
+                              "the plain version's spectra",
           mask_tier_kernel_launches="0: APD_PALLAS=0 runs no kernel, by the caller's choice",
           no_overlap_save_corr_max_abs_err=whole_err,
           no_overlap_save_lufs_max_abs_err=lufs_err, gemm_with_tf32_allowed_rel_err=gemm_err,
@@ -4048,20 +4218,65 @@ def verify_normal_bound(args) -> dict:
             "bound_by": "bytes"}
 
 
-def verify_marker_bound(spectra, alive, consts) -> dict:
-    """The marker decisions' bound from one call's inputs: each live lane's
-    spectra (3 whole windows and F frames); the band masks and thresholds of
-    the clips with a live lane (row r's clip is r % G) and the frequency
-    grids, read once; every lane's flag read and accept written once; over
-    the memory rate (the operations, a few a bin, are below)."""
-    b, g, k, _, fw = spectra.whole.shape
-    n_frames, ff = (0, 0) if spectra.frames is None else spectra.frames.shape[3:]
+def verify_marker_bound(args) -> dict:
+    """The fused marker verifier's bound from one call's inputs: the larger
+    of the bytes it must move over the memory rate and its transforms'
+    operations over the f32 rate. Bytes: each live lane's 3m-sample window
+    and position read once; the band masks, thresholds, lock and frequency
+    of the clips with a live lane (row r's clip is r % G), the Hann
+    windows, frequency grids and FFT tables read once; every lane's flag
+    read and accept written once. Operations: 5 n log2 n for each of a live
+    lane's three m-sample windows and F frames of wl samples (the decisions,
+    a few a bin, are below)."""
+    import math
+
+    from audio_pattern_detector_tpu_torch.ops.marker_fft import marker_layout, plan_tables
+
+    _section, pos, alive, consts = args
+    r_rows, k = pos.shape
+    g = consts.dom_freq.shape[0]
+    m, wl, n_frames = consts.clip_len, consts.frame_len, consts.frame_count
+    fw, ff = m // 2 + 1, (wl // 2 + 1 if n_frames else 0)
     live = int(alive.sum())
     live_clips = int(alive.any(dim=1).reshape(-1, g).any(dim=0).sum())
-    moved = (live * (3 * fw + n_frames * ff) * 4 + live_clips * ((fw + ff) + 8 * 4)
-             + ((fw + ff) * 4 if live else 0) + 2 * b * g * k)
-    return {"live_lanes": live, "lanes": b * g * k, "live_clips": live_clips, "clips": g,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    lay = marker_layout(m, wl, n_frames)
+    tables = sum(len(t) for plan in (lay.whole, lay.frame) if plan is not None
+                 for t in plan_tables(plan).values())
+    once = (m + (wl if n_frames else 0) + fw + ff + tables) * 4 if live else 0
+    moved = (live * (3 * m * 4 + 8) + live_clips * (fw + ff + 6 * 4 + 8) + once
+             + 2 * r_rows * k)
+    ops = live * (3 * 5 * m * math.log2(m) + n_frames * 5 * wl * math.log2(max(wl, 2)))
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_SCALAR_OPS * 1e3
+    return {"live_lanes": live, "lanes": r_rows * k, "live_clips": live_clips, "clips": g,
+            "bytes": moved, "operations": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "work_area": "shared" if lay.on_chip else "global"}
+
+
+def marker_live_windows(args):
+    """The live lanes' Hann-weighted windows (L, 3, m) and frames (L, F,
+    wl), gathered as the plain version gathers every lane's: the yardstick
+    inputs of ``torch.fft.rfft``."""
+    import torch
+
+    section, pos, alive, consts = args
+    m, wl = consts.clip_len, consts.frame_len
+    sections = section.reshape(-1, section.shape[-1])
+    g = pos.shape[0] // sections.shape[0]
+    rows, lanes = torch.nonzero(alive, as_tuple=True)
+    secp = torch.nn.functional.pad(sections, (m + 8, m + 8))
+    start = (pos[rows, lanes] - (m - 1) + 8).clamp(0, secp.shape[1] - 3 * m)
+    idx = start[:, None] + torch.arange(3 * m, device=pos.device)
+    seg3 = secp[(rows // g)[:, None], idx].reshape(-1, 3, m)
+    frames = None
+    if consts.frame_count > 0:
+        starts = torch.tensor(consts.frame_starts, device=pos.device)
+        fidx = m + starts[:, None] + torch.arange(wl, device=pos.device)
+        frames = seg3.reshape(-1, 3 * m)[:, fidx] * consts.hann_frame
+    return seg3 * consts.hann_whole, frames
+
+
+MARKER_SPECTRA_RTOL = 1e-5  # of a window's largest magnitude: the kernel's FFT against the exact
 
 
 def normal_plain_in_blocks(corr, pos, alive, consts, normalise, block: int = 16):
@@ -4080,19 +4295,20 @@ def normal_plain_in_blocks(corr, pos, alive, consts, normalise, block: int = 16)
 @contextlib.contextmanager
 def timed_verify_calls():
     """Inside the block, CUDA events around every verifier call the bank
-    makes, and around the marker verifier's spectra and decisions; yields
-    a function that returns the device ms of each (after a sync)."""
+    makes, and around the plain marker verifier's spectra and decisions
+    (where the plain version runs); yields a function that returns the
+    device ms of each (after a sync)."""
     import torch
 
     from audio_pattern_detector_tpu_torch.models import bank as bank_module
     from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
 
     spans: dict[str, list] = {"verify_normal": [], "verify_marker": [], "marker_spectra": [],
-                              "marker_decisions": []}
+                              "marker_decisions_reference": []}
     saved = {"verify_normal": (bank_module, bank_module.verify_normal),
              "verify_marker": (bank_module, bank_module.verify_marker),
              "marker_spectra": (vm, vm.marker_spectra),
-             "marker_decisions": (vm, vm.marker_decisions)}
+             "marker_decisions_reference": (vm, vm.marker_decisions_reference)}
 
     def timed(name: str, fn):
         def run(*args):
@@ -4131,19 +4347,25 @@ def phase_verify_kernels(dev, smi: str, corpus_inputs: dict, num_normal: int = 3
     * the general-plateau tier's (``height_min = 0``) 16-row round with the
       hit-bearing row, the escalated marker row of phase 7 at its full
       4,728 lanes, phase 19's regression captures (their eager steps'
-      calls), and the named cases of the CPU tests (the marker with the
-      FFT's and the DFT-GEMM's spectra).
+      calls), and the named cases of the CPU tests (the plain marker
+      verifier with the FFT's and the DFT-GEMM's spectra; the long marker
+      in the kernel's global-workspace form).
 
     Gates: accept bitwise, similarity and r within ``SIM_RTOL`` / ``R_ATOL``
-    on live lanes. For the hit-bearing inputs: the kernel's device ms (CUDA
-    events around a graph of 20 calls), the wrapper's ms (events around 20
-    eager calls), the plain version's ms, the bound at the call's own live
-    lanes (and, for the normal verifier, at every lane live) and the
-    share. Then the device ms of the hit-bearing 16-row round's verify tail
-    split between the verifiers (CUDA events around each call of an eager
-    round; the marker's spectra and decisions apart), with the kernels and
-    with the plain versions in their place, beside the round's own. Returns
-    the kernels line's numbers by kernel."""
+    on live lanes, the marker kernel's magnitudes of live lanes (its test
+    probe) within ``MARKER_SPECTRA_RTOL`` of the exact (f64) rfft of the
+    same windows, torch's rfft's own error recorded beside it. For the
+    hit-bearing inputs: the kernel's device ms (CUDA events around a graph
+    of 20 calls), the wrapper's ms (events around 20 eager calls), the
+    plain version's ms, the bound at the call's own live lanes (and, for
+    the normal verifier, at every lane live) and the share; for the marker
+    kernel also ``torch.fft.rfft`` over the live lanes' gathered windows
+    and frames (the library call for its spectra part). Then the device ms
+    of the hit-bearing 16-row round's verify tail split between the
+    verifiers (CUDA events around each call of an eager round; the plain
+    marker's spectra and decisions apart), with the kernels and with the
+    plain versions in their place, beside the round's own. Returns the
+    kernels line's numbers by kernel."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import make_bank, make_detector
@@ -4184,25 +4406,63 @@ def phase_verify_kernels(dev, smi: str, corpus_inputs: dict, num_normal: int = 3
 
     def check_marker(source: str, args, timed: bool) -> dict:
         section, pos, alive, consts = args
-        sp = vm.marker_spectra(section, pos, consts)
-        got = vm.marker_decisions(sp, alive, consts)
-        want = vm.marker_decisions_reference(sp, alive, consts)
+        got = vm.verify_marker(*args)
+        want = vm.verify_marker_reference(*args)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"verify_marker, {source}: accept differs from the plain version")
-        entry = {"shape": list(sp.whole.shape), "frames": 0 if sp.frames is None
-                 else sp.frames.shape[3], "accepted": int(got.sum()),
-                 **verify_marker_bound(sp, alive, consts)}
+        entry = {"shape": [*pos.shape, consts.clip_len], "frames": consts.frame_count,
+                 "accepted": int(got.sum()), **verify_marker_bound(args)}
+        # The kernel's spectra of live lanes (its test probe) against the
+        # exact (f64) rfft of the same f32 windows, where the probe fits a
+        # gigabyte; torch's rfft (the plain version's) is held to the same
+        # and reported, not gated: cuFFT's own error reaches 3e-2 of a small
+        # window's largest bin at m = 1,827 on the card.
+        fw, ff = consts.clip_len // 2 + 1, consts.frame_len // 2 + 1
+        width = 3 * fw + consts.frame_count * ff
+        if bool(alive.any()) and pos.numel() * width * 4 <= 2**30:
+            probe = torch.zeros((*pos.shape, width), device=dev)
+            vm._launch(*args, probe=probe)
+            w3, frames = marker_live_windows(args)
+            mags = probe[alive].cpu().double()
+            kernel = [mags[:, : 3 * fw].reshape(len(mags), 3, fw)]
+            windows = [w3]
+            if frames is not None:
+                kernel.append(mags[:, 3 * fw:].reshape(len(mags), -1, ff))
+                windows.append(frames)
+            exact = [torch.from_numpy(np.abs(np.fft.rfft(w.cpu().double().numpy(), axis=-1)))
+                     for w in windows]
+            plain = [torch.fft.rfft(w, dim=-1).abs().cpu().double() for w in windows]
+
+            def rel(xs, refs) -> float:
+                return max(float(((x - r).abs().amax(-1) / r.amax(-1).clamp_min(1e-30)).max())
+                           for x, r in zip(xs, refs))
+
+            abs_err = max(float((x - r).abs().max()) for x, r in zip(kernel, exact))
+            rel_err = rel(kernel, exact)
+            if rel_err > MARKER_SPECTRA_RTOL:
+                raise AssertionError(f"verify_marker, {source}: the kernel's spectra lie "
+                                     f"{rel_err} of a window's largest bin from the exact rfft")
+            errs["verify_marker"] = max(errs["verify_marker"], abs_err)
+            entry.update(spectra_max_abs_err=abs_err, spectra_rel_err=rel_err,
+                         plain_spectra_rel_err=rel(plain, exact),
+                         kernel_vs_plain_spectra_rel_err=rel(kernel, plain))
+            del probe, mags
         if timed:
-            dev_ms = graph_ms(lambda: vm.marker_decisions(sp, alive, consts))
+            dev_ms = graph_ms(lambda: vm.verify_marker(*args))
+            w3, frames = marker_live_windows(args)
+
+            def library():
+                torch.fft.rfft(w3, dim=-1)
+                if frames is not None:
+                    torch.fft.rfft(frames, dim=-1)
+
             entry.update(device_ms=dev_ms, share_of_bound=entry["bound_ms"] / dev_ms,
-                         wrapper_ms=cuda_ms(lambda: vm.marker_decisions(sp, alive, consts), 20),
-                         plain_ms=cuda_ms(lambda: vm.marker_decisions_reference(sp, alive, consts),
-                                          5),
-                         spectra_ms=cuda_ms(lambda: vm.marker_spectra(section, pos, consts), 5),
-                         whole_verifier_ms=cuda_ms(lambda: vm.verify_marker(*args), 5),
-                         whole_plain_verifier_ms=cuda_ms(
-                             lambda: vm.verify_marker_reference(*args), 5))
+                         wrapper_ms=cuda_ms(lambda: vm.verify_marker(*args), 20),
+                         plain_ms=cuda_ms(lambda: vm.verify_marker_reference(*args), 5),
+                         plain_spectra_ms=cuda_ms(lambda: vm.marker_spectra(section, pos, consts),
+                                                  5),
+                         library_rfft_live_lanes_ms=cuda_ms(library, 5))
         return entry
 
     def check_all(source: str, seen: dict, timed: bool) -> None:
@@ -4316,12 +4576,17 @@ def phase_verify_kernels(dev, smi: str, corpus_inputs: dict, num_normal: int = 3
           hit_bearing_round_verify_tail_device_ms=split, **out)
     # The kernels line: each kernel at the hit-bearing 16-row round's own
     # launch (vmap).
+    # The marker kernel's library call is torch.fft.rfft over the live
+    # lanes' gathered windows (its spectra part); no PyTorch call computes
+    # the normal verifier. max_abs_err: the normal verifier's r, the marker
+    # kernel's magnitudes against the exact rfft (accept bits are equal).
     line = {}
     for kernel in ("verify_normal", "verify_marker"):
         e = out[kernel]["round_vmap_0"]
         line[kernel] = {"launches": sum(VERIFY_PATH_LAUNCHES[kernel].values()),
                         "ms": e["device_ms"], "plain_ms": e["plain_ms"],
                         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+                        "library_ms": e.get("library_rfft_live_lanes_ms"),
                         "shape": e["shape"], "live_lanes": e["live_lanes"],
                         "wrapper_ms": e["wrapper_ms"], "max_abs_err": errs[kernel],
                         "launches_by_path": VERIFY_PATH_LAUNCHES[kernel]}
@@ -4771,8 +5036,8 @@ def main(argv: "list[str] | None" = None) -> int:
           "replaces": greedy_sources[name][1], "max_abs_err": 0.0, "library_ms": None,
           **greedy_line[name]} for name in ("lane_greedy", "lean_greedy")),
         *({"name": name, "route": "cuda", "source": greedy_sources[name][0],
-           "replaces": greedy_sources[name][1], "library_ms": None,
-           **verify_line[name]} for name in ("verify_normal", "verify_marker"))]}), flush=True)
+           "replaces": greedy_sources[name][1], **verify_line[name]}
+          for name in ("verify_normal", "verify_marker"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

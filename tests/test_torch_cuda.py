@@ -37,8 +37,11 @@ from chip_smoke import (
     lean_greedy_case,
     lean_greedy_inputs,
     make_scan_input,
+    marker_live_windows,
     random_lean_greedy_case,
+    MARKER_SPECTRA_RTOL,
     np_marker_decisions,
+    np_marker_spectra,
     np_verify_normal,
     reference_in_row_chunks,
     verify_marker_case,
@@ -836,13 +839,15 @@ def test_replays_take_new_inputs_with_rounds_in_flight(cuda):
 
 
 def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
-    """After capture, the DFT-matrix cache and torch's cuFFT plan cache are
-    emptied, other transforms made and the freed memory filled with NaN:
-    replays still equal the eager round (the graph holds what it reads)."""
+    """After capture, the marker kernel's FFT-plan cache and torch's cuFFT
+    plan cache are emptied, other transforms made and the freed memory
+    filled with NaN: replays still equal the eager round (the graph holds
+    what it reads). ``APD_MARKER_GEMM=1`` changes nothing on a card: its
+    keys say so."""
     import gc
 
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
-    from audio_pattern_detector_tpu_torch.ops import verify_marker
+    from audio_pattern_detector_tpu_torch.ops import marker_fft
 
     monkeypatch.setenv("APD_MARKER_GEMM", "1")
     clips, rounds = _capture_clips()
@@ -853,8 +858,8 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
 
     eager, got = _eager_then_captured(bank, run)
     assert all(_bitwise(g, eager) for g in got)
-    assert [s.key.marker_gemm for s in bank.graphs.steps()] == [True] * len(bank.classes)
-    verify_marker._dft_matrix.cache_clear()
+    assert [s.key.marker_gemm for s in bank.graphs.steps()] == [False] * len(bank.classes)
+    marker_fft._cached.cache_clear()
     torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1205,8 +1210,12 @@ def test_verify_normal_kernel_equals_plain_version(cuda, name):
     np.testing.assert_allclose(got[1][live], want[1][live], rtol=vn.SIM_RTOL, atol=1e-9)
     np.testing.assert_allclose(got[2][live], want[2][live], rtol=0, atol=vn.R_ATOL)
     assert np.isnan(got[1][~live]).all() and np.isnan(got[2][~live]).all()
+    # The kernel's form follows the launch's live lanes (a cluster a lane,
+    # or a CTA a lane), and its order of sums with it.
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split = vn.split_form(int(live.sum()), vn.launch_clusters(live.size, sms))
     order = np_verify_normal(case["corr"], case["pos"], live, args[3], case["valid_len"],
-                             case["denom"])
+                             case["denom"], vn.CLUSTER if split else 1)
     np.testing.assert_array_equal(got[0], order[0])
     for a, b in zip(got[1:], order[1:]):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
@@ -1215,10 +1224,12 @@ def test_verify_normal_kernel_equals_plain_version(cuda, name):
 @pytest.mark.parametrize("spectra", ["fft", "gemm"])
 @pytest.mark.parametrize("name", VERIFY_MARKER_CASES)
 def test_verify_marker_kernel_equals_plain_version(cuda, monkeypatch, name, spectra):
-    """``csrc/verify_marker.cu`` on the named cases with the FFT's and the
-    DFT-GEMM's spectra: one launch, accept bitwise the plain decisions' on
-    the same spectra and the numpy transliteration's, and the whole
-    verifier's."""
+    """The fused ``csrc/verify_marker.cu`` on the named cases (the long
+    marker's in its global-workspace form): one launch, accept bitwise the
+    plain verifier's with the FFT's and with the DFT-GEMM's spectra and the
+    numpy transliteration's; its magnitudes of live lanes (the test probe)
+    bitwise the transliteration's and within 1e-5 of each window's largest
+    bin of the exact (f64) rfft of the same windows."""
     import numpy as np
 
     from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
@@ -1226,15 +1237,26 @@ def test_verify_marker_kernel_equals_plain_version(cuda, monkeypatch, name, spec
     monkeypatch.setenv("APD_MARKER_GEMM", "1" if spectra == "gemm" else "0")
     case = verify_marker_case(name)
     section, pos, alive, consts = verify_marker_inputs(case, cuda)
-    sp = vm.marker_spectra(section, pos, consts)
     before = vm.verify_marker.launches
-    got = vm.marker_decisions(sp, alive, consts)
+    got = vm.verify_marker(section, pos, alive, consts)
     assert vm.verify_marker.launches == before + 1
-    want = vm.marker_decisions_reference(sp, alive, consts)
-    assert torch.equal(got, want)
-    np.testing.assert_array_equal(got.cpu().numpy(), np_marker_decisions(sp, case["alive"], consts))
-    assert torch.equal(vm.verify_marker(section, pos, alive, consts),
-                       vm.verify_marker_reference(section, pos, alive, consts))
+    assert torch.equal(got, vm.verify_marker_reference(section, pos, alive, consts))
+    order = np_marker_spectra(case["section"], case["pos"], consts)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np_marker_decisions(order, case["alive"], consts))
+    fw, ff, n_frames = consts.clip_len // 2 + 1, consts.frame_len // 2 + 1, consts.frame_count
+    probe = torch.zeros((*pos.shape, 3 * fw + n_frames * ff), device=cuda)
+    vm._launch(section, pos, alive, consts, probe=probe)
+    live = case["alive"].reshape(-1)
+    mags = probe.cpu().numpy().reshape(live.size, -1)[live]
+    want = [order.whole.numpy().reshape(live.size, -1)[live]]
+    if n_frames:
+        want.append(order.frames.numpy().reshape(live.size, -1)[live])
+    np.testing.assert_array_equal(mags.view(np.int32), np.concatenate(want, axis=1).view(np.int32))
+    w3, _frames = marker_live_windows((section, pos, alive, consts))
+    ref = np.abs(np.fft.rfft(w3.cpu().double().numpy(), axis=-1))
+    err = np.abs(mags[:, : 3 * fw].reshape(-1, 3, fw) - ref).max(-1) / ref.max(-1).clip(1e-30)
+    assert err.max() <= MARKER_SPECTRA_RTOL
     assert bool(got.any())
 
 
@@ -1249,12 +1271,12 @@ def test_verify_kernels_refuse_what_they_do_not_take_and_count_no_launch(cuda):
                                                                    cuda)
     with pytest.raises(ValueError, match="per-row valid_len"):
         vn.verify_normal(corr, pos, alive, consts, (lens.long(), denom))
+    import types
+
     section, mpos, malive, mconsts = verify_marker_inputs(verify_marker_case("tone_hits"), cuda)
-    sp = vm.marker_spectra(section, mpos, mconsts)
-    many = vm.MarkerSpectra(sp.whole, True,
-                            torch.zeros((*sp.whole.shape[:3], 7000, 101), device=cuda), True)
-    with pytest.raises(ValueError, match="shared memory"):
-        vm.marker_decisions(many, malive, mconsts)
+    many = types.SimpleNamespace(**{**mconsts.__dict__, "frame_count": 7000})
+    with pytest.raises(ValueError, match="frames"):
+        vm.verify_marker(section, mpos, malive, many)
     assert (vn.verify_normal.launches, vm.verify_marker.launches) == before
 
 

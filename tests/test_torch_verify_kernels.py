@@ -1,10 +1,10 @@
 """The two verifiers' wrappers on the CPU: the normal verifier
-(``ops/verify_normal.py``) and the marker verifier's decisions after the
-spectra (``ops/verify_marker.py``).
+(``ops/verify_normal.py``) and the marker verifier (``ops/verify_marker.py``).
 
-On a CUDA card each wrapper launches its kernel (``csrc/verify_normal.cu``,
-``csrc/verify_marker.cu``); on the CPU it runs its plain version, and it
-never falls back from one to the other. Here, on the CPU:
+On a CUDA card each wrapper launches its kernel (``csrc/verify_normal.cu``;
+``csrc/verify_marker.cu``, one fused kernel that makes live lanes' spectra
+itself); on the CPU it runs its plain version, and it never falls back from
+one to the other. Here, on the CPU:
 
 * each plain version against the JAX package's function on the same numpy
   inputs (``chip_smoke.VERIFY_NORMAL_CASES`` / ``VERIFY_MARKER_CASES``):
@@ -14,8 +14,11 @@ never falls back from one to the other. Here, on the CPU:
   normal verifier without and with ``normalise`` (one length and per-row
   lengths), the marker verifier with the FFT's and the DFT-GEMM's spectra;
 * a numpy transliteration of each kernel's own order of arithmetic
-  (``chip_smoke.np_verify_normal``, ``np_marker_decisions``) against the
-  plain version, on the named cases and on hypothesis inputs;
+  (``chip_smoke.np_verify_normal`` in both of the kernel's forms, a CTA a
+  lane and a cluster of 8 a lane; ``np_marker_spectra`` and
+  ``np_marker_decisions``, the fused marker kernel's transforms and
+  decisions) against the plain version, on the named cases and on
+  hypothesis inputs (its transforms alone: tests/test_torch_marker_fft.py);
 * the binned-maximum identity the normal kernel rests on, on the bank's
   own ``seg_a`` / ``seg_b`` and on ``build_normal_verify_consts``' at
   other clip lengths;
@@ -56,11 +59,13 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
 )
 from chip_smoke import (
     HBM_BYTES_PER_S,
+    MARKER_SPECTRA_RTOL,
     VERIFY_MARKER_CASES,
     VERIFY_NORMAL_CASES,
     VERIFY_PATH_LAUNCHES,
     counted_verify_launches,
     np_marker_decisions,
+    np_marker_spectra,
     np_verify_normal,
     self_correlations,
     verify_marker_case,
@@ -130,14 +135,18 @@ def test_plain_verify_normal_equals_jax(name):
 
 @pytest.mark.parametrize("name", VERIFY_NORMAL_CASES)
 def test_normal_transliteration_equals_the_plain_version(name):
+    """Both of the kernel's forms: a CTA a lane (its chunk the whole
+    window) and a cluster of CLUSTER CTAs a lane (the window in CLUSTER
+    chunks, a partition's sums added over the chunks)."""
     case = verify_normal_case(name)
     corr, pos, alive, consts, normalise = verify_normal_inputs(case, CPU)
     want = [t.numpy() for t in tvn.verify_normal_reference(corr, pos, alive, consts, normalise)]
-    got = np_verify_normal(case["corr"], case["pos"], case["alive"], consts, case["valid_len"],
-                           case["denom"])
-    np.testing.assert_array_equal(got[0], want[0])
-    _close(got[1], got[2], want[1], want[2], case["alive"])
-    assert np.isnan(got[1][~case["alive"]]).all()
+    for parts in (1, tvn.CLUSTER):
+        got = np_verify_normal(case["corr"], case["pos"], case["alive"], consts,
+                               case["valid_len"], case["denom"], parts)
+        np.testing.assert_array_equal(got[0], want[0])
+        _close(got[1], got[2], want[1], want[2], case["alive"])
+        assert np.isnan(got[1][~case["alive"]]).all()
 
 
 @settings(max_examples=25, deadline=None)
@@ -149,11 +158,12 @@ def test_normal_transliteration_equals_the_plain_version(name):
     b=st.integers(1, 2),
     k=st.integers(1, 5),
     norm=st.sampled_from(["none", "scalar", "per_row"]),
+    parts=st.sampled_from([1, tvn.CLUSTER]),
 )
-def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, norm):
+def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, norm, parts):
     """Clips short and normal, rows a little longer or much longer than a
     window, lanes anywhere in and past the row, hits planted on some, with
-    and without a normaliser."""
+    and without a normaliser; the kernel's either form."""
     rng = np.random.default_rng(seed)
     sr = 8000 if short else 500
     cc = self_correlations(rng.standard_normal((g, m)).astype(np.float32))
@@ -182,9 +192,25 @@ def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, no
     want = [t.numpy() for t in tvn.verify_normal_reference(
         torch.from_numpy(corr), torch.from_numpy(pos), torch.from_numpy(alive), consts,
         normalise)]
-    got = np_verify_normal(corr, pos, alive, consts, valid_len, denom)
+    got = np_verify_normal(corr, pos, alive, consts, valid_len, denom, parts)
     np.testing.assert_array_equal(got[0], want[0])
     _close(got[1], got[2], want[1], want[2], alive)
+
+
+def test_the_normal_kernels_form_follows_the_live_count():
+    """A launch's clusters (one an SM, at most one a CLUSTER lanes)
+    and its form: a cluster a lane where the live lanes are no more than
+    the clusters (the hit-bearing round's one live lane), else a CTA a lane
+    (the general round's 19,537)."""
+    assert tvn.launch_clusters(512 * 16, 132) == 132
+    assert tvn.launch_clusters(3, 132) == 1
+    assert tvn.split_form(1, 132) and tvn.split_form(132, 132) and not tvn.split_form(133, 132)
+    assert not tvn.split_form(19_537, tvn.launch_clusters(512 * 65, 132))
+    # The staged chunk: the whole window where it fits, a cluster CTA's
+    # chunk past that, else none.
+    assert tvn.stage_floats(15_999, 101) == 15_999
+    assert tvn.stage_floats(159_999, 101) == 20_000
+    assert tvn.stage_floats(10**6, 101) == 0
 
 
 @pytest.mark.parametrize("m, sr", [(2000, 8000), (4000, 8000), (8000, 8000), (80_000, 8000),
@@ -240,7 +266,8 @@ def test_plain_verify_marker_equals_jax(monkeypatch, name, spectra):
     got = tverify.verify_marker(section, pos, alive, consts).numpy()
     assert tvm.verify_marker.launches == before
     sp = tvm.marker_spectra(section, pos, consts)
-    assert sp.whole_is_magnitude == (spectra == "fft")
+    # The DFT-GEMM runs up to _GEMM_MAX_N points: the long marker's FFT either way.
+    assert sp.whole_is_magnitude == (spectra == "fft" or case["m"] > tvm._GEMM_MAX_N)
     assert (sp.frames is None) == (name == "no_frames")
     jc = jverify.build_marker_verify_consts(case["m"], case["sr"], case["dom"], case["params"])
     sections = case["section"].reshape(-1, case["section"].shape[-1])
@@ -257,6 +284,10 @@ def test_plain_verify_marker_equals_jax(monkeypatch, name, spectra):
 @pytest.mark.parametrize("spectra", ["fft", "gemm"])
 @pytest.mark.parametrize("name", VERIFY_MARKER_CASES)
 def test_marker_transliteration_equals_the_plain_version(monkeypatch, name, spectra):
+    """The fused kernel in numpy (its spectra, ``np_marker_spectra``, then
+    its decisions) against the plain verifier with either spectra; and its
+    decisions alone on the plain version's spectra. The spectra within
+    1e-5 of each window's largest bin of torch's rfft."""
     monkeypatch.setenv("APD_MARKER_GEMM", "1" if spectra == "gemm" else "0")
     case = verify_marker_case(name)
     section, pos, alive, consts = verify_marker_inputs(case, CPU)
@@ -265,6 +296,15 @@ def test_marker_transliteration_equals_the_plain_version(monkeypatch, name, spec
     np.testing.assert_array_equal(np_marker_decisions(sp, case["alive"], consts), want)
     np.testing.assert_array_equal(tvm.verify_marker_reference(section, pos, alive, consts).numpy(),
                                   want)
+    fused = np_marker_spectra(case["section"], case["pos"], consts)
+    np.testing.assert_array_equal(np_marker_decisions(fused, case["alive"], consts), want)
+    with monkeypatch.context() as mp:
+        mp.setenv("APD_MARKER_GEMM", "0")
+        plain = tvm.marker_spectra(section, pos, consts)
+    for a, b in ((fused.whole, plain.whole), (fused.frames, plain.frames)):
+        if b is not None:
+            err = ((a - b).abs().amax(-1) / b.amax(-1).clamp_min(1e-30)).max()
+            assert float(err) <= MARKER_SPECTRA_RTOL
 
 
 @settings(max_examples=30, deadline=None)
@@ -340,6 +380,8 @@ def _stub(monkeypatch, code: int):
     monkeypatch.setattr(_build, "load_kernels", lambda: types.SimpleNamespace(lib=lib))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: types.SimpleNamespace(multi_processor_count=132))
 
 
 def test_a_launch_that_returns_a_cuda_error_raises(monkeypatch):
@@ -349,19 +391,21 @@ def test_a_launch_that_returns_a_cuda_error_raises(monkeypatch):
     one."""
     _stub(monkeypatch, 700)
     monkeypatch.setattr(tvn, "verify_normal_reference", lambda *a: pytest.fail("fell back"))
-    monkeypatch.setattr(tvm, "marker_decisions_reference", lambda *a: pytest.fail("fell back"))
+    monkeypatch.setattr(tvm, "verify_marker_reference", lambda *a: pytest.fail("fell back"))
+    monkeypatch.setattr(tvm, "marker_spectra", lambda *a: pytest.fail("fell back"))
     nargs = verify_normal_inputs(verify_normal_case("rounds"), CPU)
-    section, pos, alive, consts = verify_marker_inputs(verify_marker_case("tone_hits"), CPU)
-    sp = tvm.marker_spectra(section, pos, consts)
+    margs = verify_marker_inputs(verify_marker_case("tone_hits"), CPU)
+    long_args = verify_marker_inputs(verify_marker_case("long_marker"), CPU)
     before = (tvn.verify_normal.launches, tvm.verify_marker.launches)
     with pytest.raises(RuntimeError, match="verify_normal kernel launch failed: CUDA error 700"):
         tvn._launch(*nargs)
-    with pytest.raises(RuntimeError, match="verify_marker kernel launch failed: CUDA error 700"):
-        tvm.marker_decisions(sp, alive, consts)
+    for args in (margs, long_args):  # the shared-memory and the global-workspace forms
+        with pytest.raises(RuntimeError, match="verify_marker kernel launch failed: CUDA error 700"):
+            tvm._launch(*args)
     assert (tvn.verify_normal.launches, tvm.verify_marker.launches) == before
     _stub(monkeypatch, 0)
     tvn._launch(*nargs)
-    tvm.marker_decisions(sp, alive, consts)
+    tvm._launch(*margs)
     assert (tvn.verify_normal.launches, tvm.verify_marker.launches) == (
         before[0] + 1, before[1] + 1)
     tvn.verify_normal.launches, tvm.verify_marker.launches = before
@@ -369,8 +413,9 @@ def test_a_launch_that_returns_a_cuda_error_raises(monkeypatch):
 
 def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
     """Wrong types, shapes and layouts, rows that are not whole rounds,
-    more bins or frames than the kernels' shared memory holds, and an
-    unsupported device raise ValueError without reaching the library."""
+    more bins or frames than the kernels' shared memory holds, frames off
+    the kernel's grid and an unsupported device raise ValueError without
+    reaching the library."""
     _stub(monkeypatch, 0)
     monkeypatch.setattr(_build, "load_kernels", lambda: pytest.fail("reached the library"))
     corr, pos, alive, consts, normalise = verify_normal_inputs(verify_normal_case("rounds"), CPU)
@@ -392,15 +437,18 @@ def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         tvn._launch(corr, pos, alive, big, normalise)
     section, mpos, malive, mconsts = verify_marker_inputs(verify_marker_case("tone_hits"), CPU)
-    sp = tvm.marker_spectra(section, mpos, mconsts)
     with pytest.raises(ValueError, match="alive must be"):
-        tvm.marker_decisions(sp, malive[:, :2], mconsts)
-    with pytest.raises(ValueError, match="whole-window spectra"):
-        tvm.marker_decisions(tvm.MarkerSpectra(sp.whole[..., 1, :], True, sp.frames, True),
-                             malive, mconsts)
-    many = tvm.MarkerSpectra(sp.whole, True, torch.zeros((*sp.whole.shape[:3], 7000, 101)), True)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvm.marker_decisions(many, malive, mconsts)
+        tvm._launch(section, mpos, malive[:, :2], mconsts)
+    with pytest.raises(ValueError, match="section must be"):
+        tvm._launch(section.double(), mpos, malive, mconsts)
+    with pytest.raises(ValueError, match="rounds"):
+        tvm._launch(section, mpos[:1], malive[:1], mconsts)
+    many = types.SimpleNamespace(**{**mconsts.__dict__, "frame_count": 7000})
+    with pytest.raises(ValueError, match="frames"):
+        tvm._launch(section, mpos, malive, many)
+    skewed = types.SimpleNamespace(**{**mconsts.__dict__, "frame_starts": (0, 100, 250)})
+    with pytest.raises(ValueError, match="frames must start"):
+        tvm._launch(section, mpos, malive, skewed)
     with pytest.raises(ValueError, match="unsupported device"):
         tvn.verify_normal(corr.to("meta"), pos, alive, consts)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -408,10 +456,9 @@ def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
 
 
 def test_the_full_branch_in_one_block_gives_the_same_accept_bits():
-    """``_two_tier_accept``'s full branch in one block of every lane (the
-    normal verifier on a card) against blocks of 16 (the plain versions and
-    the marker verifier): the same accept bits, each lane's verdict reading
-    only its own window."""
+    """``_two_tier_accept``'s full branch in one block of every lane (both
+    verifiers on a card) against blocks of 16 (the plain versions): the
+    same accept bits, each lane's verdict reading only its own window."""
     case = verify_normal_case("all_live")
     corr, pos, alive, consts, _ = verify_normal_inputs(case, CPU)
     wide_pos = pos.repeat(1, 3)  # 48 lanes: the full branch runs
