@@ -1,16 +1,14 @@
-// Live-lane compaction for the verify kernels (csrc/verify_marker.cu,
-// csrc/verify_normal.cu), for sm_90a.
+// Live-lane compaction for the marker verifier (csrc/verify_marker.cu), for
+// sm_90a.
 //
 // A verifier's lanes (R, K) come with an alive flag each; only live lanes
 // are computed, and the work is shared out by rank among live lanes, so
-// that CTAs (or clusters) share the live lanes evenly wherever they sit:
-// the live lane of rank q goes to worker q mod workers. The flags are read
-// in tiles of kPerThread bytes a thread; a block-wide exclusive scan of the
-// tile's counts gives each live lane its rank, and the worker's lanes of a
-// tile are listed in rank order (deterministic: every CTA of a cluster
-// lists the same lanes in the same order). A tile's dead lanes are left to
-// the worker the tile number names (tile mod workers), which writes their
-// outputs.
+// that CTAs share the live lanes evenly wherever they sit: the live lane of
+// rank q goes to worker q mod workers. The flags are read in tiles of
+// kPerThread bytes a thread; a block-wide exclusive scan of the tile's
+// counts gives each live lane its rank, and the worker's lanes of a tile
+// are listed in rank order. A tile's dead lanes are left to the worker the
+// tile number names (tile mod workers), which writes their outputs.
 
 #pragma once
 
@@ -49,22 +47,6 @@ __device__ int block_exclusive_scan(int v, int* scan, int* total) {
   *total = scan[kThreads / 32 - 1];
   __syncthreads();  // scan is rewritten by the next call
   return base + incl - v;
-}
-
-// The number of live lanes, on every thread of the block.
-template <int kThreads>
-__device__ int count_live(const unsigned char* __restrict__ alive, long long n_lanes, int* scan) {
-  constexpr int kTile = kThreads * kPerThread;
-  int mine = 0;
-  for (long long tile0 = 0; tile0 < n_lanes; tile0 += kTile) {
-    const long long first = tile0 + threadIdx.x;
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q)  // independent loads, in flight together
-      mine += first + q * kThreads < n_lanes ? alive[first + q * kThreads] != 0 : 0;
-  }
-  int total;
-  block_exclusive_scan<kThreads>(mine, scan, &total);
-  return total;
 }
 
 // Calls dead(lane) for the dead lanes of the tiles this worker owns, and

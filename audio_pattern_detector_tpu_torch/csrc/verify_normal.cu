@@ -6,7 +6,8 @@
 // window gather, the renormalisation, the partition MSEs, the window-max
 // resample and the Pearson r into the class step's program, where the port
 // ran them as eager torch ops over (R, K, lc) arrays of every lane, live or
-// dead.
+// dead (the gather index, the windows, their mask, the normalised copy and
+// the differences: gigabytes for a 16-row round).
 //
 // For each lane (r, k) of (R, K), row r against clip g = r % G (rows are
 // round-major, R = B * G):
@@ -30,64 +31,44 @@
 //
 // Design. Only a lane's accept bit reaches the class step's payload, so a
 // dead lane writes accept = 0 (sim and r NaN) and does nothing else: the
-// work and the bytes scale with live lanes, which are compacted by rank
-// (live_lanes.cuh) and shared out evenly. The kernel runs in clusters of
-// kCluster CTAs and picks one of two forms from the launch's live count,
-// which every CTA counts:
-//   * few live lanes (no more than the launch's clusters): a cluster a lane.
-//     CTA c of the cluster takes the c-th of kCluster contiguous chunks of
-//     the window, so one lane's passes run on kCluster SMs; the chunks' maxima
-//     and partition sums cross the cluster through distributed shared memory
-//     (cluster.sync, map_shared_rank), and CTA 0 folds the bins' maxima and
-//     takes the Pearson r;
-//   * many live lanes: a CTA a lane, its chunk the whole window.
-// A CTA stages its chunk of the window once in shared memory (cp.async, zero
-// where the window leaves the row or its valid length) where it fits the
-// launch's stage (the wrapper sizes it; about 50,000 samples), and runs
-// every pass from there: the maximum and the bins' maxima in one pass, then
-// the partition sums. A longer chunk is read from device memory in each
-// pass. Dividing is monotone, so the window maximum and each bin maximum are
-// taken on the raw samples and divided once, bit for bit the maxima of the
-// divided samples.
+// work and the bytes scale with live lanes. A CTA takes lanes in a
+// grid-stride loop, and a live lane is one CTA's work; no (R, K, lc) array
+// exists. The window is read from device memory (it sits in L2 after its
+// first read) in three passes, so its length is not bounded by shared
+// memory (lc = 159,999 samples for a 10 s clip at 8 kHz): the window maximum,
+// then the partition sums, then the bin maxima into shared memory (ds_n
+// floats). Dividing is monotone, so the window maximum and each bin maximum
+// are taken on the raw samples and divided once, bit for bit the maxima of
+// the divided samples.
 //
 // Arithmetic order. Element values are bitwise the plain version's: built
 // with -fmad=false, IEEE division (__fdiv_rn), first by denom and then by
 // the clamped maximum, as the plain version divides. Sums differ from
-// torch's in order only. Chunk c of P (P = kCluster in the cluster form, 1
-// in the CTA form) is the window's samples [c ceil(lc / P), (c + 1)
-// ceil(lc / P)). A partition's sum is, for each chunk in order, the sum of
-// its samples in the chunk (thread t of the CTA's kThreads adds the terms t,
-// t + kThreads, ... counted from the first such sample; each warp folds its
-// 32 partial sums by xor shuffles with offsets 16, 8, 4, 2, 1; the
-// kThreads / 32 warp sums, padded with zeros to 32, fold the same way), the
-// chunks' sums added in chunk order to 0. mse[p] is the partition's sum
-// over ps, sim_whole the ten mse[p] added in order over 10, sim_mid
-// (mse[4] + mse[5]) / 2; the Pearson sums are one CTA's over the ds_n bins,
-// the means those sums over ds_n. chip_smoke.np_verify_normal transliterates
-// this order in numpy, in either form.
+// torch's in order only: thread t of the CTA's kThreads adds the terms
+// t, t + kThreads, t + 2 kThreads, ... in turn; each warp folds its 32
+// partial sums by xor shuffles with offsets 16, 8, 4, 2, 1; the kThreads / 32
+// warp sums, padded with zeros to 32, are folded the same way. mse[p] is the
+// partition's sum over ps, sim_whole the ten mse[p] added in order over 10,
+// sim_mid (mse[4] + mse[5]) / 2; the Pearson means are the sums over ds_n.
+// tests/test_torch_verify_kernels.py transliterates this order in numpy.
 //
 // Bound: the bytes a lane must read are its window (lc x 4 B) and its clip's
 // constants (10 ps + ds_n floats, shared by the clip's lanes); a launch's
-// bound is those of its live lanes over the memory rate. A lane's
-// reductions are a chain of barriers (and, in the cluster form, three
-// cluster barriers), so a launch with few live lanes is latency-bound.
+// bound is those of its live lanes over the memory rate. The passes re-read
+// the window from L2, and a lane's reductions are a chain of barriers, so a
+// launch with few live lanes is latency-bound.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "live_lanes.cuh"
-
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = 8;  // ops/verify_normal.py CLUSTER
-constexpr int kPad = 8;      // the plain version's _PAD
+constexpr int kPad = 8;  // the plain version's _PAD
 constexpr int kParts = 10;
+constexpr int kMaxGrid = 1024;
 
 // Block-wide sums of N values at once, in the order the header states;
 // every thread returns the sums. red holds N x 32 floats.
@@ -137,211 +118,121 @@ __device__ float block_max(float v, float* red) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
+struct Window {
+  const float* row;  // the row's first sample
+  long long base;    // idx of the window's first sample
+  long long hi;      // samples at idx >= hi read as zero: min(L, valid length)
 
-struct Args {
-  const float* corr;
-  long long L;
-  const int* valid_lens;  // (R,) or null: then valid_len bounds every row
-  long long valid_len;
-  const float* denom;  // (R,) or null: no normaliser
-  const long long* pos;
-  const unsigned char* alive;
-  long long n_lanes;
-  int K, G, m, lc, ps;
-  const float* clip_parts;
-  const float* ds_clip;
-  const long long* seg_a;
-  const long long* seg_b;
-  int win_lo, ds_n, k_level, is_short;
-  float sim_limit, r_threshold;
-  int stage;  // floats of a CTA's staged chunk (0: every chunk streamed)
-  unsigned char* accept;
-  float* sim;
-  float* r;
+  __device__ float raw(long long i) const {
+    const long long idx = base + i;
+    return (idx >= 0 && idx < hi) ? row[idx] : 0.0f;
+  }
 };
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 3)
-    verify_normal_kernel(const __grid_constant__ Args a) {
-  extern __shared__ __align__(16) float smem[];  // the staged chunk, then the ds_n bin maxima
+__global__ void __launch_bounds__(kThreads)
+verify_normal_kernel(const float* __restrict__ corr, long long L,
+                     const int* __restrict__ valid_lens, long long valid_len,
+                     const float* __restrict__ denom, const long long* __restrict__ pos,
+                     const unsigned char* __restrict__ alive, long long n_lanes, int K, int G,
+                     int m, int lc, int ps, const float* __restrict__ clip_parts,
+                     const float* __restrict__ ds_clip, const long long* __restrict__ seg_a,
+                     const long long* __restrict__ seg_b, int win_lo, int ds_n, int k_level,
+                     int is_short, float sim_limit, float r_threshold,
+                     unsigned char* __restrict__ accept, float* __restrict__ sim_out,
+                     float* __restrict__ r_out) {
+  extern __shared__ float xs[];  // the ds_n bin maxima of the current lane
   __shared__ float red[kParts * 32];
-  __shared__ float part_out[1 + kParts];  // this CTA's chunk maximum and partition sums
-  __shared__ float gathered[kCluster * kParts];  // the cluster's, read in one round trip
-  __shared__ unsigned short list[kThreads * live_lanes::kPerThread];
-  __shared__ int scan[32];
-  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int crank = static_cast<int>(cluster.block_rank());
-  const int n_clusters = static_cast<int>(gridDim.x) / kCluster;
-  const bool split = live_lanes::count_live<kThreads>(a.alive, a.n_lanes, scan) <= n_clusters;
-  const int parts = split ? kCluster : 1;
-  const int part = split ? crank : 0;
-  float* stage = smem;
-  float* bins = smem + a.stage;
-  const long long front = kPad + a.m - 1;
-  const long long upper = a.L + front + kPad + a.m - a.lc;
-  const int chunk = (a.lc + parts - 1) / parts;
-  const int lo = part * chunk;
-  const int hi = min(a.lc, lo + chunk);
-  const bool staged = hi - lo <= a.stage;
+  const long long front = kPad + m - 1;
+  const long long upper = L + front + kPad + m - lc;
 
-  auto dead = [&](long long lane) {
-    if (part == 0) {
-      a.accept[lane] = 0;
-      a.sim[lane] = __int_as_float(0x7fc00000);  // NaN: not computed
-      a.r[lane] = __int_as_float(0x7fc00000);
-    }
-  };
-  auto live = [&](long long lane) {
-    const long long row = lane / a.K;
-    const int g = static_cast<int>(row % a.G);
-    long long start = a.pos[lane] - (a.m - 1) + front;
-    start = start < 0 ? 0 : (start > upper ? upper : start);
-    const long long base = start - front;  // row index of the window's first sample
-    const long long lim = a.valid_lens ? static_cast<long long>(a.valid_lens[row]) : a.valid_len;
-    const long long end = lim < a.L ? lim : a.L;  // samples at or past end read as zero
-    const float* row_ptr = a.corr + row * a.L;
-    const float dn = a.denom ? a.denom[row] : 1.0f;
-    auto raw = [&](int i) {
-      const long long idx = base + i;
-      return idx >= 0 && idx < end ? row_ptr[idx] : 0.0f;
-    };
-    if (staged) {
-      for (int i = lo + tid; i < hi; i += kThreads) {
-        const long long idx = base + i;
-        const bool in = idx >= 0 && idx < end;
-        cp_async4(stage + (i - lo), in ? row_ptr + idx : row_ptr, in);
+  for (long long lane = blockIdx.x; lane < n_lanes; lane += gridDim.x) {
+    if (!alive[lane]) {  // uniform: every thread reads the same byte
+      if (tid == 0) {
+        accept[lane] = 0;
+        sim_out[lane] = __int_as_float(0x7fc00000);  // NaN: not computed
+        r_out[lane] = __int_as_float(0x7fc00000);
       }
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
+      continue;
     }
-    auto sample = [&](int i) { return staged ? stage[i - lo] : raw(i); };
+    const long long row = lane / K;
+    const int g = static_cast<int>(row % G);
+    long long start = pos[lane] - (m - 1) + front;
+    start = start < 0 ? 0 : (start > upper ? upper : start);
+    const long long lim = valid_lens ? static_cast<long long>(valid_lens[row]) : valid_len;
+    const Window w{corr + row * L, start - front, lim < L ? lim : L};
+    const float dn = denom ? denom[row] : 1.0f;
 
-    // The chunk's maximum and each bin's maximum over the chunk, on the raw
-    // samples.
+    // Pass 1: the window maximum, on the raw samples.
     float mx = -INFINITY;
-#pragma unroll 4
-    for (int i = lo + tid; i < hi; i += kThreads) mx = fmaxf(mx, sample(i));
-    for (int b = tid; b < a.ds_n; b += kThreads) {
-      const long long b_lo = a.win_lo + a.seg_a[b];
-      const long long b_hi = a.win_lo + a.seg_b[b] + (1LL << a.k_level);
-      const int i0 = static_cast<int>(b_lo > lo ? b_lo : lo);
-      const int i1 = static_cast<int>(b_hi < hi ? b_hi : hi);
-      float bm = -INFINITY;
-#pragma unroll 4
-      for (int i = i0; i < i1; ++i) bm = fmaxf(bm, sample(i));
-      bins[b] = bm;
-    }
+    for (int i = tid; i < lc; i += kThreads) mx = fmaxf(mx, w.raw(i));
     mx = block_max(mx, red);
-    if (split) {
-      if (tid == 0) part_out[0] = mx;
-      cluster.sync();
-      if (tid < kCluster) gathered[tid] = *cluster.map_shared_rank(part_out, tid);
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kCluster; ++c) mx = fmaxf(mx, gathered[c]);
-      __syncthreads();  // gathered is rewritten below
-    }
-    const float smax = fmaxf(a.denom ? __fdiv_rn(mx, dn) : mx, 1e-38f);
+    const float smax = fmaxf(denom ? __fdiv_rn(mx, dn) : mx, 1e-38f);
 
-    // The ten partition sums of squared differences over the chunk.
+    // Pass 2: the ten partition sums of squared differences.
     float acc[kParts];
-    const float* clip = a.clip_parts + static_cast<long long>(g) * kParts * a.ps;
+    const float* clip = clip_parts + static_cast<long long>(g) * kParts * ps;
 #pragma unroll
     for (int p = 0; p < kParts; ++p) {
-      const int p_lo = max(p * a.ps, lo);
-      const int p_hi = min((p + 1) * a.ps, hi);
       float s = 0.0f;
-#pragma unroll 4  // the clip's samples are device-memory loads: several in flight
-      for (int j = p_lo + tid; j < p_hi; j += kThreads) {
-        const float x = sample(j);
-        const float v = a.denom ? __fdiv_rn(__fdiv_rn(x, dn), smax) : __fdiv_rn(x, smax);
-        const float d = __fsub_rn(v, clip[j]);
+      for (int j = tid; j < ps; j += kThreads) {
+        const float raw = w.raw(static_cast<long long>(p) * ps + j);
+        const float v = denom ? __fdiv_rn(__fdiv_rn(raw, dn), smax) : __fdiv_rn(raw, smax);
+        const float d = __fsub_rn(v, clip[static_cast<long long>(p) * ps + j]);
         s = __fadd_rn(s, __fmul_rn(d, d));
       }
       acc[p] = s;
     }
     block_sum<kParts>(acc, red);
-    if (split) {
-      if (tid < kParts) part_out[1 + tid] = acc[tid];
-      cluster.sync();  // the chunks' sums and bin maxima are published
-      if (crank == 0) {
-        if (tid < kCluster * kParts)
-          gathered[tid] = cluster.map_shared_rank(part_out, tid / kParts)[1 + tid % kParts];
-        for (int b = tid; b < a.ds_n; b += kThreads) {
-          float v[kCluster];
-#pragma unroll
-          for (int c = 0; c < kCluster; ++c) v[c] = cluster.map_shared_rank(bins, c)[b];
-          float bm = -INFINITY;
-#pragma unroll
-          for (int c = 0; c < kCluster; ++c) bm = fmaxf(bm, v[c]);
-          bins[b] = bm;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int p = 0; p < kParts; ++p) {
-          float s = 0.0f;
-#pragma unroll
-          for (int c = 0; c < kCluster; ++c) s = __fadd_rn(s, gathered[c * kParts + p]);
-          acc[p] = s;
-        }
-      }
-      cluster.sync();  // CTA 0 has read the others' shared memory
-      if (crank != 0) return;
-    }
 
-    // The Pearson r of the bins' maxima against the clip's downsampled
-    // window.
-    for (int b = tid; b < a.ds_n; b += kThreads)
-      bins[b] = a.denom ? __fdiv_rn(__fdiv_rn(bins[b], dn), smax) : __fdiv_rn(bins[b], smax);
+    // Pass 3: the bin maxima of the centre window, into shared memory.
+    for (int b = tid; b < ds_n; b += kThreads) {
+      const long long lo = win_lo + seg_a[b];
+      const long long hi = win_lo + seg_b[b] + (1LL << k_level);
+      float bm = -INFINITY;
+      for (long long i = lo; i < hi; ++i) bm = fmaxf(bm, w.raw(i));
+      xs[b] = denom ? __fdiv_rn(__fdiv_rn(bm, dn), smax) : __fdiv_rn(bm, smax);
+    }
     __syncthreads();
-    const float* y = a.ds_clip + static_cast<long long>(g) * a.ds_n;
+
+    // Pass 4: the Pearson r against the clip's downsampled window.
+    const float* y = ds_clip + static_cast<long long>(g) * ds_n;
     float sums[2] = {0.0f, 0.0f};
-    for (int b = tid; b < a.ds_n; b += kThreads) {
-      sums[0] = __fadd_rn(sums[0], bins[b]);
+    for (int b = tid; b < ds_n; b += kThreads) {
+      sums[0] = __fadd_rn(sums[0], xs[b]);
       sums[1] = __fadd_rn(sums[1], y[b]);
     }
     block_sum<2>(sums, red);
-    const float mean_x = __fdiv_rn(sums[0], static_cast<float>(a.ds_n));
-    const float mean_y = __fdiv_rn(sums[1], static_cast<float>(a.ds_n));
+    const float mean_x = __fdiv_rn(sums[0], static_cast<float>(ds_n));
+    const float mean_y = __fdiv_rn(sums[1], static_cast<float>(ds_n));
     float mom[3] = {0.0f, 0.0f, 0.0f};  // cov, sxx, syy
-    for (int b = tid; b < a.ds_n; b += kThreads) {
-      const float dx = __fsub_rn(bins[b], mean_x);
+    for (int b = tid; b < ds_n; b += kThreads) {
+      const float dx = __fsub_rn(xs[b], mean_x);
       const float dy = __fsub_rn(y[b], mean_y);
       mom[0] = __fadd_rn(mom[0], __fmul_rn(dx, dy));
       mom[1] = __fadd_rn(mom[1], __fmul_rn(dx, dx));
       mom[2] = __fadd_rn(mom[2], __fmul_rn(dy, dy));
     }
-    block_sum<3>(mom, red);  // its barriers also order the bins' reads before the next lane's writes
+    block_sum<3>(mom, red);  // its barriers also order the xs reads before the next lane's writes
 
     if (tid == 0) {
       float whole = 0.0f;
       float mse[kParts];
 #pragma unroll
       for (int p = 0; p < kParts; ++p) {
-        mse[p] = __fdiv_rn(acc[p], static_cast<float>(a.ps));
+        mse[p] = __fdiv_rn(acc[p], static_cast<float>(ps));
         whole = __fadd_rn(whole, mse[p]);
       }
       whole = __fdiv_rn(whole, static_cast<float>(kParts));
       const float mid = __fdiv_rn(__fadd_rn(mse[4], mse[5]), 2.0f);
-      const float sim = a.is_short ? whole : fminf(whole, mid);
+      const float sim = is_short ? whole : fminf(whole, mid);
       const float den = __fsqrt_rn(__fmul_rn(mom[1], mom[2]));
       const float r = den > 0.0f ? __fdiv_rn(mom[0], fmaxf(den, 1e-38f)) : 0.0f;
-      a.accept[lane] = (sim <= a.sim_limit) && (r >= a.r_threshold);
-      a.sim[lane] = sim;
-      a.r[lane] = r;
+      accept[lane] = (sim <= sim_limit) && (r >= r_threshold);
+      sim_out[lane] = sim;
+      r_out[lane] = r;
     }
-  };
-  // In the cluster form every CTA of a cluster visits the same lanes, in
-  // the same order.
-  const int worker = split ? static_cast<int>(blockIdx.x) / kCluster : static_cast<int>(blockIdx.x);
-  live_lanes::for_each_live<kThreads>(a.alive, a.n_lanes, worker,
-                                      split ? n_clusters : static_cast<int>(gridDim.x), list, scan,
-                                      dead, live);
+  }
 }
 
 }  // namespace
@@ -349,30 +240,28 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 3)
 // C interface for ctypes. corr (R, L) f32; valid_lens (R,) int32 or null
 // (then valid_len, an int, bounds every row); denom (R,) f32 or null (no
 // normaliser); pos (R, K) int64 and alive (R, K) bool; clip_parts (G, 10,
-// ps) f32, ds_clip (G, ds_n) f32, seg_a and seg_b (ds_n,) int64; stage the
-// floats of a CTA's staged chunk; grid the launch's CTAs, a multiple of 8;
-// outputs accept (R, K) bool, sim and r (R, K) f32. All contiguous on the
-// current device. Returns the CUDA error code of the launch (0 on success).
+// ps) f32, ds_clip (G, ds_n) f32, seg_a and seg_b (ds_n,) int64; outputs
+// accept (R, K) bool, sim and r (R, K) f32. All contiguous on the current
+// device. Returns the CUDA error code of the launch (0 on success).
 extern "C" int apd_verify_normal(const float* corr, long long R, long long L,
                                  const int* valid_lens, long long valid_len, const float* denom,
                                  const long long* pos, const unsigned char* alive, int K, int G,
                                  int m, int ps, const float* clip_parts, const float* ds_clip,
                                  const long long* seg_a, const long long* seg_b, int win_lo,
                                  int ds_n, int k_level, int is_short, float sim_limit,
-                                 float r_threshold, int stage, int grid, unsigned char* accept,
-                                 float* sim, float* r, void* stream) {
+                                 float r_threshold, unsigned char* accept, float* sim, float* r,
+                                 void* stream) {
   const long long n_lanes = R * K;
   if (n_lanes <= 0) return 0;
-  if (G <= 0 || ds_n <= 0 || ps <= 0 || m <= 0 || R % G != 0 || stage < 0 || grid <= 0 ||
-      grid % kCluster != 0 || n_lanes >= (1LL << 31))
+  if (G <= 0 || ds_n <= 0 || ps <= 0 || m <= 0 || R % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{corr, L, valid_lens, valid_len, denom, pos, alive, n_lanes, K, G, m, 2 * m - 1, ps,
-         clip_parts, ds_clip, seg_a, seg_b, win_lo, ds_n, k_level, is_short, sim_limit,
-         r_threshold, stage, accept, sim, r};
-  const size_t smem = (static_cast<size_t>(stage) + ds_n) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      verify_normal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  verify_normal_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = static_cast<size_t>(ds_n) * sizeof(float);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int lc = 2 * m - 1;
+  const int grid = n_lanes < kMaxGrid ? static_cast<int>(n_lanes) : kMaxGrid;
+  verify_normal_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      corr, L, valid_lens, valid_len, denom, pos, alive, n_lanes, K, G, m, lc, ps, clip_parts,
+      ds_clip, seg_a, seg_b, win_lo, ds_n, k_level, is_short, sim_limit, r_threshold, accept, sim,
+      r);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas=-v",
 )
+# Libraries the link adds (csrc/cufft_plans.cu holds cuFFT plans of its own).
+LINK_LIBS = ("-lcufft",)
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -72,7 +74,7 @@ _SIGNATURES = {
     "apd_verify_normal": (
         [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
          _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-         ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+         ctypes.c_float, ctypes.c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_verify_marker": (
@@ -86,6 +88,10 @@ _SIGNATURES = {
     "apd_graph_if_end": ([_c_ptr], ctypes.c_int),
     "apd_graph_while_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
     "apd_graph_while_end": ([_c_ptr], ctypes.c_int),
+    "apd_fft_plan": ([_c_int, _c_i64, _c_i64, ctypes.POINTER(_c_i64),
+                      ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int),
+    "apd_fft_exec": ([_c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
+    "apd_fft_destroy": ([_c_i64], ctypes.c_int),
 }
 
 
@@ -126,7 +132,7 @@ def _digest(sources: list[Path]) -> str:
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     return h.hexdigest()[:16]
 
 
@@ -166,8 +172,12 @@ def _build(sources: list[Path], target: Path) -> str:
                                                 stderr=subprocess.STDOUT, text=True)))
         log = _run(procs)
         tmp = work / target.name
+        # The toolkit's libraries beside nvcc, found again when the library
+        # loads (where the process has not loaded them already).
+        lib_dir = Path(nvcc).resolve().parents[1] / "lib64"
         cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-               *(str(work / f"{src.stem}.o") for src in sources)]
+               *(str(work / f"{src.stem}.o") for src in sources), *LINK_LIBS,
+               "-Xlinker", f"-rpath={lib_dir}"]
         log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))])
         os.replace(tmp, target)

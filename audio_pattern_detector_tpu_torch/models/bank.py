@@ -88,12 +88,13 @@ a wide round in the same W-row steps, so the two agree bit for bit at
 every width (cuFFT may round a batch of B rows otherwise than W-row ones).
 The two greedy filters are CUDA kernels on a card, one launch a group
 (``ops/lean_greedy.py``, ``ops/lane_greedy.py``); the mask tier's lean
-greedy (unless ``APD_GREEDY_UNROLL=1``), the verify tail's skip and, in
-the general-plateau tier, the two-tier verify's cond are CUDA conditional
-nodes inside the graph, so no dispatch makes a host sync.
+greedy (unless ``APD_GREEDY_UNROLL=1``) and the verify tail's skip are
+CUDA conditional nodes inside the graph, and the general-plateau tier
+verifies every lane in one launch of each verifier's kernel, so no
+dispatch makes a host sync.
 ``capture=False`` (a constructor argument, and the ``capture`` attribute)
 runs the eager step instead, whose mask-tier greedy runs its rounds
-unrolled and whose general-plateau cond reads its predicate on the host;
+unrolled; the plain verifiers' two-tier cond reads its predicate on the host;
 the CPU has only the eager step, whose plain greedies drive their loops
 from the host. The wide rerun and
 the host path run at collect time, sync with the host and stay eager.
@@ -1190,9 +1191,10 @@ def general_group_packed(
 
     The lane greedy (:func:`greedy_distance_filter`) is one kernel launch a
     group on a card; on the CPU ``loop`` runs its plain version's while
-    loop. ``cond`` (the two-tier verify's) is a captured step's pair of
-    CUDA if-nodes (``models/captured.py``), so the tier makes no host sync;
-    without it the host reads the predicate, as the eager step does."""
+    loop. On a card each verifier is one launch over every lane; the plain
+    versions verify two-tier, ``cond`` picking the tier (a stand-in
+    backend's pair of if-nodes, ``models/captured.py``; without it the host
+    reads the predicate)."""
     cand, plateau_flag = find_peaks_device_fast(corr_n, valid_len, height_min, m, k_detect, loop)
     half = (2 * m - 1) // 2
     keep = cand.alive & ~(cand.pos + half > row_limit(valid_len) + 5) & ~(cand.pos - half < -5)
@@ -1204,16 +1206,16 @@ def general_group_packed(
 
 
 def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
-                     cond: "Cond | None" = None, width: int = _SMALL_TIER) -> torch.Tensor:
-    """Verify only the first _SMALL_TIER lanes when every row's live lanes
-    fit there (compaction puts them first), else every lane, ``width``
-    lanes at a time; bitwise the same accept bits either way, since each
-    lane's verdict reads only its own window. ``cond`` (by default
-    :func:`host_cond`, one host sync) picks the branch; each branch writes
-    the whole of ``accept``, allocated before it. A branch's working set is
-    one block's where the verifier makes every lane's windows (the plain
-    versions): the full-width verify of a 16-row flagship round would hold
-    gigabytes of them, in a captured step in the bodies' own graph pool."""
+                     cond: "Cond | None" = None) -> torch.Tensor:
+    """The plain versions' two-tier verify: only the first _SMALL_TIER
+    lanes when every row's live lanes fit there (compaction puts them
+    first), else every lane, _SMALL_TIER lanes at a time; bitwise the same
+    accept bits either way, since each lane's verdict reads only its own
+    window. ``cond`` (by default :func:`host_cond`, one host sync) picks the
+    branch; each branch writes the whole of ``accept``, allocated before
+    it. The plain versions make every lane's windows, so a branch's working
+    set is one block's: the full-width verify of a 16-row flagship round
+    would hold gigabytes of them."""
     kv = vpos.shape[1]
     small_fits = valive.sum(dim=1).amax() <= _SMALL_TIER
     accept = torch.empty_like(valive)
@@ -1227,8 +1229,8 @@ def _two_tier_accept(verify_accept, vpos: torch.Tensor, valive: torch.Tensor,
         accept[:, _SMALL_TIER:] = False
 
     def every_lane() -> None:
-        for lo in range(0, kv, width):
-            block(lo, width)
+        for lo in range(0, kv, _SMALL_TIER):
+            block(lo, _SMALL_TIER)
 
     (cond or host_cond)(small_fits, small_tier, every_lane)
     return accept
@@ -1244,11 +1246,10 @@ def _verify_accept(kind, norm, corr, verify_consts, vpos, valive, two_tier: bool
             return verify_marker(norm, p, a, verify_consts)
         return verify_normal(corr, p, a, verify_consts, normalise)[0]
 
-    if two_tier and vpos.shape[1] > _SMALL_TIER:
-        # On a card each verifier's kernel reads only live lanes' windows
-        # and makes no array of them: its full branch is one launch.
-        width = vpos.shape[1] if vpos.is_cuda else _SMALL_TIER
-        return _two_tier_accept(verify_accept, vpos, valive, cond, width)
+    # On a card each verifier's kernel computes only live lanes and makes
+    # no array of their windows: every lane in one launch, with no cond.
+    if two_tier and vpos.shape[1] > _SMALL_TIER and not vpos.is_cuda:
+        return _two_tier_accept(verify_accept, vpos, valive, cond)
     return verify_accept(vpos, valive)
 
 

@@ -73,11 +73,12 @@ payloads) is captured once per key into a CUDA graph and replayed:
   have no candidate runs no round. ``APD_GREEDY_UNROLL=1`` captures the
   ``r_max`` rounds unrolled. The eager first run always runs them unrolled:
   every gather buffer exists before the capture either way.
-* **The general-plateau tier's cond stays on the device**: the capture
-  hands the step the backend's ``cond(pred, then_, else_)``, the
-  counterpart of the JAX tier's ``lax.cond`` (the two-tier verify, JAX
-  ``models/bank.py:111-133``): two if-nodes, on ``pred`` and on ``~pred``.
-  A while node (``while_loop(pred, body)``, the mask tier's greedy above)
+* **The general-plateau tier's two-tier verify** (JAX
+  ``models/bank.py:111-133``, a ``lax.cond``): on a card each verifier's
+  kernel takes every lane in one launch and computes only live ones, so a
+  card's key holds no cond. With the plain verifiers (a stand-in backend)
+  the capture hands the step the backend's ``cond(pred, then_, else_)``:
+  two if-nodes, on ``pred`` and on ``~pred``. A while node (``while_loop(pred, body)``, the mask tier's greedy above)
   re-runs its body graph while a device bool the body rewrites holds; loop
   state lives in tensors allocated before the node and updated in place.
   The eager first run takes both branches of each cond (the untaken one
@@ -87,9 +88,8 @@ payloads) is captured once per key into a CUDA graph and replayed:
   wrappers, so each graph records how many launches of each kernel
   (:data:`COUNTED`) its capture enqueued (the capture itself executes none
   and adds none to a wrapper's ``launches``), and each replay adds those
-  numbers. The verifiers' kernels run inside conditional bodies (the lean
-  tail's if-node, the two-tier verify's cond), which a replay runs or
-  skips on the device: a replay adds only the launches outside bodies,
+  numbers. The lean tail's verifiers run inside its if-node bodies, which
+  a replay runs or skips on the device: a replay adds only the launches outside bodies,
   and ``body_launches`` lists each body's, for a caller that counts the
   bodies that ran from the payload (a lean group's body ran where the
   group has a position below the sentinel).
@@ -413,8 +413,8 @@ class CapturedStep:
 
         # A plain greedy's loop (the mask tier's lean greedy unless unrolled,
         # and on a stand-in backend the plain greedies of every tier) is a
-        # while node; the general tier's two-tier verify a cond. The kernels
-        # take neither.
+        # while node; the plain verifiers' two-tier verify in the general
+        # tier a cond. The kernels take neither.
         loop = backend.while_loop if general or not self.key.greedy_unroll else None
         try:
             self._replay, self._out = backend.capture(self.device, lambda: self._step(

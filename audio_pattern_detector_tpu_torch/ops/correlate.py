@@ -4,7 +4,9 @@ The section is transformed once, multiplied against the precomputed
 conjugate bank spectra and inverse-transformed for the whole bank, in the
 'full' correlation ordering (index k = lag + m - 1). Overlap-save splits
 long sections into segments of ``fft_len`` shared by every group of a
-sliding-window class. Spectra are held as complex64 tensors.
+sliding-window class. Spectra are held as complex64 tensors. On a card the
+transforms run through cuFFT plans the port holds (``ops/cufft_plans.py``),
+which a captured graph can replay whatever torch's plan cache evicts.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from numpy.typing import NDArray
+
+from audio_pattern_detector_tpu_torch.ops.cufft_plans import irfft, rfft
 
 
 def next_pow2(n: int) -> int:
@@ -114,7 +118,7 @@ def section_segment_spectra(
     ns = consts.num_segments
     padded = F.pad(section, (pad_left, ns * step + n - (section.shape[-1] + pad_left)))
     segments = padded.unfold(-1, n, step)[..., :ns, :]
-    return torch.fft.rfft(segments)
+    return rfft(segments)
 
 
 def _correlate_raw(
@@ -126,14 +130,14 @@ def _correlate_raw(
     (B, G, L) for a batch (B, S)."""
     m, n, l = consts.clip_len, consts.fft_len, consts.full_len
     if consts.num_segments == 1:
-        spec = torch.fft.rfft(section, n=n)
-        z = torch.fft.irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n)
+        spec = rfft(section, n=n)
+        z = irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n)
         return torch.roll(z, m - 1, dims=-1)[..., :l].abs()
     step = consts.step or (n - m + 1)
     ns = consts.num_segments
     if seg_spec is None:
         seg_spec = section_segment_spectra(section, consts)
-    y = torch.fft.irfft(
+    y = irfft(
         seg_spec[..., None, :, :] * consts.bank_rfft_conj[:, None, :], n=n
     )  # (..., G, ns, N)
     flat = y[..., :step].reshape(*y.shape[:-2], ns * step)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops import hostref
 from audio_pattern_detector_tpu_torch.ops.correlate import next_pow2
+from audio_pattern_detector_tpu_torch.ops.cufft_plans import irfft, rfft
 from audio_pattern_detector_tpu_torch.ops.peaks import row_limit
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_shared_windows
 
@@ -101,14 +102,14 @@ def _k_weighted_conv(section: torch.Tensor, consts: LoudnessConsts) -> torch.Ten
     overlap-save."""
     s, n = consts.section_len, consts.fft_len
     if consts.num_segments == 1:
-        spec = torch.fft.rfft(section, n=n)
-        return torch.fft.irfft(spec * consts.fir_spec, n=n)[..., :s]
+        spec = rfft(section, n=n)
+        return irfft(spec * consts.fir_spec, n=n)[..., :s]
     taps = _FIR_TAPS
     step = n - taps + 1
     ns = consts.num_segments
     padded = F.pad(section, (taps - 1, ns * step + n - (s + taps - 1)))
     segments = padded.unfold(-1, n, step)[..., :ns, :]
-    z = torch.fft.irfft(torch.fft.rfft(segments) * consts.fir_spec, n=n)
+    z = irfft(rfft(segments) * consts.fir_spec, n=n)
     return z[..., taps - 1 :].reshape(*section.shape[:-1], ns * step)[..., :s]
 
 

@@ -18,9 +18,7 @@ NaN (the plain version computes them for every lane). On live lanes the
 accept bits are equal, and similarity and r agree within
 :data:`SIM_RTOL` / :data:`R_ATOL`: the element values are bitwise the plain
 version's, the sums are taken in another order (the kernel's header states
-its order, which depends on its form: a cluster of :data:`CLUSTER` CTAs a
-lane where a launch has few live lanes, else a CTA a lane;
-``chip_smoke.np_verify_normal`` transliterates either).
+its order; ``tests/test_torch_verify_kernels.py`` transliterates it).
 """
 
 from __future__ import annotations
@@ -52,41 +50,6 @@ R_ATOL = 1e-5
 # Shared memory the kernel's bin maxima take: ds_n floats, within the
 # 48 KB a block has without opting in.
 _MAX_DS_N = 48 * 1024 // 4
-
-# The kernel's clusters (csrc/verify_normal.cu kCluster): a launch with no
-# more live lanes than clusters gives each lane a cluster of CLUSTER CTAs,
-# each CTA a chunk of the window; otherwise each lane is one CTA's.
-CLUSTER = 8
-# Floats of a CTA's window chunk staged in shared memory, with the bins'
-# maxima within the 227 KB a block may opt in to; a longer chunk is read
-# from device memory in each pass.
-_STAGE_FLOATS = 200 * 1024 // 4
-
-
-def stage_floats(lc: int, ds_n: int) -> int:
-    """Floats of the launch's staged chunk: the whole window where it fits,
-    else a cluster CTA's chunk where that fits, else 0 (every chunk read
-    from device memory)."""
-    room = _STAGE_FLOATS - ds_n
-    for need in (lc, -(-lc // CLUSTER)):
-        if need <= room:
-            return need
-    return 0
-
-
-def launch_clusters(n_lanes: int, sms: int) -> int:
-    """Clusters of a launch over ``n_lanes`` lanes on a card of ``sms``
-    streaming multiprocessors: a cluster an SM (8 CTAs an SM, about three
-    resident at a time: the dense branch's lanes are latency-bound, and
-    more CTAs in flight read faster), at most one cluster a CLUSTER
-    lanes."""
-    return max(1, min(-(-n_lanes // CLUSTER), sms))
-
-
-def split_form(n_live: int, clusters: int) -> bool:
-    """The kernel's form: a cluster a lane where the live lanes are no
-    more than the launch's clusters."""
-    return n_live <= clusters
 
 
 def _pearson_batched(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -206,8 +169,6 @@ def _launch(corr: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
             lens_ptr = valid_len.data_ptr()
         else:
             scalar = int(valid_len)
-    if r_rows * k >= 2**31:
-        raise ValueError(f"verify_normal: {r_rows * k} lanes, past the kernel's int32 ranks")
     lib = load_kernels().lib
     with device_guard(dev):
         accept = torch.empty((r_rows, k), dtype=torch.bool, device=dev)
@@ -215,15 +176,12 @@ def _launch(corr: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
         r = torch.empty((r_rows, k), dtype=torch.float32, device=dev)
         if r_rows == 0 or k == 0:
             return accept, sim, r
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = CLUSTER * launch_clusters(r_rows * k, sms)
         err = lib.apd_verify_normal(
             corr.data_ptr(), r_rows, l, lens_ptr, scalar, denom_ptr, pos.data_ptr(),
             alive.data_ptr(), k, g, m, ps, consts.corr_clip_partitions.data_ptr(),
             consts.ds_clip.data_ptr(), consts.seg_a.data_ptr(), consts.seg_b.data_ptr(),
             consts.win_lo, ds_n, consts.k_level, int(consts.is_short), SIMILARITY_HARD_LIMIT,
-            PEARSON_R_THRESHOLD, stage_floats(consts.corr_len, ds_n), grid, accept.data_ptr(),
-            sim.data_ptr(), r.data_ptr(),
+            PEARSON_R_THRESHOLD, accept.data_ptr(), sim.data_ptr(), r.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -90,8 +90,8 @@ card and checks them:
    "server full"; after SIGINT the server reports a kernel launch and no
    jax. Prints the wall time per client;
    3c. the general-plateau tier (``height_min = 0``) as a captured step,
-   its lane greedy one kernel launch a group and its two-tier cond two CUDA
-   if-nodes, against its eager step on the same bank: the 16-row flagship
+   its lane greedy one kernel launch a group and each verifier one launch
+   of every lane, against its eager step on the same bank: the 16-row flagship
    round in both batch modes, payloads bit for bit; in turns, host ms until
    the dispatch returns and until the payload is on the host (a captured
    vmap dispatch must return in under half the time to its payload), the
@@ -535,7 +535,7 @@ VERIFY_MARKER_CASES = ("tone_hits", "no_frames", "row_ends", "dead_lanes", "all_
                        "long_marker")
 # Threads of a CTA in csrc/verify_normal.cu and csrc/verify_marker.cu: the
 # order of their sums (np_block_sum).
-VERIFY_NORMAL_THREADS = 256
+VERIFY_NORMAL_THREADS = 512
 VERIFY_MARKER_THREADS = 256
 
 
@@ -659,12 +659,9 @@ def np_warp_fold(v: np.ndarray) -> np.ndarray:
     return v[:, 0]
 
 
-def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None, parts: int = 1):
+def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None):
     """csrc/verify_normal.cu lane by lane in numpy, in its order of
-    arithmetic: (accept, sim, r), sim and r NaN on dead lanes. ``parts``
-    is the kernel's form: 1 (a CTA a lane) or its cluster's CTAs (each a
-    contiguous chunk of the window; a partition's sum is its chunks' sums
-    added in order to 0)."""
+    arithmetic: (accept, sim, r), sim and r NaN on dead lanes."""
     f32 = np.float32
     t = VERIFY_NORMAL_THREADS
     ccp = consts.corr_clip_partitions.cpu().numpy()
@@ -693,18 +690,10 @@ def np_verify_normal(corr, pos, alive, consts, valid_len=None, denom=None, parts
             raw = np.where(inside, corr[r, np.clip(idx, 0, l - 1)], f32(0))
             smax = max(_np_div(raw.max(), dn), f32(1e-38))
             v = (_np_div(raw, dn) / smax).astype(f32)
-            sq = np.zeros(lc, dtype=np.float32)
-            d = (v[:10 * ps] - ccp[g].reshape(-1)).astype(f32)
-            sq[:10 * ps] = d * d
-            chunk = -(-lc // parts)
             sums = []
             for p in range(10):
-                total = f32(0)
-                for c in range(parts):
-                    c_lo, c_hi = max(p * ps, c * chunk), min((p + 1) * ps, (c + 1) * chunk)
-                    total = f32(total + (np_block_sum(sq[c_lo:c_hi], t) if c_hi > c_lo
-                                         else f32(0)))
-                sums.append(total)
+                d = (v[p * ps:(p + 1) * ps] - ccp[g, p]).astype(f32)
+                sums.append(np_block_sum(d * d, t))
             mse = [f32(s / f32(ps)) for s in sums]
             whole = f32(0)
             for x in mse:
@@ -1643,10 +1632,10 @@ def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int =
     """Phase 3c: the general-plateau tier (``height_min = 0``) as a captured
     step, on the flagship round (16 sections of 60 s, seeds 1-16) in both
     batch modes. Its lane greedy is one kernel launch a group
-    (``csrc/lane_greedy.cu``) and its two-tier verify's cond two CUDA
-    if-nodes of the graph (``csrc/graph_conditional.cu``); the eager step
-    (the same bank with ``capture`` off) reads the cond's predicate on the
-    host. In turns (eager, captured, captured, eager; twice in vmap),
+    (``csrc/lane_greedy.cu``) and each verifier one launch of every lane
+    (the kernels compute only live lanes), so neither the captured step
+    nor the eager one (the same bank with ``capture`` off) makes a host
+    sync for them. In turns (eager, captured, captured, eager; twice in vmap),
     after an eager reference run and the key's first use: the host ms
     until ``dispatch_chunks_batch`` returns and until the payload is on
     the host, and the device span of the dispatch (CUDA
@@ -3837,12 +3826,10 @@ def replay_body_launches(step, payload, groups) -> dict[str, int]:
     """The verify launches one replay of the captured ``step`` made inside
     its conditional bodies, read from the payload it returned. A lean
     group's if-node body ran where the group has a live lane (a position
-    below the sentinel). The general tier's two-tier cond, a pair of bodies
-    for a group of more than 16 verify lanes, ran its first (16 lanes)
-    where no row of the group has more live lanes, else its second (every
-    lane). A body's launches are those its capture recorded
-    (``CapturedStep.body_launches``)."""
-    from audio_pattern_detector_tpu_torch.models.bank import _BIG, _SMALL_TIER, _split_fused
+    below the sentinel). The general tier holds no verify body on a card:
+    each verifier is one launch of every lane in its graph. A body's
+    launches are those its capture recorded (``CapturedStep.body_launches``)."""
+    from audio_pattern_detector_tpu_torch.models.bank import _BIG, _split_fused
 
     if step.key.fused:
         flat = payload.cpu().numpy()
@@ -3853,11 +3840,7 @@ def replay_body_launches(step, payload, groups) -> dict[str, int]:
     ran = []
     for g, p in zip(groups, per_group):
         live = (p.reshape(-1, 2 * g.k_verify + 2)[:, : g.k_verify] < _BIG).sum(axis=1)
-        if step.key.general:
-            if g.k_verify > _SMALL_TIER:
-                small, every = next(bodies), next(bodies)
-                ran.append(small if live.max() <= _SMALL_TIER else every)
-        elif step.key.skip_empty_verify:
+        if step.key.skip_empty_verify and not step.key.general:
             body = next(bodies)
             if live.any():
                 ran.append(body)
@@ -4281,7 +4264,7 @@ MARKER_SPECTRA_RTOL = 1e-5  # of a window's largest magnitude: the kernel's FFT 
 
 def normal_plain_in_blocks(corr, pos, alive, consts, normalise, block: int = 16):
     """The normal verifier's plain version run 16 lanes at a time (as the
-    two-tier verify runs it): its (R, K, lc) arrays stay a block's."""
+    CPU's two-tier verify runs it): its (R, K, lc) arrays stay a block's."""
     import torch
 
     from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal_reference

@@ -839,15 +839,15 @@ def test_replays_take_new_inputs_with_rounds_in_flight(cuda):
 
 
 def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
-    """After capture, the marker kernel's FFT-plan cache and torch's cuFFT
-    plan cache are emptied, other transforms made and the freed memory
-    filled with NaN: replays still equal the eager round (the graph holds
-    what it reads). ``APD_MARKER_GEMM=1`` changes nothing on a card: its
-    keys say so."""
+    """After capture, the marker kernel's FFT-plan cache, the port's cuFFT
+    plan cache and torch's are emptied, other transforms made and the freed
+    memory filled with NaN: replays still equal the eager round (the graph
+    holds what it reads, the cuFFT plans it replays among them).
+    ``APD_MARKER_GEMM=1`` changes nothing on a card: its keys say so."""
     import gc
 
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
-    from audio_pattern_detector_tpu_torch.ops import marker_fft
+    from audio_pattern_detector_tpu_torch.ops import cufft_plans, marker_fft
 
     monkeypatch.setenv("APD_MARKER_GEMM", "1")
     clips, rounds = _capture_clips()
@@ -860,6 +860,7 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
     assert all(_bitwise(g, eager) for g in got)
     assert [s.key.marker_gemm for s in bank.graphs.steps()] == [False] * len(bank.classes)
     marker_fft._cached.cache_clear()
+    cufft_plans.clear_cache()
     torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -870,6 +871,24 @@ def test_replays_match_after_the_caches_evict(cuda, monkeypatch):
     again = run()
     del junk
     assert _bitwise(again, eager)
+
+
+@pytest.mark.parametrize("shape, n", [((3, 4096), None), ((2, 5, 6001), 8192),
+                                      ((16, 65_536), None), ((4, 3, 1000), 1000)])
+def test_held_cufft_plans_agree_with_torch_fft(cuda, shape, n):
+    """``ops/cufft_plans.py``'s rfft and irfft against ``torch.fft`` on the
+    same inputs: within 1e-6 of the largest magnitude (the same library's
+    transforms; equal bit for bit where both pick the same kernels)."""
+    from audio_pattern_detector_tpu_torch.ops import cufft_plans
+
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    size = n or shape[-1]
+    spec, want = cufft_plans.rfft(x, n=n), torch.fft.rfft(x, n=n)
+    assert spec.shape == want.shape and spec.dtype == torch.complex64
+    assert float((spec - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    back, back_want = cufft_plans.irfft(want, n=size), torch.fft.irfft(want, n=size)
+    assert back.shape == back_want.shape
+    assert float((back - back_want).abs().max()) <= 1e-6 * float(back_want.abs().max())
 
 
 @pytest.mark.parametrize("hits", ["none", "both_groups"])
@@ -985,8 +1004,8 @@ def test_two_way_cond_takes_each_side(cuda):
 @pytest.mark.parametrize("mode", ["vmap", "scan"])
 def test_captured_general_step_equals_eager(cuda, monkeypatch, tier, mode):
     """``height_min = 0``: ``program`` gives the captured step, whose graph
-    holds the lane greedy's while nodes and the two-tier verify's if-nodes;
-    its round is bitwise the eager round, also after torch's cuFFT plan
+    holds the lane greedy's launches and each verifier's one launch of
+    every lane; its round is bitwise the eager round, also after torch's cuFFT plan
     cache is emptied, and on the CPU's results."""
     from audio_pattern_detector_tpu_torch.models.captured import CapturedStep
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
@@ -1210,12 +1229,8 @@ def test_verify_normal_kernel_equals_plain_version(cuda, name):
     np.testing.assert_allclose(got[1][live], want[1][live], rtol=vn.SIM_RTOL, atol=1e-9)
     np.testing.assert_allclose(got[2][live], want[2][live], rtol=0, atol=vn.R_ATOL)
     assert np.isnan(got[1][~live]).all() and np.isnan(got[2][~live]).all()
-    # The kernel's form follows the launch's live lanes (a cluster a lane,
-    # or a CTA a lane), and its order of sums with it.
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    split = vn.split_form(int(live.sum()), vn.launch_clusters(live.size, sms))
     order = np_verify_normal(case["corr"], case["pos"], live, args[3], case["valid_len"],
-                             case["denom"], vn.CLUSTER if split else 1)
+                             case["denom"])
     np.testing.assert_array_equal(got[0], order[0])
     for a, b in zip(got[1:], order[1:]):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))

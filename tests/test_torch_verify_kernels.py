@@ -14,8 +14,7 @@ one to the other. Here, on the CPU:
   normal verifier without and with ``normalise`` (one length and per-row
   lengths), the marker verifier with the FFT's and the DFT-GEMM's spectra;
 * a numpy transliteration of each kernel's own order of arithmetic
-  (``chip_smoke.np_verify_normal`` in both of the kernel's forms, a CTA a
-  lane and a cluster of 8 a lane; ``np_marker_spectra`` and
+  (``chip_smoke.np_verify_normal``; ``np_marker_spectra`` and
   ``np_marker_decisions``, the fused marker kernel's transforms and
   decisions) against the plain version, on the named cases and on
   hypothesis inputs (its transforms alone: tests/test_torch_marker_fft.py);
@@ -135,18 +134,14 @@ def test_plain_verify_normal_equals_jax(name):
 
 @pytest.mark.parametrize("name", VERIFY_NORMAL_CASES)
 def test_normal_transliteration_equals_the_plain_version(name):
-    """Both of the kernel's forms: a CTA a lane (its chunk the whole
-    window) and a cluster of CLUSTER CTAs a lane (the window in CLUSTER
-    chunks, a partition's sums added over the chunks)."""
     case = verify_normal_case(name)
     corr, pos, alive, consts, normalise = verify_normal_inputs(case, CPU)
     want = [t.numpy() for t in tvn.verify_normal_reference(corr, pos, alive, consts, normalise)]
-    for parts in (1, tvn.CLUSTER):
-        got = np_verify_normal(case["corr"], case["pos"], case["alive"], consts,
-                               case["valid_len"], case["denom"], parts)
-        np.testing.assert_array_equal(got[0], want[0])
-        _close(got[1], got[2], want[1], want[2], case["alive"])
-        assert np.isnan(got[1][~case["alive"]]).all()
+    got = np_verify_normal(case["corr"], case["pos"], case["alive"], consts, case["valid_len"],
+                           case["denom"])
+    np.testing.assert_array_equal(got[0], want[0])
+    _close(got[1], got[2], want[1], want[2], case["alive"])
+    assert np.isnan(got[1][~case["alive"]]).all()
 
 
 @settings(max_examples=25, deadline=None)
@@ -158,12 +153,11 @@ def test_normal_transliteration_equals_the_plain_version(name):
     b=st.integers(1, 2),
     k=st.integers(1, 5),
     norm=st.sampled_from(["none", "scalar", "per_row"]),
-    parts=st.sampled_from([1, tvn.CLUSTER]),
 )
-def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, norm, parts):
+def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, norm):
     """Clips short and normal, rows a little longer or much longer than a
     window, lanes anywhere in and past the row, hits planted on some, with
-    and without a normaliser; the kernel's either form."""
+    and without a normaliser."""
     rng = np.random.default_rng(seed)
     sr = 8000 if short else 500
     cc = self_correlations(rng.standard_normal((g, m)).astype(np.float32))
@@ -192,25 +186,9 @@ def test_normal_transliteration_on_hypothesis_inputs(seed, m, short, g, b, k, no
     want = [t.numpy() for t in tvn.verify_normal_reference(
         torch.from_numpy(corr), torch.from_numpy(pos), torch.from_numpy(alive), consts,
         normalise)]
-    got = np_verify_normal(corr, pos, alive, consts, valid_len, denom, parts)
+    got = np_verify_normal(corr, pos, alive, consts, valid_len, denom)
     np.testing.assert_array_equal(got[0], want[0])
     _close(got[1], got[2], want[1], want[2], alive)
-
-
-def test_the_normal_kernels_form_follows_the_live_count():
-    """A launch's clusters (one an SM, at most one a CLUSTER lanes)
-    and its form: a cluster a lane where the live lanes are no more than
-    the clusters (the hit-bearing round's one live lane), else a CTA a lane
-    (the general round's 19,537)."""
-    assert tvn.launch_clusters(512 * 16, 132) == 132
-    assert tvn.launch_clusters(3, 132) == 1
-    assert tvn.split_form(1, 132) and tvn.split_form(132, 132) and not tvn.split_form(133, 132)
-    assert not tvn.split_form(19_537, tvn.launch_clusters(512 * 65, 132))
-    # The staged chunk: the whole window where it fits, a cluster CTA's
-    # chunk past that, else none.
-    assert tvn.stage_floats(15_999, 101) == 15_999
-    assert tvn.stage_floats(159_999, 101) == 20_000
-    assert tvn.stage_floats(10**6, 101) == 0
 
 
 @pytest.mark.parametrize("m, sr", [(2000, 8000), (4000, 8000), (8000, 8000), (80_000, 8000),
@@ -456,9 +434,10 @@ def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
 
 
 def test_the_full_branch_in_one_block_gives_the_same_accept_bits():
-    """``_two_tier_accept``'s full branch in one block of every lane (both
-    verifiers on a card) against blocks of 16 (the plain versions): the
-    same accept bits, each lane's verdict reading only its own window."""
+    """Every lane in one call (each verifier on a card, where
+    ``_verify_accept`` takes no two-tier cond) against
+    ``_two_tier_accept``'s blocks of 16 (the plain versions): the same
+    accept bits, each lane's verdict reading only its own window."""
     case = verify_normal_case("all_live")
     corr, pos, alive, consts, _ = verify_normal_inputs(case, CPU)
     wide_pos = pos.repeat(1, 3)  # 48 lanes: the full branch runs
@@ -468,10 +447,8 @@ def test_the_full_branch_in_one_block_gives_the_same_accept_bits():
         return tvn.verify_normal(corr, p.contiguous(), a.contiguous(), consts)[0]
 
     blocks = tbank_module._two_tier_accept(verify_accept, wide_pos, wide_alive)
-    whole = tbank_module._two_tier_accept(verify_accept, wide_pos, wide_alive,
-                                          width=wide_pos.shape[1])
+    whole = verify_accept(wide_pos, wide_alive)
     assert torch.equal(blocks, whole) and whole.any()
-    assert torch.equal(whole, verify_accept(wide_pos, wide_alive))
 
 
 # ── Launch accounting of captured steps ──
