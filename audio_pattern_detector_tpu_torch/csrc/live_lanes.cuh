@@ -1,5 +1,6 @@
 // Live-lane compaction for the marker verifier (csrc/verify_marker.cu), for
-// sm_90a.
+// sm_90a. Its block scan also orders the lane greedy's compaction and radix
+// sort (csrc/lane_greedy.cu).
 //
 // A verifier's lanes (R, K) come with an alive flag each; only live lanes
 // are computed, and the work is shared out by rank among live lanes, so

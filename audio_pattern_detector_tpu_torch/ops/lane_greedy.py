@@ -10,7 +10,9 @@ position is unspecified) and ``alive`` (G, K) bool, a prefix of each row,
 priority lies within ``min_distance``: scipy's distance filter.
 
 :func:`lane_greedy` launches ``csrc/lane_greedy.cu`` for CUDA tensors, one
-launch a group with one CTA a row, at every K, and runs
+launch a group with one CTA a row (its alive lanes sorted by position, so
+that a kept lane visits only the lanes within ``min_distance``; one warp
+walks them in priority order), at every K up to :data:`MAX_LANES`, and runs
 :func:`lane_greedy_reference` for CPU tensors; it never falls back from one
 to the other. The plain version keeps the JAX package's two forms, chosen
 by lane count as JAX chooses them: the parallel fixed point up to
@@ -32,10 +34,13 @@ from audio_pattern_detector_tpu_torch.ops.loops import Loop, host_loop
 PARALLEL_GREEDY_MAX_K = 2048
 
 # Dynamic shared memory the kernel may take (csrc/lane_greedy.cu: the 227 KB
-# of a block less room for its static shared memory) and what a lane needs:
-# its position as int32 and its kept flag.
+# of a block less room for its static shared memory) and what a row needs:
+# 13 bytes a lane (two sort keys, two compact indices, an open flag) and a
+# table of 16 x 256 16-bit digit counts.
 _MAX_SMEM = 232448 - 1024
-_LANE_BYTES = 5
+_LANE_BYTES = 13
+_COUNT_BYTES = 16 * 256 * 2
+MAX_LANES = (_MAX_SMEM - _COUNT_BYTES) // _LANE_BYTES  # 17,171: k_detect's cap of 16,384 fits
 
 _DROPPED = 2**30  # the sequential form's position of a dead or suppressed lane
 
@@ -124,10 +129,10 @@ def _launch(pos: torch.Tensor, alive: torch.Tensor, min_distance: int) -> torch.
             "lane_greedy: alive must be a contiguous (G, K) bool tensor on pos's device")
     if g >= 2**31 or not 0 <= min_distance < 2**31:
         raise ValueError(f"lane_greedy: {g} rows or min_distance {min_distance} outside int32")
-    if -(-k * _LANE_BYTES // 16) * 16 > _MAX_SMEM:
+    if k > MAX_LANES:
         raise ValueError(
-            f"lane_greedy: {k} lanes need {k * _LANE_BYTES} bytes of shared memory, "
-            f"past the {_MAX_SMEM} a block may take"
+            f"lane_greedy: {k} lanes need {_COUNT_BYTES + k * _LANE_BYTES} bytes of shared "
+            f"memory, past the {_MAX_SMEM} a block may take ({MAX_LANES} lanes)"
         )
     lib = load_kernels().lib
     dev = pos.device

@@ -19,7 +19,10 @@ survivors), ``height`` (G, r_max) f32 (-inf past them) and ``overflow``
 (G,) bool (a candidate left after the rounds).
 
 :func:`lean_greedy` launches ``csrc/lean_greedy.cu`` for CUDA tensors (one
-launch a group, one CTA a row, each row ending with its own candidates)
+launch a group, one CTA a row, each row ending with its own candidates; a
+round copies its seed window and its edge blocks' windows together and
+waits on device memory once, and reads its seed from a maximum per 32
+blocks)
 and runs :func:`lean_greedy_reference` for CPU tensors; it never falls back
 from one to the other. The plain version keeps both JAX forms of the
 rounds (a while loop through ``loop``, else ``r_max`` unrolled rounds),
@@ -50,8 +53,10 @@ BLOCK = 512  # the candidate scan's block
 WINDOW = BLOCK + 4  # a block and a 2-sample halo a side
 
 # Dynamic shared memory the kernel may take (csrc/lean_greedy.cu: the
-# 227 KB of a block less its static shared memory).
-_MAX_SMEM = 232448 - 4096
+# 227 KB of a block less its static shared memory, five windows and the
+# reductions).
+_MAX_SMEM = 232448 - 12288
+GROUP = 32  # blocks under one entry of the kernel's second-level maxima
 
 GreedyOutputs = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -127,7 +132,7 @@ def _launch(corr, valid_len, bmax, denom, hm, min_distance, r_max) -> GreedyOutp
         lens_ptr, scalar = None, int(valid_len)
     else:
         raise ValueError(f"lean_greedy: valid_len {valid_len} outside [0, {l}]")
-    smem = r_max * 12 + nb * 4
+    smem = r_max * 12 + nb * 4 + -(-nb // GROUP) * 8
     if smem > _MAX_SMEM:
         raise ValueError(f"lean_greedy: {nb} blocks and {r_max} lanes need {smem} bytes of "
                          f"shared memory, past the {_MAX_SMEM} a block may take")

@@ -394,12 +394,50 @@ def lane_greedy_input(g: int, k: int, n_alive: list[int], l: int, m: int,
     return pos, alive
 
 
+# The lane greedy's worst cases for its position-ordered walk, by name:
+# every alive lane at one position; every alive lane within min_distance of
+# each other (one cluster); min_distance 0 (nothing suppresses: every alive
+# lane kept) and 1 (only equal positions suppress); dead lanes at the
+# extremes of int32 and of int64, and at alive lanes' positions plus 2^32
+# (the same int32), which must not count.
+LANE_WORST_CASES = ("one_position", "one_cluster", "min_distance_0", "min_distance_1",
+                    "dead_lanes_extreme")
+
+
+def lane_worst_case(name: str, g: int, k: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray, int]:
+    """(pos (G, K) int64, alive (G, K) bool, min_distance) of the named worst
+    case: row r's first K - r * (K // 2G) lanes alive (a prefix, in priority
+    order; the last row about half), the rest dead with garbage positions."""
+    rng = np.random.default_rng(seed + len(name))
+    pos = rng.integers(-2**31, 2**31 - 1, size=(g, k), dtype=np.int64)
+    alive = np.arange(k)[None, :] < (k - np.arange(g) * (k // (2 * g)))[:, None]
+    m = 2000
+    for r in range(g):
+        n = int(alive[r].sum())
+        if name == "one_position":
+            p = np.full(n, 1000 + 37 * r)
+        elif name == "one_cluster":
+            p = 250_000 + rng.integers(0, m, size=n)  # every pair within m
+        elif name == "min_distance_0":
+            p = rng.integers(0, 495_999, size=n)
+        elif name == "min_distance_1":
+            p = rng.integers(0, max(n // 4, 1), size=n)  # about four lanes a position
+        else:  # dead_lanes_extreme: alive lanes spread over the row
+            p = rng.choice(495_999, size=n, replace=False)
+        pos[r, :n] = p
+        if name == "dead_lanes_extreme" and n < k:
+            extremes = np.array([-2**63, 2**63 - 1, -2**31, 2**31 - 1, -2**31 + 1, 2**31 - 2])
+            dead = np.concatenate([extremes, p[: k - n] + 2**32, p[: k - n] - 2**32])
+            pos[r, n:] = rng.choice(dead, size=k - n)
+    return pos, alive, {"min_distance_0": 0, "min_distance_1": 1}.get(name, m)
+
+
 # The lean greedy's named inputs: each case is held at both clip lengths
 # (m below and above the 512-sample block).
 LEAN_GREEDY_CASES = (
     "no_candidate", "fewer_than_r_max", "exactly_r_max", "overflow", "refused_round",
     "rows_finish_apart", "short_row_300", "short_row_40", "valid_len_at_block_edge",
-    "plateaus_at_hm",
+    "plateaus_at_hm", "edges_in_seed_window", "row_shorter_than_m", "edges_at_row_ends",
 )
 LEAN_GREEDY_MS = (40, 700)
 LEAN_HM = 0.25  # exact in f32
@@ -416,7 +454,8 @@ def lean_greedy_case(name: str, m: int) -> dict:
     rng = np.random.default_rng(len(name) * 1000 + m)
     gap = 2 * m + 60  # peaks this far apart all survive
     l = {"short_row_300": 300, "short_row_40": 40, "valid_len_at_block_edge": 4096,
-         "plateaus_at_hm": 4096}.get(name, max(8192, 21 * gap + 700))
+         "plateaus_at_hm": 4096, "row_shorter_than_m": 600,
+         "edges_at_row_ends": 4096}.get(name, max(8192, 21 * gap + 700))
     rows = {"rows_finish_apart": 3, "valid_len_at_block_edge": 3}.get(name, 2)
     corr = (np.abs(rng.standard_normal((rows, l))) * 0.02).astype(np.float32)
     scm = np.full(rows, 0.7, dtype=np.float32)
@@ -457,6 +496,20 @@ def lean_greedy_case(name: str, m: int) -> dict:
             corr[row, 3000] = np.float32(0.7)
         corr[2, 1023:1025] = np.float32(0.5)  # a run of 2 ending at the last valid sample
         valid_len = np.array([1023, 1024, 1025], dtype=np.int32)
+    elif name == "edges_in_seed_window":
+        # A peak mid-block and a lower one 100 samples on: at m = 40 both
+        # edges of each fall in its own block, whose window the round has.
+        for row in range(rows):
+            corr[row, 1300 + 512 * row] = np.float32(0.9)
+            corr[row, 1400 + 512 * row] = np.float32(0.8)
+    elif name == "row_shorter_than_m":  # m = 700 reaches past the 600-sample row
+        for row in range(rows):
+            for p, h in ((5, 0.9), (300, 0.8), (590, 0.7)):
+                corr[row, p] = np.float32(h - 0.1 * row)
+    elif name == "edges_at_row_ends":  # lo edge below block 0, hi edge past block nb - 1
+        for row in range(rows):
+            for p, h in ((3, 0.9), (l - 3, 0.8), (2000, 0.7)):
+                corr[row, p] = np.float32(h - 0.1 * row)
     elif name == "plateaus_at_hm":
         scm[:] = 1.0  # the normaliser is 1: quotients are the samples
         v = np.float32(LEAN_HM)
@@ -3979,18 +4032,20 @@ def lean_greedy_bound(args, out) -> tuple[float, str, int]:
 WINDOW_BYTES = 516 * 4
 
 
-def lane_greedy_bound(pos, alive, keep) -> tuple[float, str, int]:
+def lane_greedy_bound(pos, alive, m: int, keep) -> tuple[float, str, int]:
     """(bound ms, what bounds it, compares) of one lane greedy call: the
     larger of its bytes (positions and alive flags read once, the mask
     written once) over the memory rate and of the compares this input
-    needs (each kept lane against the later lanes of its row up to the
-    row's last alive lane) over the card's scalar rate."""
+    needs (each kept lane against the other alive lanes of its row within
+    ``m`` of it: the lanes it must clear) over the card's scalar rate."""
     import torch
 
     g, k = pos.shape
-    lanes = torch.arange(1, k + 1, device=pos.device)
-    n = (alive * lanes).amax(dim=1, keepdim=True) if k else torch.zeros((g, 1), device=pos.device)
-    compares = int(torch.where(keep, n - lanes, 0).sum()) if k else 0
+    p = pos.to(torch.int32).to(torch.int64)
+    ordered = torch.where(alive, p, torch.iinfo(torch.int64).max).sort(dim=1).values
+    lo = torch.searchsorted(ordered, p - (m - 1))
+    hi = torch.searchsorted(ordered, p + (m - 1), right=True)
+    compares = int(torch.where(keep, (hi - lo - 1).clamp_min(0), 0).sum()) if k else 0
     by_bytes = g * k * 10 / HBM_BYTES_PER_S * 1e3
     by_ops = compares / PEAK_SCALAR_OPS * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", compares
@@ -4029,13 +4084,15 @@ def phase_greedy_kernels(dev, smi: str, corpus_inputs: list, num_normal: int = 3
     * the lane greedy (``csrc/lane_greedy.cu``) on the general-plateau
       tier's flagship step and 16-row round (``height_min = 0``, without
       and with hits), on lanes made from the regression captures' rows as
-      that tier would make them, and at K = 1,024, 4,728 and 16,384 lanes
-      of 32 rows of clustered positions.
+      that tier would make them, at K = 1,024, 4,728 and 16,384 lanes of
+      32 rows of clustered positions, and on its worst cases
+      (``LANE_WORST_CASES``, 32 rows of 4,728 lanes).
 
     For the timed inputs: the kernel's device ms (CUDA events around a
     graph of 20 calls), the wrapper's ms (events around 20 eager calls),
     the plain version's ms, the bound and its share (bytes over 3.35 TB/s,
-    or compares over the card's scalar rate, from this input's own work),
+    or compares over the card's scalar rate, from this input's own work:
+    the lane greedy's kept lanes against their neighbours within m),
     and the kernel's launches on the paths that run it (counted there).
     Measurement launches are not counted. Returns the kernels line's
     numbers by kernel."""
@@ -4099,7 +4156,7 @@ def phase_greedy_kernels(dev, smi: str, corpus_inputs: list, num_normal: int = 3
             entry = {"shape": shape, "survivors": int(torch.isfinite(got[1]).sum()),
                      "overflow_rows": int(got[2].sum()), "windows_read": work}
         else:
-            bound, by, work = lane_greedy_bound(args[0], args[1], got)
+            bound, by, work = lane_greedy_bound(args[0], args[1], args[2], got)
             entry = {"shape": list(args[0].shape), "alive": int(args[1].sum()),
                      "kept": int(got.sum()), "compares": work}
         entry.update(bitwise_equal=True, bound_ms=bound, bound_by=by)
@@ -4149,6 +4206,10 @@ def phase_greedy_kernels(dev, smi: str, corpus_inputs: list, num_normal: int = 3
         pos, alive = lane_greedy_input(32, k, n_alive, 495_999, 2000, seed=k)
         args = (torch.from_numpy(pos).to(dev), torch.from_numpy(alive).to(dev), 2000)
         out["lane_greedy"][f"k_{k}"] = check("lane_greedy", f"K = {k}", args, True)
+    for name in LANE_WORST_CASES:  # the walk's worst cases, 32 rows of 4,728 lanes
+        pos, alive, m = lane_worst_case(name, 32, 4728)
+        args = (torch.from_numpy(pos).to(dev), torch.from_numpy(alive).to(dev), m)
+        out["lane_greedy"][f"worst_{name}"] = check("lane_greedy", name, args, True)
 
     lane_greedy.launches, lean_greedy.launches = counts  # measurement launches do not count
     for kernel in ("lean_greedy", "lane_greedy"):

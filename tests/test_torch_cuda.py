@@ -23,6 +23,7 @@ from chip_smoke import (
     EDGE_LENGTHS,
     EDGE_WIDE,
     LANE_GREEDY_KS,
+    LANE_WORST_CASES,
     LEAN_GREEDY_CASES,
     LEAN_GREEDY_MS,
     VERIFY_MARKER_CASES,
@@ -34,6 +35,7 @@ from chip_smoke import (
     edge_shapes,
     greedy_outputs_equal,
     lane_greedy_input,
+    lane_worst_case,
     lean_greedy_case,
     lean_greedy_inputs,
     make_scan_input,
@@ -1186,17 +1188,50 @@ def test_lane_greedy_kernel_bitwise_equals_plain_version(cuda, k):
         assert 0 < int(got.sum()) < int(alive.sum())
 
 
+@pytest.mark.parametrize("name,k", [*((n, 4728) for n in LANE_WORST_CASES),
+                                    ("one_cluster", 16_384), ("min_distance_0", 16_384)])
+def test_lane_greedy_kernel_bitwise_on_worst_cases(cuda, name, k):
+    """``csrc/lane_greedy.cu`` on its walk's worst cases (every alive lane at
+    one position, one cluster within min_distance, min_distance 0 and 1,
+    dead lanes at int32's and int64's extremes): 32 rows of 4,728 lanes, and
+    4 rows at k_detect's cap of 16,384 where a row keeps one lane or all."""
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import (
+        lane_greedy,
+        lane_greedy_reference,
+    )
+
+    pos, alive, m = lane_worst_case(name, 32 if k == 4728 else 4, k)
+    pos_d, alive_d = torch.from_numpy(pos).to(cuda), torch.from_numpy(alive).to(cuda)
+    before = lane_greedy.launches
+    got = lane_greedy(pos_d, alive_d, m)
+    torch.cuda.synchronize()
+    assert lane_greedy.launches == before + 1
+    assert torch.equal(got, lane_greedy_reference(pos_d, alive_d, m))
+
+
 def test_greedy_kernels_refuse_what_does_not_fit_and_count_no_launch(cuda):
     """Past the shared memory a block may take, each wrapper raises
-    ValueError before a launch."""
-    from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
+    ValueError before a launch; the lane greedy takes k_detect's cap of
+    16,384 lanes and up to its own limit."""
+    from audio_pattern_detector_tpu_torch.ops.lane_greedy import (
+        MAX_LANES,
+        lane_greedy,
+        lane_greedy_reference,
+    )
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
     before = (lane_greedy.launches, lean_greedy.launches)
-    k = 46_285
-    with pytest.raises(ValueError, match="shared memory"):
-        lane_greedy(torch.zeros((1, k), dtype=torch.int64, device=cuda),
-                    torch.zeros((1, k), dtype=torch.bool, device=cuda), 5)
+    for k in (46_285, MAX_LANES + 1):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            lane_greedy(torch.zeros((1, k), dtype=torch.int64, device=cuda),
+                        torch.zeros((1, k), dtype=torch.bool, device=cuda), 5)
+    pos, alive = lane_greedy_input(2, MAX_LANES, [MAX_LANES, 9000], 700_000, 300, seed=3)
+    pos_d, alive_d = torch.from_numpy(pos).to(cuda), torch.from_numpy(alive).to(cuda)
+    got = lane_greedy(pos_d, alive_d, 300)
+    torch.cuda.synchronize()
+    assert lane_greedy.launches == before[0] + 1
+    assert torch.equal(got, lane_greedy_reference(pos_d, alive_d, 300))
+    lane_greedy.launches = before[0]
     corr = torch.zeros((1, 1024), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         lean_greedy(corr, 1024, torch.zeros((1, 2), device=cuda), torch.ones(1, device=cuda),

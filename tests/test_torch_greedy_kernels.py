@@ -15,11 +15,15 @@ never falls back from one to the other. Here, on the CPU:
   cases of ``chip_smoke.LEAN_GREEDY_CASES`` at m = 40 and 700: no
   candidate, fewer than ``r_max``, exactly ``r_max``, overflow, a refused
   round, rows finishing apart, rows shorter than the 516-sample window,
-  ``valid_len`` at a block edge and one either side, and plateaus of 2 and
-  3 samples at the threshold;
-* a numpy transliteration of each kernel's per-row algorithm (the row's
-  own exit, the lane-by-lane sweep), kept here and not in the package,
-  against the plain version on hypothesis-generated inputs;
+  ``valid_len`` at a block edge and one either side, plateaus of 2 and 3
+  samples at the threshold, edges in the seed's own block, m past the row
+  and edges past both row ends;
+* a numpy transliteration of each kernel's per-row algorithm, kept here
+  and not in the package, against the plain version on hypothesis inputs
+  and named cases: the lane greedy's position order and warp walk (with
+  its worst cases, ``chip_smoke.LANE_WORST_CASES``), the lean greedy's
+  windows made once a round and its maximum per 32 blocks (with the row's
+  own exit at exhaustion or at its first refused round);
 * a library whose launch returns a CUDA error makes the wrapper raise, and
   what does not fit the kernel's shared memory is refused before a launch.
 
@@ -46,9 +50,11 @@ from audio_pattern_detector_tpu_torch.ops import lane_greedy as tlane
 from audio_pattern_detector_tpu_torch.ops import lean_greedy as tlean
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan_reference
 from chip_smoke import (
+    LANE_WORST_CASES,
     LEAN_GREEDY_CASES,
     LEAN_GREEDY_MS,
     lane_greedy_input,
+    lane_worst_case,
     lean_greedy_case,
     lean_greedy_inputs,
     random_lean_greedy_case,
@@ -65,45 +71,97 @@ BLOCK, WINDOW = 512, 516
 
 
 def np_lane_greedy(pos: np.ndarray, alive: np.ndarray, m: int) -> np.ndarray:
-    """csrc/lane_greedy.cu row by row: walk the lanes up to the row's last
-    alive one; each lane still kept clears every later kept lane within
-    ``m``, one lane at a time."""
+    """csrc/lane_greedy.cu row by row: the alive lanes compacted in lane
+    order, their int32 positions less the row's smallest sorted by a stable
+    LSD radix sort of 4-bit digits (as many passes as the span needs); each
+    lane's neighbour range [lo, hi) of that order; then the warp's walk,
+    32 compact lanes a chunk: a ballot of the open flags, and each open lane
+    with a neighbour, lowest first, kept and its higher neighbours cleared
+    (in the chunk's word, or in the flags of later chunks)."""
     keep = np.zeros(alive.shape, dtype=bool)
+    full = 0xFFFFFFFF
     for r in range(pos.shape[0]):
-        kept = alive[r].copy()
-        live = np.flatnonzero(kept)
-        n = int(live[-1]) + 1 if len(live) else 0
-        p = pos[r].astype(np.int32).astype(np.int64)  # the kernel's int32 positions
-        for i in range(n):
-            if not kept[i]:
-                continue
-            for j in range(i + 1, n):
-                if kept[j] and abs(int(p[j]) - int(p[i])) < m:
-                    kept[j] = False
-        keep[r] = kept
+        lanes = np.flatnonzero(alive[r])
+        n = len(lanes)
+        if n == 0:
+            continue
+        p = pos[r, lanes].astype(np.int32).astype(np.int64)  # the kernel's int32 positions
+        key = p - p.min()
+        val = np.arange(n)
+        for shift in range(0, int(key.max()).bit_length(), 4):
+            order = np.argsort((key >> shift) & 15, kind="stable")
+            key, val = key[order], val[order]
+        lo, hi = np.empty(n, dtype=np.int64), np.empty(n, dtype=np.int64)
+        lo[val] = np.searchsorted(key, key - (m - 1), side="left")
+        hi[val] = np.searchsorted(key, key + (m - 1), side="right")
+        open_ = np.ones(n, dtype=bool)
+        for base in range(0, n, 32):
+            chunk = range(base, min(base + 32, n))
+            word = sum(1 << (c - base) for c in chunk if open_[c])
+            sweepers = sum(1 << (c - base) for c in chunk if open_[c] and hi[c] > lo[c] + 1)
+            todo = word & sweepers
+            while todo:
+                b = (todo & -todo).bit_length() - 1
+                i = base + b
+                cleared = 0
+                for j in val[lo[i]:hi[i]].tolist():
+                    if j > i:
+                        if j < base + 32:
+                            cleared |= 1 << (j - base)
+                        else:
+                            open_[j] = False
+                word &= ~cleared
+                todo = word & sweepers & (full << (b + 1)) & full
+            for c in chunk:
+                open_[c] = bool(word >> (c - base) & 1)
+        keep[r, lanes] = open_
     return keep
 
 
 def np_lean_greedy(corr, valid_len, bmax, denom, hm, m, r_max):
-    """csrc/lean_greedy.cu row by row: the seeds, then rounds until the
-    row's bwork is exhausted, a round is refused or ``r_max`` rounds ran."""
+    """csrc/lean_greedy.cu row by row: the seeds from a maximum per 32
+    blocks (first maxima); each round's windows (the seed block's and the
+    two candidate blocks of each edge, one per distinct start) made before
+    the round reads any, the suppression test against the slots filled so
+    far (and the sentinel while a slot is unfilled), and only the
+    second-level entries of the span between the edge blocks refreshed;
+    rounds until the row is exhausted, a round is refused or ``r_max``
+    rounds ran."""
     g, l = corr.shape
     nb = bmax.shape[1]
+    ng = -(-nb // 32)
     lens = np.broadcast_to(np.asarray(valid_len, dtype=np.int64), (g,))
     pos = np.full((g, r_max), SENTINEL, dtype=np.int64)
     height = np.full((g, r_max), -np.inf, dtype=np.float32)
     overflow = np.zeros(g, dtype=bool)
     hm = np.float32(hm)
+    neg = np.float32(-np.inf)
+
+    def first_max(v, idx):
+        j = int(np.argmax(v))
+        return v[j], idx[j]
+
     for r in range(g):
         d = np.float32(denom[r])
         q = (bmax[r] / d).astype(np.float32)
-        bwork = np.where(q >= hm, q, np.float32(-np.inf)).astype(np.float32)
+        bwork = np.where(q >= hm, q, neg).astype(np.float32)
 
-        def window(b):
-            start = min(max(b * BLOCK - 2, 0), max(l - WINDOW, 0))
+        def group_max(k):
+            b = np.arange(32 * k, min(32 * k + 32, nb))
+            return first_max(bwork[b], b)
+
+        gmax = [group_max(k) for k in range(ng)]
+
+        def window_start(b):
+            return min(max(b * BLOCK - 2, 0), max(l - WINDOW, 0))
+
+        def window(start):
             c = start + np.arange(WINDOW)
             x = np.where(c < l, corr[r, np.minimum(c, l - 1)], np.float32(0))
-            xq = np.where(c < lens[r], (x / d).astype(np.float32), np.float32(-np.inf))
+            return np.where(c < lens[r], (x / d).astype(np.float32), neg)
+
+        def candidates(xq, start, b, slots, unfilled):
+            c = start + np.arange(WINDOW)
             pad = np.full(2, -np.inf, dtype=np.float32)
             ext = np.concatenate([pad, xq, pad])
             xm2, xm1, xp1, xp2 = ext[:-4], ext[1:-3], ext[3:-1], ext[4:]
@@ -113,28 +171,46 @@ def np_lean_greedy(corr, valid_len, bmax, denom, hm, m, r_max):
                     | ((xm2 < xq) & (xm1 == xq) & (xp1 == xq) & (xp2 < xq) & fin2 & (c > 1)))
             mask = (runs & (c >= b * BLOCK) & (c < (b + 1) * BLOCK) & (c > 0)
                     & np.isfinite(xq) & (xq >= hm))
-            supp = (np.abs(c[:, None] - pos[r][None, :]) < m).any(axis=1)
-            v = np.where(mask & ~supp, xq, np.float32(-np.inf))
-            j = int(np.argmax(v))  # the first maximum
-            return start, v[j], j
+            near = list(slots) + ([SENTINEL] if unfilled else [])
+            supp = (np.abs(c[:, None] - np.array(near, dtype=np.int64)[None, :]) < m).any(axis=1)
+            return np.where(mask & ~supp, xq, neg)
+
+        def clamp(b):
+            return min(max(b, 0), nb - 1)
 
         for k in range(r_max):
-            bi = int(np.argmax(bwork))
-            bh = bwork[bi]
+            bh, bi = first_max(np.array([v for v, _ in gmax], dtype=np.float32),
+                               np.array([i for _, i in gmax]))
             if not bh > -np.inf:
                 break  # exhausted
-            start, h, j = window(bi)
-            if h != bh:
+            bi = int(bi)
+            a_lo, a_hi = (bi * BLOCK - (m - 1)) // BLOCK, (bi * BLOCK + (m - 1)) // BLOCK
+            blocks = (bi, clamp(a_lo), clamp(a_lo + 1), clamp(a_hi), clamp(a_hi + 1))
+            windows = {window_start(b): window(window_start(b)) for b in blocks}
+            assert len(windows) <= 5
+            start = window_start(bi)
+            v = candidates(windows[start], start, bi, pos[r, :k], True)
+            j = int(np.argmax(v))  # the first maximum
+            if v[j] != bh:
                 break  # refused: the state stays, so the round would repeat
             p = start + j
-            pos[r, k], height[r, k] = p, h
+            pos[r, k], height[r, k] = p, v[j]
             lo, hi = p - (m - 1), p + (m - 1)
+            be = [clamp(lo // BLOCK), clamp(hi // BLOCK)]
+            edge_max = []
+            for b in be:  # its window was copied with the seed's
+                w = window_start(b)
+                edge_max.append(candidates(windows[w], w, b, pos[r, :k + 1], k + 1 < r_max).max())
             b0 = np.arange(nb) * BLOCK
-            bwork[(b0 >= lo) & (b0 + BLOCK - 1 <= hi)] = -np.inf
-            for edge in (lo, hi):
-                be = 0 if edge < 0 else min(edge // BLOCK, nb - 1)
-                bwork[be] = min(bwork[be], window(be)[1])
-        overflow[r] = bool((bwork > -np.inf).any())
+            full_in = (b0 >= lo) & (b0 + BLOCK - 1 <= hi)
+            b_first, b_last = min(be), max(be)
+            assert not full_in[:b_first].any() and not full_in[b_last + 1:].any()
+            bwork[full_in] = neg
+            for b, mv in zip(be, edge_max):
+                bwork[b] = min(bwork[b], mv)
+            for kk in range(b_first // 32, b_last // 32 + 1):
+                gmax[kk] = group_max(kk)
+        overflow[r] = any(v > -np.inf for v, _ in gmax)
     return pos, height, overflow
 
 
@@ -172,25 +248,54 @@ def test_lane_greedy_equals_its_plain_version_and_jax(k):
     np.testing.assert_array_equal(
         tlane.lane_greedy(tp, ta, m, loop=backend.while_loop).numpy(), want)
     assert backend.loops == 1
-    if k <= 2049:  # the transliteration's Python loops stay short
-        np.testing.assert_array_equal(np_lane_greedy(pos, alive, m), want)
+    np.testing.assert_array_equal(np_lane_greedy(pos, alive, m), want)
     # Suppression ran, every kept lane is alive, and a dead row keeps nothing.
     assert not (want & ~alive).any()
     assert (want.sum(axis=1) < alive.sum(axis=1))[np.array(n_alive) > 0].all()
 
 
+@pytest.mark.parametrize("name", LANE_WORST_CASES)
+def test_lane_greedy_worst_cases(name):
+    """The kernel's named worst cases (``chip_smoke.LANE_WORST_CASES``, timed
+    on the card by phase 20): the transliteration, the wrapper and both
+    plain forms against the JAX filter (on the int32 positions both take),
+    with what each case is for. One cluster holds all 4,728 lanes of its
+    first row; the others are 3 rows of 300 lanes."""
+    k = 4728 if name == "one_cluster" else 300
+    pos, alive, m = lane_worst_case(name, 3, k, seed=1)
+    want = _jax_lane(pos.astype(np.int32), alive, m)
+    tp, ta = torch.from_numpy(pos), torch.from_numpy(alive)
+    np.testing.assert_array_equal(np_lane_greedy(pos, alive, m), want)
+    np.testing.assert_array_equal(tlane.lane_greedy(tp, ta, m).numpy(), want)
+    np.testing.assert_array_equal(tlane._greedy_distance_parallel(tp, ta, m).numpy(), want)
+    np.testing.assert_array_equal(tlane._greedy_distance_sequential(tp, ta, m).numpy(), want)
+    kept = want.sum(axis=1)
+    if name in ("one_position", "one_cluster"):
+        assert kept.tolist() == [1, 1, 1]
+    elif name == "min_distance_0":
+        np.testing.assert_array_equal(want, alive)
+    elif name == "min_distance_1":
+        distinct = [len(np.unique(pos[r][alive[r]])) for r in range(3)]
+        assert kept.tolist() == distinct and (kept < alive.sum(axis=1)).all()
+    else:  # dead lanes' garbage changes nothing
+        assert (~alive).sum(axis=1).tolist() == [0, 50, 100]
+        clean = np.where(alive, pos, 0)
+        np.testing.assert_array_equal(np_lane_greedy(clean, alive, m), want)
+
+
 @settings(max_examples=60, deadline=None)
 @given(
     g=st.integers(1, 4),
-    k=st.integers(1, 48),
-    m=st.integers(1, 40),
+    k=st.integers(1, 100),
+    m=st.integers(0, 40),
     l=st.integers(8, 300),
     data=st.data(),
 )
 def test_lane_transliteration_equals_the_plain_version(g, k, m, l, data):
-    """Per-row exit and the lane-by-lane sweep against the plain version in
-    both forms (parallel and sequential, whatever K), on prefixes of
-    alive lanes at positions that may repeat and cluster."""
+    """The position order and the warp's ballot walk (up to four chunks of
+    32 lanes) against the plain version in both forms (parallel and
+    sequential, whatever K), on prefixes of alive lanes at positions that
+    may repeat and cluster, min_distance 0 included."""
     n_alive = data.draw(st.lists(st.integers(0, k), min_size=g, max_size=g))
     seed = data.draw(st.integers(0, 2**32 - 1))
     rng = np.random.default_rng(seed)
@@ -303,6 +408,13 @@ def test_lean_greedy_equals_its_plain_version_and_the_jax_lean_group(monkeypatch
         assert not {1, 500, 701} & set(pos[0].tolist())
     elif name == "valid_len_at_block_edge":
         assert 1022 not in pos[0] and 1022 in pos[1] and 1022 in pos[2]
+    elif name == "edges_in_seed_window":
+        assert kept.tolist() == ([2, 2] if m < 100 else [1, 1]) and not overflow.any()
+        assert pos[:, 0].tolist() == [1300, 1812]
+    elif name == "row_shorter_than_m":  # m = 700 past the row: one survivor a row
+        assert kept.tolist() == ([3, 3] if m < 300 else [1, 1]) and not overflow.any()
+    elif name == "edges_at_row_ends":
+        assert kept.tolist() == [3, 3] and {3, 4093} <= set(pos[0].tolist())
     else:  # rows shorter than the window
         assert (kept >= 1).all()
 
@@ -374,9 +486,11 @@ def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
     device raises too."""
     _stub(monkeypatch, 0)
     monkeypatch.setattr(_build, "load_kernels", lambda: pytest.fail("reached the library"))
-    k = 46_285
-    with pytest.raises(ValueError, match="shared memory"):
-        tlane._launch(torch.zeros((1, k), dtype=torch.int64), torch.zeros((1, k), dtype=bool), 5)
+    for k in (46_285, tlane.MAX_LANES + 1):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            tlane._launch(torch.zeros((1, k), dtype=torch.int64), torch.zeros((1, k), dtype=bool),
+                          5)
+    assert tlane.MAX_LANES >= 16_384  # k_detect's cap (models/bank.py)
     tlane_ok = torch.zeros((2, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="int64"):
         tlane._launch(tlane_ok.int(), torch.zeros((2, 8), dtype=bool), 5)
