@@ -37,8 +37,10 @@
 // where the padded section is), then two buffers the transforms ping-pong
 // between. Shared memory holds the work area where it fits (the wrapper's
 // layout, ops/marker_fft.py); a longer clip's work area is a slot of a
-// global workspace, one slot per CTA. The transforms (the plan's tables
-// read from device memory, where they stay in L2):
+// global workspace, one slot per CTA. The per-frame results (2 floats a
+// frame) stay in shared memory up to kMaxFrames frames; a clip with more
+// (past 51 s at 8 or 16 kHz) keeps them in its slot too. The transforms
+// (the plan's tables read from device memory, where they stay in L2):
 //   * a real window of even length n is a complex transform of n / 2 points
 //     of its (even, odd) sample pairs, then a separation pass
 //     X[k] = (E - i w^k O) / 2, E = Z[k] + conj Z[N - k], O = Z[k] -
@@ -86,7 +88,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRadices = 24;  // ops/marker_fft.py MAX_RADICES
 constexpr int kMaxPrime = 31;    // ops/marker_fft.py MAX_PRIME
-constexpr int kMaxFrames = 4096;  // ops/marker_fft.py MAX_FRAMES
+constexpr int kMaxFrames = 4096;  // frames in shared memory, ops/marker_fft.py MAX_FRAMES
 constexpr int kPad = 8;           // the plain version's WINDOW_PAD
 
 // One real transform's plan (ops/marker_fft.py PlanDesc); offsets in floats
@@ -367,7 +369,8 @@ struct Args {
   int K, G, m, hop, n_frames;
   int window, whole_batch, frame_batch, buffer;  // the layout (ops/marker_fft.py), in floats
   int on_chip;                                   // the work area in shared memory
-  float* workspace;                              // else a slot of window + 2 buffer floats a CTA
+  int frames_on_chip;                            // the per-frame results in shared memory
+  float* workspace;  // else a slot a CTA: window + 2 buffer floats, then the frames' 2 a frame
   RealPlan whole, frame;
   const float* tables;
   const float* hann_whole;
@@ -396,10 +399,11 @@ __global__ void __launch_bounds__(kThreads)
   const int m = a.m;
   const int fw = m / 2 + 1;
   const int ff = a.frame.n / 2 + 1;
-  float* frame_out = smem;  // per frame: purity, then active (1, 0, or -1 without energy)
+  const long long slot = a.window + 2LL * a.buffer + (a.frames_on_chip ? 0 : 2LL * a.n_frames);
   float* work = a.on_chip ? smem + 2 * a.n_frames
-                          : a.workspace + static_cast<long long>(blockIdx.x) *
-                                (a.window + 2LL * a.buffer);
+                          : a.workspace + static_cast<long long>(blockIdx.x) * slot;
+  // Per frame: purity, then active (1, 0, or -1 without energy).
+  float* frame_out = a.frames_on_chip ? smem : work + a.window + 2LL * a.buffer;
   float* win = work;
   float* bufA = work + a.window;
   float* bufB = bufA + a.buffer;
@@ -541,8 +545,9 @@ __global__ void __launch_bounds__(kThreads)
 // bool; whole / frame point to host RealPlan descriptors (ops/marker_fft.py
 // PlanDesc; frame unused when n_frames = 0); tables the plans' f32 tables on
 // the device; the layout's window (3m rounded up to 4) and buffer (floats,
-// multiples of 4), whole_batch, frame_batch and on_chip; workspace null
-// (on_chip) or grid x (window + 2 buffer) floats, and then grid > 0 is the
+// multiples of 4), whole_batch, frame_batch, on_chip and frames_on_chip;
+// workspace null (on_chip) or grid slots of window + 2 buffer floats (and
+// 2 n_frames more without frames_on_chip), and then grid > 0 is the
 // launch's CTAs; hann_whole (m,), hann_frame (wl,),
 // freqs_whole (Fw,), band_whole (G, Fw), dom_freq and lock_hz (G,),
 // freqs_frame (Ff,), band_frame (G, Ff), thresholds (G, 6); accept (R, K)
@@ -554,7 +559,7 @@ extern "C" int apd_verify_marker(const float* section, long long B, long long S,
                                  int K, int G, int m, int hop, int n_frames, const void* whole,
                                  const void* frame, const float* tables, int window,
                                  int whole_batch, int frame_batch, int buffer, int on_chip,
-                                 float* workspace,
+                                 int frames_on_chip, float* workspace,
                                  int grid, const float* hann_whole, const float* hann_frame,
                                  const float* freqs_whole, const unsigned char* band_whole,
                                  const float* dom_freq, const float* lock_hz,
@@ -564,7 +569,8 @@ extern "C" int apd_verify_marker(const float* section, long long B, long long S,
   const long long n_lanes = R * K;
   if (n_lanes <= 0) return 0;
   if (G <= 0 || B <= 0 || R % G != 0 || (R / G) != B || m < 2 || n_frames < 0 ||
-      n_frames > kMaxFrames || n_lanes >= (1LL << 31) || window < 3 * m || window % 4 != 0 ||
+      (frames_on_chip && n_frames > kMaxFrames) || (on_chip && !frames_on_chip) ||
+      n_lanes >= (1LL << 31) || window < 3 * m || window % 4 != 0 ||
       buffer % 4 != 0 || whole_batch < 1 || frame_batch < 0 ||
       (n_frames > 0 && frame_batch < 1) || (!on_chip && (workspace == nullptr || grid <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -584,6 +590,7 @@ extern "C" int apd_verify_marker(const float* section, long long B, long long S,
   a.frame_batch = frame_batch;
   a.buffer = buffer;
   a.on_chip = on_chip;
+  a.frames_on_chip = frames_on_chip;
   a.workspace = workspace;
   a.whole = *static_cast<const RealPlan*>(whole);
   a.frame = n_frames > 0 ? *static_cast<const RealPlan*>(frame) : a.whole;
@@ -601,8 +608,8 @@ extern "C" int apd_verify_marker(const float* section, long long B, long long S,
   a.probe = probe;
   if (a.whole.nrad > kMaxRadices || a.frame.nrad > kMaxRadices)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (static_cast<size_t>(on_chip ? window + 2LL * buffer : 0) + 2 * n_frames) * sizeof(float);
+  const size_t smem = (static_cast<size_t>(on_chip ? window + 2LL * buffer : 0) +
+                       (frames_on_chip ? 2LL * n_frames : 0)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(verify_marker_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

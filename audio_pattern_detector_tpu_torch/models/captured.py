@@ -118,12 +118,13 @@ from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
 from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
 from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32
 from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
 from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
 # The kernel wrappers whose ``launches`` a replay adds to.
-COUNTED = (candidate_scan, lane_greedy, lean_greedy, verify_normal, verify_marker)
+COUNTED = (candidate_scan, lane_greedy, lean_greedy, verify_normal, verify_marker, loudness_gate)
 
 
 class StepKey(NamedTuple):

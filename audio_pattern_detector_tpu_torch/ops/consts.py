@@ -25,7 +25,7 @@ import torch
 
 from audio_pattern_detector_tpu_torch.ops.correlate import CorrelationBankConsts
 from audio_pattern_detector_tpu_torch.ops.devices import canonical_device
-from audio_pattern_detector_tpu_torch.ops.loudness import LoudnessConsts
+from audio_pattern_detector_tpu_torch.ops.loudness import LoudnessConsts, gate_tables
 from audio_pattern_detector_tpu_torch.ops.verify import (
     MarkerVerifyConsts,
     NormalVerifyConsts,
@@ -55,14 +55,15 @@ def consts_from_numpy(kind: str, fields: Mapping[str, Any], device: torch.device
             )},
         )
     if kind == "LoudnessConsts":
+        lo, end = (np.array(f[k], dtype=np.int64) for k in ("block_lo", "block_end"))
         return LoudnessConsts(
             fir_spec=_complex(f["fir_rfft_ri"], device),
-            block_lo=_t(f["block_lo"], np.int64, device),
-            block_end=_t(f["block_end"], np.int64, device),
+            block_lo=_t(lo, np.int64, device),
+            block_end=_t(end, np.int64, device),
             block_thr=_t(f["block_thr"], np.int64, device),
+            **gate_tables(int(f["section_len"]), lo, end, int(f["sample_rate"]), device),
             **{k: int(f[k]) for k in (
-                "section_len", "sample_rate", "fft_len", "window_width",
-                "short_threshold", "num_segments",
+                "section_len", "sample_rate", "fft_len", "short_threshold", "num_segments",
             )},
         )
     if kind == "NormalVerifyConsts":

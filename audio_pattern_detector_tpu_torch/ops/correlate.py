@@ -6,7 +6,10 @@ conjugate bank spectra and inverse-transformed for the whole bank, in the
 long sections into segments of ``fft_len`` shared by every group of a
 sliding-window class. Spectra are held as complex64 tensors. On a card the
 transforms run through cuFFT plans the port holds (``ops/cufft_plans.py``),
-which a captured graph can replay whatever torch's plan cache evicts.
+which a captured graph can replay whatever torch's plan cache evicts, in
+calls of a fixed number of transforms (:data:`SEGMENT_FFT_POINTS`,
+:data:`CORRELATION_FFT_POINTS`), so that a row's correlation does not
+depend on the round it rides in or the number of clips beside it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,15 @@ import torch.nn.functional as F
 from numpy.typing import NDArray
 
 from audio_pattern_detector_tpu_torch.ops.cufft_plans import irfft, rfft
+
+
+# Points a cuFFT call holds, whatever the round's width or the clips the
+# call carries: the section's segment spectra, 128 transforms of 32,768
+# points (at the flagship geometry 21 a row), and the correlation's inverse
+# transforms, 256 of them (21 a row and clip); scripts/probe_fft_batch.py
+# times the alternatives.
+SEGMENT_FFT_POINTS = 1 << 22
+CORRELATION_FFT_POINTS = 1 << 23
 
 
 def next_pow2(n: int) -> int:
@@ -118,7 +130,7 @@ def section_segment_spectra(
     ns = consts.num_segments
     padded = F.pad(section, (pad_left, ns * step + n - (section.shape[-1] + pad_left)))
     segments = padded.unfold(-1, n, step)[..., :ns, :]
-    return rfft(segments)
+    return rfft(segments, points=SEGMENT_FFT_POINTS)
 
 
 def _correlate_raw(
@@ -130,15 +142,17 @@ def _correlate_raw(
     (B, G, L) for a batch (B, S)."""
     m, n, l = consts.clip_len, consts.fft_len, consts.full_len
     if consts.num_segments == 1:
-        spec = rfft(section, n=n)
-        z = irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n)
+        spec = rfft(section, n=n, points=SEGMENT_FFT_POINTS)
+        z = irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n,
+                  points=CORRELATION_FFT_POINTS)
         return torch.roll(z, m - 1, dims=-1)[..., :l].abs()
     step = consts.step or (n - m + 1)
     ns = consts.num_segments
     if seg_spec is None:
         seg_spec = section_segment_spectra(section, consts)
     y = irfft(
-        seg_spec[..., None, :, :] * consts.bank_rfft_conj[:, None, :], n=n
+        seg_spec[..., None, :, :] * consts.bank_rfft_conj[:, None, :], n=n,
+        points=CORRELATION_FFT_POINTS,
     )  # (..., G, ns, N)
     flat = y[..., :step].reshape(*y.shape[:-2], ns * step)
     off = consts.out_offset

@@ -50,8 +50,9 @@ MAX_RADICES = 24
 # and the per-frame results, within the 227 KB a block may opt in to, less
 # the lane list and the reductions' static arrays.
 SMEM_BUDGET = 208 * 1024
-# Per-frame results (2 floats a frame) and the lane list take shared memory
-# in either form (csrc/verify_marker.cu kMaxFrames).
+# Frames whose per-frame results (2 floats a frame) stay in shared memory
+# (csrc/verify_marker.cu kMaxFrames); a clip with more (past 51 s at 8 or
+# 16 kHz) keeps them in its global workspace slot.
 MAX_FRAMES = 4096
 
 
@@ -153,7 +154,8 @@ class MarkerLayout:
     window, then two work buffers of ``buffer`` floats each. The three
     whole windows are transformed ``whole_batch`` at a time (3 or 1), the
     frames ``frame_batch`` at a time; ``on_chip`` False puts the work area
-    in a global workspace of one slot per resident CTA."""
+    in a global workspace of one slot per resident CTA, and
+    ``frames_on_chip`` False the per-frame results after it in the slot."""
 
     whole: RealPlan
     frame: "RealPlan | None"
@@ -162,6 +164,7 @@ class MarkerLayout:
     frame_batch: int
     buffer: int
     on_chip: bool
+    frames_on_chip: bool = True
 
     @property
     def window(self) -> int:
@@ -170,15 +173,22 @@ class MarkerLayout:
         return -(-3 * self.whole.n // 4) * 4
 
     @property
+    def frame_floats(self) -> int:
+        """Floats of the per-frame results."""
+        return 2 * self.frame_count
+
+    @property
     def slot(self) -> int:
-        """Floats of one lane's work area (the window and two buffers)."""
-        return self.window + 2 * self.buffer
+        """Floats of one lane's work area (the window and two buffers, and
+        the per-frame results where they are not on the chip)."""
+        return self.window + 2 * self.buffer + (0 if self.frames_on_chip else self.frame_floats)
 
     @property
     def shared_bytes(self) -> int:
         """Dynamic shared memory a CTA takes: the work area where it is on
-        the chip, and the per-frame results either way."""
-        return 4 * ((self.slot if self.on_chip else 0) + 2 * self.frame_count)
+        the chip, and the per-frame results where they are."""
+        return 4 * ((self.slot if self.on_chip else 0)
+                    + (self.frame_floats if self.frames_on_chip else 0))
 
 
 def _buffer(whole: RealPlan, frame: "RealPlan | None", wb: int, fb: int) -> int:
@@ -192,12 +202,14 @@ def marker_layout(m: int, wl: int, frame_count: int) -> MarkerLayout:
     """The layout of a lane of clip length m with ``frame_count`` frames of
     wl samples: all three whole windows at once where that fits the shared
     memory budget, else one at a time, else a global workspace; the frames
-    in batches of at most the whole windows' buffer."""
-    if frame_count > MAX_FRAMES:
-        raise ValueError(f"verify_marker: {frame_count} frames, past the kernel's {MAX_FRAMES}")
+    in batches of at most the whole windows' buffer, their results in
+    shared memory up to :data:`MAX_FRAMES` frames, else in the workspace."""
+    if frame_count > m:  # frames start a sample apart at the least
+        raise ValueError(f"verify_marker: {frame_count} frames, more than the clip's {m} "
+                         "samples")
     whole = real_plan(m)
     frame = real_plan(wl) if frame_count > 0 else None
-    for wb in (3, 1):
+    for wb in (3, 1) if frame_count <= MAX_FRAMES else ():
         fb = 0
         if frame is not None:
             fb = min(frame_count, max(1, wb * whole.work // frame.work))
@@ -206,7 +218,8 @@ def marker_layout(m: int, wl: int, frame_count: int) -> MarkerLayout:
         if layout.shared_bytes <= SMEM_BUDGET:
             return layout
     fb = frame_count if frame is not None else 0
-    return MarkerLayout(whole, frame, frame_count, 3, fb, _buffer(whole, frame, 3, fb), False)
+    return MarkerLayout(whole, frame, frame_count, 3, fb, _buffer(whole, frame, 3, fb), False,
+                        frame_count <= MAX_FRAMES)
 
 
 def _desc(plan: RealPlan, offsets: dict[str, int]) -> PlanDesc:

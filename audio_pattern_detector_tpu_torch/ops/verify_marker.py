@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
-from audio_pattern_detector_tpu_torch.ops.marker_fft import MAX_FRAMES, marker_plan
+from audio_pattern_detector_tpu_torch.ops.marker_fft import marker_plan
 from audio_pattern_detector_tpu_torch.ops.slicing import slice_rows_windows
 from audio_pattern_detector_tpu_torch.ops.verify_normal import WINDOW_PAD, check_operand
 
@@ -236,9 +236,6 @@ def _launch(section: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
 
     dev = section.device
-    if consts.frame_count > MAX_FRAMES:
-        raise ValueError(f"verify_marker: {consts.frame_count} frames, past the {MAX_FRAMES} the "
-                         "kernel's shared memory takes")
     if section.dtype != torch.float32 or section.dim() not in (1, 2) or not section.is_contiguous():
         raise ValueError("verify_marker: section must be a contiguous (S,) or (B, S) float32 "
                          "tensor")
@@ -279,7 +276,7 @@ def _launch(section: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
     if probe is not None:
         check_operand("probe", probe, (r_rows, k, 3 * fw + n_frames * ff), torch.float32, dev,
                       "verify_marker")
-    plan = marker_plan(m, wl, n_frames, dev)  # raises past the kernel's frames or passes
+    plan = marker_plan(m, wl, n_frames, dev)  # raises past the clip's frames or the passes
     lay = plan.layout
     lib = load_kernels().lib
     with device_guard(dev):
@@ -298,7 +295,8 @@ def _launch(section: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
             sections.data_ptr(), b, s_len, pos.data_ptr(), alive.data_ptr(), r_rows, k, g, m,
             hop, n_frames, ctypes.addressof(plan.whole), ctypes.addressof(plan.frame),
             plan.tables.data_ptr(), lay.window, lay.whole_batch, lay.frame_batch, lay.buffer,
-            int(lay.on_chip), None if workspace is None else workspace.data_ptr(), grid,
+            int(lay.on_chip), int(lay.frames_on_chip),
+            None if workspace is None else workspace.data_ptr(), grid,
             consts.hann_whole.data_ptr(), hann_frame.data_ptr(), consts.freqs_whole.data_ptr(),
             consts.band_whole.data_ptr(), consts.dom_freq.data_ptr(), consts.lock_hz.data_ptr(),
             freqs_frame.data_ptr(), band_frame.data_ptr(), consts.thresholds.data_ptr(),

@@ -32,12 +32,26 @@ card and checks them:
    3b. the batched flagship step (the same bank, 16 sections) as one
    ``mode="vmap"`` step against 16 ``scan`` steps: payloads bitwise equal
    row for row, with the kernel and with the plain scan; 2 kernel launches
-   a round against 32; the largest differences of the schedules' f32
-   intermediates (LUFS within 1e-4 LU, normalised sections within 1e-5,
-   correlation within 1e-5 of its max); ms per round of both in turns
+   a round against 32; the schedules' f32 intermediates bitwise equal
+   (LUFS, normalised sections, every row's correlation; their largest
+   differences printed, each 0); ms per round of both in turns
    (vmap, scan, scan, vmap, twice; 3 rounds each), median and range; peak
    memory of both; the kernel, bitwise and timed, on the round's own two
    launches;
+   3d. rows that do not depend on their round (``round_invariance``): on
+   the flagship bank, 17 sections of 61 s (phase 7's route sections, a
+   half-length and a zero-length row, noise), each row's LUFS, normalised
+   section and correlation in rounds of 1, 5, 16 and 17 rows, and its
+   payload there in both schedules, eager and captured, bitwise its
+   single-section results; the row rerun's correlation and payload bitwise
+   the class step's row and the class rerun's; one cuFFT plan at each of
+   the class step's call sites giving a transform the same bits at every
+   index of its fixed batch and on every call; the loudness gate
+   (``csrc/loudness_gate.cu``) bitwise its plain version on the round's
+   rows and on silent, short and partial-length rows, each also alone; its
+   device ms, wrapper ms, plain ms and byte bound on the 16-row round and
+   one row, and its launches on the phase's paths and on file mode
+   (phases 4-5);
 4. file mode through the port's CLI, in-process: the golden JSONL flows
    (.claude/skills/verify/SKILL.md), including the zero-detection checks;
 5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
@@ -56,9 +70,9 @@ card and checks them:
    flagged row's detections must equal the exact host path's; the route
    counters must show each route. Prints the ms of a row and a class
    rerun, of a capped and an escalated marker row beside PR 11's, the lane
-   greedy's launches over the routes (on the kernels line) and whether a
-   row rerun's payload equals the same row of a class rerun bit for bit
-   (cuFFT at batch 1 and batch G);
+   greedy's launches over the routes (on the kernels line); a row rerun's
+   payload must equal the same row of a class rerun bit for bit (G = 1
+   clip against the class's G, phase 3d);
 8. every single-process entry point of the port's CLI in a subprocess
    (``--stdin``, ``--multiplexed-stdin``, ``--offline-batch 4`` and
    ``--stream-batch 4``, each in ``scan`` and in ``vmap`` mode,
@@ -214,8 +228,9 @@ card and checks them:
    hit-bearing calls (both schedules, each captured against eager), the
    general-plateau round's, the escalated marker row's, phase 19's
    regression captures' and the CPU tests' named cases (the marker's under
-   both ``APD_MARKER_GEMM`` values of the plain version, and a 2 s marker
-   in the kernel's global-workspace form): accept bitwise, similarity and r
+   both ``APD_MARKER_GEMM`` values of the plain version, a 2 s marker in
+   the kernel's global-workspace form, and a 52 s marker whose 4,158
+   frames' results sit in that workspace too): accept bitwise, similarity and r
    within tolerance on live lanes, the marker kernel's magnitudes within
    1e-5 of each window's largest bin of the exact (f64) rfft (torch's
    own error beside it); device ms (a graph of
@@ -240,7 +255,8 @@ to DIR.
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
 a JSON line of per-kernel numbers (the candidate scan, the lane greedy, the
-lean greedy and the two verifiers) and the JSON status line.
+lean greedy, the two verifiers and the loudness gate) and the JSON status
+line.
 """
 
 from __future__ import annotations
@@ -586,6 +602,10 @@ VERIFY_NORMAL_CASES = ("hit_and_misses", "short_clip", "row_ends", "dead_lanes",
                        "zero_variance", "rounds")
 VERIFY_MARKER_CASES = ("tone_hits", "no_frames", "row_ends", "dead_lanes", "all_live", "rounds",
                        "long_marker")
+# A 52 s marker clip (4,158 frames, past the frames the marker kernel keeps
+# in shared memory): its own case, run with the FFT spectra only (the
+# DFT-GEMM's matrix of a 416,000-sample window does not fit a card).
+MARKER_52S = "marker_52s"
 # Threads of a CTA in csrc/verify_normal.cu and csrc/verify_marker.cu: the
 # order of their sums (np_block_sum).
 VERIFY_NORMAL_THREADS = 512
@@ -782,13 +802,15 @@ def verify_marker_case(name: str) -> dict:
     ``dom`` frequencies, their ``params`` and ``m``. Clips are 0.25 s tones
     (m = 2,000: 18 frames of 25 ms), or for ``no_frames`` 20 ms (m = 160,
     shorter than one frame), or for ``long_marker`` 2 s (m = 16,000: a work
-    area past the kernel's shared memory, its global-workspace form). Tones
-    of each clip's frequency are planted; lanes sit on them, one sample off
-    and elsewhere."""
+    area past the kernel's shared memory, its global-workspace form), or for
+    ``marker_52s`` 52 s (m = 416,000: 4,158 frames, their results in the
+    workspace too; five lanes a clip, the last half a clip before the hit,
+    a near miss the second clip refuses). Tones of each clip's frequency are planted; lanes
+    sit on them, one sample off and elsewhere."""
     rng = np.random.default_rng(sum(map(ord, name)) + 7)
-    m = {"no_frames": 160, "long_marker": 16_000}.get(name, 2000)
+    m = {"no_frames": 160, "long_marker": 16_000, MARKER_52S: 52 * VERIFY_SR}.get(name, 2000)
     dom = np.array([941.0, 1040.0])
-    g, k = 2, 12
+    g, k = 2, 5 if name == MARKER_52S else 12
     b = 3 if name == "rounds" else 1
     s_len = max(4 * VERIFY_SR, 2 * (m + VERIFY_SR))
     sections = (0.01 * rng.standard_normal((b, s_len))).astype(np.float32)
@@ -805,7 +827,11 @@ def verify_marker_case(name: str) -> dict:
             alive[r, :3] = True
             pos[bi * g + (gi + 1) % g, 3] = hit  # the other clip's tone: refused
             alive[bi * g + (gi + 1) % g, 3] = True
-    if name == "row_ends":
+    if name == MARKER_52S:
+        for gi in range(g):
+            hit = VERIFY_SR // 2 + gi * (s_len // 2) + m - 1
+            pos[gi, 4], alive[gi, 4] = hit - m // 2, True
+    elif name == "row_ends":
         pos[:, 4:8] = [0, 1, s_len + m - 2, s_len + m + 4]
         alive[:, 4:8] = True
     elif name == "dead_lanes":
@@ -1574,7 +1600,8 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
             bad = (pv != other).nonzero()
             raise AssertionError(f"batched payload differs from the {name} at {bad[:5].tolist()}")
 
-    # The f32 intermediates of the two schedules, row 0 and the whole round.
+    # The f32 intermediates of the two schedules over the whole round:
+    # bitwise (a row's results do not depend on its round; phase 3d).
     sw = sorted(bank.classes)[0]
     cls = bank.classes[sw]
     s = cls["section_len"]
@@ -1585,18 +1612,22 @@ def phase_flagship_round(dev, smi: str) -> tuple[int, list]:
     norm_b = loudness_normalize_device(sections, lufs_b)
     norm_s = torch.stack([loudness_normalize_device(sections[i], lufs_s[i])
                           for i in range(ROUND_ROWS)])
-    corr_diff = []
+    corr_diff, corr_bitwise = [], True
     for g in cls["groups"]:
         cb, _ = bank_correlate_abs(norm_b, n_valids, g.corr)
-        c0, _ = bank_correlate_abs(norm_s[0], s, g.corr)
-        corr_diff.append(float((cb[0] - c0).abs().max() / c0.max()))
-        del cb, c0
+        worst = 0.0
+        for i in range(ROUND_ROWS):
+            ci, _ = bank_correlate_abs(norm_s[i], s, g.corr)
+            worst = max(worst, float((cb[i] - ci).abs().max() / ci.max()))
+            corr_bitwise = corr_bitwise and bitwise(cb[i], ci)
+        corr_diff.append(worst)
+        del cb, ci
     diffs = {"lufs_max_abs": float((lufs_b - lufs_s).abs().max()),
              "normalised_section_max_abs": float((norm_b - norm_s).abs().max()),
-             "correlation_row0_max_abs_over_max": corr_diff}
-    if diffs["lufs_max_abs"] > 1e-4 or diffs["normalised_section_max_abs"] > 1e-5 or max(
-            corr_diff) > 1e-5:
-        raise AssertionError(f"the schedules' f32 intermediates differ past tolerance: {diffs}")
+             "correlation_max_abs_over_max": corr_diff,
+             "bitwise": bitwise(lufs_b, lufs_s) and bitwise(norm_b, norm_s) and corr_bitwise}
+    if not diffs["bitwise"]:
+        raise AssertionError(f"the schedules' f32 intermediates differ: {diffs}")
     del lufs_b, lufs_s, norm_b, norm_s
 
     def round_ms(mode: str) -> float:
@@ -1678,6 +1709,262 @@ def pools_gb(backend) -> "dict[str, float] | None":
         by_pool[key] = by_pool.get(key, 0) + seg["total_size"]
     return {name: sum(by_pool.get(tuple(pool), 0) for pool, _ in held.values()) / 1e9
             for name, held in (("graph", backend._devices), ("bodies", backend._bodies))}
+
+
+# ── Rows that do not depend on their round (phase 3d and the card tests) ──
+
+# Widths of the rounds a row is held across: one row, a scan-batch launch's
+# few, a graph's 16 and one past it (16 + 1 replays).
+INVARIANCE_WIDTHS = (1, 5, 16, 17)
+INVARIANCE_ROWS = max(INVARIANCE_WIDTHS)
+LOUDNESS_GATE_SOURCE = "audio_pattern_detector_tpu_torch/csrc/loudness_gate.cu"
+LOUDNESS_GATE_REPLACES = "audio_pattern_detector_tpu/ops/loudness.py:143"
+
+
+def _bits(t):
+    """``t``'s bits as int32 (a complex tensor's real and imaginary parts)."""
+    import torch
+
+    return (torch.view_as_real(t) if t.is_complex() else t).contiguous().view(torch.int32)
+
+
+def bitwise(a, b) -> bool:
+    """The same shape and bits."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def fft_batch_probe(dev, loud, corr, probes: int = 3) -> dict:
+    """One cuFFT plan at each call site of the class step (the K-weighting's
+    rfft and irfft, the segment spectra's rfft, the correlation's irfft, at
+    their fixed transforms a call) gives a transform the same bits at every
+    index of its batch and on every call: seeded transforms, each copied to
+    every index of one call, then placed at the first, second, middle and
+    last index among other transforms, then through the wrapper as one row
+    (a call filled up with zero transforms). Raises on a difference;
+    returns each site's length, transforms a call and indices checked."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops import correlate as correlate_mod
+    from audio_pattern_detector_tpu_torch.ops import cufft_plans
+    from audio_pattern_detector_tpu_torch.ops import loudness as loudness_mod
+
+    sites = {"loudness_rfft": (False, loud.fft_len, loudness_mod.FFT_POINTS),
+             "loudness_irfft": (True, loud.fft_len, loudness_mod.FFT_POINTS),
+             "segment_rfft": (False, corr.fft_len, correlate_mod.SEGMENT_FFT_POINTS),
+             "correlation_irfft": (True, corr.fft_len, correlate_mod.CORRELATION_FFT_POINTS)}
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, (inverse, n, points) in sites.items():
+        per_call = cufft_plans.transforms_per_call(points, n)
+
+        def inputs(count: int):
+            x = torch.from_numpy(rng.standard_normal((count, n)).astype(np.float32)).to(dev)
+            return torch.fft.rfft(x) if inverse else x
+
+        def call(rows):
+            rows = rows.contiguous().clone()  # C2R overwrites its input
+            res = torch.empty((per_call, n if inverse else n // 2 + 1),
+                              dtype=torch.float32 if inverse else torch.complex64, device=dev)
+            cufft_plans._exec(inverse, n, per_call, rows, res)
+            return res
+
+        x, fill = inputs(probes), inputs(per_call)
+        indices = sorted({0, 1, per_call // 2, per_call - 1} & set(range(per_call)))
+        for k in range(probes):
+            same = call(x[k : k + 1].expand(per_call, -1))
+            ref = same[0]
+            if not bool((_bits(same) == _bits(ref)[None]).all()):
+                raise AssertionError(f"cuFFT {name}: one transform at every index of a "
+                                     f"{per_call}-batch gives other bits")
+            if not bitwise(call(x[k : k + 1].expand(per_call, -1))[0], ref):
+                raise AssertionError(f"cuFFT {name}: a second call gives other bits")
+            for j in indices:
+                mixed = fill.clone()
+                mixed[j] = x[k]
+                if not bitwise(call(mixed)[j], ref):
+                    raise AssertionError(f"cuFFT {name}: index {j} among other transforms "
+                                         "gives other bits")
+            one = (cufft_plans.irfft(x[k : k + 1], n, points=points)[0] if inverse
+                   else cufft_plans.rfft(x[k : k + 1], points=points)[0])
+            if not bitwise(one, ref.mul(1.0 / n) if inverse else ref):
+                raise AssertionError(f"cuFFT {name}: one row through the wrapper differs")
+        out[name] = {"n": n, "transforms_per_call": per_call, "probes": probes,
+                     "indices_checked": per_call}
+    return out
+
+
+def gate_edge_rows(s: int, sr: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sections (8, s) and lengths for the gating's edges: silent (length 0,
+    and a full-length row of zeros), short (300 ms; 450 ms, past one block
+    but under the short form's 500 ms), exactly one block (400 ms), half a
+    second, a partial last block, one sample short of the section."""
+    lens = np.array([0, s, int(0.3 * sr), int(0.45 * sr), int(0.4 * sr), sr // 2,
+                     s // 2 + 333, s - 1], dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((len(lens), s), np.float32)
+    for i, n in enumerate(lens):
+        if i != 1:
+            rows[i, :n] = (0.02 * (i + 1) * rng.standard_normal(n)).astype(np.float32)
+    return rows, lens
+
+
+def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict:
+    """Phase 3d: a row's results do not depend on its round. On the flagship
+    bank, 17 sections of 61 s (phase 7's four route sections, a half-length
+    row, a zero-length row, seeded noise): each row's LUFS, normalised
+    section and |correlation| of each group in rounds of 1, 5, 16 and 17
+    rows bitwise its single-section results, and its payload in those
+    rounds, eager and captured ("vmap"; 17 rows are 16 + 1 replays), and
+    in the captured "scan" schedule (the one-row graph), bitwise the eager
+    single-section step's; the row rerun's correlation and payload bitwise
+    the class step's row and the class rerun's; the cuFFT probe
+    (:func:`fft_batch_probe`); ``csrc/loudness_gate.cu`` bitwise its plain
+    version on the round's K-weighted rows and on :func:`gate_edge_rows`,
+    each row also alone. Times the kernel on the 16-row round (device ms
+    from a graph of calls, wrapper ms, plain ms, its byte bound). Returns
+    the gate's numbers for the kernels line."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.flagship import make_bank
+    from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate, bank_correlate_abs
+    from audio_pattern_detector_tpu_torch.ops.loudness import (
+        _k_weighted_conv,
+        integrated_loudness_device,
+        loudness_gate,
+        loudness_gate_reference,
+        loudness_normalize_device,
+    )
+
+    bank = make_bank(num_normal, num_marker, chunk_seconds=60, device=dev)
+    sw = sorted(bank.classes)[0]
+    cls = bank.classes[sw]
+    s, loud, groups = cls["section_len"], cls["loud"], cls["groups"]
+    routes = rerun_sections(bank)
+    rows = [routes[k] for k in ("row", "class", "escalated", "clear")]
+    rows += [(0.05 * np.random.default_rng(40 + i).standard_normal(s)).astype(np.float32)
+             for i in range(INVARIANCE_ROWS - len(rows))]
+    lens = [s] * INVARIANCE_ROWS
+    lens[4], lens[5] = s // 2 + 333, 0
+    for i, n in enumerate(lens):
+        rows[i][n:] = 0.0
+    sections = torch.from_numpy(np.stack(rows)).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def intermediates(x, n):
+        lufs = integrated_loudness_device(x, n, loud)
+        norm = loudness_normalize_device(x, lufs)
+        return lufs, norm, [bank_correlate_abs(norm, n, g.corr)[0] for g in groups]
+
+    loudness_gate.launches = 0
+    bank.capture = False
+    ref = [intermediates(sections[i], lens[i]) for i in range(INVARIANCE_ROWS)]
+    ref_payload = [bank.step(sw, sections[i], lens[i]) for i in range(INVARIANCE_ROWS)]
+    compared = {"intermediates": 0, "payload_rows": 0}
+    for w in INVARIANCE_WIDTHS:
+        lufs, norm, corr = intermediates(sections[:w], lens_t[:w])
+        for i in range(w):
+            r_lufs, r_norm, r_corr = ref[i]
+            if not (bitwise(lufs[i], r_lufs) and bitwise(norm[i], r_norm)
+                    and all(bitwise(c[i], rc) for c, rc in zip(corr, r_corr))):
+                raise AssertionError(f"row {i} of a {w}-row round: its f32 intermediates "
+                                     "differ from its single-section ones")
+            compared["intermediates"] += 1
+        del lufs, norm, corr
+        for capture in (False, True):
+            bank.capture = capture
+            payload = bank.step(sw, sections[:w], lens_t[:w])
+            for i in range(w):
+                if not bitwise(payload[i], ref_payload[i]):
+                    raise AssertionError(f"row {i} of a {w}-row "
+                                         f"{'captured' if capture else 'eager'} vmap round: "
+                                         "its payload differs from its eager single step's")
+                compared["payload_rows"] += 1
+    bank.capture = True
+    for i in range(INVARIANCE_ROWS):  # the captured scan schedule: the one-row graph
+        if not bitwise(bank.step(sw, sections[i], lens[i]), ref_payload[i]):
+            raise AssertionError(f"row {i}: the captured scan step's payload differs")
+        compared["payload_rows"] += 1
+    torch.cuda.synchronize()
+    path_launches = loudness_gate.launches
+    graph_widths = sorted({s_.key.rows for s_ in bank.graphs.steps()})
+    del ref, ref_payload
+
+    # The row rerun (one clip's constants, G = 1) against the class step's
+    # row and the class rerun's.
+    raw = routes["row"]
+    norm = loudness_normalize_device(sections[0], integrated_loudness_device(sections[0], s, loud))
+    class_rerun = bank._full_tier_packed(sw, raw)
+    reruns = 0
+    for gi, g in enumerate(groups):
+        for ci in (0, len(g.names) - 1):
+            row_consts, _ = bank._row_consts_for(sw, gi, ci)
+            for correlate in (bank_correlate, bank_correlate_abs):
+                if not bitwise(correlate(norm, s, row_consts)[0][0],
+                               correlate(norm, s, g.corr)[0][ci]):
+                    raise AssertionError(f"row rerun of group {gi} clip {ci}: its correlation "
+                                         "differs from the class step's row")
+            if not bitwise(torch.from_numpy(bank._full_tier_row(sw, gi, ci, raw)),
+                           torch.from_numpy(class_rerun[gi][ci])):
+                raise AssertionError(f"row rerun of group {gi} clip {ci}: its payload differs "
+                                     "from the class rerun's row")
+            reruns += 1
+    del class_rerun, norm
+
+    probe = fft_batch_probe(dev, loud, groups[0].corr)
+
+    # The gating kernel against its plain version, bitwise.
+    gate_rows = 0
+    edge_np, edge_lens = gate_edge_rows(s, bank.sample_rate, seed=5)
+    edges = torch.from_numpy(edge_np).to(dev)
+    edge_lens_t = torch.from_numpy(edge_lens).to(dev)
+    round_rows = sections[:ROUND_ROWS]
+    for x, n in ((round_rows, lens_t[:ROUND_ROWS]), (edges, edge_lens_t)):
+        filtered = _k_weighted_conv(x, loud)
+        got = loudness_gate(filtered, n, loud)
+        want = loudness_gate_reference(filtered, n, loud)
+        if not bitwise(got, want):
+            raise AssertionError(f"loudness_gate: the kernel differs from its plain version: "
+                                 f"{got.tolist()} against {want.tolist()}")
+        for i in range(x.shape[0]):
+            if not bitwise(loudness_gate(filtered[i : i + 1], n[i : i + 1], loud)[0], got[i]):
+                raise AssertionError(f"loudness_gate: row {i} alone differs from its round")
+        gate_rows += x.shape[0]
+    edge_lufs = loudness_gate(_k_weighted_conv(edges, loud), edge_lens_t, loud).tolist()
+    if not (math.isinf(edge_lufs[0]) and math.isinf(edge_lufs[1])
+            and all(math.isfinite(v) for v in edge_lufs[2:])):
+        raise AssertionError(f"loudness_gate on the edge rows: {edge_lufs}")
+
+    filtered = _k_weighted_conv(round_rows, loud)
+    n16 = lens_t[:ROUND_ROWS].contiguous()
+    one, n1 = filtered[:1], n16[:1]
+    torch.cuda.synchronize()
+    timing = {
+        "ms": graph_ms(lambda: loudness_gate(filtered, n16, loud)),
+        "plain_ms": graph_ms(lambda: loudness_gate_reference(filtered, n16, loud)),
+        "wrapper_ms": cuda_ms(lambda: loudness_gate(filtered, n16, loud), TIMED_RUNS),
+        "one_row_ms": graph_ms(lambda: loudness_gate(one, n1, loud)),
+        "one_row_plain_ms": graph_ms(lambda: loudness_gate_reference(one, n1, loud)),
+    }
+    valid = int(lens_t[:ROUND_ROWS].clamp(0, s).sum())
+    bound_ms = (valid * 4 + ROUND_ROWS * 8) / HBM_BYTES_PER_S * 1e3
+    one_bound_ms = (s * 4 + 8) / HBM_BYTES_PER_S * 1e3
+    loudness_gate.launches = path_launches  # measurement launches do not count
+    phase("round_invariance", card=smi, clips=num_normal + num_marker, section_len=s,
+          widths=list(INVARIANCE_WIDTHS), rows_compared=compared, graph_widths=graph_widths,
+          schedules=["vmap eager", "vmap captured", "scan eager", "scan captured"],
+          row_reruns_equal_class_step=reruns, cufft=probe, bitwise=True,
+          loudness_gate_rows_bitwise=gate_rows, edge_row_lufs=edge_lufs,
+          loudness_gate_launches=path_launches, **timing, bound_ms=bound_ms,
+          share_of_bound=bound_ms / timing["ms"], one_row_bound_ms=one_bound_ms,
+          one_row_share_of_bound=one_bound_ms / timing["one_row_ms"])
+    del bank, sections, filtered, edges
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_by_path": {"round_invariance": path_launches}, "max_abs_err": 0.0,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "shape": [ROUND_ROWS, s], **timing}
 
 
 def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
@@ -2039,6 +2326,9 @@ def phase_wide_rerun(dev, smi: str, num_normal: int = 32, num_marker: int = 32) 
         whole = bank._full_tier_packed(1, sections[name])[gi][0]
         row_vs_class[groups[gi].names[0]] = bool(np.array_equal(row.view(np.int32),
                                                                 whole.view(np.int32)))
+    if not all(row_vs_class.values()):
+        raise AssertionError(f"a row rerun's payload differs from the class rerun's row: "
+                             f"{row_vs_class}")
     reps = dict(runs=3, reps=3)
     phase("wide_rerun", card=smi, clips=num_normal + num_marker, section_s=61,
           row_rerun_ms=cuda_ms(lambda: bank._full_tier_row(1, normal, 0, sections["row"]), **reps),
@@ -4603,6 +4893,10 @@ def phase_verify_kernels(dev, smi: str, corpus_inputs: dict, num_normal: int = 3
             for name in VERIFY_MARKER_CASES:
                 check_marker(name, verify_marker_inputs(verify_marker_case(name), dev), False)
                 named += 1
+    with switches({"APD_MARKER_GEMM": "0"}):
+        out["verify_marker"][MARKER_52S] = check_marker(
+            MARKER_52S, verify_marker_inputs(verify_marker_case(MARKER_52S), dev), False)
+        named += 1
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4766,6 +5060,7 @@ def main(argv: "list[str] | None" = None) -> int:
     )
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+    from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
     from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
     from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
@@ -4880,6 +5175,7 @@ def main(argv: "list[str] | None" = None) -> int:
     # ── 2b, 3b. The batched shapes: the kernel alone, then the flagship round ──
     batched_rows = phase_scan_batched(dev, smi)
     round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
+    gate_line = phase_round_invariance(dev, smi)
     general_launches = phase_general_plateau(dev, smi, profile=args.profile)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──
@@ -4893,7 +5189,7 @@ def main(argv: "list[str] | None" = None) -> int:
 
     cli.TorchEngineOptions.build_detector = recording_build
     candidate_scan.launches = lean_greedy.launches = lane_greedy.launches = 0
-    verify_normal.launches = verify_marker.launches = 0
+    verify_normal.launches = verify_marker.launches = loudness_gate.launches = 0
     # The verifiers' launches of the golden flows and the batched run.
     file_mode_verify = contextlib.ExitStack()
     file_mode_verify.enter_context(
@@ -4926,6 +5222,7 @@ def main(argv: "list[str] | None" = None) -> int:
         main_path_launches = candidate_scan.launches
         main_path_greedy = {"lean_greedy": lean_greedy.launches,
                             "lane_greedy": lane_greedy.launches}
+        gate_line["launches_by_path"]["file_mode"] = loudness_gate.launches
         GREEDY_PATH_LAUNCHES["lean_greedy"]["file_mode"] = lean_greedy.launches
         file_mode_verify.close()
         batched_launches = main_path_launches - golden_launches
@@ -4966,9 +5263,13 @@ def main(argv: "list[str] | None" = None) -> int:
         if main_path_greedy["lean_greedy"] != main_path_launches:
             raise AssertionError(f"greedy launches on the main path: {main_path_greedy}, "
                                  f"scan launches {main_path_launches}")
+        # The loudness gate runs once in every class step.
+        if gate_line["launches_by_path"]["file_mode"] < 1:
+            raise AssertionError("the loudness gate launched no time on the main path")
         host_rows = sum(d._bank.host_path_rows for d in built if d._bank is not None)
         phase("kernel_use", candidate_scan_launches=main_path_launches,
               greedy_launches=main_path_greedy,
+              loudness_gate_launches=gate_line["launches_by_path"]["file_mode"],
               golden_launches=golden_launches, batched_launches=batched_launches,
               host_path_rows=host_rows, detectors=len(built))
 
@@ -5081,7 +5382,10 @@ def main(argv: "list[str] | None" = None) -> int:
           **greedy_line[name]} for name in ("lane_greedy", "lean_greedy")),
         *({"name": name, "route": "cuda", "source": greedy_sources[name][0],
            "replaces": greedy_sources[name][1], **verify_line[name]}
-          for name in ("verify_normal", "verify_marker"))]}), flush=True)
+          for name in ("verify_normal", "verify_marker")),
+        {"name": "loudness_gate", "route": "cuda", "source": LOUDNESS_GATE_SOURCE,
+         "replaces": LOUDNESS_GATE_REPLACES,
+         "launches": sum(gate_line["launches_by_path"].values()), **gate_line}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -20,6 +20,13 @@ kernels. A subprocess times, after a warm-up:
   round): the median ms per round, and the host ms per round of each
   dispatch stage (``dispatch_phase_seconds``: sections, pack, upload,
   launch, prefetch) over the 12 rounds of each mode;
+* the row rerun (``PatternBank._full_tier_row``: one clip's constants
+  through the wide tier) of a normal and a marker clip on a
+  candidate-free 61 s section of the flagship bank: the median ms of 7
+  calls, each to its payload on the host;
+* file mode's one-clip bank (the CBS clip): the bank's build, a 60 s
+  chunk step's first use (its eager run and capture) and its steady step
+  (the mean of 20), the second of two fresh banks;
 * file mode: ``match`` through the CLI on cbs_news_audio_section.wav tiled
   15 times (about 482 s), the median wall of 5 runs, and its x-realtime;
 * the candidate-scan wrapper at (32, 495,999) on chip_smoke's phase-2
@@ -137,6 +144,54 @@ if MultiStreamSession is not None:
     del det, sessions
     torch.cuda.empty_cache()
 
+# The row rerun (one clip's constants through the wide tier) on the
+# flagship bank, a normal and a marker row of a candidate-free section.
+rerun_ms = {}
+from audio_pattern_detector_tpu_torch.flagship import make_bank
+rb = make_bank(32, 32, chunk_seconds=60, device=dev)
+raw = (0.05 * np.random.default_rng(1).standard_normal(rb.classes[1]["section_len"])
+       ).astype(np.float32)
+for gi, g in enumerate(rb.classes[1]["groups"]):
+    rb._full_tier_row(1, gi, 0, raw)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rb._full_tier_row(1, gi, 0, raw)
+        times.append((time.perf_counter() - t) * 1e3)
+    rerun_ms[f"row_rerun_{g.kind}_ms"] = float(np.median(times))
+del rb
+torch.cuda.empty_cache()
+
+# File mode's one-clip bank (the CBS clip, G = 1): a 60 s chunk step's
+# first use (its eager run and capture) and its steady replay.
+from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.utils.audio_io import load_wave_file
+from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+one_clip_ms = {}
+clip_audio = load_wave_file("sample_audios/clips/cbs_news.wav", 8000)
+for run in range(2):
+    t = time.perf_counter()
+    ob = TorchAudioPatternDetector([AudioClip(name="cbs_news", audio=clip_audio, sample_rate=8000)],
+                                   device=dev, seconds_per_chunk=60)._ensure_bank()
+    osw = sorted(ob.classes)[0]
+    osec = torch.from_numpy((0.05 * np.random.default_rng(2).standard_normal(
+        ob.classes[osw]["section_len"])).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter()
+    ob.step(osw, osec, len(osec))
+    torch.cuda.synchronize()
+    first = time.perf_counter()
+    for _ in range(20):
+        ob.step(osw, osec, len(osec))
+    torch.cuda.synchronize()
+    if run:
+        one_clip_ms = {"one_clip_bank_build_ms": (built - t) * 1e3,
+                       "one_clip_first_step_ms": (first - built) * 1e3,
+                       "one_clip_step_ms": (time.perf_counter() - first) / 20 * 1e3}
+    del ob, osec
+torch.cuda.empty_cache()
+
 audio = Path("sample_audios")
 with wave.open(str(audio / "cbs_news_audio_section.wav"), "rb") as w:
     rate, frames = w.getframerate(), w.readframes(w.getnframes())
@@ -182,7 +237,8 @@ for k, (c, t, v) in enumerate(step_scans):
 print(json.dumps({"flagship_step_ms": float(np.median(groups)),
                   "file_mode_wall_s": float(np.median(walls)),
                   "file_mode_x_realtime": audio_s / float(np.median(walls)),
-                  "scan_wrapper_ms": float(np.median(scan)), **kernel, **round_ms, **serve_ms}))
+                  "scan_wrapper_ms": float(np.median(scan)), **kernel, **round_ms, **serve_ms,
+                  **rerun_ms, **one_clip_ms}))
 '''
 
 

@@ -188,7 +188,8 @@ def test_build_key_follows_sources_and_flags():
     # The header the marker kernel includes is hashed too: editing it builds anew.
     assert [s.name for s in sources] == [
         "candidate_scan.cu", "cufft_plans.cu", "graph_conditional.cu", "lane_greedy.cu",
-        "lean_greedy.cu", "verify_marker.cu", "verify_normal.cu", "live_lanes.cuh"]
+        "lean_greedy.cu", "loudness_gate.cu", "verify_marker.cu", "verify_normal.cu",
+        "live_lanes.cuh"]
     key = _build._digest(sources)
     assert key == _build._digest(sources) and len(key) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

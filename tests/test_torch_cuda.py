@@ -26,6 +26,7 @@ from chip_smoke import (
     LANE_WORST_CASES,
     LEAN_GREEDY_CASES,
     LEAN_GREEDY_MS,
+    MARKER_52S,
     VERIFY_MARKER_CASES,
     VERIFY_NORMAL_CASES,
     WIDE_ROWS,
@@ -703,12 +704,13 @@ def _bitwise(a, b):
 def test_captured_flagship_step_equals_eager(cuda):
     """The flagship step (one section, each group's payload) as a replay of
     its one-row graph: bitwise the eager step's; the first use counts its
-    eager run's launches, each replay its graph's four (the scan and the
-    lean greedy, a group each)."""
+    eager run's launches, each replay its graph's five (the loudness gate,
+    and the scan and the lean greedy a group each)."""
     from audio_pattern_detector_tpu_torch.flagship import flagship_step
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
+    from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
     from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
     from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
@@ -721,12 +723,12 @@ def test_captured_flagship_step_equals_eager(cuda):
     assert all(_bitwise(g, eager) for g in got)
     (captured,) = bank.graphs.steps()
     assert (captured.key.rows, captured.key.fused, captured.launches, captured.replays) == (
-        1, False, 4, 2)
+        1, False, 5, 2)
     # The verifiers launch inside each group's conditional body, which a
     # replay runs where the group has a live lane: counted from the payload
     # (chip_smoke.counted_verify_launches), not by a replay.
     assert captured.kernel_launches == {candidate_scan: 2, lane_greedy: 0, lean_greedy: 2,
-                                        verify_normal: 0, verify_marker: 0}
+                                        verify_normal: 0, verify_marker: 0, loudness_gate: 1}
     assert sorted(len(b) for b in captured.body_launches) == [1, 1]
     assert {w: n for b in captured.body_launches for w, n in b.items()} == {
         verify_normal: 1, verify_marker: 1}
@@ -1280,11 +1282,25 @@ def test_verify_marker_kernel_equals_plain_version(cuda, monkeypatch, name, spec
     numpy transliteration's; its magnitudes of live lanes (the test probe)
     bitwise the transliteration's and within 1e-5 of each window's largest
     bin of the exact (f64) rfft of the same windows."""
+    monkeypatch.setenv("APD_MARKER_GEMM", "1" if spectra == "gemm" else "0")
+    _check_marker_kernel(cuda, name)
+
+
+def test_a_52_second_marker_clip_verifies_as_the_plain_version(cuda, monkeypatch):
+    """A 52 s marker clip at 8 kHz (m = 416,000, 4,158 frames: their
+    results in the global workspace): the checks above with the FFT
+    spectra, a hit and a near miss the second clip refuses among the
+    lanes."""
+    monkeypatch.setenv("APD_MARKER_GEMM", "0")
+    got = _check_marker_kernel(cuda, MARKER_52S)
+    assert not bool(got.all())
+
+
+def _check_marker_kernel(cuda, name):
     import numpy as np
 
     from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
 
-    monkeypatch.setenv("APD_MARKER_GEMM", "1" if spectra == "gemm" else "0")
     case = verify_marker_case(name)
     section, pos, alive, consts = verify_marker_inputs(case, cuda)
     before = vm.verify_marker.launches
@@ -1308,11 +1324,12 @@ def test_verify_marker_kernel_equals_plain_version(cuda, monkeypatch, name, spec
     err = np.abs(mags[:, : 3 * fw].reshape(-1, 3, fw) - ref).max(-1) / ref.max(-1).clip(1e-30)
     assert err.max() <= MARKER_SPECTRA_RTOL
     assert bool(got.any())
+    return got
 
 
 def test_verify_kernels_refuse_what_they_do_not_take_and_count_no_launch(cuda):
-    """A per-row length of another type and more frames than the marker
-    kernel's shared memory holds raise ValueError before a launch."""
+    """A per-row length of another type and frames off the marker clip's
+    grid raise ValueError before a launch."""
     from audio_pattern_detector_tpu_torch.ops import verify_marker as vm
     from audio_pattern_detector_tpu_torch.ops import verify_normal as vn
 
@@ -1384,3 +1401,54 @@ def test_verify_kernels_in_the_captured_verify_node(cuda, rows):
     counted = tuple(VERIFY_PATH_LAUNCHES[f"verify_{k}"].pop(path) for k in ("normal", "marker"))
     assert counted == (expect["normal"], expect["marker"]) and min(counted) >= 2
 
+
+
+# ── Rows that do not depend on their round ──
+
+
+@pytest.mark.parametrize("sr", [8000, 6004])
+def test_loudness_gate_kernel_equals_plain_version(cuda, sr):
+    """``csrc/loudness_gate.cu`` on K-weighted 61 s rows (four of noise and
+    chip_smoke's gating edges: silent, short, one block, partial blocks),
+    at 8 kHz and at a rate whose blocks end off the 100 ms grid: one launch,
+    the LUFS bitwise the plain version's on the card, each row alone
+    bitwise its round's."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops import loudness as tl
+    from chip_smoke import bitwise, gate_edge_rows
+
+    s = 61 * sr
+    consts = tl.build_loudness_consts(s, sr, cuda)
+    edges, lens = gate_edge_rows(s, sr, seed=sr)
+    rng = np.random.default_rng(3)
+    noise = (0.05 * rng.standard_normal((4, s))).astype(np.float32)
+    rows = torch.from_numpy(np.concatenate([noise, edges])).to(cuda)
+    n = torch.from_numpy(np.concatenate([np.full(4, s, np.int32), lens])).to(cuda)
+    filtered = tl._k_weighted_conv(rows, consts)
+    before = tl.loudness_gate.launches
+    got = tl.loudness_gate(filtered, n, consts)
+    assert tl.loudness_gate.launches == before + 1
+    want = tl.loudness_gate_reference(filtered, n, consts)
+    assert bitwise(got, want), (got.tolist(), want.tolist())
+    for i in range(rows.shape[0]):
+        assert bitwise(tl.loudness_gate(filtered[i : i + 1], n[i : i + 1], consts)[0], got[i])
+    assert bitwise(tl.integrated_loudness_device(rows[0], s, consts), got[0])
+
+
+def test_fixed_batch_transforms_give_a_transform_the_same_bits(cuda):
+    """chip_smoke's cuFFT probe at the flagship geometry: each call site's
+    plan gives a transform the same bits at every index of its fixed batch,
+    on every call and through the wrapper as one row."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops import correlate as tc
+    from audio_pattern_detector_tpu_torch.ops import loudness as tl
+    from chip_smoke import fft_batch_probe
+
+    s = 61 * 8000
+    clip = np.random.default_rng(0).standard_normal((1, 8000)).astype(np.float32)
+    corr = tc.build_correlation_bank(clip, np.ones(1), s, cuda,
+                                     tc.class_overlap_save_geometry(s, [8000, 2000]))
+    sites = fft_batch_probe(cuda, tl.build_loudness_consts(s, 8000, cuda), corr)
+    assert set(sites) == {"loudness_rfft", "loudness_irfft", "segment_rfft", "correlation_irfft"}

@@ -512,3 +512,44 @@ def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         tlean.lean_greedy(corr.to("meta"), 5, bmax, denom, hm, m, 16)
 
+
+
+def test_the_lean_greedy_takes_every_row_a_detector_admits(monkeypatch):
+    """Both detectors refuse a configuration whose positions reach 2**24
+    (``seconds_per_chunk=3400`` at 8 kHz) with the same message, so no row
+    the lean tier is given is as long as 2**24 samples; a (1, 2**24 - 1)
+    row at the lean tier's r_max = 16 fits the kernel's shared memory and
+    reaches the library."""
+    from audio_pattern_detector_tpu.models.detector import AudioPatternDetector
+    from audio_pattern_detector_tpu.utils.clip import AudioClip as JaxClip
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    clip = np.sin(np.arange(8000) * 0.3).astype(np.float32)
+    errors = []
+    for make in (lambda: AudioPatternDetector([JaxClip(name="c", audio=clip, sample_rate=8000)],
+                                              seconds_per_chunk=3400),
+                 lambda: TorchAudioPatternDetector([AudioClip(name="c", audio=clip,
+                                                              sample_rate=8000)],
+                                                   device="cpu", seconds_per_chunk=3400)):
+        with pytest.raises(ValueError, match="2\\*\\*24") as exc:
+            make()
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+
+    calls = []
+    lib = types.SimpleNamespace(apd_lean_greedy=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(_build, "load_kernels", lambda: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    l = 2**24 - 1
+    nb = -(-l // BLOCK)
+    assert 16 * 12 + nb * 4 + -(-nb // tlean.GROUP) * 8 <= tlean._MAX_SMEM
+    corr = torch.empty((1, l), dtype=torch.float32)
+    bmax, denom = torch.zeros((1, nb), dtype=torch.float32), torch.ones(1, dtype=torch.float32)
+    before = tlean.lean_greedy.launches
+    pos, height, overflow = tlean._launch(corr, l, bmax, denom, 0.5, 8000, 16)
+    assert len(calls) == 1 and calls[0][3] == l and calls[0][6] == nb
+    assert pos.shape == height.shape == (1, 16) and overflow.shape == (1,)
+    assert tlean.lean_greedy.launches == before + 1
+    tlean.lean_greedy.launches = before

@@ -131,8 +131,10 @@ def test_any_clip_length_plans_and_transforms(m, seed):
 def test_the_lane_layouts():
     """Every repo length's lane fits shared memory (the three whole windows
     at once, or for 2,446's Bluestein buffers one at a time), a 2 s clip
-    (m = 16,000) takes the global workspace, and the buffers hold a
-    batch's work areas and magnitudes, 16-byte aligned."""
+    (m = 16,000) takes the global workspace, a 52 s clip (4,158 frames)
+    keeps its per-frame results there too, and the buffers hold a batch's
+    work areas and magnitudes, 16-byte aligned. More frames than a clip
+    has samples are refused."""
     for m, sr in [(m, 8000) for m in REPO_LENGTHS[:4]] + [(m, 16000) for m in REPO_LENGTHS[4:8]]:
         wl, _hop, frames = frame_grid(m, sr)
         lay = marker_fft.marker_layout(m, wl, frames)
@@ -142,7 +144,13 @@ def test_the_lane_layouts():
     wl, _hop, frames = frame_grid(16_000, 8000)
     long = marker_fft.marker_layout(16_000, wl, frames)
     assert not long.on_chip and long.shared_bytes == 8 * frames
-    for lay in (long, marker_fft.marker_layout(2446, 400, 18)):
+    assert long.frames_on_chip and long.slot == long.window + 2 * long.buffer
+    wl, _hop, frames = frame_grid(52 * 8000, 8000)
+    assert frames == 4158 > marker_fft.MAX_FRAMES
+    longest = marker_fft.marker_layout(52 * 8000, wl, frames)
+    assert not longest.on_chip and not longest.frames_on_chip and longest.shared_bytes == 0
+    assert longest.slot == longest.window + 2 * longest.buffer + 2 * frames
+    for lay in (long, longest, marker_fft.marker_layout(2446, 400, 18)):
         assert lay.buffer >= lay.whole_batch * 2 * lay.whole.work
         assert lay.buffer >= lay.frame_batch * 2 * lay.frame.work
         assert lay.window >= 3 * lay.whole.n and lay.window % 4 == 0 and lay.buffer % 4 == 0

@@ -134,9 +134,6 @@ def test_window_slicing_bitwise():
     starts = rng.integers(0, 700 - 40, (3, 5)).astype(np.int32)
     want = np.asarray(jslice.slice_rows_windows(jnp.asarray(x), jnp.asarray(starts), 40))
     np.testing.assert_array_equal(tslice.slice_rows_windows(_t(x), _t(starts), 40).numpy(), want)
-    s1 = rng.integers(0, 700 - 33, (4, 2)).astype(np.int32)
-    want = np.asarray(jslice.slice_shared_windows(jnp.asarray(x[0]), jnp.asarray(s1), 33))
-    np.testing.assert_array_equal(tslice.slice_shared_windows(_t(x[0]), _t(s1), 33).numpy(), want)
 
 
 def test_int16_decode_bitwise():

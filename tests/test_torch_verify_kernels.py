@@ -58,6 +58,7 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
 )
 from chip_smoke import (
     HBM_BYTES_PER_S,
+    MARKER_52S,
     MARKER_SPECTRA_RTOL,
     VERIFY_MARKER_CASES,
     VERIFY_NORMAL_CASES,
@@ -389,10 +390,37 @@ def test_a_launch_that_returns_a_cuda_error_raises(monkeypatch):
     tvn.verify_normal.launches, tvm.verify_marker.launches = before
 
 
+def test_a_52_second_marker_clip_is_admitted(monkeypatch):
+    """A 52 s marker clip at 8 kHz (4,158 frames, more than the kernel keeps
+    in shared memory) reaches the library, its per-frame results in each
+    CTA's workspace slot; the decisions from the kernel's transliterated
+    spectra equal the plain verifier's, a near miss refused among them."""
+    calls = []
+    _stub(monkeypatch, 0)
+    lib = types.SimpleNamespace(apd_verify_marker=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(_build, "load_kernels", lambda: types.SimpleNamespace(lib=lib))
+    case = verify_marker_case(MARKER_52S)
+    section, pos, alive, consts = verify_marker_inputs(case, CPU)
+    assert consts.frame_count == 4158
+    before = tvm.verify_marker.launches
+    tvm._launch(section, pos, alive, consts)
+    assert tvm.verify_marker.launches == before + 1
+    tvm.verify_marker.launches = before
+    (args,) = calls
+    lay = tvm.marker_plan(consts.clip_len, consts.frame_len, consts.frame_count, CPU).layout
+    on_chip, frames_on_chip, workspace, grid = args[18:22]
+    assert (on_chip, frames_on_chip, grid) == (0, 0, int(alive.numel()))
+    assert workspace is not None and lay.slot == lay.window + 2 * lay.buffer + 2 * 4158
+    want = tvm.verify_marker_reference(section, pos, alive, consts).numpy()
+    spectra = np_marker_spectra(case["section"], case["pos"], consts)
+    np.testing.assert_array_equal(np_marker_decisions(spectra, case["alive"], consts), want)
+    assert want[:, 0].all() and not want.all()
+
+
 def test_what_the_kernels_do_not_take_is_refused_before_a_launch(monkeypatch):
     """Wrong types, shapes and layouts, rows that are not whole rounds,
-    more bins or frames than the kernels' shared memory holds, frames off
-    the kernel's grid and an unsupported device raise ValueError without
+    more bins than the normal kernel's shared memory holds, frames off the
+    marker clip's grid and an unsupported device raise ValueError without
     reaching the library."""
     _stub(monkeypatch, 0)
     monkeypatch.setattr(_build, "load_kernels", lambda: pytest.fail("reached the library"))

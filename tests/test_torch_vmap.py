@@ -11,8 +11,8 @@ hold two clips. Three references:
   only integer-valued fields: positions, selected bits, flags, overflow
   bits, all far from a threshold on this audio);
 * the port's scan schedule on the same rows: payloads bitwise, results
-  and flagged-row routes equal. Between the port's batched and single-row
-  ops the f32 intermediates agree within 1e-5 LU and atol 1e-6;
+  and flagged-row routes equal. The port's batched and single-row ops
+  give the same f32 intermediates bit for bit;
 * the JAX serial engine for detections, and the CLI's stdout in scan mode
   for the CLI's vmap runs (byte-identical).
 
@@ -65,8 +65,6 @@ CHUNK_S = 10
 CHUNK = CHUNK_S * SR
 LUFS_ATOL = 1e-3  # torch against JAX
 CORR_ATOL = 1e-5
-SCHEDULE_LUFS_ATOL = 1e-5  # the port's batched against its single-row form
-SCHEDULE_ATOL = 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AUDIO = os.path.join(REPO, "sample_audios")
 RTHK = os.path.join(AUDIO, "rthk_section_with_beep.wav")
@@ -209,8 +207,7 @@ def test_batched_loudness_against_jax_vmap(s_len):
         for bi in range(5)
     ], dtype=np.float32)
     np.testing.assert_array_equal(np.isneginf(single), silent)
-    np.testing.assert_allclose(got[~silent], single[~silent], rtol=0, atol=SCHEDULE_LUFS_ATOL)
-    print("max |LUFS batched - single|", np.abs(got[~silent] - single[~silent]).max())
+    np.testing.assert_array_equal(got, single)
     # Normalisation on the same LUFS: bitwise the JAX op's, row for row.
     jn = np.asarray(jax.vmap(jloud.loudness_normalize_device)(jnp.asarray(sections), jnp.asarray(want)))
     tn = tloud.loudness_normalize_device(_t(sections), _t(want)).numpy()
@@ -260,11 +257,9 @@ def test_batched_bank_correlate_against_jax_vmap(chunk_s):
             assert np.all(got.numpy()[bi, :, n + m - 1 :] == 0.0)
             one, one_vl = tcorr.bank_correlate(_t(sections[bi]), int(n), tc)
             assert one_vl == int(vl[bi])
-            np.testing.assert_allclose(got[bi].numpy(), one.numpy(), rtol=0, atol=SCHEDULE_ATOL)
+            np.testing.assert_array_equal(got[bi].numpy(), one.numpy())
             one_raw, _ = tcorr.bank_correlate_abs(_t(sections[bi]), int(n), tc)
-            scale = max(float(one_raw.max()), 1e-30)
-            np.testing.assert_allclose(raw[bi].numpy() / scale, one_raw.numpy() / scale,
-                                       rtol=0, atol=SCHEDULE_ATOL)
+            np.testing.assert_array_equal(raw[bi].numpy(), one_raw.numpy())
         assert not got.numpy()[2].any()
 
 
@@ -311,8 +306,8 @@ def test_batched_verifiers_equal_each_round_alone():
         rows = slice(2 * bi, 2 * bi + 2)
         a1, s1, r1 = tverify.verify_normal(corr[bi], _t(pos[rows]), _t(alive[rows]), nc)
         assert torch.equal(acc[rows], a1)
-        np.testing.assert_allclose(sim[rows].numpy(), s1.numpy(), rtol=0, atol=SCHEDULE_ATOL)
-        np.testing.assert_allclose(r[rows].numpy(), r1.numpy(), rtol=0, atol=SCHEDULE_ATOL)
+        np.testing.assert_array_equal(sim[rows].numpy(), s1.numpy())
+        np.testing.assert_array_equal(r[rows].numpy(), r1.numpy())
         assert acc[2 * bi + bi % 2, 0]
     assert int(acc.sum()) == b
 
@@ -461,8 +456,7 @@ def test_vmap_rows_do_not_depend_on_their_round(env):
 def test_batched_class_step_groups_and_wide_tier(env):
     """``class_step`` on a (B, S) batch returns round-major (B * G, 2K+2)
     payloads per group that equal each section's own step, in the lean
-    tier and in the wide tier; f32 intermediates within the stated
-    tolerance."""
+    tier and in the wide tier; f32 intermediates bit for bit."""
     audios, _, _ = env
     bank = _torch_det()._ensure_bank()
     (sw, cls), = bank.classes.items()
@@ -490,9 +484,8 @@ def test_batched_class_step_groups_and_wide_tier(env):
     for bi, raw in enumerate(raws):
         l1 = tloud.integrated_loudness_device(sections[bi], len(raw), cls["loud"])
         n1 = tloud.loudness_normalize_device(sections[bi], l1)
-        if len(raw):
-            assert abs(float(lufs[bi]) - float(l1)) <= SCHEDULE_LUFS_ATOL
-        np.testing.assert_allclose(norm[bi].numpy(), n1.numpy(), rtol=0, atol=SCHEDULE_ATOL)
+        np.testing.assert_array_equal(lufs[bi].numpy(), l1.numpy())
+        np.testing.assert_array_equal(norm[bi].numpy(), n1.numpy())
 
 
 def test_batched_lean_step_makes_no_host_sync(env, monkeypatch):
