@@ -22,24 +22,35 @@
 // short form) and the two gates' sums are lane folds of the pieces and of
 // the blocks.
 //
-// One CTA a row, 1,024 threads:
-//   1. a warp a piece, 8 chunks of 16 bytes a lane in flight (float4 loads
-//      where the piece starts on a 16-byte boundary, else 4 scalar loads
-//      of the same samples);
-//   2. a thread a block: its sum, mean square over its clamped width,
-//      loudness and absolute gate;
-//   3. warp 0: the lane folds of the pieces and of the gated blocks, the
-//      relative gate and the LUFS.
-// Bound: bytes, each row's S f32 samples read once (B x S x 4 bytes); the
-// tables and the workspace (pieces and blocks, a few KB a row) stay in L2.
-// A CTA reads its row at what one SM's load slots sustain, so a round of B
-// rows runs on B SMs.
+// Which CTA computes which tree. A row's P pieces are spread over
+// ceil(P / 8) CTAs of 256 threads (about 77 at 8 kHz and 61 s), a warp a
+// piece, 8 chunks of 16 bytes a lane in flight (float4 loads where the
+// piece starts on a 16-byte boundary, else 4 scalar loads of the same
+// samples); the grid is those CTAs for each of the B rows, so how a row is
+// split depends on P alone, never on B. Each CTA writes its piece sums to
+// the workspace, fences, and takes a ticket of its row (an atomic add).
+// The ticket only picks which CTA finishes the row: the last to arrive,
+// which then reads every piece sum through L2 and computes the rest of the
+// row's trees alone:
+//   1. a row under the short form's threshold: warp 0 folds the pieces;
+//   2. else a thread a block: its sum, mean square over its clamped width,
+//      loudness and absolute gate; then warp 0: the lane folds of the gated
+//      blocks, the relative gate and the LUFS.
+// No sum goes through an atomic or depends on the order in which CTAs
+// finish. apd_loudness_gate zeroes the tickets on the stream before the
+// launch (a memset, no kernel), so every call and every replay starts
+// clean; nothing resets them after.
+// Bound: bytes, each row's valid samples read once (B x S x 4 bytes at
+// most); the piece sums, a few KB a row, stay in L2. One row fills 77 SMs
+// instead of one, so the row's time is the launch, one round trip of its
+// loads and the finisher's short chain.
 //
 // No multiply-add is contracted: the arithmetic is __fmul_rn, __fadd_rn and
 // __fdiv_rn (and the library builds with -fmad=false). log10f is the one
 // math function; torch's log10 on a card calls the same.
 //
-// apd_loudness_gate(...) returns the CUDA error code of the launch.
+// apd_loudness_gate(...) returns the CUDA error code of the memset or the
+// launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,9 +58,10 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 8;  // chunks a lane loads before it adds
+constexpr int kPiecesPerCta = kWarps;  // a warp a piece (ops/loudness.py GATE_PIECES_PER_CTA)
+constexpr int kUnroll = 8;             // chunks a lane loads before it adds
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kOffset = -0.691f;  // LUFS_OFFSET
 constexpr float kAbsGate = -70.0f;  // ABSOLUTE_GATE_LUFS
@@ -90,6 +102,7 @@ struct Args {
   const int* n_valid;             // (B,)
   const long long* piece_bounds;  // (P + 1,)
   int P, K;                       // pieces, 128-sample chunks of the widest
+  int ctas_per_row;               // ceil(P / kPiecesPerCta)
   const long long* block_lo;      // (nblk,) each
   const long long* block_end;
   const long long* block_thr;
@@ -97,12 +110,48 @@ struct Args {
   const long long* block_pieces;
   int nblk;
   long long short_threshold;
-  float* workspace;  // (B, P + 2 nblk): piece sums, gated blocks' ms, their loudness
-  float* out;        // (B,)
+  float* workspace;   // (B, P + 2 nblk): piece sums, gated blocks' ms, their loudness
+  unsigned* tickets;  // (B,) zero before the launch
+  float* out;         // (B,)
 };
 
-__global__ void __launch_bounds__(kThreads) loudness_gate_kernel(const __grid_constant__ Args a) {
-  const int row = blockIdx.x;
+// The sum of one piece's squares, on a whole warp (lane 0's is the sum).
+__device__ __forceinline__ float piece_sum(const Args& a, const float* x, bool row_aligned,
+                                           long long lim, int p, int lane) {
+  const long long lo = __ldg(a.piece_bounds + p);
+  long long end = __ldg(a.piece_bounds + p + 1);
+  end = end < lim ? end : lim;
+  const bool vec = row_aligned && (lo & 3) == 0;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t0 = 0; t0 < a.K; t0 += kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = lo + 128LL * (t0 + u) + 4 * lane;
+      if (t0 + u >= a.K || i >= end) {
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else if (vec && i + 3 < end) {
+        v[u] = *reinterpret_cast<const float4*>(x + i);
+      } else {
+        v[u] = make_float4(i < end ? x[i] : 0.0f, i + 1 < end ? x[i + 1] : 0.0f,
+                           i + 2 < end ? x[i + 2] : 0.0f, i + 3 < end ? x[i + 3] : 0.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      s[0] = __fadd_rn(s[0], __fmul_rn(v[u].x, v[u].x));
+      s[1] = __fadd_rn(s[1], __fmul_rn(v[u].y, v[u].y));
+      s[2] = __fadd_rn(s[2], __fmul_rn(v[u].z, v[u].z));
+      s[3] = __fadd_rn(s[3], __fmul_rn(v[u].w, v[u].w));
+    }
+  }
+  return halve(quad(s));
+}
+
+__global__ void __launch_bounds__(kThreads, 4) loudness_gate_kernel(const __grid_constant__ Args a) {
+  __shared__ bool finisher;
+  const long long row = blockIdx.x / a.ctas_per_row;
+  const int cta = static_cast<int>(blockIdx.x - row * a.ctas_per_row);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -110,54 +159,55 @@ __global__ void __launch_bounds__(kThreads) loudness_gate_kernel(const __grid_co
   const long long nv = a.n_valid[row];
   const long long lim = nv < a.S ? nv : a.S;
   float* pieces = a.workspace + row * (a.P + 2LL * a.nblk);
-  float* block_ms = pieces + a.P;
-  float* block_loud = block_ms + a.nblk;
-  const bool row_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 
-  // 1. Piece sums, a warp a piece.
-  for (int p = warp; p < a.P; p += kWarps) {
-    const long long lo = a.piece_bounds[p];
-    long long end = a.piece_bounds[p + 1];
-    end = end < lim ? end : lim;
-    const bool vec = row_aligned && (lo & 3) == 0;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int t0 = 0; t0 < a.K; t0 += kUnroll) {
-      float4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long i = lo + 128LL * (t0 + u) + 4 * lane;
-        if (t0 + u >= a.K || i >= end) {
-          v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        } else if (vec && i + 3 < end) {
-          v[u] = *reinterpret_cast<const float4*>(x + i);
-        } else {
-          v[u] = make_float4(i < end ? x[i] : 0.0f, i + 1 < end ? x[i + 1] : 0.0f,
-                             i + 2 < end ? x[i + 2] : 0.0f, i + 3 < end ? x[i + 3] : 0.0f);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        s[0] = __fadd_rn(s[0], __fmul_rn(v[u].x, v[u].x));
-        s[1] = __fadd_rn(s[1], __fmul_rn(v[u].y, v[u].y));
-        s[2] = __fadd_rn(s[2], __fmul_rn(v[u].z, v[u].z));
-        s[3] = __fadd_rn(s[3], __fmul_rn(v[u].w, v[u].w));
-      }
+  // This CTA's pieces, a warp a piece; each written sum fenced before the
+  // ticket is taken.
+  const int p = cta * kPiecesPerCta + warp;
+  if (p < a.P) {
+    const bool row_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const float sum = piece_sum(a, x, row_aligned, lim, p, lane);
+    if (lane == 0) {
+      pieces[p] = sum;
+      __threadfence();
     }
-    const float sum = halve(quad(s));
-    if (lane == 0) pieces[p] = sum;
   }
   __syncthreads();
+  if (tid == 0) {
+    finisher = atomicAdd(&a.tickets[row], 1u) == static_cast<unsigned>(a.ctas_per_row - 1);
+  }
+  __syncthreads();
+  if (!finisher) return;
+  __threadfence();
 
-  // 2. Blocks, a thread a block: the absolute gate's survivors keep their
-  // mean square and loudness, the others 0 and -inf.
+  // The row's last CTA: every piece sum is written. Read them through L2.
+  float* block_ms = pieces + a.P;
+  float* block_loud = block_ms + a.nblk;
+  auto piece_at = [&](long long j) { return __ldcg(pieces + j); };
+
+  if (nv < a.short_threshold) {  // the short form: one block over the whole row
+    if (warp != 0) return;
+    const float total = lane_fold(a.P, lane, piece_at);
+    if (lane != 0) return;
+    const float ms_short = __fdiv_rn(total, static_cast<float>(nv > 1 ? nv : 1));
+    const float lufs_short = ms_short > 0.0f ? lufs(ms_short) : -INFINITY;
+    a.out[row] = lufs_short >= kAbsGate ? lufs_short : -INFINITY;
+    return;
+  }
+
+  // Blocks, a thread a block: the absolute gate's survivors keep their
+  // mean square and loudness, the others 0 and -inf. The tables are read
+  // only (__ldg), so a thread's blocks' loads can be issued together.
+#pragma unroll 4
   for (int j = tid; j < a.nblk; j += kThreads) {
-    const long long first = a.block_first[j];
-    float sum = pieces[first];
-    for (long long t = 1; t < a.block_pieces[j]; ++t) sum = __fadd_rn(sum, pieces[first + t]);
-    const long long lo = a.block_lo[j];
-    long long hi = a.block_end[j];
+    const long long first = __ldg(a.block_first + j);
+    const long long count = __ldg(a.block_pieces + j);
+    const long long lo = __ldg(a.block_lo + j);
+    long long hi = __ldg(a.block_end + j);
+    const long long thr = __ldg(a.block_thr + j);
+    float sum = piece_at(first);
+    for (long long t = 1; t < count; ++t) sum = __fadd_rn(sum, piece_at(first + t));
     hi = hi < nv ? hi : nv;
-    const bool valid = a.block_thr[j] <= nv && lo < hi && sum > 0.0f;
+    const bool valid = thr <= nv && lo < hi && sum > 0.0f;
     const float width = static_cast<float>(hi - lo);
     const float ms = __fdiv_rn(sum, width < 1.0f ? 1.0f : width);
     const float loud = lufs(clamp_min(ms, kFloor));
@@ -167,9 +217,8 @@ __global__ void __launch_bounds__(kThreads) loudness_gate_kernel(const __grid_co
   }
   __syncthreads();
 
-  // 3. The whole row and the two gates, on warp 0.
+  // The two gates, on warp 0.
   if (warp != 0) return;
-  const float total = lane_fold(a.P, lane, [&](long long j) { return pieces[j]; });
   const float abs_sum = lane_fold(a.nblk, lane, [&](long long j) { return block_ms[j]; });
   int abs_count = 0;
   for (int j = lane; j < a.nblk; j += 32) abs_count += block_loud[j] >= kAbsGate;
@@ -186,13 +235,9 @@ __global__ void __launch_bounds__(kThreads) loudness_gate_kernel(const __grid_co
   rel_count = __reduce_add_sync(kFull, rel_count);
   if (lane != 0) return;
 
-  const float ms_short = __fdiv_rn(total, static_cast<float>(nv > 1 ? nv : 1));
-  const float lufs_short = ms_short > 0.0f ? lufs(ms_short) : -INFINITY;
-  const float short_form = lufs_short >= kAbsGate ? lufs_short : -INFINITY;
   const float z_final = __fdiv_rn(rel_sum, static_cast<float>(rel_count > 1 ? rel_count : 1));
   const float gated_lufs = lufs(clamp_min(z_final, kFloor));
-  const float gated = abs_count > 0 && rel_count > 0 ? gated_lufs : -INFINITY;
-  a.out[row] = nv < a.short_threshold ? short_form : gated;
+  a.out[row] = abs_count > 0 && rel_count > 0 ? gated_lufs : -INFINITY;
 }
 
 }  // namespace
@@ -201,20 +246,27 @@ __global__ void __launch_bounds__(kThreads) loudness_gate_kernel(const __grid_co
 // floats apart, each row contiguous; n_valid (B,) int32; piece_bounds
 // (P + 1,), block_lo / block_end / block_thr / block_first / block_pieces
 // (nblk,) int64 (ops/loudness.py LoudnessConsts); K the 128-sample chunks
-// of the widest piece; workspace B x (P + 2 nblk) f32; out (B,) f32. All on
-// the current device. Returns the CUDA error code of the launch (0 on
-// success).
+// of the widest piece; ctas_per_row ceil(P / 8) (ops/loudness.py
+// gate_ctas_per_row; any other value is refused); workspace B x (P + 2 nblk)
+// f32; tickets (B,) 32-bit, zeroed here on the stream; out (B,) f32. All on
+// the current device. Returns the CUDA error code of the memset or the
+// launch (0 on success).
 extern "C" int apd_loudness_gate(const float* filtered, long long B, long long S,
                                  long long row_stride, const int* n_valid,
-                                 const long long* piece_bounds, int P, int K,
+                                 const long long* piece_bounds, int P, int K, int ctas_per_row,
                                  const long long* block_lo, const long long* block_end,
                                  const long long* block_thr, const long long* block_first,
                                  const long long* block_pieces, int nblk,
-                                 long long short_threshold, float* workspace, float* out,
-                                 void* stream) {
+                                 long long short_threshold, float* workspace, unsigned* tickets,
+                                 float* out, void* stream) {
   if (B <= 0) return 0;
-  if (B >= (1LL << 31) || S < 1 || row_stride < 0 || P < 1 || K < 1 || nblk < 1)
+  if (S < 1 || row_stride < 0 || P < 1 || K < 1 || nblk < 1 ||
+      ctas_per_row != (P + kPiecesPerCta - 1) / kPiecesPerCta ||
+      B * ctas_per_row >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t zeroed = cudaMemsetAsync(tickets, 0, B * sizeof(unsigned), s);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   Args a;
   a.filtered = filtered;
   a.S = S;
@@ -223,6 +275,7 @@ extern "C" int apd_loudness_gate(const float* filtered, long long B, long long S
   a.piece_bounds = piece_bounds;
   a.P = P;
   a.K = K;
+  a.ctas_per_row = ctas_per_row;
   a.block_lo = block_lo;
   a.block_end = block_end;
   a.block_thr = block_thr;
@@ -231,8 +284,8 @@ extern "C" int apd_loudness_gate(const float* filtered, long long B, long long S
   a.nblk = nblk;
   a.short_threshold = short_threshold;
   a.workspace = workspace;
+  a.tickets = tickets;
   a.out = out;
-  loudness_gate_kernel<<<static_cast<unsigned>(B), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  loudness_gate_kernel<<<static_cast<unsigned>(B * ctas_per_row), kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

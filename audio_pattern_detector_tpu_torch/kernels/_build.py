@@ -85,8 +85,8 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "apd_loudness_gate": (
-        [_c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr,
-         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_ptr, _c_ptr, _c_ptr],
+        [_c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr,
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),

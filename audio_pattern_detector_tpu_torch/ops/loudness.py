@@ -22,8 +22,9 @@ row's LUFS does not depend on the round it rides in:
   block is the in-order fold of its pieces, and the whole row (the short
   form) and the two gates' sums are such folds of the pieces and of the
   blocks. ``csrc/loudness_gate.cu`` computes the same trees on a card,
-  one CTA a row; the plain version computes them with element-wise adds,
-  on any device.
+  a row's pieces spread over :func:`gate_ctas_per_row` CTAs and the rest
+  of the row on the last of them to finish; the plain version computes
+  them with element-wise adds, on any device.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ _FIR_TAPS = 4096
 FFT_POINTS = 1 << 21
 # The fold's chunk: 32 lanes of 4 values (csrc/loudness_gate.cu).
 _CHUNK = 128
+# Pieces a CTA of the gating kernel sums, a warp a piece (its kPiecesPerCta).
+GATE_PIECES_PER_CTA = 8
 
 
 @dataclass(frozen=True)
@@ -247,9 +250,25 @@ def loudness_gate_reference(
     return torch.where(n_valid < consts.short_threshold, short, gated)
 
 
+def gate_ctas_per_row(pieces: int) -> int:
+    """CTAs the gating kernel gives a row of ``pieces`` pieces: a function
+    of the row's geometry alone, whatever the round's width."""
+    return -(-pieces // GATE_PIECES_PER_CTA)
+
+
+def gate_cta_pieces(block: int, pieces: int) -> tuple[int, range]:
+    """(row, pieces) of the gating kernel's CTA ``block`` (its blockIdx.x):
+    the grid holds :func:`gate_ctas_per_row` CTAs for each row in turn,
+    each summing up to :data:`GATE_PIECES_PER_CTA` consecutive pieces."""
+    row, cta = divmod(block, gate_ctas_per_row(pieces))
+    first = cta * GATE_PIECES_PER_CTA
+    return row, range(first, min(pieces, first + GATE_PIECES_PER_CTA))
+
+
 def _launch(filtered: torch.Tensor, n_valid: torch.Tensor, consts: LoudnessConsts) -> torch.Tensor:
-    """The LUFS (B,): one launch of ``csrc/loudness_gate.cu`` (CUDA tensors
-    only; it raises on anything else and on a CUDA error)."""
+    """The LUFS (B,): a memset of the row tickets and one launch of
+    ``csrc/loudness_gate.cu`` (CUDA tensors only; it raises on anything
+    else and on a CUDA error)."""
     from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
 
     dev = filtered.device
@@ -274,12 +293,14 @@ def _launch(filtered: torch.Tensor, n_valid: torch.Tensor, consts: LoudnessConst
         if b == 0:
             return out
         workspace = torch.empty((b, pieces + 2 * blocks), dtype=torch.float32, device=dev)
+        tickets = torch.empty((b,), dtype=torch.int32, device=dev)  # zeroed by the call
         err = lib.apd_loudness_gate(
             filtered.data_ptr(), b, s, filtered.stride(0), lens.data_ptr(),
             consts.piece_bounds.data_ptr(), pieces, consts.piece_chunks,
-            consts.block_lo.data_ptr(), consts.block_end.data_ptr(), consts.block_thr.data_ptr(),
-            consts.block_first.data_ptr(), consts.block_pieces.data_ptr(), blocks,
-            consts.short_threshold, workspace.data_ptr(), out.data_ptr(),
+            gate_ctas_per_row(pieces), consts.block_lo.data_ptr(), consts.block_end.data_ptr(),
+            consts.block_thr.data_ptr(), consts.block_first.data_ptr(),
+            consts.block_pieces.data_ptr(), blocks, consts.short_threshold,
+            workspace.data_ptr(), tickets.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -47,11 +47,18 @@ card and checks them:
    the class step's row and the class rerun's; one cuFFT plan at each of
    the class step's call sites giving a transform the same bits at every
    index of its fixed batch and on every call; the loudness gate
-   (``csrc/loudness_gate.cu``) bitwise its plain version on the round's
-   rows and on silent, short and partial-length rows, each also alone; its
-   device ms, wrapper ms, plain ms and byte bound on the 16-row round and
-   one row, and its launches on the phase's paths and on file mode
-   (phases 4-5);
+   (``csrc/loudness_gate.cu``, a row's pieces over ceil(P / 8) CTAs)
+   bitwise its plain version on the round's rows and on silent, short and
+   partial-length rows, each also alone, and on pools of 64 rows at 8 kHz
+   and 6,004 Hz in rounds of 1, 3, 16, 17 and 64 rows, each row also
+   alone; its device ms, wrapper ms, plain ms and byte bound on the 16-row
+   round and one row, its CTAs a row, and its launches on the phase's
+   paths and on file mode (phases 4-5);
+   3e. the class step's device time split by stage
+   (``scripts/profile_stages_torch.py``: the K-weighting, the gate, the
+   normalisation, the segment spectra, each group's correlation, scan,
+   lean greedy and lean tail, beside the whole eager step) on file mode's
+   one-clip step, the flagship step and the 16-row flagship round;
 4. file mode through the port's CLI, in-process: the golden JSONL flows
    (.claude/skills/verify/SKILL.md), including the zero-detection checks;
 5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
@@ -282,6 +289,14 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.append(str(ROOT / "scripts"))
+
+from kernel_bounds import (  # noqa: E402  (the bounds the stage split shares)
+    HBM_BYTES_PER_S,
+    lean_greedy_bound,
+    scan_bound_ms,
+)
+
 AUDIO = ROOT / "sample_audios"
 CLIPS = AUDIO / "clips"
 KERNEL_SOURCE = "audio_pattern_detector_tpu_torch/csrc/candidate_scan.cu"
@@ -1138,23 +1153,6 @@ def share_above(corr, thr, valid_len) -> float:
     return float((valid >= thr[:, None]).sum()) / max(valid.numel(), 1)
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
-
-
-def scan_bound_ms(g: int, l: int, valid_len) -> float:
-    """The least time of one scan on the card: the bytes the function needs
-    (each row's valid samples and the thresholds read once, and the lengths
-    where they are per row; the block maxima and four (G,) stats written
-    once) over the memory rate. Its operations (a few compares a sample)
-    bound it far lower. ``valid_len`` is an int or a (G,) tensor."""
-    if isinstance(valid_len, int):
-        n_read = g * min(valid_len, l) * 4 + g * 4
-    else:
-        n_read = int(valid_len.clamp(0, l).sum()) * 4 + 2 * g * 4
-    n_written = g * -(-l // 512) * 4 + 4 * g * 4
-    return (n_read + n_written) / HBM_BYTES_PER_S * 1e3
-
-
 def tree_snapshot(path: Path) -> dict[str, tuple[int, int]]:
     """(size, mtime_ns) of every file under ``path``."""
     return {str(p.relative_to(path)): (p.stat().st_size, p.stat().st_mtime_ns)
@@ -1810,6 +1808,59 @@ def gate_edge_rows(s: int, sr: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return rows, lens
 
 
+GATE_WIDTHS = (1, 3, 16, 17, 64)  # rounds the gating kernel is held bitwise in
+GATE_POOL_ROWS = max(GATE_WIDTHS)
+GATE_DESIGN = ("a row's pieces over ceil(P / 8) CTAs of 256 threads, a warp a piece; the "
+               "row's last CTA (an atomic ticket after a fence) finishes blocks, gates and "
+               "the short form")
+
+
+def gate_pool(dev, sr: int, s: int, rows=None, lens=None):
+    """(consts, K-weighted rows, lengths) of :data:`GATE_POOL_ROWS` rows of
+    ``s`` samples at ``sr``: ``rows`` with ``lens`` where given, then
+    :func:`gate_edge_rows`, then seeded noise at levels from -66 to -14
+    dBFS, full length."""
+    import torch
+
+    from audio_pattern_detector_tpu_torch.ops.loudness import _k_weighted_conv, build_loudness_consts
+
+    consts = build_loudness_consts(s, sr, dev)
+    edges, edge_lens = gate_edge_rows(s, sr, seed=sr)
+    parts = ([] if rows is None else [np.stack(rows)]) + [edges]
+    all_lens = ([] if lens is None else [np.asarray(lens, np.int32)]) + [edge_lens]
+    rest = GATE_POOL_ROWS - sum(len(p) for p in parts)
+    rng = np.random.default_rng(sr + 1)
+    parts.append((rng.uniform(0.001, 0.2, (rest, 1)) * rng.standard_normal((rest, s))
+                  ).astype(np.float32))
+    all_lens.append(np.full(rest, s, np.int32))
+    x = torch.from_numpy(np.concatenate(parts)).to(dev)
+    return consts, _k_weighted_conv(x, consts), torch.from_numpy(np.concatenate(all_lens)).to(dev)
+
+
+def check_gate_widths(filtered, lens, consts, widths=GATE_WIDTHS) -> dict:
+    """The gating kernel on ``filtered`` rows in consecutive rounds of each
+    width: each round bitwise the plain version, each row bitwise the row
+    gated alone. Raises on a difference; returns the rounds a width."""
+    from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate, loudness_gate_reference
+
+    rows = filtered.shape[0]
+    alone = [loudness_gate(filtered[i : i + 1], lens[i : i + 1], consts)[0] for i in range(rows)]
+    rounds = {}
+    for w in widths:
+        rounds[w] = 0
+        for lo in range(0, rows, w):
+            x, n = filtered[lo : lo + w], lens[lo : lo + w]
+            got = loudness_gate(x, n, consts)
+            if not bitwise(got, loudness_gate_reference(x, n, consts)):
+                raise AssertionError(f"loudness_gate: a {w}-row round at row {lo} differs from "
+                                     "its plain version")
+            if not all(bitwise(got[i], alone[lo + i]) for i in range(x.shape[0])):
+                raise AssertionError(f"loudness_gate: a row of the {w}-row round at row {lo} "
+                                     "differs from the row alone")
+            rounds[w] += 1
+    return rounds
+
+
 def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict:
     """Phase 3d: a row's results do not depend on its round. On the flagship
     bank, 17 sections of 61 s (phase 7's four route sections, a half-length
@@ -1822,15 +1873,19 @@ def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int 
     the class step's row and the class rerun's; the cuFFT probe
     (:func:`fft_batch_probe`); ``csrc/loudness_gate.cu`` bitwise its plain
     version on the round's K-weighted rows and on :func:`gate_edge_rows`,
-    each row also alone. Times the kernel on the 16-row round (device ms
-    from a graph of calls, wrapper ms, plain ms, its byte bound). Returns
-    the gate's numbers for the kernels line."""
+    each row also alone; and on pools of 64 rows at 8 kHz and 6,004 Hz in
+    rounds of every width of :data:`GATE_WIDTHS`. Times the kernel on the
+    16-row round (device ms from a graph of calls, wrapper ms, plain ms, its
+    byte bound) and on one row, full and silent (its fixed cost: the
+    memset, the launch, the ticket and the short form). Returns the gate's
+    numbers for the kernels line."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import make_bank
     from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate, bank_correlate_abs
     from audio_pattern_detector_tpu_torch.ops.loudness import (
         _k_weighted_conv,
+        gate_ctas_per_row,
         integrated_loudness_device,
         loudness_gate,
         loudness_gate_reference,
@@ -1914,7 +1969,10 @@ def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int 
 
     probe = fft_batch_probe(dev, loud, groups[0].corr)
 
-    # The gating kernel against its plain version, bitwise.
+    # The gating kernel against its plain version, bitwise: the round's rows
+    # and the edge rows, then pools of 64 K-weighted rows at 8 kHz (the
+    # phase's rows, the edges, noise) and at 6,004 Hz (edges, noise) in
+    # rounds of every width of GATE_WIDTHS, each row also alone.
     gate_rows = 0
     edge_np, edge_lens = gate_edge_rows(s, bank.sample_rate, seed=5)
     edges = torch.from_numpy(edge_np).to(dev)
@@ -1935,10 +1993,19 @@ def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int 
     if not (math.isinf(edge_lufs[0]) and math.isinf(edge_lufs[1])
             and all(math.isfinite(v) for v in edge_lufs[2:])):
         raise AssertionError(f"loudness_gate on the edge rows: {edge_lufs}")
+    gate_widths = {}
+    for sr in (bank.sample_rate, 6004):
+        own = sr == bank.sample_rate  # the phase's own rows lead the pool
+        rate_loud, pool, pool_lens = gate_pool(dev, sr, s if own else 61 * sr,
+                                               rows if own else None, lens if own else None)
+        gate_widths[sr] = check_gate_widths(pool, pool_lens, rate_loud)
+        del pool
+    del edges
 
     filtered = _k_weighted_conv(round_rows, loud)
     n16 = lens_t[:ROUND_ROWS].contiguous()
     one, n1 = filtered[:1], n16[:1]
+    n0 = torch.zeros_like(n1)  # a silent row: no sample read, the short form
     torch.cuda.synchronize()
     timing = {
         "ms": graph_ms(lambda: loudness_gate(filtered, n16, loud)),
@@ -1946,25 +2013,49 @@ def phase_round_invariance(dev, smi: str, num_normal: int = 32, num_marker: int 
         "wrapper_ms": cuda_ms(lambda: loudness_gate(filtered, n16, loud), TIMED_RUNS),
         "one_row_ms": graph_ms(lambda: loudness_gate(one, n1, loud)),
         "one_row_plain_ms": graph_ms(lambda: loudness_gate_reference(one, n1, loud)),
+        "one_row_silent_ms": graph_ms(lambda: loudness_gate(one, n0, loud)),
     }
     valid = int(lens_t[:ROUND_ROWS].clamp(0, s).sum())
     bound_ms = (valid * 4 + ROUND_ROWS * 8) / HBM_BYTES_PER_S * 1e3
     one_bound_ms = (s * 4 + 8) / HBM_BYTES_PER_S * 1e3
+    ctas_per_row = gate_ctas_per_row(loud.piece_bounds.shape[0] - 1)
     loudness_gate.launches = path_launches  # measurement launches do not count
     phase("round_invariance", card=smi, clips=num_normal + num_marker, section_len=s,
           widths=list(INVARIANCE_WIDTHS), rows_compared=compared, graph_widths=graph_widths,
           schedules=["vmap eager", "vmap captured", "scan eager", "scan captured"],
           row_reruns_equal_class_step=reruns, cufft=probe, bitwise=True,
           loudness_gate_rows_bitwise=gate_rows, edge_row_lufs=edge_lufs,
+          loudness_gate_widths_bitwise=gate_widths,
           loudness_gate_launches=path_launches, **timing, bound_ms=bound_ms,
           share_of_bound=bound_ms / timing["ms"], one_row_bound_ms=one_bound_ms,
-          one_row_share_of_bound=one_bound_ms / timing["one_row_ms"])
-    del bank, sections, filtered, edges
+          one_row_share_of_bound=one_bound_ms / timing["one_row_ms"],
+          ctas_per_row=ctas_per_row)
+    del bank, sections, filtered
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches_by_path": {"round_invariance": path_launches}, "max_abs_err": 0.0,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "shape": [ROUND_ROWS, s], **timing}
+            "shape": [ROUND_ROWS, s], **timing, "one_row_bound_ms": one_bound_ms,
+            "ctas_per_row": ctas_per_row, "design": GATE_DESIGN}
+
+
+def phase_stage_split(dev, smi: str) -> list[dict]:
+    """Phase 3e: the class step's device time split by stage
+    (``scripts/profile_stages_torch.py``) on file mode's one-clip step, the
+    flagship step and the 16-row flagship round: each stage's device ms,
+    bound and share of the whole eager step, the stages' sum beside the
+    step. Raises where a stage or a step reads no device time. Its launches
+    are measurements: the main path's counts start again at phase 4."""
+    from profile_stages_torch import stage_split
+
+    records = stage_split(dev)
+    for record in records:
+        if not (record["step_device_ms"] > 0
+                and all(st["device_ms"] > 0 for st in record["stages"])):
+            raise AssertionError(f"stage split of {record['shape']}: a stage read no device "
+                                 "time")
+        phase("stage_split", card=smi, **record)
+    return records
 
 
 def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
@@ -3005,6 +3096,8 @@ def phase_multi_process(dev, smi: str, num_normal: int = 32, num_marker: int = 3
                         copy / "audio_pattern_detector_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+        (copy / "scripts").mkdir()
+        shutil.copy(ROOT / "scripts" / "kernel_bounds.py", copy / "scripts" / "kernel_bounds.py")
         (copy / "pyproject.toml").write_text("")  # builds go to the copy's build/
         (copy / "sample_audios").symlink_to(AUDIO)
         port = free_port()
@@ -4299,29 +4392,6 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def lean_greedy_bound(args, out) -> tuple[float, str, int]:
-    """(bound ms, what bounds it, windows read) of one lean greedy call: the
-    bytes this input needs (the block maxima, the normalisers and per-row
-    lengths read once; the windows of 516 samples its rounds read, three a
-    kept survivor and one a refused round; the outputs written once) over
-    the memory rate. Its operations (a few compares a window sample) are
-    below that."""
-    import torch
-
-    corr, valid_len, bmax, denom, _hm, _m, r_max = args
-    _pos, height, overflow = out
-    g = corr.shape[0]
-    kept = torch.isfinite(height).sum(dim=1)
-    refused = overflow & (kept < r_max)
-    windows = int(3 * kept.sum() + refused.sum())
-    nbytes = (bmax.numel() * 4 + g * 4 + (g * 4 if isinstance(valid_len, torch.Tensor) else 0)
-              + windows * WINDOW_BYTES + g * r_max * 12 + g)
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", windows
-
-
-WINDOW_BYTES = 516 * 4
-
-
 def lane_greedy_bound(pos, alive, m: int, keep) -> tuple[float, str, int]:
     """(bound ms, what bounds it, compares) of one lane greedy call: the
     larger of its bytes (positions and alive flags read once, the mask
@@ -5176,6 +5246,7 @@ def main(argv: "list[str] | None" = None) -> int:
     batched_rows = phase_scan_batched(dev, smi)
     round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
     gate_line = phase_round_invariance(dev, smi)
+    phase_stage_split(dev, smi)
     general_launches = phase_general_plateau(dev, smi, profile=args.profile)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──

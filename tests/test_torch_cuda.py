@@ -1406,34 +1406,82 @@ def test_verify_kernels_in_the_captured_verify_node(cuda, rows):
 # ── Rows that do not depend on their round ──
 
 
-@pytest.mark.parametrize("sr", [8000, 6004])
+@pytest.mark.parametrize("sr", [8000, 6004, 44100])
 def test_loudness_gate_kernel_equals_plain_version(cuda, sr):
-    """``csrc/loudness_gate.cu`` on K-weighted 61 s rows (four of noise and
-    chip_smoke's gating edges: silent, short, one block, partial blocks),
-    at 8 kHz and at a rate whose blocks end off the 100 ms grid: one launch,
-    the LUFS bitwise the plain version's on the card, each row alone
-    bitwise its round's."""
+    """``csrc/loudness_gate.cu`` on 64 K-weighted 61 s rows
+    (``chip_smoke.gate_pool``: the gating edges, silent, short, one block,
+    partial blocks, and noise) at 8 kHz, at a rate whose blocks end off the
+    100 ms grid (651 pieces of 5 chunks) and at 44.1 kHz (611 pieces of 35
+    chunks): a row's pieces over ceil(P / 8) CTAs. In rounds of 1, 3, 17
+    and 64 rows each launch's LUFS are bitwise the plain version's on the
+    card, and each row alone is bitwise its value in every round."""
+    from audio_pattern_detector_tpu_torch.ops import loudness as tl
+    from chip_smoke import check_gate_widths, gate_pool
+
+    consts, filtered, n = gate_pool(cuda, sr, 61 * sr)
+    assert tl.gate_ctas_per_row(consts.piece_bounds.shape[0] - 1) > 1
+    before = tl.loudness_gate.launches
+    rounds = check_gate_widths(filtered, n, consts, widths=(1, 3, 17, 64))
+    assert tl.loudness_gate.launches == before + 64 + sum(rounds.values())
+    assert rounds == {1: 64, 3: 22, 17: 4, 64: 1}
+    lufs = tl.loudness_gate(filtered, n, consts)
+    # The pool's first two rows are the edges' silent ones (length 0, and a
+    # full-length row of zeros).
+    assert bool(torch.isneginf(lufs[:2]).all()) and bool(torch.isfinite(lufs[2:]).all())
+
+
+@pytest.mark.parametrize("seconds,sr", [(0.5, 8000), (0.85, 8000), (420, 8000)])
+def test_loudness_gate_kernel_at_short_and_long_sections(cuda, seconds, sr):
+    """Sections of 6 pieces (one CTA a row, two of its warps idle), 9 pieces
+    (a second CTA with one piece) and 420 s (4,205 pieces over 526 CTAs a
+    row, the finisher's block loop several passes of its threads): bitwise
+    the plain version at lengths 0 to the whole section."""
     import numpy as np
 
     from audio_pattern_detector_tpu_torch.ops import loudness as tl
-    from chip_smoke import bitwise, gate_edge_rows
+    from chip_smoke import bitwise
 
-    s = 61 * sr
+    s = int(seconds * sr)
     consts = tl.build_loudness_consts(s, sr, cuda)
-    edges, lens = gate_edge_rows(s, sr, seed=sr)
-    rng = np.random.default_rng(3)
-    noise = (0.05 * rng.standard_normal((4, s))).astype(np.float32)
-    rows = torch.from_numpy(np.concatenate([noise, edges])).to(cuda)
-    n = torch.from_numpy(np.concatenate([np.full(4, s, np.int32), lens])).to(cuda)
+    rng = np.random.default_rng(s)
+    lens = np.array([0, 1, s // 3, s - 1, s, s, sr // 2 - 1, sr // 2], np.int32)
+    x = (0.05 * rng.standard_normal((len(lens), s))).astype(np.float32)
+    x[np.arange(s)[None, :] >= lens[:, None]] = 0.0
+    rows = torch.from_numpy(x).to(cuda)
     filtered = tl._k_weighted_conv(rows, consts)
-    before = tl.loudness_gate.launches
+    n = torch.from_numpy(lens).to(cuda)
     got = tl.loudness_gate(filtered, n, consts)
-    assert tl.loudness_gate.launches == before + 1
-    want = tl.loudness_gate_reference(filtered, n, consts)
-    assert bitwise(got, want), (got.tolist(), want.tolist())
-    for i in range(rows.shape[0]):
+    assert bitwise(got, tl.loudness_gate_reference(filtered, n, consts)), got.tolist()
+    for i in range(len(lens)):
         assert bitwise(tl.loudness_gate(filtered[i : i + 1], n[i : i + 1], consts)[0], got[i])
-    assert bitwise(tl.integrated_loudness_device(rows[0], s, consts), got[0])
+    # The single-section form (a 0-d result) takes the same launch.
+    assert bitwise(tl.integrated_loudness_device(rows[3], int(lens[3]), consts), got[3])
+
+
+@pytest.mark.parametrize("width", [1, 16])
+def test_loudness_gate_replays_give_the_eager_bits(cuda, width):
+    """The gate captured in a CUDA graph (the memset of its row tickets and
+    its launch), replayed twice: each replay's LUFS bitwise the eager
+    call's, so the tickets start clean on every replay."""
+    from audio_pattern_detector_tpu_torch.ops import loudness as tl
+    from chip_smoke import bitwise, gate_pool
+
+    consts, filtered, n = gate_pool(cuda, 8000, 61 * 8000)
+    filtered, n = filtered[-width:], n[-width:]  # noise rows
+    eager = tl.loudness_gate(filtered, n, consts)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tl.loudness_gate(filtered, n, consts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tl.loudness_gate(filtered, n, consts)
+    for _ in range(2):
+        out.fill_(0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bitwise(out, eager), (out.tolist(), eager.tolist())
 
 
 def test_fixed_batch_transforms_give_a_transform_the_same_bits(cuda):
