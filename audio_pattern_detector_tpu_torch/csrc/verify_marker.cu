@@ -80,9 +80,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fft_common.cuh"
 #include "live_lanes.cuh"
 
 namespace {
+
+using namespace apd_fft;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -167,46 +170,6 @@ __device__ ArgMax block_reduce(float (&v)[N], ArgMax a, float* red, ArgMax* red_
 
 __device__ float purity(float band_energy, float energy) {
   return energy > 0.0f ? __fdiv_rn(band_energy, fmaxf(energy, 1e-38f)) : 0.0f;
-}
-
-// ── Complex arithmetic, each operation rounded once ──
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
-                     __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
-}
-__device__ __forceinline__ float2 conjugate(float2 a) { return make_float2(a.x, -a.y); }
-
-// The R-point DFT of x into y: exact for R = 2 and 4, else
-// y_s = x_0 + sum_{r >= 1} x_r W[(r s mod R) step] in r order.
-template <int R>
-__device__ __forceinline__ void dft(const float2 (&x)[R], float2 (&y)[R],
-                                    const float2* __restrict__ W, int step) {
-  if constexpr (R == 2) {
-    y[0] = cadd(x[0], x[1]);
-    y[1] = csub(x[0], x[1]);
-  } else if constexpr (R == 4) {
-    const float2 t0 = cadd(x[0], x[2]), t1 = csub(x[0], x[2]);
-    const float2 t2 = cadd(x[1], x[3]), t3 = csub(x[1], x[3]);
-    y[0] = cadd(t0, t2);
-    y[2] = csub(t0, t2);
-    y[1] = make_float2(__fadd_rn(t1.x, t3.y), __fsub_rn(t1.y, t3.x));  // t1 - i t3
-    y[3] = make_float2(__fsub_rn(t1.x, t3.y), __fadd_rn(t1.y, t3.x));  // t1 + i t3
-  } else {
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      float2 acc = x[0];
-#pragma unroll
-      for (int r = 1; r < R; ++r) acc = cadd(acc, cmul(x[r], W[((r * s) % R) * step]));
-      y[s] = acc;
-    }
-  }
 }
 
 // One Stockham pass of radix R over `batch` transforms of L points.

@@ -89,6 +89,11 @@ _SIGNATURES = {
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         ctypes.c_int,
     ),
+    "apd_correlate_os": (
+        [_c_ptr, _c_i64, _c_int, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_i64, _c_ptr, _c_ptr,
+         _c_ptr],
+        ctypes.c_int,
+    ),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
     "apd_graph_if_end": ([_c_ptr], ctypes.c_int),
     "apd_graph_while_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),

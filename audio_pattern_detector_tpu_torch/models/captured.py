@@ -86,7 +86,8 @@ payloads) is captured once per key into a CUDA graph and replayed:
   the capture.
 * **Launch accounting**: a replay makes no Python call of the kernel
   wrappers, so each graph records how many launches of each kernel
-  (:data:`COUNTED`) its capture enqueued (the capture itself executes none
+  (:data:`KERNELS`), and how many calls of the correlation's cuFFT route,
+  its capture enqueued (:data:`COUNTED`; the capture itself executes none
   and adds none to a wrapper's ``launches``), and each replay adds those
   numbers. The lean tail's verifiers run inside its if-node bodies, which
   a replay runs or skips on the device: a replay adds only the launches outside bodies,
@@ -115,6 +116,8 @@ import torch
 import torch.nn.functional as F
 
 from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+from audio_pattern_detector_tpu_torch.ops.correlate import cufft_correlation
+from audio_pattern_detector_tpu_torch.ops.correlate_os import correlate_os
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
 from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
 from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
@@ -123,8 +126,11 @@ from audio_pattern_detector_tpu_torch.ops.packing import as_f32
 from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
 from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
 
-# The kernel wrappers whose ``launches`` a replay adds to.
-COUNTED = (candidate_scan, lane_greedy, lean_greedy, verify_normal, verify_marker, loudness_gate)
+# The kernel wrappers whose ``launches`` a replay adds to; and the
+# correlation's cuFFT route, whose ``launches`` counts calls, not kernels.
+KERNELS = (candidate_scan, lane_greedy, lean_greedy, verify_normal, verify_marker, loudness_gate,
+           correlate_os)
+COUNTED = KERNELS + (cufft_correlation,)
 
 
 class StepKey(NamedTuple):
@@ -347,7 +353,7 @@ class CapturedStep:
     def launches(self) -> int:
         """Kernel launches one replay makes outside conditional bodies,
         every kernel counted."""
-        return sum(self.kernel_launches.values())
+        return sum(self.kernel_launches[w] for w in KERNELS)
 
     def _recorded(self, body: Callable[[], Any]) -> Callable[[], None]:
         """``body`` adding the launches it makes when captured to a new

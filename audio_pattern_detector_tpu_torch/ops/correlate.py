@@ -5,11 +5,14 @@ conjugate bank spectra and inverse-transformed for the whole bank, in the
 'full' correlation ordering (index k = lag + m - 1). Overlap-save splits
 long sections into segments of ``fft_len`` shared by every group of a
 sliding-window class. Spectra are held as complex64 tensors. On a card the
-transforms run through cuFFT plans the port holds (``ops/cufft_plans.py``),
-which a captured graph can replay whatever torch's plan cache evicts, in
-calls of a fixed number of transforms (:data:`SEGMENT_FFT_POINTS`,
-:data:`CORRELATION_FFT_POINTS`), so that a row's correlation does not
-depend on the round it rides in or the number of clips beside it.
+section's transforms run through cuFFT plans the port holds
+(``ops/cufft_plans.py``), which a captured graph can replay whatever
+torch's plan cache evicts, in calls of a fixed number of transforms
+(:data:`SEGMENT_FFT_POINTS`, :data:`CORRELATION_FFT_POINTS`); the
+overlap-save branch's product, inverse transforms and ``abs`` are one
+kernel for the lengths it takes (``ops/correlate_os.py``), which computes
+each transform alone. So a row's correlation does not depend on the round
+it rides in or the number of clips beside it.
 """
 
 from __future__ import annotations
@@ -21,14 +24,15 @@ import torch
 import torch.nn.functional as F
 from numpy.typing import NDArray
 
+from audio_pattern_detector_tpu_torch.ops import correlate_os as correlate_os_mod
 from audio_pattern_detector_tpu_torch.ops.cufft_plans import irfft, rfft
 
 
 # Points a cuFFT call holds, whatever the round's width or the clips the
 # call carries: the section's segment spectra, 128 transforms of 32,768
-# points (at the flagship geometry 21 a row), and the correlation's inverse
-# transforms, 256 of them (21 a row and clip); scripts/probe_fft_batch.py
-# times the alternatives.
+# points (at the flagship geometry 21 a row), and the cuFFT route's inverse
+# transforms (cufft_correlation), 256 of them (21 a row and clip);
+# scripts/probe_fft_batch.py times the alternatives.
 SEGMENT_FFT_POINTS = 1 << 22
 CORRELATION_FFT_POINTS = 1 << 23
 
@@ -139,24 +143,49 @@ def _correlate_raw(
     seg_spec: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """|full cross-correlation|, unnormalised: (G, L) for a section (S,),
-    (B, G, L) for a batch (B, S)."""
+    (B, G, L) for a batch (B, S). The route, by shape and device alone: the
+    overlap-save branch takes ``ops/correlate_os.py::correlate_os`` (on a
+    card its kernel) on the CPU, and on a card at an fft_len the kernel
+    takes (``kernel_takes``: a power of two up to 32,768); the single-FFT
+    branch, and on a card a larger fft_len, take :func:`cufft_correlation`."""
+    n = consts.fft_len
+    if consts.num_segments > 1 and (not section.is_cuda or correlate_os_mod.kernel_takes(n)):
+        if seg_spec is None:
+            seg_spec = section_segment_spectra(section, consts)
+        return correlate_os_mod.correlate_os(
+            seg_spec, consts.bank_rfft_conj, n, consts.step or (n - consts.clip_len + 1),
+            consts.out_offset, consts.full_len)
+    return cufft_correlation(section, consts, seg_spec)
+
+
+def cufft_correlation(
+    section: torch.Tensor,
+    consts: CorrelationBankConsts,
+    seg_spec: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """:func:`_correlate_raw` through ``ops/cufft_plans.py``'s transforms:
+    the single-FFT branch, and the overlap-save branch's plain version
+    (``ops/correlate_os.py::correlate_os_reference``). On a card it is the
+    route the kernel leaves to cuFFT, and ``launches`` counts its calls
+    there, beside the kernel wrappers' counts (``models/captured.py`` adds
+    a replay's), so a run's counts show every class that left the kernel."""
+    if section.is_cuda:
+        cufft_correlation.launches += 1
     m, n, l = consts.clip_len, consts.fft_len, consts.full_len
     if consts.num_segments == 1:
         spec = rfft(section, n=n, points=SEGMENT_FFT_POINTS)
         z = irfft(spec[..., None, :] * consts.bank_rfft_conj, n=n,
                   points=CORRELATION_FFT_POINTS)
         return torch.roll(z, m - 1, dims=-1)[..., :l].abs()
-    step = consts.step or (n - m + 1)
-    ns = consts.num_segments
     if seg_spec is None:
         seg_spec = section_segment_spectra(section, consts)
-    y = irfft(
-        seg_spec[..., None, :, :] * consts.bank_rfft_conj[:, None, :], n=n,
-        points=CORRELATION_FFT_POINTS,
-    )  # (..., G, ns, N)
-    flat = y[..., :step].reshape(*y.shape[:-2], ns * step)
-    off = consts.out_offset
-    return flat[..., off : off + l].abs()
+    return correlate_os_mod.correlate_os_reference(
+        seg_spec, consts.bank_rfft_conj, n, consts.step or (n - m + 1), consts.out_offset, l)
+
+
+# Calls of the cuFFT route on a card (one per call, and for each replay of
+# a captured class step the calls its graph holds). CPU calls count nothing.
+cufft_correlation.launches = 0
 
 
 def bank_correlate(

@@ -59,6 +59,20 @@ card and checks them:
    normalisation, the segment spectra, each group's correlation, scan,
    lean greedy and lean tail, beside the whole eager step) on file mode's
    one-clip step, the flagship step and the 16-row flagship round;
+   3f. the correlation kernel (``correlate_kernel``,
+   ``csrc/correlate_os.cu``: the bank product, the inverse transforms in
+   shared memory and the kept samples' ``abs``) on the same three shapes'
+   own inputs, each group: sampled transforms bitwise its numpy
+   transliteration (``np_correlate_transforms``), the whole output within
+   1e-5 of each row's maximum of the plain version (the cuFFT route), on
+   sampled rows its error against the f64 correlation no more than twice
+   the cuFFT route's; in turns its device ms and the plain version's (a
+   graph of 20 calls), its wrapper ms, ``torch.fft.irfft`` over the same
+   products (the library call), bound and share; on the round a row
+   bitwise the same in rounds of 1, 5, 16 and 17 rows and a graph replay
+   bitwise the eager call; its launches on the captured flagship step and
+   round in both schedules and on file mode (phases 4-5), with no call of
+   the cuFFT route at the correlation site;
 4. file mode through the port's CLI, in-process: the golden JSONL flows
    (.claude/skills/verify/SKILL.md), including the zero-detection checks;
 5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
@@ -262,8 +276,8 @@ to DIR.
 Any mismatch raises, and the script exits non-zero. Without a CUDA card
 it exits 2 before printing any result. The last two lines of stdout are
 a JSON line of per-kernel numbers (the candidate scan, the lane greedy, the
-lean greedy, the two verifiers and the loudness gate) and the JSON status
-line.
+lean greedy, the two verifiers, the loudness gate and the correlation) and
+the JSON status line.
 """
 
 from __future__ import annotations
@@ -1073,6 +1087,55 @@ def np_marker_spectra(section, pos, consts):
         frames = np_rfft_magnitudes(stacked.reshape(-1, wl), real_plan(wl))
         frames = torch.from_numpy(frames.reshape(b, g, k, consts.frame_count, -1))
     return MarkerSpectra(torch.from_numpy(whole), True, frames, True)
+
+
+def np_correlate_transforms(seg, bank, n: int) -> np.ndarray:
+    """csrc/correlate_os.cu's arithmetic on T transforms in numpy: rows of
+    segment spectra and of conjugate clip spectra (T, n / 2 + 1) complex64,
+    pair by pair, give each transform's |y| / n (T, n) f32: the product
+    P = seg * bank, A[k] = (E.x + t.y, E.y - t.x) with u = conj P[k],
+    v = P[n/2 - k], E = u + v, t = w^k (u - v), the Stockham passes of
+    ``np_stockham`` on the plan's radices, then |y| * (1 / n) of the
+    result's floats."""
+    from audio_pattern_detector_tpu_torch.ops.correlate_os import correlation_radices
+    from audio_pattern_detector_tpu_torch.ops.marker_fft import RealPlan, plan_tables
+
+    f32 = np.float32
+    h = n // 2
+    radices = correlation_radices(h)
+    tables = plan_tables(RealPlan(n, True, h, 0, radices))
+    seg, bank = np.asarray(seg, np.complex64), np.asarray(bank, np.complex64)
+    pr, pi_ = _np_cmul(seg.real, seg.imag, bank.real, bank.imag)
+    k = np.arange(h)
+    ur, ui = pr[:, k], -pi_[:, k]
+    vr, vi = pr[:, h - k], pi_[:, h - k]
+    er, ei = ur + vr, ui + vi
+    post = tables["post"]
+    tr, ti = _np_cmul(post[0::2][k], post[1::2][k], ur - vr, ui - vi)
+    re, im = np_stockham((er + ti).astype(f32), (ei - tr).astype(f32), radices,
+                         tables["twiddles"])
+    y = np.stack([re, im], axis=-1).reshape(len(seg), n)
+    return (np.abs(y) * f32(1.0 / n)).astype(f32)
+
+
+def np_correlate_os(seg_spec, bank_conj, n: int, step: int, off: int,
+                    full_len: int) -> np.ndarray:
+    """The kernel's output in numpy (``ops/correlate_os.py::correlate_os``):
+    segment spectra (B, ns, n / 2 + 1) (or (ns, ...)) against a group's
+    (G, n / 2 + 1) give (B, G, L) (or (G, L)) f32, each transform by
+    :func:`np_correlate_transforms` and its first ``step`` samples laid end
+    to end from ``off``."""
+    seg = np.asarray(seg_spec)
+    single = seg.ndim == 2
+    seg = seg[None] if single else seg
+    bank = np.asarray(bank_conj)
+    b, ns, bins = seg.shape
+    g = bank.shape[0]
+    pairs_seg = np.broadcast_to(seg[:, None], (b, g, ns, bins)).reshape(-1, bins)
+    pairs_bank = np.broadcast_to(bank[None, :, None], (b, g, ns, bins)).reshape(-1, bins)
+    y = np_correlate_transforms(pairs_seg, pairs_bank, n).reshape(b, g, ns, n)
+    out = y[..., :step].reshape(b, g, ns * step)[..., off : off + full_len]
+    return out[0] if single else out
 
 
 def check_scan_edges(dev, shapes) -> int:
@@ -2056,6 +2119,237 @@ def phase_stage_split(dev, smi: str) -> list[dict]:
                                  "time")
         phase("stage_split", card=smi, **record)
     return records
+
+
+CORRELATE_SOURCE = "audio_pattern_detector_tpu_torch/csrc/correlate_os.cu"
+CORRELATE_REPLACES = "audio_pattern_detector_tpu/ops/correlate.py:159"
+CORRELATE_SHAPES = ("one_clip_file_mode", "flagship_step", "flagship_round")
+CORRELATE_WIDTHS = (1, 5, 16, 17)  # rounds a row's |correlation| is held bitwise in
+CORRELATE_PICKS = 6  # transforms a group held bitwise to the transliteration
+CORRELATE_RTOL = 1e-5  # of a row's largest |correlation|: the kernel against the cuFFT route
+CORRELATE_DESIGN = ("a CTA a transform (b, g, s): the product formed as the spectra load, the "
+                    "Hermitian half spectrum folded into an N/2-point complex spectrum, "
+                    "in-place Stockham passes in shared memory (128 KB at N = 32,768), only the "
+                    "kept samples' magnitudes written")
+
+
+def correlate_picks(b: int, g: int, ns: int, count: int, seed: int) -> list[tuple[int, int, int]]:
+    """``count`` transforms (b, g, s) of a (B, G, ns) launch: the first, the
+    last and seeded others."""
+    rng = np.random.default_rng(seed)
+    picks = {(0, 0, 0), (b - 1, g - 1, ns - 1)}
+    while len(picks) < min(count, b * g * ns):
+        picks.add((int(rng.integers(b)), int(rng.integers(g)), int(rng.integers(ns))))
+    return sorted(picks)
+
+
+def check_correlate_transforms(out, seg, bank, n: int, step: int, off: int, full_len: int,
+                               picks) -> int:
+    """The kept samples of each picked transform (b, g, s) in the kernel's
+    output ``out`` (B, G, L), bitwise :func:`np_correlate_transforms` of the
+    same spectra ``seg`` (B, ns, n / 2 + 1) and ``bank`` (G, n / 2 + 1).
+    Raises on a difference; returns the samples compared."""
+    seg_np, bank_np = seg.cpu().numpy(), bank.cpu().numpy()
+    y = np_correlate_transforms(np.stack([seg_np[b, s] for b, _, s in picks]),
+                                np.stack([bank_np[g] for _, g, _ in picks]), n)
+    compared = 0
+    for i, (b, g, s) in enumerate(picks):
+        lo = s * step - off
+        t_lo, t_hi = max(0, -lo), min(step, full_len - lo)
+        if t_hi <= t_lo:
+            continue
+        got = out[b, g, lo + t_lo : lo + t_hi].cpu().numpy()
+        want = y[i, t_lo:t_hi]
+        differ = np.flatnonzero(got.view(np.int32) != want.view(np.int32))
+        if differ.size:
+            t = t_lo + differ[0]
+            raise AssertionError(f"correlate_os: transform (b {b}, g {g}, s {s}) differs from "
+                                 f"its transliteration at {differ.size} samples, first t = {t}: "
+                                 f"{got[differ[0]]!r} against {want[differ[0]]!r}")
+        compared += t_hi - t_lo
+    return compared
+
+
+def correlate_bound(b: int, g: int, ns: int, n: int, full_len: int) -> tuple[float, str]:
+    """(ms, what bounds it) of one correlation call on the card: the bytes
+    it must move (the segment spectra and the group's spectra read once, the
+    (B, G, L) f32 output written once) over the memory rate, or its
+    transforms' 2.5 N log2 N operations each over the f32 rate, whichever
+    is larger."""
+    bins = n // 2 + 1
+    bytes_ms = (b * ns * bins * 8 + g * bins * 8 + b * g * full_len * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = b * g * ns * 2.5 * n * math.log2(n) / PEAK_SCALAR_OPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_correlate_kernel(dev, smi: str) -> dict:
+    """Phase 3f (``correlate_kernel``): ``csrc/correlate_os.cu`` on the
+    inputs the class step gives it, on file mode's one-clip step, the
+    flagship step and the 16-row flagship round (``scripts/
+    profile_stages_torch.py``'s shapes), each group: sampled transforms
+    bitwise :func:`np_correlate_transforms`; the whole output within
+    :data:`CORRELATE_RTOL` of each row's largest value of the plain version
+    (the cuFFT route); on sampled rows, each route's largest error against
+    the exact correlation (numpy's f64 transforms of the same spectra), the
+    kernel's no more than twice the cuFFT route's; in turns (kernel, plain,
+    plain, kernel) the kernel's and the plain version's device ms (a graph
+    of 20 calls), the wrapper's ms, ``torch.fft.irfft`` over the same
+    products (the library call), the bound and the share of it. On the
+    round, a row's output bitwise the same in rounds of 1, 5, 16 and 17
+    rows, and a graph replay bitwise the eager call. Then the launches on
+    the flagship step and round (captured, both schedules), counted from 0
+    around each, with no call of the cuFFT route
+    (``ops/correlate.py::cufft_correlation``). Returns the kernels line's
+    entry."""
+    import torch
+
+    from profile_stages_torch import shape_inputs
+
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round, flagship_step
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+    from audio_pattern_detector_tpu_torch.ops.correlate import (
+        cufft_correlation,
+        section_segment_spectra,
+    )
+    from audio_pattern_detector_tpu_torch.ops.loudness import (
+        integrated_loudness_device,
+        loudness_normalize_device,
+    )
+
+    counted_before = tos.correlate_os.launches
+    records, max_abs_err, compared = [], 0.0, 0
+    for name in CORRELATE_SHAPES:
+        bank, sw, sections, lens = shape_inputs(name, dev)
+        cls = bank.classes[sw]
+        norm = loudness_normalize_device(
+            sections, integrated_loudness_device(sections, lens, cls["loud"]))
+        for gi, grp in enumerate(cls["groups"]):
+            c = grp.corr
+            seg = section_segment_spectra(norm, c)
+            n, step = c.fft_len, c.step or c.fft_len - c.clip_len + 1
+            args = (seg, c.bank_rfft_conj, n, step, c.out_offset, c.full_len)
+            if not tos.kernel_takes(n):
+                raise AssertionError(f"correlate_os: {name} group {gi} (fft_len {n}) does not "
+                                     "take the kernel")
+            b, ns = seg.shape[:2]
+            g = c.bank_rfft_conj.shape[0]
+            out = tos.correlate_os(*args)
+            plain = tos.correlate_os_reference(*args)
+            torch.cuda.synchronize()
+            compared += check_correlate_transforms(out, seg, c.bank_rfft_conj, *args[2:],
+                                                   correlate_picks(b, g, ns, CORRELATE_PICKS,
+                                                                   seed=gi))
+            diff = (out - plain).abs()
+            abs_err = float(diff.max())
+            rel_err = float((diff / plain.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+            if not rel_err <= CORRELATE_RTOL:
+                raise AssertionError(f"correlate_os: {name} group {gi} lies {rel_err} of a row's "
+                                     f"maximum from the cuFFT route (limit {CORRELATE_RTOL})")
+            max_abs_err = max(max_abs_err, abs_err)
+            del diff
+            # Against the exact correlation on sampled rows: f64 transforms
+            # of the same spectra.
+            seg64 = seg.cpu().numpy().astype(np.complex128)
+            bank64 = c.bank_rfft_conj.cpu().numpy().astype(np.complex128)
+            errs = {"kernel": 0.0, "cufft": 0.0}
+            for rb in sorted({0, b - 1}):
+                for rg in sorted({0, g // 2, g - 1}):
+                    y = np.abs(np.fft.irfft(seg64[rb] * bank64[rg], n=n)[:, :step]).reshape(-1)
+                    exact = y[c.out_offset : c.out_offset + c.full_len]
+                    top = exact.max()
+                    for key, got in (("kernel", out), ("cufft", plain)):
+                        row = got[rb, rg].cpu().numpy().astype(np.float64)
+                        errs[key] = max(errs[key], float(np.abs(row - exact).max() / top))
+            if not errs["kernel"] <= 2 * errs["cufft"]:
+                raise AssertionError(f"correlate_os: {name} group {gi} errs {errs['kernel']} of a "
+                                     f"row's maximum against f64, over twice the cuFFT route's "
+                                     f"{errs['cufft']}")
+            if name == "flagship_round":
+                for w in CORRELATE_WIDTHS:
+                    rows = [i % b for i in range(w)]
+                    got = tos.correlate_os(seg[rows].contiguous(), *args[1:])
+                    if not all(bitwise(got[i], out[r]) for i, r in enumerate(rows)):
+                        raise AssertionError(f"correlate_os: a row of a {w}-row round differs "
+                                             "from the 16-row round's")
+                    del got
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    replayed = tos.correlate_os(*args)
+                for _ in range(2):
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    if not bitwise(replayed, out):
+                        raise AssertionError("correlate_os: a graph replay differs from the "
+                                             "eager call")
+                del graph, replayed
+            del out, plain
+            prod = seg[..., None, :, :] * c.bank_rfft_conj[:, None, :]
+            turns = {"kernel": [], "plain": []}
+            for which in ("kernel", "plain", "plain", "kernel"):
+                fn = tos.correlate_os if which == "kernel" else tos.correlate_os_reference
+                turns[which].append(graph_ms(lambda fn=fn: fn(*args)))
+            timing = {"ms": float(np.median(turns["kernel"])),
+                      "plain_ms": float(np.median(turns["plain"])),
+                      "kernel_turns_ms": turns["kernel"], "plain_turns_ms": turns["plain"],
+                      "wrapper_ms": cuda_ms(lambda: tos.correlate_os(*args), TIMED_RUNS),
+                      "library_ms": cuda_ms(lambda: torch.fft.irfft(prod, n=n), 10)}
+            del prod
+            bound_ms, bound_by = correlate_bound(b, g, ns, n, c.full_len)
+            ctas, threads, smem = tos.launch_geometry(b, g, ns, n)
+            record = {"shape": name, "group": gi, "rows": b, "clips": g, "segments": ns,
+                      "fft_len": n, "step": step, "out_offset": c.out_offset,
+                      "full_len": c.full_len, "ctas": ctas, "threads": threads,
+                      "shared_bytes": smem, "radices": list(tos.correlation_plan(n, dev).radices),
+                      "max_abs_err": abs_err, "max_rel_err_vs_cufft": rel_err,
+                      "rel_err_vs_f64": errs["kernel"], "cufft_rel_err_vs_f64": errs["cufft"],
+                      **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / timing["ms"]}
+            phase("correlate_kernel", card=smi, **record)
+            records.append(record)
+            torch.cuda.synchronize()
+        del bank, sections, lens, norm, seg, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The main path's launches: every group of a flagship step and of a
+    # 16-row round, captured, takes the kernel and never the cuFFT route.
+    tos.correlate_os.launches = counted_before
+    launches, cufft_calls = {}, {}
+    step, bank = flagship_step(dev)
+    tos.correlate_os.launches = cufft_correlation.launches = 0
+    for _ in range(2):
+        step()
+    launches["flagship_step"] = tos.correlate_os.launches
+    cufft_calls["flagship_step"] = cufft_correlation.launches
+    del step, bank
+    round_step, bank, _ = flagship_round(dev)
+    for mode in ("vmap", "scan"):
+        tos.correlate_os.launches = cufft_correlation.launches = 0
+        for _ in range(2):
+            round_step(mode)
+        launches[f"flagship_round_{mode}"] = tos.correlate_os.launches
+        cufft_calls[f"flagship_round_{mode}"] = cufft_correlation.launches
+    torch.cuda.synchronize()
+    del round_step, bank
+    want = {"flagship_step": 2 * 2, "flagship_round_vmap": 2 * 2, "flagship_round_scan": 2 * 32}
+    if any(cufft_calls.values()) or any(launches[k] < v for k, v in want.items()):
+        raise AssertionError(f"correlate_os on the flagship paths: launches {launches} (want at "
+                             f"least {want}), calls of the cuFFT route {cufft_calls}")
+    phase("correlate_kernel_launches", card=smi, launches_by_path=launches,
+          cufft_route_calls_by_path=cufft_calls, transliteration_samples_bitwise=compared,
+          widths_bitwise=list(CORRELATE_WIDTHS), replay_bitwise=True, design=CORRELATE_DESIGN)
+    tos.correlate_os.launches = cufft_correlation.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    main = next(r for r in records if r["shape"] == "flagship_step")
+    return {"launches_by_path": launches, "cufft_route_calls_by_path": cufft_calls,
+            "max_abs_err": max_abs_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "wrapper_ms": main["wrapper_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shapes": [{k: r[k] for k in ("shape", "group", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "share_of_bound")} for r in records],
+            "design": CORRELATE_DESIGN}
 
 
 def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
@@ -5128,6 +5422,8 @@ def main(argv: "list[str] | None" = None) -> int:
         candidate_scan,
         candidate_scan_reference,
     )
+    from audio_pattern_detector_tpu_torch.ops.correlate import cufft_correlation
+    from audio_pattern_detector_tpu_torch.ops.correlate_os import correlate_os
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
     from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
@@ -5247,6 +5543,7 @@ def main(argv: "list[str] | None" = None) -> int:
     round_launches, round_kernel_rows = phase_flagship_round(dev, smi)
     gate_line = phase_round_invariance(dev, smi)
     phase_stage_split(dev, smi)
+    correlate_line = phase_correlate_kernel(dev, smi)
     general_launches = phase_general_plateau(dev, smi, profile=args.profile)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──
@@ -5261,6 +5558,7 @@ def main(argv: "list[str] | None" = None) -> int:
     cli.TorchEngineOptions.build_detector = recording_build
     candidate_scan.launches = lean_greedy.launches = lane_greedy.launches = 0
     verify_normal.launches = verify_marker.launches = loudness_gate.launches = 0
+    correlate_os.launches = cufft_correlation.launches = 0
     # The verifiers' launches of the golden flows and the batched run.
     file_mode_verify = contextlib.ExitStack()
     file_mode_verify.enter_context(
@@ -5294,6 +5592,9 @@ def main(argv: "list[str] | None" = None) -> int:
         main_path_greedy = {"lean_greedy": lean_greedy.launches,
                             "lane_greedy": lane_greedy.launches}
         gate_line["launches_by_path"]["file_mode"] = loudness_gate.launches
+        correlate_line["launches_by_path"]["file_mode"] = correlate_os.launches
+        file_mode_cufft = correlate_line["cufft_route_calls_by_path"]["file_mode"] = (
+            cufft_correlation.launches)
         GREEDY_PATH_LAUNCHES["lean_greedy"]["file_mode"] = lean_greedy.launches
         file_mode_verify.close()
         batched_launches = main_path_launches - golden_launches
@@ -5337,10 +5638,20 @@ def main(argv: "list[str] | None" = None) -> int:
         # The loudness gate runs once in every class step.
         if gate_line["launches_by_path"]["file_mode"] < 1:
             raise AssertionError("the loudness gate launched no time on the main path")
+        # The correlation kernel runs in every group step, beside the scan,
+        # and the cuFFT route at no correlation site.
+        if (correlate_line["launches_by_path"]["file_mode"] < main_path_launches
+                or file_mode_cufft):
+            raise AssertionError(
+                f"correlation on the main path: {correlate_line['launches_by_path']['file_mode']} "
+                f"kernel launches for {main_path_launches} group steps, {file_mode_cufft} "
+                "calls of the cuFFT route")
         host_rows = sum(d._bank.host_path_rows for d in built if d._bank is not None)
         phase("kernel_use", candidate_scan_launches=main_path_launches,
               greedy_launches=main_path_greedy,
               loudness_gate_launches=gate_line["launches_by_path"]["file_mode"],
+              correlate_os_launches=correlate_line["launches_by_path"]["file_mode"],
+              correlation_cufft_route_calls=file_mode_cufft,
               golden_launches=golden_launches, batched_launches=batched_launches,
               host_path_rows=host_rows, detectors=len(built))
 
@@ -5456,7 +5767,13 @@ def main(argv: "list[str] | None" = None) -> int:
           for name in ("verify_normal", "verify_marker")),
         {"name": "loudness_gate", "route": "cuda", "source": LOUDNESS_GATE_SOURCE,
          "replaces": LOUDNESS_GATE_REPLACES,
-         "launches": sum(gate_line["launches_by_path"].values()), **gate_line}]}), flush=True)
+         "launches": sum(gate_line["launches_by_path"].values()), **gate_line},
+        {"name": "correlate_os", "route": "cuda", "source": CORRELATE_SOURCE,
+         "replaces": CORRELATE_REPLACES,
+         "launches": sum(correlate_line["launches_by_path"].values()),
+         "cufft_route_calls": sum(correlate_line["cufft_route_calls_by_path"].values()),
+         **correlate_line}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

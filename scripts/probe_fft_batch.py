@@ -15,8 +15,11 @@ graph of 4 calls (``chip_smoke.graph_ms``):
 * the K-weighting (rfft, product, irfft of 40 segments of 16,384 points
   a row);
 * the segment spectra (rfft of 21 segments of 32,768 points a row);
-* the correlation's inverse transforms of one group (32 clips x 21
-  segments a row) and of the row rerun's one clip.
+* the correlation's cuFFT route (``ops/correlate.py::cufft_correlation``:
+  product, inverse transforms, slice and ``abs``) of one group (32 clips x
+  21 segments a row) and of the row rerun's one clip: on a card the class
+  step runs its kernel for these lengths, and the cuFFT route only past
+  32,768 points and in the single-FFT branch.
 
 Runs chip_smoke's cuFFT probe first (each site's plan gives a transform
 the same bits at every index of its batch). Prints the card's name and
@@ -76,14 +79,15 @@ def main() -> int:
         (0.05 * rng.standard_normal((max(args.rows), s))).astype(np.float32)).to(dev)
     defaults = {"loudness": loudness.FFT_POINTS, "segment": correlate.SEGMENT_FFT_POINTS,
                 "correlation": correlate.CORRELATION_FFT_POINTS}
+
     for rows in args.rows:
         x = sections[:rows]
         spec = correlate.section_segment_spectra(x, group.corr)
         sites = {
             "loudness": lambda: loudness._k_weighted_conv(x, loud),
             "segment": lambda: correlate.section_segment_spectra(x, group.corr),
-            "correlation": lambda: correlate._correlate_raw(x, group.corr, spec),
-            "correlation_row_rerun": lambda: correlate._correlate_raw(x, row_consts, spec),
+            "correlation": lambda: correlate.cufft_correlation(x, group.corr, spec),
+            "correlation_row_rerun": lambda: correlate.cufft_correlation(x, row_consts, spec),
         }
         for site, fn in sites.items():
             key = site.split("_")[0]

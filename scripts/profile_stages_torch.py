@@ -207,7 +207,7 @@ def split_step(bank, sw: int, section, n_valid, timer) -> dict:
     return {"stages": stages, "step_ms": step_ms}
 
 
-def _shape_inputs(name: str, device, smoke: bool):
+def shape_inputs(name: str, device, smoke: bool = False):
     """(bank, sw, sections (B, S), lengths (B,)) of one shape."""
     import torch
 
@@ -246,7 +246,7 @@ def stage_split(device, shapes=SHAPES, smoke: bool = False) -> list[dict]:
     key = "device_ms" if device.type == "cuda" else "cpu_ms"
     out = []
     for name in shapes:
-        bank, sw, sections, lens = _shape_inputs(name, device, smoke)
+        bank, sw, sections, lens = shape_inputs(name, device, smoke)
         split = split_step(bank, sw, sections, lens, timer)
         step_ms = split["step_ms"]
         stages = [{"stage": stage, key: ms, "bound_ms": bound, "bound_by": by,

@@ -185,11 +185,11 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
 
 def test_build_key_follows_sources_and_flags():
     sources = _build._sources()
-    # The header the marker kernel includes is hashed too: editing it builds anew.
+    # The headers the kernels include are hashed too: editing one builds anew.
     assert [s.name for s in sources] == [
-        "candidate_scan.cu", "cufft_plans.cu", "graph_conditional.cu", "lane_greedy.cu",
-        "lean_greedy.cu", "loudness_gate.cu", "verify_marker.cu", "verify_normal.cu",
-        "live_lanes.cuh"]
+        "candidate_scan.cu", "correlate_os.cu", "cufft_plans.cu", "graph_conditional.cu",
+        "lane_greedy.cu", "lean_greedy.cu", "loudness_gate.cu", "verify_marker.cu",
+        "verify_normal.cu", "fft_common.cuh", "live_lanes.cuh"]
     key = _build._digest(sources)
     assert key == _build._digest(sources) and len(key) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

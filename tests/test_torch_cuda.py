@@ -31,6 +31,7 @@ from chip_smoke import (
     VERIFY_NORMAL_CASES,
     WIDE_ROWS,
     batched_scan_input,
+    bitwise,
     check_scan_edges,
     check_scan_equal,
     edge_shapes,
@@ -704,10 +705,12 @@ def _bitwise(a, b):
 def test_captured_flagship_step_equals_eager(cuda):
     """The flagship step (one section, each group's payload) as a replay of
     its one-row graph: bitwise the eager step's; the first use counts its
-    eager run's launches, each replay its graph's five (the loudness gate,
-    and the scan and the lean greedy a group each)."""
+    eager run's launches, each replay its graph's seven (the loudness gate,
+    and the correlation, the scan and the lean greedy a group each)."""
     from audio_pattern_detector_tpu_torch.flagship import flagship_step
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
+    from audio_pattern_detector_tpu_torch.ops.correlate import cufft_correlation
+    from audio_pattern_detector_tpu_torch.ops.correlate_os import correlate_os
     from audio_pattern_detector_tpu_torch.ops.lane_greedy import lane_greedy
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
     from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
@@ -723,12 +726,13 @@ def test_captured_flagship_step_equals_eager(cuda):
     assert all(_bitwise(g, eager) for g in got)
     (captured,) = bank.graphs.steps()
     assert (captured.key.rows, captured.key.fused, captured.launches, captured.replays) == (
-        1, False, 5, 2)
+        1, False, 7, 2)
     # The verifiers launch inside each group's conditional body, which a
     # replay runs where the group has a live lane: counted from the payload
     # (chip_smoke.counted_verify_launches), not by a replay.
     assert captured.kernel_launches == {candidate_scan: 2, lane_greedy: 0, lean_greedy: 2,
-                                        verify_normal: 0, verify_marker: 0, loudness_gate: 1}
+                                        verify_normal: 0, verify_marker: 0, loudness_gate: 1,
+                                        correlate_os: 2, cufft_correlation: 0}
     assert sorted(len(b) for b in captured.body_launches) == [1, 1]
     assert {w: n for b in captured.body_launches for w, n in b.items()} == {
         verify_normal: 1, verify_marker: 1}
@@ -1500,3 +1504,140 @@ def test_fixed_batch_transforms_give_a_transform_the_same_bits(cuda):
                                      tc.class_overlap_save_geometry(s, [8000, 2000]))
     sites = fft_batch_probe(cuda, tl.build_loudness_consts(s, 8000, cuda), corr)
     assert set(sites) == {"loudness_rfft", "loudness_irfft", "segment_rfft", "correlation_irfft"}
+
+
+def _correlate_inputs(device, rows: int, m: int, m_max=None, clips: int = 3, seed: int = 0):
+    """A group's correlation constants at the class geometry of clips of
+    ``m`` samples beside a longest of ``m_max`` (its own geometry where
+    None) on 61 s sections at 8 kHz, and ``rows`` seeded sections' segment
+    spectra (rows, ns, fft_len / 2 + 1), on ``device``."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.ops import correlate as tc
+
+    s = 61 * 8000
+    rng = np.random.default_rng(seed)
+    clip = rng.standard_normal((clips, m)).astype(np.float32)
+    geom = tc.class_overlap_save_geometry(s, [m_max or m, m])
+    c = tc.build_correlation_bank(clip, np.ones(clips), s, device, shared_geometry=geom)
+    sections = torch.from_numpy((0.05 * rng.standard_normal((rows, s))).astype(np.float32))
+    return c, tc.section_segment_spectra(sections.to(device), c)
+
+
+def _correlate_args(c, seg) -> tuple:
+    return (seg, c.bank_rfft_conj, c.fft_len, c.step or c.fft_len - c.clip_len + 1,
+            c.out_offset, c.full_len)
+
+
+@pytest.mark.parametrize("m,m_max", [(8000, None), (700, 8000), (2000, None), (700, 2000)])
+def test_correlate_kernel_bitwise_equals_its_transliteration(cuda, m, m_max):
+    """``csrc/correlate_os.cu`` at fft_len 32,768 and 8,192, out_offset 0
+    and past it: 12 sampled transforms of 2 rows against 3 clips bitwise
+    chip_smoke.np_correlate_transforms, one launch counted."""
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+    from chip_smoke import check_correlate_transforms, correlate_picks
+
+    c, seg = _correlate_inputs(cuda, 2, m, m_max, seed=m)
+    args = _correlate_args(c, seg)
+    before = tos.correlate_os.launches
+    out = tos.correlate_os(*args)
+    torch.cuda.synchronize()
+    assert tos.correlate_os.launches == before + 1
+    assert out.shape == (2, 3, c.full_len) and out.dtype == torch.float32
+    b, ns = seg.shape[:2]
+    picks = correlate_picks(b, 3, ns, 12, seed=m)
+    assert check_correlate_transforms(out, seg, c.bank_rfft_conj, *args[2:], picks) > 0
+
+
+@pytest.fixture(scope="module")
+def flagship_correlation():
+    """The flagship bank's groups and the 16-row round's normalised sections'
+    segment spectra (flagship.flagship_round's sections), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the port's kernels have no CPU mode)")
+    from audio_pattern_detector_tpu_torch.flagship import flagship_round
+    from audio_pattern_detector_tpu_torch.ops.correlate import section_segment_spectra
+    from audio_pattern_detector_tpu_torch.ops.loudness import (
+        integrated_loudness_device,
+        loudness_normalize_device,
+    )
+
+    _, bank, sections = flagship_round(torch.device("cuda"))
+    cls = bank.classes[sorted(bank.classes)[0]]
+    lens = torch.full((sections.shape[0],), sections.shape[1], dtype=torch.int32,
+                      device=sections.device)
+    norm = loudness_normalize_device(sections, integrated_loudness_device(sections, lens,
+                                                                          cls["loud"]))
+    groups = [g.corr for g in cls["groups"]]
+    return groups, section_segment_spectra(norm, groups[0])
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+def test_correlate_kernel_within_tolerance_of_the_cufft_route(cuda, flagship_correlation, rows):
+    """The flagship step's (1 row) and the 16-row round's correlations of
+    both groups: the kernel within chip_smoke.CORRELATE_RTOL of each row's
+    largest value of the plain version (the cuFFT route)."""
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+    from chip_smoke import CORRELATE_RTOL
+
+    groups, seg = flagship_correlation
+    for c in groups:
+        args = _correlate_args(c, seg[:rows])
+        got, want = tos.correlate_os(*args), tos.correlate_os_reference(*args)
+        rel = ((got - want).abs() / want.amax(dim=-1, keepdim=True)).max().item()
+        assert got.shape == (rows, c.bank_rfft_conj.shape[0], c.full_len)
+        assert rel <= CORRELATE_RTOL, rel
+
+
+def test_correlate_kernel_rows_are_the_same_at_widths_1_5_16_17(cuda, flagship_correlation):
+    """A row's |correlation| bitwise the same in rounds of 1, 5, 16 and 17
+    rows (17 = the 16 and row 0 again), against the 16-row round's."""
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+
+    groups, seg = flagship_correlation
+    for c in groups:
+        args = _correlate_args(c, seg)
+        ref = tos.correlate_os(*args)
+        for w in (1, 5, 16, 17):
+            rows = [i % seg.shape[0] for i in range(w)]
+            got = tos.correlate_os(seg[rows].contiguous(), *args[1:])
+            assert all(bitwise(got[i], ref[r]) for i, r in enumerate(rows)), w
+
+
+def test_correlate_kernel_replays_give_the_eager_bits(cuda, flagship_correlation):
+    """A graph of one call on the 16-row round's inputs, replayed twice:
+    bitwise the eager call; the plan's tables kept past the cache."""
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+
+    groups, seg = flagship_correlation
+    args = _correlate_args(groups[0], seg)
+    eager = tos.correlate_os(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tos.correlate_os(*args)
+    assert (args[2], seg.device) in tos._CAPTURED_PLANS
+    tos._cached.cache_clear()
+    for _ in range(2):
+        out.fill_(0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bitwise(out, eager)
+
+
+def test_correlate_takes_the_cufft_route_past_32768_points(cuda):
+    """A 29,488-sample clip's geometry (fft_len 131,072) takes the cuFFT
+    route on the card (``ops/correlate.py::cufft_correlation``): no launch,
+    the plain version's bits, one call counted; the wrapper refuses it."""
+    from audio_pattern_detector_tpu_torch.ops import correlate as tc
+    from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+
+    c, seg = _correlate_inputs(cuda, 2, 29_488, clips=2)
+    assert c.fft_len == 131_072 and not tos.kernel_takes(c.fft_len)
+    args = _correlate_args(c, seg)
+    section = torch.zeros((2, 61 * 8000), device=cuda)  # its spectra are seg
+    before, calls = tos.correlate_os.launches, tc.cufft_correlation.launches
+    assert bitwise(tc._correlate_raw(section, c, seg), tos.correlate_os_reference(*args))
+    assert tos.correlate_os.launches == before
+    assert tc.cufft_correlation.launches == calls + 1
+    with pytest.raises(ValueError, match="takes fft_len"):
+        tos.correlate_os(*args)
