@@ -94,6 +94,8 @@ _SIGNATURES = {
          _c_ptr],
         ctypes.c_int,
     ),
+    "apd_correlate_os_residency": ([_c_int, ctypes.POINTER(_c_int), ctypes.POINTER(_c_int)],
+                                   ctypes.c_int),
     "apd_graph_if_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),
     "apd_graph_if_end": ([_c_ptr], ctypes.c_int),
     "apd_graph_while_begin": ([_c_ptr, _c_ptr, _c_ptr], ctypes.c_int),

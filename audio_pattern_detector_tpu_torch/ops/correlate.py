@@ -146,7 +146,7 @@ def _correlate_raw(
     (B, G, L) for a batch (B, S). The route, by shape and device alone: the
     overlap-save branch takes ``ops/correlate_os.py::correlate_os`` (on a
     card its kernel) on the CPU, and on a card at an fft_len the kernel
-    takes (``kernel_takes``: a power of two up to 32,768); the single-FFT
+    takes (``kernel_takes``: a power of two up to 262,144); the single-FFT
     branch, and on a card a larger fft_len, take :func:`cufft_correlation`."""
     n = consts.fft_len
     if consts.num_segments > 1 and (not section.is_cuda or correlate_os_mod.kernel_takes(n)):

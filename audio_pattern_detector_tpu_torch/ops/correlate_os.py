@@ -9,28 +9,31 @@ class geometry (N = ``fft_len``, ``step``, ``off`` = ``out_offset``, L =
     out[b, g, k] = |y_{b,g,s}[t]|   for k + off = s step + t, 0 <= t < step
     y_{b,g,s}    = irfft_N(seg[b, s] * bank[g])   ("backward" scaling, 1 / N)
 
-On a CUDA tensor it launches the kernel: one CTA a transform, the product
-formed as the spectra load, the Hermitian half spectrum folded into an
-N/2-point complex spectrum and transformed by Stockham passes in shared
-memory (radix 4, two passes at a time in registers), only the kept samples'
-magnitudes written. It takes N a power of two up to :data:`MAX_FFT_LEN`
-and raises for any other, as it does if the kernel does not build or
-launch; it never carries on in another route. A CPU tensor takes the plain
-version, whose transforms are ``torch.fft``'s.
+On a CUDA tensor it launches the kernel: one CTA a transform up to N =
+32,768, past it a cluster of :func:`cluster_size` CTAs over distributed
+shared memory; the product formed as the spectra load, the Hermitian half
+spectrum folded into an N/2-point complex spectrum and transformed by
+Stockham passes in shared memory (radix 4, two passes at a time in
+registers; in a cluster one pass exchanges the values between its CTAs),
+only the kept samples' magnitudes written. It takes N a
+power of two up to :data:`MAX_FFT_LEN` and raises for any other, as it
+does if the kernel does not build or launch; it never carries on in
+another route. A CPU tensor takes the plain version, whose transforms are
+``torch.fft``'s.
 
 Which geometries reach it on a card is ``ops/correlate.py::_correlate_raw``'s
-rule: the overlap-save branch at the lengths :func:`kernel_takes`. The
-single-FFT branch and a larger N (the 29,488-sample rainbow intro clip's
-131,072 points) stay on cuFFT there, and count their calls.
+rule: the overlap-save branch at the lengths :func:`kernel_takes`, the
+29,488-sample rainbow intro clip's 131,072 points among them. The
+single-FFT branch and a larger N stay on cuFFT there, and count their
+calls.
 
 The plain version (:func:`correlate_os_reference`) is the port's code
 before the kernel: the product in device memory, ``ops/cufft_plans.py``'s
 inverse transforms in calls of ``ops/correlate.py::CORRELATION_FFT_POINTS``
-points, the slice and ``abs``; on a card it is the cuFFT route past
-:data:`MAX_FFT_LEN`. The kernel's bits are not cuFFT's; each transform is
-computed alone and the same way at any index, so a row's bits do not depend
-on its round. ``chip_smoke.np_correlate_os`` transliterates the kernel's
-arithmetic in numpy.
+points, the slice and ``abs``. The kernel's bits are not cuFFT's; each
+transform is computed alone and the same way at any index and cluster size,
+so a row's bits do not depend on its round. ``chip_smoke.np_correlate_os``
+transliterates the kernel's arithmetic in numpy.
 """
 
 from __future__ import annotations
@@ -45,11 +48,13 @@ from audio_pattern_detector_tpu_torch.ops.cufft_plans import irfft
 from audio_pattern_detector_tpu_torch.ops.devices import device_guard
 from audio_pattern_detector_tpu_torch.ops.marker_fft import RealPlan, plan_tables
 
-# The largest fft_len the kernel takes: N / 2 complex values in one CTA's
-# shared memory (128 KB).
-MAX_FFT_LEN = 1 << 15
+# The largest fft_len the kernel takes: N / 2 complex values over a cluster
+# of MAX_CLUSTER CTAs, MAX_LOCAL a CTA (128 KB of shared memory).
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_LOCAL = 1 << 14
+MAX_FFT_LEN = 2 * MAX_LOCAL * MAX_CLUSTER
 # Complex values a thread holds across a pass (csrc/correlate_os.cu
-# kPerThread): 1,024 threads a CTA at N = 32,768.
+# kPerThread): a CTA has MAX_LOCAL / PER_THREAD = 1,024 threads at most.
 PER_THREAD = 16
 
 
@@ -59,12 +64,39 @@ def kernel_takes(fft_len: int) -> bool:
     return 4 <= fft_len <= MAX_FFT_LEN and fft_len & (fft_len - 1) == 0
 
 
-def launch_geometry(b: int, g: int, ns: int, n: int) -> tuple[int, int, int]:
-    """(CTAs, threads a CTA, dynamic shared-memory bytes) of a launch, as
-    ``apd_correlate_os`` sets them: a CTA a transform, :data:`PER_THREAD`
-    complex values a thread (at least a warp), the N/2 complex values."""
-    half = n // 2
-    return b * g * ns, max(32, half // PER_THREAD), half * 8
+def cluster_size(n: int) -> int:
+    """The CTAs a transform of ``n`` points takes, as ``apd_correlate_os``
+    derives them: one while its N/2 complex values fit one CTA
+    (:data:`MAX_LOCAL`, N up to 32,768), past that N/2 / :data:`MAX_LOCAL`
+    CTAs of 128 KB each (2 at 65,536 points, 4 at 131,072, 8 at 262,144).
+    A function of N alone, never of the round or the group."""
+    return max(1, n // 2 // MAX_LOCAL)
+
+
+def launch_geometry(b: int, g: int, ns: int, n: int) -> tuple[int, int, int, int]:
+    """(cluster size C, CTAs, threads a CTA, dynamic shared-memory bytes a
+    CTA) of a launch, as ``apd_correlate_os`` sets them: a cluster of
+    :func:`cluster_size` CTAs a transform, each holding N / (2 C) complex
+    values, :data:`PER_THREAD` a thread (at least a warp)."""
+    c = cluster_size(n)
+    local = n // 2 // c
+    return c, b * g * ns * c, max(32, local // PER_THREAD), local * 8
+
+
+def residency(n: int) -> tuple[int, int]:
+    """(CTAs an SM, clusters the card) that a launch of ``n`` points keeps
+    resident at once, by the CUDA occupancy calculator on the current
+    card."""
+    import ctypes
+
+    from audio_pattern_detector_tpu_torch.kernels._build import load_kernels
+
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_kernels().lib.apd_correlate_os_residency(n, ctypes.byref(ctas),
+                                                        ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"correlate_os residency query failed: CUDA error {err}")
+    return ctas.value, clusters.value
 
 
 def correlation_radices(half: int) -> tuple[int, ...]:
@@ -184,8 +216,7 @@ def _launch(
         if b * g * full_len:
             err = lib.apd_correlate_os(
                 seg_spec.data_ptr(), b, ns, bank_conj.data_ptr(), g, n, step, off, full_len,
-                plan.tables.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
+                plan.tables.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
             )
             if err != 0:
                 raise RuntimeError(f"correlate_os kernel launch failed: CUDA error {err}")

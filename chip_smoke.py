@@ -61,18 +61,29 @@ card and checks them:
    one-clip step, the flagship step and the 16-row flagship round;
    3f. the correlation kernel (``correlate_kernel``,
    ``csrc/correlate_os.cu``: the bank product, the inverse transforms in
-   shared memory and the kept samples' ``abs``) on the same three shapes'
-   own inputs, each group: sampled transforms bitwise its numpy
+   shared memory, a CTA a transform up to fft_len 32,768 and a cluster of
+   CTAs past it, and the kept samples' ``abs``) on the same three shapes'
+   own inputs and on the rainbow intro clip's file-mode step (fft_len
+   131,072), each group: sampled transforms bitwise its numpy
    transliteration (``np_correlate_transforms``), the whole output within
    1e-5 of each row's maximum of the plain version (the cuFFT route), on
    sampled rows its error against the f64 correlation no more than twice
    the cuFFT route's; in turns its device ms and the plain version's (a
    graph of 20 calls), its wrapper ms, ``torch.fft.irfft`` over the same
-   products (the library call), bound and share; on the round a row
-   bitwise the same in rounds of 1, 5, 16 and 17 rows and a graph replay
-   bitwise the eager call; its launches on the captured flagship step and
-   round in both schedules and on file mode (phases 4-5), with no call of
-   the cuFFT route at the correlation site;
+   products (the library call), bound and share, cluster size and CTAs an
+   SM; every fft_len from
+   8,192 to 262,144 on seeded spectra, sampled transforms bitwise and the
+   output within 1e-5 of the cuFFT route's; on the round a row bitwise the
+   same in rounds of 1, 5, 16 and 17 rows and a graph replay bitwise the
+   eager call; its launches on the captured flagship step and round in
+   both schedules and on file mode (phases 4-5), with no call of the cuFFT
+   route at the correlation site;
+   3g. the rainbow intro clip's classes on the card (``correlate_flows``):
+   its golden flow and the mixed bank's 3 x 3 matrix
+   (tests/test_integration_matching.py:115-117) through the port's
+   ``match``, stdout byte-identical to the CPU run, each pattern's
+   detections, the correlation kernel launched and the cuFFT route never
+   called;
 4. file mode through the port's CLI, in-process: the golden JSONL flows
    (.claude/skills/verify/SKILL.md), including the zero-detection checks;
 5. the scan-batch path: cbs_news_audio_section.wav tiled 15 times
@@ -1323,14 +1334,19 @@ def check_scan_equal(a, b) -> float:
     return err
 
 
-def run_cli(argv: list[str]) -> list[dict]:
-    """The port's CLI in-process; its JSONL events."""
+def cli_stdout(argv: list[str]) -> str:
+    """The port's CLI in-process; its stdout."""
     from audio_pattern_detector_tpu_torch.cli import main as cli_main
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli_main(argv)
-    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    return buf.getvalue()
+
+
+def run_cli(argv: list[str]) -> list[dict]:
+    """The port's CLI in-process; its JSONL events."""
+    return [json.loads(line) for line in cli_stdout(argv).splitlines() if line.startswith("{")]
 
 
 def detections(events: list[dict]) -> list[tuple[str, int]]:
@@ -2123,13 +2139,20 @@ def phase_stage_split(dev, smi: str) -> list[dict]:
 
 CORRELATE_SOURCE = "audio_pattern_detector_tpu_torch/csrc/correlate_os.cu"
 CORRELATE_REPLACES = "audio_pattern_detector_tpu/ops/correlate.py:159"
-CORRELATE_SHAPES = ("one_clip_file_mode", "flagship_step", "flagship_round")
+# The stage split's three shapes (fft_len 32,768) and file mode's step of
+# the 29,488-sample rainbow intro clip (fft_len 131,072: cuFFT's before the
+# cluster form).
+CORRELATE_SHAPES = ("one_clip_file_mode", "flagship_step", "flagship_round", "rainbow_file_mode")
+CORRELATE_LENGTHS = tuple(1 << e for e in range(13, 19))  # seeded spectra, 8,192 to 262,144
 CORRELATE_WIDTHS = (1, 5, 16, 17)  # rounds a row's |correlation| is held bitwise in
 CORRELATE_PICKS = 6  # transforms a group held bitwise to the transliteration
 CORRELATE_RTOL = 1e-5  # of a row's largest |correlation|: the kernel against the cuFFT route
-CORRELATE_DESIGN = ("a CTA a transform (b, g, s): the product formed as the spectra load, the "
-                    "Hermitian half spectrum folded into an N/2-point complex spectrum, "
-                    "in-place Stockham passes in shared memory (128 KB at N = 32,768), only the "
+CORRELATE_DESIGN = ("a CTA a transform (b, g, s) up to fft_len 32,768, past it a cluster of C = "
+                    "N / 32,768 CTAs over distributed shared memory, 16,384 complex values each "
+                    "(ops/correlate_os.py::cluster_size): the product formed as the spectra "
+                    "load, the Hermitian half spectrum folded into an N/2-point complex spectrum "
+                    "stored into the CTA of the first passes, in-place Stockham passes in shared "
+                    "memory, one pass exchanging the values between the cluster's CTAs, only the "
                     "kept samples' magnitudes written")
 
 
@@ -2295,11 +2318,14 @@ def phase_correlate_kernel(dev, smi: str) -> dict:
                       "library_ms": cuda_ms(lambda: torch.fft.irfft(prod, n=n), 10)}
             del prod
             bound_ms, bound_by = correlate_bound(b, g, ns, n, c.full_len)
-            ctas, threads, smem = tos.launch_geometry(b, g, ns, n)
+            cluster, ctas, threads, smem = tos.launch_geometry(b, g, ns, n)
+            ctas_per_sm, clusters = tos.residency(n)
             record = {"shape": name, "group": gi, "rows": b, "clips": g, "segments": ns,
                       "fft_len": n, "step": step, "out_offset": c.out_offset,
-                      "full_len": c.full_len, "ctas": ctas, "threads": threads,
-                      "shared_bytes": smem, "radices": list(tos.correlation_plan(n, dev).radices),
+                      "full_len": c.full_len, "cluster": cluster, "ctas": ctas,
+                      "threads": threads, "shared_bytes": smem, "ctas_per_sm": ctas_per_sm,
+                      "clusters_resident": clusters,
+                      "radices": list(tos.correlation_plan(n, dev).radices),
                       "max_abs_err": abs_err, "max_rel_err_vs_cufft": rel_err,
                       "rel_err_vs_f64": errs["kernel"], "cufft_rel_err_vs_f64": errs["cufft"],
                       **timing, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2310,6 +2336,39 @@ def phase_correlate_kernel(dev, smi: str) -> dict:
         del bank, sections, lens, norm, seg, args
         gc.collect()
         torch.cuda.empty_cache()
+
+    # Every length from 8,192 to 262,144 on seeded spectra of real signals
+    # (2 rows, 3 clips, 3 segments): sampled transforms bitwise, the whole
+    # output within CORRELATE_RTOL of the cuFFT route's.
+    lengths = []
+    rng = np.random.default_rng(19)
+    for n in CORRELATE_LENGTHS:
+        bins, ns = n // 2 + 1, 3
+        step = n - n // 8 + 1
+        spectra = rng.standard_normal((2, ns + 1, bins, 2)).astype(np.float32)
+        spectra[:, :, [0, -1], 1] = 0.0  # real signals' spectra: real at 0 and N / 2
+        spectra = torch.from_numpy(spectra)
+        seg = torch.view_as_complex(spectra[:, :ns].contiguous()).to(dev)
+        bank_c = torch.view_as_complex(spectra[:, ns, :, :].contiguous()).to(dev)
+        bank_c = torch.cat([bank_c, bank_c[:1] * 0.5]).contiguous()  # 3 clips
+        args = (seg, bank_c, n, step, 3, ns * step - 8)
+        out = tos.correlate_os(*args)
+        plain = tos.correlate_os_reference(*args)
+        torch.cuda.synchronize()
+        samples = check_correlate_transforms(out, seg, bank_c, *args[2:],
+                                             correlate_picks(2, 3, ns, CORRELATE_PICKS, seed=n))
+        compared += samples
+        rel_err = float(((out - plain).abs() / plain.amax(dim=-1, keepdim=True)).max())
+        if not rel_err <= CORRELATE_RTOL:
+            raise AssertionError(f"correlate_os: fft_len {n} lies {rel_err} of a row's maximum "
+                                 f"from the cuFFT route (limit {CORRELATE_RTOL})")
+        max_abs_err = max(max_abs_err, float((out - plain).abs().max()))
+        cluster, ctas, threads, smem = tos.launch_geometry(2, 3, ns, n)
+        lengths.append({"fft_len": n, "cluster": cluster, "threads": threads,
+                        "shared_bytes": smem, "ctas_per_sm": tos.residency(n)[0],
+                        "samples_bitwise": samples, "max_rel_err_vs_cufft": rel_err})
+        del seg, bank_c, out, plain, args
+    phase("correlate_kernel_lengths", card=smi, lengths=lengths)
 
     # The main path's launches: every group of a flagship step and of a
     # 16-row round, captured, takes the kernel and never the cuFFT route.
@@ -2347,9 +2406,67 @@ def phase_correlate_kernel(dev, smi: str) -> dict:
             "plain_ms": main["plain_ms"], "wrapper_ms": main["wrapper_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
-            "shapes": [{k: r[k] for k in ("shape", "group", "ms", "plain_ms", "library_ms",
-                                           "bound_ms", "share_of_bound")} for r in records],
-            "design": CORRELATE_DESIGN}
+            "shapes": [{k: r[k] for k in ("shape", "group", "fft_len", "cluster", "ctas_per_sm",
+                                           "ms", "plain_ms", "library_ms", "bound_ms",
+                                           "share_of_bound")} for r in records],
+            "lengths": [r["fft_len"] for r in lengths], "design": CORRELATE_DESIGN}
+
+
+RAINBOW_CLIP = "天空下的彩虹intro.wav"
+RAINBOW_AUDIO = "am1430_section_with_rainbow_intro.wav"
+# tests/test_integration_matching.py's mixed bank (:115-117): each section
+# against the RTHK marker, the CBS clip and the rainbow intro clip, with
+# the detections each pattern must give.
+MIXED_BANK = ("rthk_beep.apd.toml", "cbs_news.wav", RAINBOW_CLIP)
+MIXED_COUNTS = {"rthk_section_with_beep.wav": {"rthk_beep": 2},
+                "cbs_news_audio_section.wav": {"cbs_news": 1},
+                RAINBOW_AUDIO: {"天空下的彩虹intro": 1}}
+
+
+def phase_correlate_flows(dev, smi: str) -> dict[str, int]:
+    """Phase 3g (``correlate_flows``): the classes of the 29,488-sample
+    rainbow intro clip (fft_len 131,072) on the card. Its golden flow
+    (``am1430_section_with_rainbow_intro.wav``, one detection at 13,848 ms)
+    and the mixed bank's 3 x 3 matrix (tests/test_integration_matching.py:
+    115-117) through the port's ``match`` on the card and on the CPU:
+    stdout byte-identical, the detections each pattern must give, the
+    correlation kernel launched and the cuFFT route never called on the
+    card (counted from 0 around the card runs). Returns the launches by
+    run for the kernels line."""
+    from audio_pattern_detector_tpu_torch.ops.correlate import cufft_correlation
+    from audio_pattern_detector_tpu_torch.ops.correlate_os import correlate_os
+
+    flows = {"rainbow_golden": ([RAINBOW_CLIP], RAINBOW_AUDIO)}
+    flows.update({f"mixed_{Path(audio).stem}": (list(MIXED_BANK), audio)
+                  for audio in MIXED_COUNTS})
+    launches = {}
+    for name, (patterns, audio) in flows.items():
+        argv = ["match"]
+        for pattern in patterns:
+            argv += ["--pattern-file", str(CLIPS / pattern)]
+        argv.append(str(AUDIO / audio))
+        cpu = cli_stdout(argv[:1] + ["--device", "cpu"] + argv[1:])
+        correlate_os.launches = cufft_correlation.launches = 0
+        card = cli_stdout(argv)
+        launches[name] = correlate_os.launches
+        if cufft_correlation.launches or not correlate_os.launches:
+            raise AssertionError(f"{name}: {correlate_os.launches} correlation kernel launches, "
+                                 f"{cufft_correlation.launches} calls of the cuFFT route")
+        if card != cpu:
+            raise AssertionError(f"{name}: the card's stdout differs from the CPU's:\n{card}\n"
+                                 f"{cpu}")
+        events = [json.loads(line) for line in card.splitlines() if line.startswith("{")]
+        found = detections(events)
+        want = MIXED_COUNTS[audio] if name.startswith("mixed") else {"天空下的彩虹intro": 1}
+        counts = {p: sum(1 for clip, _ in found if clip == p) for p in want}
+        if counts != want or len(found) != sum(want.values()):
+            raise AssertionError(f"{name}: detections {found}, want {want}")
+        if name == "rainbow_golden" and found != [("天空下的彩虹intro", 13848)]:
+            raise AssertionError(f"rainbow golden flow: {found}")
+        phase("correlate_flows", card=smi, flow=name, detections=found, stdout_equal_cpu=True,
+              correlate_os_launches=launches[name], cufft_route_calls=0)
+    correlate_os.launches = cufft_correlation.launches = 0
+    return launches
 
 
 def phase_general_plateau(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
@@ -5449,7 +5566,7 @@ def main(argv: "list[str] | None" = None) -> int:
           kernel_build_s=kern.build_seconds, kernel_load_s=time.perf_counter() - t0,
           library=str(kern.path.relative_to(ROOT)))
     for line in kern.compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
 
     # ── 2. Kernel against its plain version at flagship shapes ──
@@ -5544,6 +5661,9 @@ def main(argv: "list[str] | None" = None) -> int:
     gate_line = phase_round_invariance(dev, smi)
     phase_stage_split(dev, smi)
     correlate_line = phase_correlate_kernel(dev, smi)
+    flow_launches = phase_correlate_flows(dev, smi)
+    correlate_line["launches_by_path"].update(flow_launches)
+    correlate_line["cufft_route_calls_by_path"].update(dict.fromkeys(flow_launches, 0))
     general_launches = phase_general_plateau(dev, smi, profile=args.profile)
 
     # ── 4-5. The main path: flag-free file mode through the CLI ──

@@ -33,7 +33,11 @@ share of the whole step. Three shapes:
   one 60 s chunk's section;
 * ``flagship_step``: the 64-clip flagship bank, one seeded 60 s section
   (candidate-free);
-* ``flagship_round``: the same bank, 16 such sections as one batched step.
+* ``flagship_round``: the same bank, 16 such sections as one batched step;
+
+and, named with ``--shapes``, ``rainbow_file_mode``: file mode's bank of the
+29,488-sample rainbow intro clip, one 60 s chunk's section (fft_len
+131,072).
 
 The CPU smoke size cuts the chunks to 4 s, the flagship bank to 2 + 2
 clips and the round to 3 rows. Prints the card's name and power limit,
@@ -60,6 +64,11 @@ from kernel_bounds import HBM_BYTES_PER_S, lean_greedy_bound, scan_bound_ms  # n
 
 PEAK_F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores
 SHAPES = ("one_clip_file_mode", "flagship_step", "flagship_round")
+# One-clip banks, file mode's: the CBS clip (8,000 samples: fft_len 32,768)
+# and, off the default shapes, the 29,488-sample rainbow intro clip
+# (fft_len 131,072: 6 segments of a 60 s section).
+ONE_CLIP_FILES = {"one_clip_file_mode": "cbs_news.wav",
+                  "rainbow_file_mode": "天空下的彩虹intro.wav"}
 CALLS = 10  # calls a timed graph holds
 REPS = 5  # timed replays, median
 
@@ -216,11 +225,12 @@ def shape_inputs(name: str, device, smoke: bool = False):
     from audio_pattern_detector_tpu_torch.utils.audio_io import load_wave_file
     from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
 
-    chunk = 4 if smoke else 60
-    if name == "one_clip_file_mode":
-        clip = load_wave_file(str(ROOT / "sample_audios" / "clips" / "cbs_news.wav"), 8000)
-        bank = TorchAudioPatternDetector([AudioClip(name="cbs_news", audio=clip, sample_rate=8000)],
-                                         device=device, seconds_per_chunk=chunk)._ensure_bank()
+    chunk = 60 if not smoke else 10 if name == "rainbow_file_mode" else 4  # the clip is 3.7 s
+    if name in ONE_CLIP_FILES:
+        clip = load_wave_file(str(ROOT / "sample_audios" / "clips" / ONE_CLIP_FILES[name]), 8000)
+        named = AudioClip(name=Path(ONE_CLIP_FILES[name]).stem, audio=clip, sample_rate=8000)
+        bank = TorchAudioPatternDetector([named], device=device,
+                                         seconds_per_chunk=chunk)._ensure_bank()
         seeds = (2,)
     else:
         bank = make_bank(2, 2, chunk, device) if smoke else make_bank(32, 32, chunk, device)
@@ -271,7 +281,8 @@ def main(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (smoke size)")
     ap.add_argument("--checkout", type=Path, default=ROOT,
                     help="the checkout whose port is split (default: this one)")
-    ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=SHAPES)
+    ap.add_argument("--shapes", nargs="+", default=list(SHAPES),
+                    choices=SHAPES + ("rainbow_file_mode",))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.checkout.resolve()))
 

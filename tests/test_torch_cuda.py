@@ -1529,11 +1529,15 @@ def _correlate_args(c, seg) -> tuple:
             c.out_offset, c.full_len)
 
 
-@pytest.mark.parametrize("m,m_max", [(8000, None), (700, 8000), (2000, None), (700, 2000)])
+@pytest.mark.parametrize("m,m_max", [(8000, None), (700, 8000), (2000, None), (700, 2000),
+                                     (12_000, None), (29_488, None), (700, 29_488),
+                                     (40_000, None)])
 def test_correlate_kernel_bitwise_equals_its_transliteration(cuda, m, m_max):
-    """``csrc/correlate_os.cu`` at fft_len 32,768 and 8,192, out_offset 0
-    and past it: 12 sampled transforms of 2 rows against 3 clips bitwise
-    chip_smoke.np_correlate_transforms, one launch counted."""
+    """``csrc/correlate_os.cu`` at fft_len 32,768 and 8,192 (one CTA a
+    transform) and 65,536, 131,072 (the rainbow intro clip's) and 262,144
+    (a cluster of CTAs), out_offset 0 and past it: 12 sampled transforms of
+    2 rows against 3 clips bitwise chip_smoke.np_correlate_transforms, one
+    launch counted."""
     from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
     from chip_smoke import check_correlate_transforms, correlate_picks
 
@@ -1625,18 +1629,31 @@ def test_correlate_kernel_replays_give_the_eager_bits(cuda, flagship_correlation
 
 
 def test_correlate_takes_the_cufft_route_past_32768_points(cuda):
-    """A 29,488-sample clip's geometry (fft_len 131,072) takes the cuFFT
-    route on the card (``ops/correlate.py::cufft_correlation``): no launch,
+    """Since the cluster form, a 29,488-sample clip's geometry (fft_len
+    131,072) takes the kernel on the card: one launch and no call of the
+    cuFFT route (``ops/correlate.py::cufft_correlation``), within
+    chip_smoke.CORRELATE_RTOL of the plain version. A 70,000-sample clip's
+    (524,288, past the kernel's 262,144) takes the cuFFT route: no launch,
     the plain version's bits, one call counted; the wrapper refuses it."""
     from audio_pattern_detector_tpu_torch.ops import correlate as tc
     from audio_pattern_detector_tpu_torch.ops import correlate_os as tos
+    from chip_smoke import CORRELATE_RTOL
 
     c, seg = _correlate_inputs(cuda, 2, 29_488, clips=2)
-    assert c.fft_len == 131_072 and not tos.kernel_takes(c.fft_len)
+    assert c.fft_len == 131_072 and tos.kernel_takes(c.fft_len)
     args = _correlate_args(c, seg)
     section = torch.zeros((2, 61 * 8000), device=cuda)  # its spectra are seg
     before, calls = tos.correlate_os.launches, tc.cufft_correlation.launches
-    assert bitwise(tc._correlate_raw(section, c, seg), tos.correlate_os_reference(*args))
+    got, want = tc._correlate_raw(section, c, seg), tos.correlate_os_reference(*args)
+    assert ((got - want).abs() / want.amax(dim=-1, keepdim=True)).max().item() <= CORRELATE_RTOL
+    assert tos.correlate_os.launches == before + 1
+    assert tc.cufft_correlation.launches == calls
+    del c, seg, args, got, want
+    c, seg = _correlate_inputs(cuda, 1, 70_000, clips=1)
+    assert c.fft_len == 524_288 and not tos.kernel_takes(c.fft_len)
+    args = _correlate_args(c, seg)
+    before, calls = tos.correlate_os.launches, tc.cufft_correlation.launches
+    assert bitwise(tc._correlate_raw(section[:1], c, seg), tos.correlate_os_reference(*args))
     assert tos.correlate_os.launches == before
     assert tc.cufft_correlation.launches == calls + 1
     with pytest.raises(ValueError, match="takes fft_len"):

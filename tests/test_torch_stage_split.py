@@ -28,6 +28,7 @@ def split():
     ("one_clip_file_mode", 8),  # 4 class stages, the group's 4
     ("flagship_step", 12),  # 4 class stages, 4 a group for 2 groups
     ("flagship_round", 12),
+    ("rainbow_file_mode", 8),  # the rainbow intro clip's class: fft_len 131,072
 ])
 def test_the_split_prints_every_stage_of_the_step(split, capsys, shape, stages):
     assert split.main(["--device", "cpu", "--shapes", shape]) == 0
