@@ -181,6 +181,7 @@ from audio_pattern_detector_tpu_torch.ops.verify import (
     verify_normal,
 )
 from audio_pattern_detector_tpu_torch.ops.verify_marker import _marker_gemm_enabled
+from audio_pattern_detector_tpu_torch.utils.profiling import RECORDER
 
 _BIG = 2**30  # dead-lane position (== ops/peaks.SURVIVOR_POS_SENTINEL)
 _SMALL_TIER = 16  # greedy survivor lanes of the lean tier
@@ -209,7 +210,8 @@ def host_cond(pred: torch.Tensor, then_: Callable[[], Any], else_: Callable[[], 
 # zero-padded staging rows ("pack", the JAX bank's key), the upload, the
 # enqueue of the class step's launches, and the enqueue of the payload's
 # copy back. Probes read and reset it to say where a round's dispatch time
-# goes (chip_smoke.py).
+# goes (chip_smoke.py). While recording, the same clock readings make the
+# spans ``bank.<stage>`` (utils/profiling.py).
 dispatch_phase_seconds: dict[str, float] = {
     "sections": 0.0,
     "pack": 0.0,
@@ -217,6 +219,11 @@ dispatch_phase_seconds: dict[str, float] = {
     "launch": 0.0,
     "prefetch": 0.0,
 }
+
+# The routes of a flagged row, each rerun's span ``collect.flagged`` holding
+# its index as its first attribute (:meth:`PatternBank.resolve_flagged_rows`).
+FLAGGED_ROUTES = ("row", "class", "escalated", "host")
+_route = FLAGGED_ROUTES.index
 
 
 @dataclass
@@ -261,8 +268,11 @@ class PayloadHandle:
         return self._event is None or self._event.query()
 
     def numpy(self) -> NDArray[np.float32]:
+        span = RECORDER.open("collect.wait") if RECORDER.on else -1
         if self._event is not None:
             self._event.synchronize()
+        if span >= 0:
+            RECORDER.close(span)
         return self._host.numpy()
 
 
@@ -727,15 +737,15 @@ class PatternBank:
                 (mesh.device_at(**{axis: i}), j * per, (j + 1) * per) for j, i in enumerate(own)
             ]
         dispatched = []
-        clock = time.perf_counter
+        clock, ns = time.perf_counter_ns, 1e-9
         t0 = clock()
         for sw, cls in self.classes.items():
             parts = [self._section_parts(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
             t1 = clock()
-            dispatch_phase_seconds["sections"] += t1 - t0
+            dispatch_phase_seconds["sections"] += (t1 - t0) * ns
             host_rows, raws = self._staged_sections(cls["section_len"], parts)
             t2 = clock()
-            dispatch_phase_seconds["pack"] += t2 - t1
+            dispatch_phase_seconds["pack"] += (t2 - t1) * ns
             # The round's rows go up once per shard. Each step then copies
             # its rows and lengths into its inputs just before it runs (two
             # logical shards of one device may share one captured step).
@@ -758,7 +768,13 @@ class PatternBank:
                     steps.append((self.program(sw, dev, hi - lo, rows.dtype, consts), rows,
                                   n_valids[lo:hi]))
             t3 = clock()
-            dispatch_phase_seconds["upload"] += t3 - t2
+            dispatch_phase_seconds["upload"] += (t3 - t2) * ns
+            launch = -1
+            if RECORDER.on:
+                RECORDER.add("bank.sections", t0, t1, b, sw)
+                RECORDER.add("bank.pack", t1, t2, b, sw)
+                RECORDER.add("bank.upload", t2, t3, b, sw)
+                launch = RECORDER.open("bank.launch", t3, a=b, b=sw)
             payloads = []
             for prog, rows, n_valid in steps:
                 with device_guard(prog.device):
@@ -767,12 +783,16 @@ class PatternBank:
             if mode == "scan":
                 payloads = [torch.stack([p.reshape(-1) for p in payloads])]
             t4 = clock()
-            dispatch_phase_seconds["launch"] += t4 - t3
+            dispatch_phase_seconds["launch"] += (t4 - t3) * ns
+            if launch >= 0:
+                RECORDER.close(launch, t4)
             handles = [PayloadHandle(p) for p in payloads]
             handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
             dispatched.append((sw, handle, raws, b, host_rows))
             t0 = clock()
-            dispatch_phase_seconds["prefetch"] += t0 - t4
+            dispatch_phase_seconds["prefetch"] += (t0 - t4) * ns
+            if RECORDER.on:
+                RECORDER.add("bank.prefetch", t4, t0, b, sw)
         return dispatched
 
     def collect_chunks_batch(
@@ -801,18 +821,27 @@ class PatternBank:
     ) -> list[dict[str, list[int]]]:
         """Unpack a (B, total) class payload; flagged rows of each section
         go to :meth:`resolve_flagged_rows`. ``rows`` as in
-        :func:`_split_fused`."""
+        :func:`_split_fused`. While recording, the unpack is the span
+        ``collect.unpack`` (attributes: rows, window) and the counter
+        ``live_groups`` adds the (row, group) pairs with a position below
+        the sentinel: those whose verify tail ran (a captured lean step's
+        if-node body, one a row in the scan schedule)."""
         groups = self.classes[sw]["groups"]
         results: list[dict[str, list[int]]] = [dict() for _ in raws]
         flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
+        span = RECORDER.open("collect.unpack", a=len(raws), b=sw) if RECORDER.on else -1
         for gi, (g, packed) in enumerate(zip(groups, _split_fused(flat_np, groups, rows))):
             pos, sel, host_fb, needs_full = unpack_group(packed, g.k_verify)
+            if span >= 0:
+                RECORDER.count("live_groups", int(np.count_nonzero((pos < _BIG).any(axis=(-2, -1)))))
             for bi in range(len(raws)):
                 for ci, name in enumerate(g.names):
                     if host_fb[bi, ci] or needs_full[bi, ci]:
                         flagged_by_bi.setdefault(bi, []).append((gi, ci, bool(host_fb[bi, ci])))
                     else:
                         results[bi][name] = [int(p) for p in pos[bi, ci][sel[bi, ci]]]
+        if span >= 0:
+            RECORDER.close(span)
         for bi, flagged in flagged_by_bi.items():
             raw = raws[bi]
             section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
@@ -850,12 +879,18 @@ class PatternBank:
         the class: per-group (G, 2K+2) payloads."""
         cls = self.classes[sw]
         self.class_reruns += 1
+        span = -1
+        if RECORDER.on:
+            span = RECORDER.open("collect.flagged", a=_route("class" if capped else "escalated"), b=sw)
         outs = class_step(
             self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
             tuple((g.corr, g.verify) for g in cls["groups"]),
             metas=self._wide_metas(sw, capped), height_min=self.height_min, wide=True,
         )
-        return [o.cpu().numpy() for o in outs]
+        payloads = [o.cpu().numpy() for o in outs]
+        if span >= 0:
+            RECORDER.close(span)
+        return payloads
 
     def _row_consts_for(self, sw: int, gi: int, ci: int) -> tuple:
         """Single-row (corr, verify) consts for clip ``ci`` of group ``gi``,
@@ -892,12 +927,18 @@ class PatternBank:
         g = cls["groups"][gi]
         kd = min(g.k_detect, self._WIDE_RERUN_CAP) if capped else g.k_detect
         self.row_reruns += 1
+        span = -1
+        if RECORDER.on:
+            span = RECORDER.open("collect.flagged", a=_route("row" if capped else "escalated"), b=sw)
         outs = class_step(
             self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
             (self._row_consts_for(sw, gi, ci),),
             metas=((g.kind, g.clip_len, kd, g.k_verify),), height_min=self.height_min, wide=True,
         )
-        return outs[0][0].cpu().numpy()
+        payload = outs[0][0].cpu().numpy()
+        if span >= 0:
+            RECORDER.close(span)
+        return payload
 
     def resolve_flagged_rows(
         self,
@@ -913,7 +954,9 @@ class PatternBank:
         many; rows that rerun host-flags escalate to the full k_detect
         width where the group has more lanes than the cap, else go to the
         host path, as do rows the escalated rerun host-flags. Returns
-        {(gi, ci): accepted positions}."""
+        {(gi, ci): accepted positions}. While recording, each rerun and
+        each host-path row is a span ``collect.flagged`` whose first
+        attribute is its route's index in :data:`FLAGGED_ROUTES`."""
         groups = self.classes[sw]["groups"]
         out: dict[tuple[int, int], list[int]] = {}
         device_rows = [(gi, ci) for gi, ci, host in flagged if not host]
@@ -957,7 +1000,8 @@ class PatternBank:
     ) -> list[int]:
         """Exact host path for a flagged row."""
         self.host_path_rows += 1
-        return hostpath.process_section_host(
+        span = RECORDER.open("collect.flagged", a=_route("host")) if RECORDER.on else -1
+        hits = hostpath.process_section_host(
             audio_section=raw_section,
             clip=g.clips_np[ci],
             correlation_clip=g.corr_clips_np[ci],
@@ -968,6 +1012,9 @@ class PatternBank:
             tone_frequency=g.tone_freqs[ci],
             verification_params=g.verification_params[ci],
         )
+        if span >= 0:
+            RECORDER.close(span)
+        return hits
 
 
 def _split_fused(

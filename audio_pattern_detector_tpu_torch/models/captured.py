@@ -125,6 +125,7 @@ from audio_pattern_detector_tpu_torch.ops.loudness import loudness_gate
 from audio_pattern_detector_tpu_torch.ops.packing import as_f32
 from audio_pattern_detector_tpu_torch.ops.verify_marker import verify_marker
 from audio_pattern_detector_tpu_torch.ops.verify_normal import verify_normal
+from audio_pattern_detector_tpu_torch.utils.profiling import RECORDER
 
 # The kernel wrappers whose ``launches`` a replay adds to; and the
 # correlation's cuFFT route, whose ``launches`` counts calls, not kernels.
@@ -376,6 +377,7 @@ class CapturedStep:
         pinned host memory (the dispatch path's) do not make the host wait
         for the stream. Rows past the call's are idle: zero samples, zero
         length."""
+        span = RECORDER.open("step.load", a=self.key.rows, b=self.key.sw) if RECORDER.on else -1
         rows = section.reshape(-1, self.section.shape[1])
         n = rows.shape[0]
         self.section[:n].copy_(rows)
@@ -386,24 +388,33 @@ class CapturedStep:
         if n < self.key.rows:
             self.section[n:].zero_()
             self.n_valid[n:].zero_()
+        if span >= 0:
+            RECORDER.close(span)
 
     def _step(self, branch: "Callable | None" = None, loop: "Callable | None" = None,
               cond: "Callable | None" = None) -> Any:
         return self._fn(as_f32(self.section), self.n_valid, branch=branch, loop=loop, cond=cond)
 
     def run(self) -> Any:
-        """The payload of the loaded inputs, owned by the caller."""
+        """The payload of the loaded inputs, owned by the caller. A replay
+        adds its graph's launches to each wrapper's count; while recording
+        it is the span ``step.replay`` (attributes: rows, window), a first
+        use ``step.capture``."""
         with device_guard(self.device):
             if self._replay is None:
                 return self._first_run()
-            before = {wrapper: wrapper.launches for wrapper in COUNTED}
+            span = RECORDER.open("step.replay", a=self.key.rows, b=self.key.sw) if RECORDER.on else -1
             self._replay()
             for wrapper, n in self.kernel_launches.items():
-                wrapper.launches = before[wrapper] + n
+                wrapper.launches += n
             self.replays += 1
-            return _copy_out(self._out)
+            out = _copy_out(self._out)
+            if span >= 0:
+                RECORDER.close(span)
+            return out
 
     def _first_run(self) -> Any:
+        span = RECORDER.open("step.capture", a=self.key.rows, b=self.key.sw) if RECORDER.on else -1
         t0 = time.perf_counter()
         self._backend.check(self.device)
         general = self.key.general
@@ -433,6 +444,8 @@ class CapturedStep:
             for wrapper, n in counted.items():
                 wrapper.launches = n  # a capture executes nothing
         self.capture_seconds = time.perf_counter() - t0
+        if span >= 0:
+            RECORDER.close(span)
         return out
 
 

@@ -32,7 +32,7 @@ from audio_pattern_detector_tpu_torch.ops.devices import resolve_device
 from audio_pattern_detector_tpu_torch.ops.tone import get_pure_tone_frequency
 from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
-from audio_pattern_detector_tpu_torch.utils.profiling import RunStats, Stopwatch
+from audio_pattern_detector_tpu_torch.utils.profiling import RECORDER, RunStats, Stopwatch
 
 logger = logging.getLogger(__name__)
 
@@ -627,7 +627,9 @@ class TorchAudioPatternDetector:
 
         The reference algebra: t = pos/sr − subtract + index·chunk_s −
         clip_seconds, clamped ≥ 0, subtract = sliding_window for chunks
-        with lookback (reference: audio_pattern_detector.py:440-452)."""
+        with lookback (reference: audio_pattern_detector.py:440-452).
+        While recording, the call is the span ``collect.times``."""
+        span = RECORDER.open("collect.times") if RECORDER.on else -1
         sr = self.target_sample_rate
         out: dict[str, list[float]] = {}
         for audio_clip in self.audio_clips:
@@ -641,6 +643,8 @@ class TorchAudioPatternDetector:
                 t -= clip_seconds
                 times.append(t if t >= 0 else 0)
             out[name] = times
+        if span >= 0:
+            RECORDER.close(span)
         return out
 
     def _fold_batch_results(

@@ -35,6 +35,7 @@ from audio_pattern_detector_tpu_torch.models.detector import (
     _dispatched_ready,
     _f32_copy,
 )
+from audio_pattern_detector_tpu_torch.utils.profiling import RECORDER
 
 
 class MultiStreamSession:
@@ -203,7 +204,16 @@ class MultiStreamSession:
         Stream state (lookback tails, indices, times) advances at
         dispatch time — the next round's lookback is host-known — so any
         number of rounds can be in flight before the first collect.
+
+        While recording (``utils/profiling.py``) the call is the span
+        ``session.dispatch``, the root of a new round id that the handle
+        carries to ``session.collect`` (attributes: chunks, and the
+        session's count of rounds dispatched before it).
         """
+        rid = span = -1
+        if RECORDER.on:
+            rid = RECORDER.next_round()
+            span = RECORDER.open("session.dispatch", round=rid, a=len(chunks), b=self._rounds)
         self._lockstep(chunks)
         if len(chunks) != self.n_streams:
             raise ValueError(
@@ -290,7 +300,9 @@ class MultiStreamSession:
             self._tails[i] = batch[i][int(-self._max_sw * self._sr):].copy()
             self._indices[i] += 1
             self._times[i] += len(batch[i]) / self._sr
-        return (dispatched, meta, active)
+        if span >= 0:
+            RECORDER.close(span)
+        return (dispatched, meta, active, rid)
 
     def _lockstep(self, chunks: Sequence[Any]) -> None:
         """On a mesh that spans processes, agree on the round (its index
@@ -304,8 +316,11 @@ class MultiStreamSession:
         self._rounds += 1
 
     def collect(self, handle: Any) -> list[dict[str, list[float]]]:
-        """Block on a dispatched round; per-stream detection times."""
-        dispatched, meta, active = handle
+        """Block on a dispatched round; per-stream detection times. While
+        recording, the call is the span ``session.collect``, a root with
+        the dispatch's round id (attribute: streams)."""
+        dispatched, meta, active, rid = handle
+        span = RECORDER.open("session.collect", round=rid, a=self.n_streams) if RECORDER.on else -1
         rows: list[dict[str, list[int]]] = []
         for d in dispatched:
             rows.extend(self._bank.collect_chunks_batch(d))
@@ -326,6 +341,8 @@ class MultiStreamSession:
             out.append(
                 self.detector.peaks_to_times(results[i], index, had_prev)
             )
+        if span >= 0:
+            RECORDER.close(span)
         return out
 
     def round_ready(self, handle: Any) -> bool:

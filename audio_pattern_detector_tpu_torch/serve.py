@@ -52,6 +52,7 @@ from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDe
 from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
 from audio_pattern_detector_tpu_torch.utils.audio_io import DEFAULT_TARGET_SAMPLE_RATE
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+from audio_pattern_detector_tpu_torch.utils.profiling import RECORDER
 
 # Pre-data WAV metadata (fmt + LIST/INFO/cover art) rarely exceeds a few
 # hundred KB; a stream that hasn't reached its data chunk after this many
@@ -293,16 +294,6 @@ class PatternServer:
         self._stat_rounds = 0
         self._stat_samples = 0
         self._stat_detections = 0
-        # Cumulative wall time per event-loop phase (seconds) — cheap
-        # monotonic bookkeeping that attributes per-round cost on the
-        # deployment surface.
-        self.phase_seconds: dict[str, float] = {
-            "select": 0.0,
-            "sockets": 0.0,
-            "collect": 0.0,
-            "dispatch": 0.0,
-            "finish": 0.0,
-        }
         # Cumulative dispatched round count / active-row count — read by
         # probes to attribute round occupancy (rows/round vs slots).
         # Deliberately separate from _stat_rounds, which RESETS every
@@ -360,24 +351,22 @@ class PatternServer:
             f"{self.detector.seconds_per_chunk}s chunks)",
             file=sys.stderr,
         )
-        phases = self.phase_seconds
+        # Each phase of the loop is a span while recording
+        # (utils/profiling.py), a root: the session's spans nest in it.
+        phases = (
+            ("serve.select", lambda: self._sel.select(self._poll_timeout())),
+            ("serve.sockets", self._service_sockets),
+            ("serve.collect", self._collect_ready),
+            ("serve.dispatch", self._dispatch_round),
+            ("serve.finish", self._finish_streams),
+        )
         try:
             while not self._stopping:
-                t0 = time.monotonic()
-                self._sel.select(self._poll_timeout())
-                t1 = time.monotonic()
-                phases["select"] += t1 - t0
-                self._service_sockets()
-                t2 = time.monotonic()
-                phases["sockets"] += t2 - t1
-                self._collect_ready()
-                t3 = time.monotonic()
-                phases["collect"] += t3 - t2
-                self._dispatch_round()
-                t4 = time.monotonic()
-                phases["dispatch"] += t4 - t3
-                self._finish_streams()
-                phases["finish"] += time.monotonic() - t4
+                for name, phase in phases:
+                    span = RECORDER.open(name, root=True) if RECORDER.on else -1
+                    phase()
+                    if span >= 0:
+                        RECORDER.close(span)
                 self._maybe_emit_stats()
         finally:
             self._teardown()
@@ -631,24 +620,17 @@ class PatternServer:
         self._defer_start = None
         chunks: list[NDArray[np.float32] | None] = [None] * self.max_streams
         members: dict[int, _Conn] = {}
-        t_take = time.monotonic()
+        span = RECORDER.open("serve.take") if RECORDER.on else -1
         for conn in self._conns.values():
             chunk = self._take_chunk(conn)
             if chunk is not None and len(chunk):
                 chunks[conn.slot] = chunk
                 members[conn.slot] = conn
+        if span >= 0:
+            RECORDER.close(span)
         if not members:
             return
-        t_disp = time.monotonic()
-        self.phase_seconds["take"] = (
-            self.phase_seconds.get("take", 0.0) + t_disp - t_take
-        )
         handle = self.session.dispatch(chunks)
-        self.phase_seconds["enqueue"] = (
-            self.phase_seconds.get("enqueue", 0.0)
-            + time.monotonic()
-            - t_disp
-        )
         for conn in members.values():
             conn.pending += 1
         self._inflight.append((handle, members))

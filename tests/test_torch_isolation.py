@@ -147,10 +147,59 @@ def _drop_port_head(name: str, node: ast.FunctionDef) -> None:
     del body[first]
 
 
+# Statements each side adds to a shared function for its own timing, each
+# held to be there (once) and then set aside, or put back as the other side
+# has it: the port's span recorder (utils/profiling.py) with the round id
+# that a session's handle carries, and the JAX server's ``phase_seconds``
+# clock readings, which the port's spans replace.
+PORT_INSTRUMENTATION = {
+    "MultiStreamSession.dispatch": [
+        ("rid = span = -1", None),
+        ("if RECORDER.on:\n    rid = RECORDER.next_round()\n"
+         "    span = RECORDER.open('session.dispatch', round=rid, a=len(chunks), b=self._rounds)", None),
+        ("if span >= 0:\n    RECORDER.close(span)", None),
+        ("return (dispatched, meta, active, rid)", "return (dispatched, meta, active)"),
+    ],
+    "MultiStreamSession.collect": [
+        ("dispatched, meta, active, rid = handle", "dispatched, meta, active = handle"),
+        ("span = RECORDER.open('session.collect', round=rid, a=self.n_streams) if RECORDER.on else -1",
+         None),
+        ("if span >= 0:\n    RECORDER.close(span)", None),
+    ],
+    "PatternServer._dispatch_round": [
+        ("span = RECORDER.open('serve.take') if RECORDER.on else -1", None),
+        ("if span >= 0:\n    RECORDER.close(span)", None),
+    ],
+}
+JAX_INSTRUMENTATION = {
+    "PatternServer._dispatch_round": [
+        ("t_take = time.monotonic()", None),
+        ("t_disp = time.monotonic()", None),
+        ("self.phase_seconds['take'] = self.phase_seconds.get('take', 0.0) + t_disp - t_take", None),
+        ("self.phase_seconds['enqueue'] = self.phase_seconds.get('enqueue', 0.0) + time.monotonic() - t_disp",
+         None),
+    ],
+}
+
+
+def _set_aside(name: str, node: ast.FunctionDef, table: dict) -> None:
+    """Drop (or replace) each of ``table[name]``'s statements in ``node``,
+    asserting that each is there exactly once."""
+    for text, replacement in table.get(name, ()):
+        hits = [(stmts, i) for n in ast.walk(node)
+                for stmts in (getattr(n, f, None) for f in ("body", "orelse", "finalbody"))
+                if isinstance(stmts, list)
+                for i, stmt in enumerate(stmts) if ast.unparse(stmt) == text]
+        assert len(hits) == 1, f"{name}: {text!r} found {len(hits)} times"
+        stmts, i = hits[0]
+        stmts[i:i + 1] = [] if replacement is None else ast.parse(replacement).body
+
+
 def _definitions(path: str, rename: bool) -> dict[str, str]:
     """name -> dump of the syntax tree, docstrings dropped, of every
-    top-level function and every method of ``path``; with ``rename`` (the
-    port's side) the ``PORT_HEADS`` statements set aside."""
+    top-level function and every method of ``path``, each side's
+    instrumentation set aside; with ``rename`` (the port's side) the
+    ``PORT_HEADS`` statements set aside too."""
     src = open(os.path.join(REPO, path), encoding="utf-8").read()
     if rename:
         src = (src.replace("audio_pattern_detector_tpu_torch", "audio_pattern_detector_tpu")
@@ -166,14 +215,17 @@ def _definitions(path: str, rename: bool) -> dict[str, str]:
                 n.body = body[1:] or [ast.Pass()]
         return ast.dump(node)
 
+    table = PORT_INSTRUMENTATION if rename else JAX_INSTRUMENTATION
     out = {}
     for node in ast.parse(src, path).body:
         if isinstance(node, ast.FunctionDef):
+            _set_aside(node.name, node, table)
             out[node.name] = dump(node)
         elif isinstance(node, ast.ClassDef):
             for sub in node.body:
                 if isinstance(sub, ast.FunctionDef):
                     name = f"{node.name}.{sub.name}"
+                    _set_aside(name, sub, table)
                     if rename and name in PORT_HEADS:
                         _drop_port_head(name, sub)
                     out[name] = dump(sub)

@@ -1,0 +1,247 @@
+"""The port's span recorder (``utils/profiling.py``) on the CPU.
+
+Off, a layer boundary records nothing and reads no clock beyond the
+bank's own five (``dispatch_phase_seconds`` grows as it always has). On,
+under a CPU ``torch.profiler`` session, one round of a three-station
+``MultiStreamSession`` (captured steps on the stand-in backend of
+tests/test_torch_capture.py) gives the span tree the benchmark's readers
+walk, one round id from dispatch to collect, covering the round's host
+wall. Besides: the ring's bound and ``dropped``, a new stretch per
+profiler session, ``python.gc``, the server loop's ``serve.*`` spans, and
+``device_trace``'s Chrome trace holding the spans on the profiler's own
+timeline.
+"""
+
+import gc
+import json
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from audio_pattern_detector_tpu_torch.models import bank as bank_module
+from audio_pattern_detector_tpu_torch.models import captured
+from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+from audio_pattern_detector_tpu_torch.serve import PatternServer
+from audio_pattern_detector_tpu_torch.utils import profiling
+from audio_pattern_detector_tpu_torch.utils.profiling import Recorder
+from tests.test_torch_capture import CHUNK_S, SR, RecordingBackend, _audio, _clips, _pcm16
+
+torch.set_num_threads(1)
+
+CHUNK = CHUNK_S * SR
+STATIONS = 3
+
+
+def _chunks(r):
+    """Round ``r`` of three stations: int16 chunks, two with hits."""
+    audio = [_audio(10 + s, 3 * CHUNK_S, normal=(4.0 + s,), marker=(16.0 + s,)) for s in range(STATIONS)]
+    return [_pcm16(a[r * CHUNK : (r + 1) * CHUNK]) for a in audio]
+
+
+@pytest.fixture
+def session(monkeypatch):
+    """A warmed three-station session whose steps are captured (stand-in)."""
+    monkeypatch.setattr(captured.StepGraphs, "backend", RecordingBackend)
+    det = TorchAudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S, capture=True)
+    sess = MultiStreamSession(det, STATIONS)
+    sess.feed(_chunks(0))
+    return sess
+
+
+def _round(sess, r):
+    chunks = _chunks(r)
+    t0 = time.perf_counter_ns()
+    out = sess.collect(sess.dispatch(chunks))
+    return out, t0, time.perf_counter_ns()
+
+
+def test_off_records_nothing_and_the_dispatch_stages_grow_as_before(session, monkeypatch):
+    assert not profiling.RECORDER.on
+    with profiling.recording():
+        pass
+    assert profiling.spans() == []
+    ticks = iter(range(0, 10**12, 1000))
+    monkeypatch.setattr(bank_module.time, "perf_counter_ns", lambda: next(ticks))
+    before = dict(bank_module.dispatch_phase_seconds)
+    session.collect(session.dispatch(_chunks(1)))
+    # One class: five stages, each between two of the bank's six readings
+    # of the clock (1,000 ns apart), and no reading besides.
+    assert {k: v - before[k] for k, v in bank_module.dispatch_phase_seconds.items()} == pytest.approx(
+        dict.fromkeys(before, 1e-6), abs=1e-12)
+    assert next(ticks) == 6000
+    assert profiling.spans() == [] and profiling.counters() == {}
+
+
+def test_a_profiled_round_gives_the_span_tree_with_one_round_id(session):
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.RECORDER.on
+        out, t0, t1 = _round(session, 1)
+    assert not profiling.RECORDER.on
+    spans = profiling.spans()
+    by_index = {s.index: s for s in spans}
+    names = [s.name for s in spans]
+    (disp,) = [s for s in spans if s.name == "session.dispatch"]
+    (coll,) = [s for s in spans if s.name == "session.collect"]
+    assert disp.parent == coll.parent == -1 and disp.round == coll.round >= 0
+    assert {s.round for s in spans} == {disp.round}
+
+    def parent(s):
+        return by_index[s.parent].name
+
+    (sw,) = session._bank.classes
+    for name in ("bank.sections", "bank.pack", "bank.upload", "bank.launch", "bank.prefetch"):
+        (s,) = [s for s in spans if s.name == name]
+        assert parent(s) == "session.dispatch" and (s.a, s.b) == (STATIONS, sw)
+    for name in ("step.load", "step.replay"):  # the scan schedule: the 1-row key, a row at a time
+        steps = [s for s in spans if s.name == name]
+        assert len(steps) == STATIONS
+        assert all(parent(s) == "bank.launch" and (s.a, s.b) == (1, sw) for s in steps)
+    assert "step.capture" not in names
+    for name, n in (("collect.wait", 1), ("collect.unpack", 1), ("collect.times", STATIONS)):
+        got = [s for s in spans if s.name == name]
+        assert len(got) == n and all(parent(s) == "session.collect" for s in got)
+    # The dispatch's children in order, and within it.
+    kids = [s for s in spans if s.parent == disp.index]
+    assert [s.name for s in kids] == ["bank.sections", "bank.pack", "bank.upload", "bank.launch",
+                                      "bank.prefetch"]
+    assert all(disp.start_ns <= s.start_ns <= s.end_ns <= disp.end_ns for s in kids)
+    assert disp.end_ns <= coll.start_ns
+    # The two roots cover the round's host wall.
+    assert (disp.end_ns - disp.start_ns) + (coll.end_ns - coll.start_ns) >= 0.9 * (t1 - t0)
+    # Stations 0 and 1 carry a marker tone in round 1: some group had a live lane.
+    assert profiling.counters()["live_groups"] >= 1
+    assert out[0] and out[1]
+
+
+def test_first_use_of_a_key_is_a_capture_span(monkeypatch):
+    monkeypatch.setattr(captured.StepGraphs, "backend", RecordingBackend)
+    det = TorchAudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S, capture=True)
+    sess = MultiStreamSession(det, STATIONS)
+    with profiling.recording():
+        sess.feed(_chunks(0))
+    names = [s.name for s in profiling.spans()]
+    assert names.count("step.capture") == 1 and names.count("step.replay") == STATIONS - 1
+
+
+def test_flagged_rows_are_spans_by_route(session):
+    bank = session._bank
+    (sw,) = bank.classes
+    section = _audio(3, CHUNK_S, marker=(4.0,)).astype(np.float32)
+
+    def reruns():
+        return bank.row_reruns + bank.class_reruns + bank.host_path_rows
+
+    before = reruns()
+    with profiling.recording():
+        bank.resolve_flagged_rows(sw, [(1, 0, False), (0, 0, True)], section)
+    flagged = [s for s in profiling.spans() if s.name == "collect.flagged"]
+    routes = [bank_module.FLAGGED_ROUTES[s.a] for s in flagged]  # the reruns, then the host path
+    assert routes[0] == "row" and routes[-1] == "host" and len(routes) == reruns() - before
+
+
+def test_the_ring_keeps_the_newest_spans_and_counts_the_dropped():
+    rec = Recorder(size=8)
+    with rec.recording():
+        root = rec.open("root", round=7)
+        for k in range(20):
+            rec.add("leaf", k + 1, k + 2, a=k)
+        rec.close(root)
+    spans = rec.spans()
+    assert rec.recorded == 21 and rec.dropped == 13
+    assert [s.name for s in spans] == ["leaf"] * 8 and [s.a for s in spans] == list(range(12, 20))
+    assert all(s.round == 7 for s in spans)  # inherited from the root the ring overwrote
+    with rec.recording():  # a new stretch
+        rec.add("x", 1, 2)
+    assert [s.name for s in rec.spans()] == ["x"] and rec.dropped == 0
+
+
+PROFILERS = {
+    "torch.profiler": lambda: profile(activities=[ProfilerActivity.CPU]),
+    "autograd.profiler": lambda: torch.autograd.profiler.profile(),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PROFILERS))
+def test_a_profiler_session_turns_the_recorder_on(kind):
+    """The recorder follows the flag torch sets for every profiler session;
+    a torch that stopped setting it so would leave the recorder off, and
+    the benchmark's readers with nothing to read."""
+    assert not profiling.RECORDER.on
+    with PROFILERS[kind]():
+        assert profiling.RECORDER.on and torch.autograd.profiler._is_profiler_enabled
+        profiling.RECORDER.add("inside", 1, 2)
+    assert not profiling.RECORDER.on
+    assert [s.name for s in profiling.spans() if s.name != "python.gc"] == ["inside"]
+
+
+def test_each_profiler_session_is_a_stretch_and_a_span_outliving_it_is_ignored():
+    rec = profiling.RECORDER
+    with profile(activities=[ProfilerActivity.CPU]):
+        rec.add("first", 1, 2)
+        left_open = rec.open("open")
+    assert [s.name for s in profiling.spans()] == ["first"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        inner = rec.open("second")
+        rec.close(left_open)
+        rec.close(inner)
+    assert [s.name for s in profiling.spans()] == ["second"]
+    assert gc.callbacks.count(rec._gc) == 0
+
+
+def test_garbage_collections_are_spans_while_recording():
+    with profiling.recording():
+        gc.collect()
+    (span,) = [s for s in profiling.spans() if s.name == "python.gc" and s.a == 2]
+    assert span.end_ns >= span.start_ns
+
+
+def test_the_server_loop_phases_are_spans():
+    from tests.test_torch_serve import RTHK, run_client
+
+    srv = PatternServer(_clips(), port=0, max_streams=1, device="cpu", seconds_per_chunk=CHUNK_S)
+    srv.warmup()
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    with profiling.recording():
+        thread.start()
+        raw = run_client(srv.address[1], open(RTHK, "rb").read())
+        srv.shutdown()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and raw.rstrip().endswith(b"}")
+    spans = profiling.spans()
+    by_index = {s.index: s for s in spans}
+    names = {s.name for s in spans}
+    assert {"serve.select", "serve.sockets", "serve.collect", "serve.dispatch", "serve.take",
+            "serve.finish"} <= names
+    assert not hasattr(srv, "phase_seconds")
+    disp = [s for s in spans if s.name == "session.dispatch"]
+    assert disp and all(by_index[s.parent].name == "serve.dispatch" for s in disp)
+    assert srv.rounds_dispatched >= 1
+
+
+def test_device_trace_holds_the_spans_on_the_profiler_timeline(session, tmp_path, monkeypatch):
+    staged = bank_module.PatternBank._staged_sections
+
+    def probed(self, *args):
+        time.sleep(0.002)
+        with record_function("probe.pack"):
+            out = staged(self, *args)
+        time.sleep(0.002)
+        return out
+
+    monkeypatch.setattr(bank_module.PatternBank, "_staged_sections", probed)
+    with profiling.device_trace(str(tmp_path), "cpu"):
+        _round(session, 1)
+    (path,) = tmp_path.iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    (probe,) = [e for e in events if e.get("name") == "probe.pack" and e.get("ph") == "X"]
+    (pack,) = [e for e in events if e.get("name") == "bank.pack" and e.get("cat") == "apd_span"]
+    assert pack["ts"] <= probe["ts"] and probe["ts"] + probe["dur"] <= pack["ts"] + pack["dur"]
+    spans = [e for e in events if e.get("cat") == "apd_span"]
+    assert {"session.dispatch", "session.collect", "step.replay"} <= {e["name"] for e in spans}
+    assert len({e["pid"] for e in spans}) == 1 and spans[0]["pid"] != os.getpid()
