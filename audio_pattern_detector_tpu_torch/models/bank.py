@@ -821,31 +821,49 @@ class PatternBank:
     ) -> list[dict[str, list[int]]]:
         """Unpack a (B, total) class payload; flagged rows of each section
         go to :meth:`resolve_flagged_rows`. ``rows`` as in
-        :func:`_split_fused`. While recording, the unpack is the span
-        ``collect.unpack`` (attributes: rows, window) and the counter
-        ``live_groups`` adds the (row, group) pairs with a position below
-        the sentinel: those whose verify tail ran (a captured lean step's
-        if-node body, one a row in the scan schedule)."""
+        :func:`_split_fused`. The flags and selections are read as arrays,
+        so Python converts positions only where a row selected some: every
+        other unflagged clip gets an empty list. While recording, the
+        unpack is the span ``collect.unpack`` (attributes: rows, window);
+        the counter ``live_groups`` adds the (row, group) pairs with a
+        position below the sentinel, those whose verify tail ran (a
+        captured lean step's if-node body, one a row in the scan schedule),
+        and ``decoded_pairs`` the unflagged (row, clip) pairs that selected
+        a position."""
         groups = self.classes[sw]["groups"]
-        results: list[dict[str, list[int]]] = [dict() for _ in raws]
         flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
         span = RECORDER.open("collect.unpack", a=len(raws), b=sw) if RECORDER.on else -1
-        for gi, (g, packed) in enumerate(zip(groups, _split_fused(flat_np, groups, rows))):
-            pos, sel, host_fb, needs_full = unpack_group(packed, g.k_verify)
+        unpacked = []
+        for g, packed in zip(groups, _split_fused(flat_np[: len(raws)], groups, rows)):
+            host_fb, needs_full = group_flags(packed, g.k_verify)
+            unpacked.append((g, packed, host_fb, host_fb | needs_full))
+        # A row's unflagged clips, each with a fresh empty list, in the
+        # groups' order; flagged ones join after resolve_flagged_rows.
+        names = [n for g in groups for n in g.names]
+        results: list[dict[str, list[int]]] = [
+            {n: [] for n, f in zip(names, row) if not f}
+            for row in np.concatenate([f for *_, f in unpacked], axis=-1).tolist()
+        ]
+        for gi, (g, packed, host_fb, flagged) in enumerate(unpacked):
+            k = g.k_verify
+            # ``any`` tests the selection lanes ``!= 0``, without a copy.
+            live_bi, live_ci = np.nonzero(packed[..., k : 2 * k].any(axis=-1) & ~flagged)
             if span >= 0:
-                RECORDER.count("live_groups", int(np.count_nonzero((pos < _BIG).any(axis=(-2, -1)))))
-            for bi in range(len(raws)):
-                for ci, name in enumerate(g.names):
-                    if host_fb[bi, ci] or needs_full[bi, ci]:
-                        flagged_by_bi.setdefault(bi, []).append((gi, ci, bool(host_fb[bi, ci])))
-                    else:
-                        results[bi][name] = [int(p) for p in pos[bi, ci][sel[bi, ci]]]
+                alive = (packed[..., :k] < _BIG).any(axis=(-2, -1))
+                RECORDER.count("live_groups", int(np.count_nonzero(alive)))
+                RECORDER.count("decoded_pairs", len(live_bi))
+            for bi, ci in zip(live_bi.tolist(), live_ci.tolist()):
+                lanes = packed[bi, ci]
+                results[bi][g.names[ci]] = lanes[:k][lanes[k : 2 * k] != 0].astype(np.int32).tolist()
+            flag_bi, flag_ci = np.nonzero(flagged)
+            for bi, ci, host in zip(flag_bi.tolist(), flag_ci.tolist(), host_fb[flag_bi, flag_ci].tolist()):
+                flagged_by_bi.setdefault(bi, []).append((gi, ci, host))
         if span >= 0:
             RECORDER.close(span)
-        for bi, flagged in flagged_by_bi.items():
+        for bi, flagged_rows in flagged_by_bi.items():
             raw = raws[bi]
             section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
-            for (gi, ci), hits in self.resolve_flagged_rows(sw, flagged, section).items():
+            for (gi, ci), hits in self.resolve_flagged_rows(sw, flagged_rows, section).items():
                 results[bi][groups[gi].names[ci]] = hits
         return results
 
@@ -1044,12 +1062,18 @@ def unpack_group(
 ) -> tuple[NDArray[np.int32], NDArray[np.bool_], NDArray[np.bool_], NDArray[np.bool_]]:
     """(pos, selected, host_fallback, needs_full_tier) of a packed group
     payload (..., 2K+2); leading batch axes pass through."""
+    host_fallback, needs_full = group_flags(packed, k_verify)
     pos = packed[..., :k_verify].astype(np.int32)
-    sel = packed[..., k_verify : 2 * k_verify] != 0
+    return pos, packed[..., k_verify : 2 * k_verify] != 0, host_fallback, needs_full
+
+
+def group_flags(
+    packed: NDArray[np.float32], k_verify: int
+) -> tuple[NDArray[np.bool_], NDArray[np.bool_]]:
+    """(host_fallback, needs_full_tier) of a packed group payload
+    (..., 2K+2), as :func:`unpack_group` reads them."""
     flag = packed[..., 2 * k_verify]
-    host_fallback = (flag == 1.0) | (packed[..., 2 * k_verify + 1] != 0)
-    needs_full = flag == 2.0
-    return pos, sel, host_fallback, needs_full
+    return (flag == 1.0) | (packed[..., 2 * k_verify + 1] != 0), flag == 2.0
 
 
 # ── The class step ──

@@ -284,6 +284,17 @@ class TorchAudioPatternDetector:
                 if freq is not None:
                     self._tone_frequencies[clip_name] = float(freq)
 
+        # What ``peaks_to_times`` needs of each clip, in ``audio_clips`` order:
+        # (name, sliding_window, clip_seconds).
+        self._clip_times = [
+            (
+                c.name,
+                self._clip_datas[c.name]["sliding_window"],
+                len(self._clip_datas[c.name]["clip"]) / self.target_sample_rate,
+            )
+            for c in self.audio_clips
+        ]
+
         self._chunk_size = int(self.seconds_per_chunk * self.target_sample_rate) * 4
 
         # Device pattern bank compiled lazily on first stream (chunk size known).
@@ -632,13 +643,14 @@ class TorchAudioPatternDetector:
         span = RECORDER.open("collect.times") if RECORDER.on else -1
         sr = self.target_sample_rate
         out: dict[str, list[float]] = {}
-        for audio_clip in self.audio_clips:
-            name = audio_clip.name
-            sliding_window = self._clip_datas[name]["sliding_window"]
-            clip_seconds = len(self._clip_datas[name]["clip"]) / sr
+        for name, sliding_window, clip_seconds in self._clip_times:
+            peaks = clip_peaks.get(name)
+            if not peaks:
+                out[name] = []
+                continue
             subtract = sliding_window if had_prev else 0
             times = []
-            for pos in clip_peaks.get(name, []):
+            for pos in peaks:
                 t = pos / sr - subtract + index * self.seconds_per_chunk
                 t -= clip_seconds
                 times.append(t if t >= 0 else 0)

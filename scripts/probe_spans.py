@@ -16,7 +16,8 @@
    ``cudaEventSynchronize`` outside its ``collect.wait`` (microseconds; 0
    inside).
 4. ``slowest_rounds``: a window with recording on; its slowest rounds
-   split by span, the garbage collections among them.
+   split by span, the garbage collections among them, and the window's
+   counters a round.
 5. ``cost``: rounds with recording forced on against off, in turns.
 
     python3 scripts/probe_spans.py [--seed N] [--turns 3] [--seconds 4]
@@ -227,7 +228,8 @@ def slowest_rounds(driver, seconds: float, k: int = 5) -> list:
     out.append({"rounds": len(lat), "median_ms": round(1e-6 * statistics.median(lat.values()), 3),
                 "by_span_ms_per_round": _per_round(spans), "starved_split_ms": _starved_split(spans),
                 "gc_count": len(all_gc), "gc_ms_total": round(sum(s.ms for s in all_gc), 3),
-                "gc_max_ms": round(max((s.ms for s in all_gc), default=0.0), 3)})
+                "gc_max_ms": round(max((s.ms for s in all_gc), default=0.0), 3),
+                "counters_per_round": {name: n / len(lat) for name, n in sorted(profiling.counters().items())}})
     return out
 
 
