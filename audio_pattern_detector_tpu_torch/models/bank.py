@@ -222,6 +222,9 @@ dispatch_phase_seconds: dict[str, float] = {
 
 # The routes of a flagged row, each rerun's span ``collect.flagged`` holding
 # its index as its first attribute (:meth:`PatternBank.resolve_flagged_rows`).
+# While recording, the counter ``flagged_rows`` moves wherever one of the
+# bank's four route counts does, by as much: each row rerun, class rerun,
+# escalated row and host-path row is one.
 FLAGGED_ROUTES = ("row", "class", "escalated", "host")
 _route = FLAGGED_ROUTES.index
 
@@ -334,6 +337,10 @@ class PatternBank:
         # device; ``capture`` may be switched off and on again between
         # calls, to hold the two against each other.
         self.graphs = StepGraphs()
+        # A flagged row's wide rerun, captured as the class steps are, one
+        # graph per clip and lane width that has flagged, in a pool apart
+        # from theirs (:meth:`_row_rerun_step`).
+        self.rerun_graphs = StepGraphs()
         self.capture = self.device.type == "cuda" if capture is None else bool(capture)
         if self.capture:
             self.graphs.check(self.device)
@@ -408,6 +415,8 @@ class PatternBank:
         # built on first use.
         self._shared_geoms = shared_geoms
         self._row_consts: dict[tuple[int, int, int], tuple] = {}
+        # Each class's host row for a rerun's section (:meth:`_rerun_section`).
+        self._rerun_rows: dict[int, torch.Tensor] = {}
         # Replicas of a class's constants on other devices, built on first
         # use (the shards of a device mesh).
         self._replica_loud: dict[tuple[int, torch.device], LoudnessConsts] = {}
@@ -829,7 +838,8 @@ class PatternBank:
         position below the sentinel, those whose verify tail ran (a
         captured lean step's if-node body, one a row in the scan schedule),
         and ``decoded_pairs`` the unflagged (row, clip) pairs that selected
-        a position."""
+        a position; ``flagged_rows`` is counted here too, by 0, so that it
+        is present for every collect, flagged or not."""
         groups = self.classes[sw]["groups"]
         flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
         span = RECORDER.open("collect.unpack", a=len(raws), b=sw) if RECORDER.on else -1
@@ -852,6 +862,7 @@ class PatternBank:
                 alive = (packed[..., :k] < _BIG).any(axis=(-2, -1))
                 RECORDER.count("live_groups", int(np.count_nonzero(alive)))
                 RECORDER.count("decoded_pairs", len(live_bi))
+                RECORDER.count("flagged_rows", 0)
             for bi, ci in zip(live_bi.tolist(), live_ci.tolist()):
                 lanes = packed[bi, ci]
                 results[bi][g.names[ci]] = lanes[:k][lanes[k : 2 * k] != 0].astype(np.int32).tolist()
@@ -885,10 +896,20 @@ class PatternBank:
             (kind, m, min(kd, self._WIDE_RERUN_CAP), kv) for kind, m, kd, kv in self._metas[sw]
         )
 
-    def _section_tensor(self, sw: int, raw_section: NDArray[np.float32]) -> torch.Tensor:
-        section = np.zeros(self.classes[sw]["section_len"], dtype=np.float32)
-        section[: len(raw_section)] = raw_section
-        return torch.from_numpy(section).to(self.device)
+    def _rerun_section(self, sw: int, raw_section: NDArray[np.float32]) -> torch.Tensor:
+        """``raw_section`` zero-padded to its class's length, in a host
+        buffer of the class's own that every rerun reuses: pinned on a card,
+        so that its copy up is one DMA and a rerun allocates nothing. A
+        rerun's copy up is synchronous, so the next one may overwrite it."""
+        buf = self._rerun_rows.get(sw)
+        if buf is None:
+            buf = self._rerun_rows[sw] = torch.empty(
+                self.classes[sw]["section_len"], dtype=torch.float32,
+                pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        host[: len(raw_section)] = raw_section
+        host[len(raw_section) :] = 0
+        return buf
 
     def _full_tier_packed(
         self, sw: int, raw_section: NDArray[np.float32], capped: bool = True
@@ -900,8 +921,9 @@ class PatternBank:
         span = -1
         if RECORDER.on:
             span = RECORDER.open("collect.flagged", a=_route("class" if capped else "escalated"), b=sw)
+            RECORDER.count("flagged_rows", 1)
         outs = class_step(
-            self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
+            self._rerun_section(sw, raw_section).to(self.device), len(raw_section), cls["loud"],
             tuple((g.corr, g.verify) for g in cls["groups"]),
             metas=self._wide_metas(sw, capped), height_min=self.height_min, wide=True,
         )
@@ -935,12 +957,40 @@ class PatternBank:
             self._row_consts[key] = (corr_row, verify_row)
         return self._row_consts[key]
 
+    def _row_rerun_step(self, sw: int, gi: int, ci: int, kd: int) -> "CapturedStep | EagerStep":
+        """The wide tier of clip ``ci`` of group ``gi`` over one section at
+        ``kd`` lanes, as an object to ``load(section, n_valid)`` and
+        ``run()``: with ``capture`` on, the captured step of its key (B = 1,
+        the one-row constants, the lanes), so that a rerun on a round's
+        critical path is one graph launch and not the eager step's 160-odd
+        launches, one by one; else the eager step. Its graph is made at the
+        clip's first flagged row at that width."""
+        cls = self.classes[sw]
+        g = cls["groups"][gi]
+        row = self._row_consts_for(sw, gi, ci)
+        fn = functools.partial(
+            class_step, loud=cls["loud"], group_consts=(row,),
+            metas=((g.kind, g.clip_len, kd, g.k_verify),), height_min=self.height_min, wide=True,
+        )
+        if not self.capture:
+            return EagerStep(fn, self.device)
+        key = StepKey(
+            device=self.device, sw=sw, rows=1, dtype=torch.float32, fused=False, scan=candidate_scan,
+            general=False, kernel_tier=self.kernel_tier, overlap_save=self.overlap_save,
+            packed_upload=self.packed_upload,
+            marker_gemm=_marker_gemm_enabled() and self.device.type != "cuda",
+            skip_empty_verify=False, greedy_unroll=False,
+            consts=(id(cls["loud"]), *(id(c) for c in row)), wide_lanes=(kd,),
+        )
+        return self.rerun_graphs.get(key, fn, (cls["loud"], (row,)), cls["section_len"])
+
     def _full_tier_row(
         self, sw: int, gi: int, ci: int, raw_section: NDArray[np.float32], capped: bool = True
     ) -> NDArray[np.float32]:
         """Re-derive one clip row through the wide tier: its packed payload
         (2 k_verify + 2,). A marker hit floods exactly that clip's row, and
-        the whole class would cost G times the correlation work."""
+        the whole class would cost G times the correlation work. The step is
+        :meth:`_row_rerun_step`'s, captured where the bank captures."""
         cls = self.classes[sw]
         g = cls["groups"][gi]
         kd = min(g.k_detect, self._WIDE_RERUN_CAP) if capped else g.k_detect
@@ -948,12 +998,10 @@ class PatternBank:
         span = -1
         if RECORDER.on:
             span = RECORDER.open("collect.flagged", a=_route("row" if capped else "escalated"), b=sw)
-        outs = class_step(
-            self._section_tensor(sw, raw_section), len(raw_section), cls["loud"],
-            (self._row_consts_for(sw, gi, ci),),
-            metas=((g.kind, g.clip_len, kd, g.k_verify),), height_min=self.height_min, wide=True,
-        )
-        payload = outs[0][0].cpu().numpy()
+            RECORDER.count("flagged_rows", 1)
+        step = self._row_rerun_step(sw, gi, ci, kd)
+        step.load(self._rerun_section(sw, raw_section), len(raw_section))
+        payload = step.run()[0][0].cpu().numpy()
         if span >= 0:
             RECORDER.close(span)
         return payload
@@ -1008,6 +1056,8 @@ class PatternBank:
         rerun_rows(device_rows, capped=True, on_flag=route_capped_flag)
         if escalate:
             self.escalated_reruns += len(escalate)
+            if RECORDER.on:
+                RECORDER.count("flagged_rows", len(escalate))
             rerun_rows(escalate, capped=False, on_flag=lambda gi, ci: host_rows.append((gi, ci)))
         for gi, ci in host_rows:
             out[(gi, ci)] = self._host_fallback(groups[gi], ci, raw_section)
@@ -1018,7 +1068,10 @@ class PatternBank:
     ) -> list[int]:
         """Exact host path for a flagged row."""
         self.host_path_rows += 1
-        span = RECORDER.open("collect.flagged", a=_route("host")) if RECORDER.on else -1
+        span = -1
+        if RECORDER.on:
+            span = RECORDER.open("collect.flagged", a=_route("host"))
+            RECORDER.count("flagged_rows", 1)
         hits = hostpath.process_section_host(
             audio_section=raw_section,
             clip=g.clips_np[ci],

@@ -23,7 +23,9 @@ payloads) is captured once per key into a CUDA graph and replayed:
   is its fused kernel either way), and the identity of the constants the
   step reads:
   a replica on another device or a bank shard's slice is another key, and
-  its graph holds those constants for as long as it lives.
+  its graph holds those constants for as long as it lives. A flagged
+  row's wide rerun (``models/bank.py::PatternBank._full_tier_row``) is a
+  key of its own too: one clip's constants, B = 1, and its lanes.
 * **First use** copies the call's rows and lengths into the static inputs,
   runs the step eagerly on the device's capture stream (which builds the
   cuFFT plans, the kernels' per-device attributes and the marker kernel's
@@ -152,6 +154,7 @@ class StepKey(NamedTuple):
     skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
     greedy_unroll: bool  # APD_GREEDY_UNROLL=1 where it acts: the plain lean greedy's rounds unrolled
     consts: tuple[int, ...]  # ids of the loudness and group constants
+    wide_lanes: tuple[int, ...] = ()  # a row rerun's wide tier: its k_detect lanes; () for the class step
 
 
 def _tensors(out: Any) -> list[torch.Tensor]:

@@ -429,7 +429,9 @@ def test_the_general_plateau_tier_is_captured_and_the_wide_rerun_stays_eager(sta
     """``height_min <= 0`` captures its step too (its lane greedy's loops
     and its two-tier cond are nodes of the graph: one key, its payload the
     eager step's); a flooded row's wide rerun, which runs at collect time,
-    stays eager beside the captured lean step."""
+    stays out of the class steps' keys: a row rerun is a key of its own,
+    of one row and its lanes, beside the captured lean step, and its
+    results are the eager rerun's."""
     general = _bank(capture=True, height_min=0.0)
     got = [_payloads(_dispatch(general, ROWS, "vmap")) for _ in range(2)]
     (step,) = general.graphs.steps()
@@ -444,8 +446,84 @@ def test_the_general_plateau_tier_is_captured_and_the_wide_rerun_stays_eager(sta
     results = bank.process_chunks_batch(chunks, flood[:CHUNK], mode="vmap")
     assert bank.row_reruns + bank.class_reruns >= 1 and len(results[0]["c"]) >= 16
     assert {s.key.general for s in bank.graphs.steps()} == {False}
+    assert {s.key.wide_lanes for s in bank.graphs.steps()} == {()}
+    assert all(s.key.rows == 1 and s.key.wide_lanes for s in bank.rerun_graphs.steps())
     bank.capture = False
     assert bank.process_chunks_batch(chunks, flood[:CHUNK], mode="vmap") == results
+
+
+# ── A flagged row's wide rerun ──
+
+
+def _rerun_bank(clip, capture):
+    return TorchAudioPatternDetector([clip], device="cpu", seconds_per_chunk=20,
+                                     capture=capture)._ensure_bank()
+
+
+def _rerun_routes(bank):
+    return bank.row_reruns, bank.class_reruns, bank.escalated_reruns, bank.host_path_rows
+
+
+def _rerun_case(case):
+    """(clip, 20 s chunk, routes): a noise clip copied 18 times (more than
+    the lean tier's 16 lanes: one row rerun at the capped width), or a
+    1,040 Hz marker hit with 18 weak ones past the cap's 1,024 candidates
+    (the capped rerun, then the rerun escalated to the group's k_detect).
+    The routes as ``tests/test_torch_rerun.py`` holds them on the eager
+    bank."""
+    rng = np.random.default_rng(3 if case == "row" else 5)
+    audio = (0.004 if case == "row" else 0.002) * rng.standard_normal(20 * SR)
+    if case == "row":
+        clip = AudioClip(name="c", audio=(0.4 * np.random.default_rng(3).standard_normal(SR)).astype(
+            np.float32), sample_rate=SR)
+        for k in range(18):
+            o = int((0.3 + 1.05 * k) * SR)
+            audio[o : o + SR] += clip.audio[: min(SR, len(audio) - o)]
+        return clip, audio.astype(np.float32), (1, 0, 0, 0)
+    t = np.arange(int(0.25 * SR)) / SR
+    tone = (0.8 * np.sin(2 * np.pi * 1040.0 * t)).astype(np.float32)
+    audio[SR : SR + len(tone)] += tone
+    for k in range(18):
+        o = int((2.0 + 0.6 * k) * SR)
+        audio[o : o + len(tone)] += 0.3 * tone
+    return (AudioClip(name="m", audio=tone, sample_rate=SR, strategy="marker_tone"),
+            audio.astype(np.float32), (2, 0, 1, 0))
+
+
+@pytest.mark.parametrize("case", ["row", "escalated"])
+def test_a_row_rerun_is_one_key_a_clip_and_width_its_results_the_eager_reruns(stand_in, case):
+    """With capture on, a row rerun is the captured step of its own key (one
+    row, the clip's constants, its lanes: the capped width, then the
+    group's k_detect where it escalates), made at its first use and
+    replayed after it, apart from the class steps; what the chunk returns,
+    and the routes its rows take, are the eager bank's, twice over."""
+    clip, audio, routes = _rerun_case(case)
+    eager = _rerun_bank(clip, capture=False)
+    want = eager.process_chunk(audio, None)
+    assert _rerun_routes(eager) == routes and eager.rerun_graphs.steps() == []
+    bank = _rerun_bank(clip, capture=True)
+    assert [bank.process_chunk(audio, None) for _ in range(2)] == [want, want]
+    assert _rerun_routes(bank) == tuple(2 * n for n in routes)
+    (g,) = bank.classes[1]["groups"]
+    lanes = [(min(g.k_detect, bank._WIDE_RERUN_CAP),)] + ([(g.k_detect,)] if case == "escalated" else [])
+    steps = bank.rerun_graphs.steps()
+    assert [s.key.wide_lanes for s in steps] == lanes
+    assert all(s.key.rows == 1 and s.replays == 1 for s in steps)
+    assert all(s.key.wide_lanes == () for s in bank.graphs.steps())
+
+
+def test_a_captured_row_rerun_payload_is_the_eager_ones_bit_for_bit(stand_in):
+    """The row rerun's payload itself, captured (one row of a (1, S) batch
+    with its length tensor) against eager (one (S,) section with its int
+    length), on a section shorter than the class's, whose padding the
+    static input must zero again after a longer one."""
+    clip, audio, _ = _rerun_case("row")
+    eager, bank = _rerun_bank(clip, capture=False), _rerun_bank(clip, capture=True)
+    for section in (audio, audio[: 15 * SR], audio):
+        np.testing.assert_array_equal(_bits(bank._full_tier_row(1, 0, 0, section)),
+                                      _bits(eager._full_tier_row(1, 0, 0, section)))
+    (step,) = bank.rerun_graphs.steps()
+    assert step.replays == 2
 
 
 # ── The warmed lean step reads nothing on the host and uploads nothing ──

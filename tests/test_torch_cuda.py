@@ -427,6 +427,50 @@ def test_wide_rerun_on_the_card_equals_the_host_path(cuda, route):
     assert routes == want_routes
 
 
+@pytest.mark.parametrize("route", ["row", "escalated"])
+def test_a_captured_row_rerun_on_the_card_is_the_eager_one_bit_for_bit(cuda, route):
+    """A row rerun on a capturing bank is a graph of its own (one row, the
+    clip's constants, its lanes), made at its first use and replayed after
+    it: its payload equals the eager rerun's bit for bit, on the section and
+    on a shorter one after it, and the chunk's detections and routes are the
+    eager bank's."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
+    from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
+
+    sr = 8000
+    if route == "escalated":
+        clip = AudioClip(name="m", audio=(0.8 * np.sin(2 * np.pi * 1040.0 * np.arange(2000) / sr)).astype(
+            np.float32), sample_rate=sr, strategy="marker_tone")
+        audio = (0.002 * np.random.default_rng(5).standard_normal(20 * sr)).astype(np.float32)
+        audio[sr : sr + 2000] += clip.audio
+        for k in range(18):
+            o = int((2.0 + 0.6 * k) * sr)
+            audio[o : o + 2000] += 0.3 * clip.audio
+    else:
+        rng = np.random.default_rng(31)
+        clip = AudioClip(name="c", audio=(0.4 * rng.standard_normal(sr)).astype(np.float32), sample_rate=sr)
+        audio = (0.004 * rng.standard_normal(20 * sr)).astype(np.float32)
+        for k in range(18):
+            o = int((0.3 + 1.05 * k) * sr)
+            audio[o : o + sr] += clip.audio[: min(sr, len(audio) - o)]
+    banks = [TorchAudioPatternDetector([clip], device=cuda, seconds_per_chunk=20, capture=c)._ensure_bank()
+             for c in (False, True)]
+    eager, bank = banks
+    assert bank.capture and not eager.capture
+    got = [b.process_chunk(audio, None) for b in banks]
+    assert got[0] == got[1] == bank.process_chunk(audio, None)
+    routes = [(b.row_reruns, b.class_reruns, b.escalated_reruns, b.host_path_rows) for b in banks]
+    assert routes[1] == tuple(2 * n for n in routes[0]) and routes[0][0] >= 1
+    steps = bank.rerun_graphs.steps()
+    assert len(steps) == (2 if route == "escalated" else 1) and all(s.replays == 1 for s in steps)
+    for section in (audio, audio[: 15 * sr]):
+        for capped in (True, False):
+            a, b = (x._full_tier_row(1, 0, 0, section, capped=capped) for x in banks)
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
 def test_multistream_session_on_card_equals_cpu(cuda):
     """Tiled and untiled rounds with an int16 stream, an f32 stream that
     starts late and a zero-length chunk: every round's output on the card

@@ -126,7 +126,15 @@ def test_first_use_of_a_key_is_a_capture_span(monkeypatch):
     with profiling.recording():
         sess.feed(_chunks(0))
     names = [s.name for s in profiling.spans()]
-    assert names.count("step.capture") == 1 and names.count("step.replay") == STATIONS - 1
+    # The class step's key, and the key of each flagged row's wide rerun
+    # (the marker tone floods its clip's row): each first use a capture,
+    # each later use a replay.
+    bank = sess._bank
+    (step,) = bank.graphs.steps()
+    steps = [step, *bank.rerun_graphs.steps()]
+    assert step.replays == STATIONS - 1
+    assert names.count("step.capture") == len(steps)
+    assert names.count("step.replay") == sum(s.replays for s in steps)
 
 
 def test_flagged_rows_are_spans_by_route(session):
@@ -143,6 +151,63 @@ def test_flagged_rows_are_spans_by_route(session):
     flagged = [s for s in profiling.spans() if s.name == "collect.flagged"]
     routes = [bank_module.FLAGGED_ROUTES[s.a] for s in flagged]  # the reruns, then the host path
     assert routes[0] == "row" and routes[-1] == "host" and len(routes) == reruns() - before
+
+
+ROUTE_COUNTS = ("row_reruns", "class_reruns", "escalated_reruns", "host_path_rows")
+
+
+def _route_counts(bank):
+    return sum(getattr(bank, k) for k in ROUTE_COUNTS)
+
+
+def _force_flag(monkeypatch, host):
+    """Every group's clip 0 of row 0 in a round's payload comes back
+    flagged: for the host path (``host``) or for a wide rerun (whose own
+    one-row payload is read as it is)."""
+    original = bank_module.group_flags
+
+    def flags(packed, k_verify):
+        host_fb, needs_full = original(packed, k_verify)
+        if packed.ndim == 3:
+            host_fb, needs_full = host_fb.copy(), needs_full.copy()
+            (host_fb if host else needs_full)[0, 0] = True
+        return host_fb, needs_full
+
+    monkeypatch.setattr(bank_module, "group_flags", flags)
+
+
+@pytest.mark.parametrize("host", [False, True], ids=["rerun", "host_path"])
+def test_flagged_rows_counts_what_the_route_counts_add(session, monkeypatch, host):
+    bank = session._bank
+    _force_flag(monkeypatch, host)
+    before = _route_counts(bank)
+    with profiling.recording():
+        _round(session, 1)
+    moved = _route_counts(bank) - before
+    assert moved == len(bank.classes[next(iter(bank.classes))]["groups"]) == 2
+    assert profiling.counters()["flagged_rows"] == moved
+    flagged = [s for s in profiling.spans() if s.name == "collect.flagged"]
+    assert {bank_module.FLAGGED_ROUTES[s.a] for s in flagged} == {"host" if host else "row"}
+
+
+def test_flagged_rows_is_present_and_zero_on_a_collect_with_none(session):
+    bank = session._bank
+    before = _route_counts(bank)
+    with profiling.recording():
+        _round(session, 1)
+    assert _route_counts(bank) == before
+    assert profiling.counters()["flagged_rows"] == 0
+
+
+def test_flagged_rows_is_not_counted_with_the_recorder_off(session, monkeypatch):
+    bank = session._bank
+    _force_flag(monkeypatch, False)
+    with profiling.recording():
+        pass
+    before = _route_counts(bank)
+    _round(session, 1)
+    assert _route_counts(bank) - before == 2
+    assert profiling.counters() == {} and profiling.spans() == []
 
 
 def test_the_ring_keeps_the_newest_spans_and_counts_the_dropped():
