@@ -209,9 +209,11 @@ def host_cond(pred: torch.Tensor, then_: Callable[[], Any], else_: Callable[[], 
 # each row's section parts (lookback and chunk), their copy into the
 # zero-padded staging rows ("pack", the JAX bank's key), the upload, the
 # enqueue of the class step's launches, and the enqueue of the payload's
-# copy back. Probes read and reset it to say where a round's dispatch time
-# goes (chip_smoke.py). While recording, the same clock readings make the
-# spans ``bank.<stage>`` (utils/profiling.py).
+# copy back. In the "scan" schedule pack, upload and launch come once a
+# row, and each adds the sum of its rows. Probes read and reset it to say
+# where a round's dispatch time goes (chip_smoke.py). While recording, the
+# same clock readings make the spans ``bank.<stage>``
+# (utils/profiling.py).
 dispatch_phase_seconds: dict[str, float] = {
     "sections": 0.0,
     "pack": 0.0,
@@ -494,48 +496,68 @@ class PatternBank:
         if len(pooled) < self._POOL_BOUND:
             pooled.append(buf)
 
+    def _stage(
+        self,
+        section_len: int,
+        sections: "list[NDArray[Any] | tuple[NDArray[Any], ...]]",
+    ) -> tuple[NDArray[Any], list[NDArray[Any]], list[tuple[NDArray[Any], ...]]]:
+        """(rows, raws, parts) for the upload of ``sections`` (each an
+        array, or its parts in order, as :meth:`_section_parts` gives
+        them), with nothing written yet: a (B, S) buffer of the staging
+        pool, one row per section, each row's section as a view of its row
+        (int16 rows stay int16; a row decoded for an f32 round is f32), and
+        each row's parts, which :meth:`_pack_row` writes into it. The
+        buffer is int16 when every non-empty part arrived as int16 (half
+        the bytes of f32) and ``APD_PACKED_UPLOAD`` is not 0, else f32 with
+        int16 parts decoded on the host, so its dtype is known before the
+        first row is packed. The device decode of an int16 row is bitwise
+        the host decode, so a row's payload does not depend on which form
+        its round took. f32 rows are not tested for lying on the PCM grid:
+        a source of 16-bit PCM hands its samples on as int16 (``match.py``'s
+        stream wrappers, ``serve``), and the test costs a round more host
+        time than the smaller upload saves. The views hold the sections
+        until the buffer goes back to the pool, at collect."""
+        rows_parts = [s if isinstance(s, tuple) else (s,) for s in sections]
+        as_i16 = self.packed_upload and all(
+            p.dtype == np.int16 or not len(p) for parts in rows_parts for p in parts)
+        rows = self._pool_get(np.int16 if as_i16 else np.float32, len(sections), section_len)
+        raws = [rows[bi, : sum(len(p) for p in ps)] for bi, ps in enumerate(rows_parts)]
+        return rows, raws, rows_parts
+
+    @staticmethod
+    def _pack_row(rows: NDArray[Any], bi: int, parts: tuple[NDArray[Any], ...]) -> None:
+        """Write row ``bi`` of a staging buffer part by part and zero only
+        its tail past the row's length, so a recycled buffer keeps nothing
+        of an earlier round and no section is assembled anywhere else."""
+        o = 0
+        for p in parts:
+            if rows.dtype != np.int16 and p.dtype == np.int16:
+                p = native.pcm16_to_f32_mono(p)
+            rows[bi, o : o + len(p)] = p
+            o += len(p)
+        rows[bi, o:] = 0
+
+    def _staged_sections(
+        self,
+        section_len: int,
+        parts: "list[NDArray[Any] | tuple[NDArray[Any], ...]]",
+    ) -> tuple[NDArray[Any], list[NDArray[Any]]]:
+        """(rows, raws) of :meth:`_stage` with every row packed: the
+        whole round staged before it goes up at once."""
+        rows, raws, rows_parts = self._stage(section_len, parts)
+        for bi, ps in enumerate(rows_parts):
+            self._pack_row(rows, bi, ps)
+        return rows, raws
+
     def _section_rows(
         self,
         section_len: int,
         sections: "list[NDArray[Any] | tuple[NDArray[Any], ...]]",
     ) -> NDArray[Any]:
         """(B, S) zero-padded host rows for the upload, in a buffer of the
-        staging pool, one row per section (an array, or its parts in order,
-        as :meth:`_section_parts` gives them): int16 when every non-empty
-        row arrived as int16 (half the bytes of f32) and
-        ``APD_PACKED_UPLOAD`` is not 0, else f32 with int16 rows decoded on
-        the host. The device decode of an int16
-        row is bitwise the host decode, so a row's payload does not depend
-        on which form its round took. f32 rows are not tested for lying on
-        the PCM grid: a source of 16-bit PCM hands its samples on as int16
-        (``match.py``'s stream wrappers, ``serve``), and the test costs a
-        round more host time than the smaller upload saves. Each row is
-        written part by part and only its tail past the row's length
-        zeroed, so a recycled buffer keeps nothing of an earlier round and
-        no section is assembled anywhere else."""
-        rows_parts = [s if isinstance(s, tuple) else (s,) for s in sections]
-        as_i16 = self.packed_upload and all(
-            p.dtype == np.int16 or not len(p) for parts in rows_parts for p in parts)
-        rows = self._pool_get(np.int16 if as_i16 else np.float32, len(sections), section_len)
-        for bi, parts in enumerate(rows_parts):
-            o = 0
-            for p in parts:
-                if not as_i16 and p.dtype == np.int16:
-                    p = native.pcm16_to_f32_mono(p)
-                rows[bi, o : o + len(p)] = p
-                o += len(p)
-            rows[bi, o:] = 0
-        return rows
-
-    def _staged_sections(
-        self, section_len: int, parts: "list[tuple[NDArray[Any], ...]]"
-    ) -> tuple[NDArray[Any], list[NDArray[Any]]]:
-        """(rows, raws): :meth:`_section_rows` of the parts, and each row's
-        section as a view of its staged row (int16 rows stay int16; a row
-        decoded for an f32 round is f32). The views hold the section until
-        the staging buffer goes back to the pool, at collect."""
-        rows = self._section_rows(section_len, parts)
-        return rows, [rows[bi, : sum(len(p) for p in ps)] for bi, ps in enumerate(parts)]
+        staging pool, one row per section: :meth:`_staged_sections`'
+        rows."""
+        return self._staged_sections(section_len, sections)[0]
 
     def program(
         self,
@@ -693,9 +715,11 @@ class PatternBank:
         host either way and no state crosses rows, so both modes serve
         consecutive chunks and independent streams with identical results.
         "scan" runs the rows one after another on the current stream (one
-        chunk's memory); "vmap" runs every row through one set of launches
-        per class (B times the memory). The payload copies back once per
-        class in both.
+        chunk's memory), each row staged, copied up and launched before
+        the next is staged (:meth:`_dispatch_rows`); "vmap" runs every row
+        through one set of launches per class (B times the memory), so the
+        whole round is staged and copied up first (:meth:`_dispatch_round`).
+        The payload copies back once per class in both.
 
         ``sharding`` (an object with a ``mesh`` and the name of its row
         ``axis``, e.g. ``parallel.mesh.RowSharding``) spreads a "vmap" round
@@ -752,49 +776,13 @@ class PatternBank:
             parts = [self._section_parts(sw, chunk, prev) for chunk, prev in zip(chunks, prev_tails)]
             t1 = clock()
             dispatch_phase_seconds["sections"] += (t1 - t0) * ns
-            host_rows, raws = self._staged_sections(cls["section_len"], parts)
-            t2 = clock()
-            dispatch_phase_seconds["pack"] += (t2 - t1) * ns
-            # The round's rows go up once per shard. Each step then copies
-            # its rows and lengths into its inputs just before it runs (two
-            # logical shards of one device may share one captured step).
-            if mode == "scan":
-                # Row after row: the B = 1 graph replayed once per row (or
-                # the eager single-section step), on the current stream.
-                rows = upload_rows(host_rows, self.device)
-                prog = self.program(sw, self.device, dtype=rows.dtype)
-                steps = [(prog, rows[bi], len(raws[bi])) for bi in range(b)]
-            else:
-                n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
-                if self.device.type == "cuda":
-                    # Pinned, so that loading the lengths does not wait for
-                    # the rounds in flight, as a pageable copy would.
-                    n_valids = n_valids.pin_memory()
-                steps = []
-                for dev, lo, hi in shards:
-                    rows = upload_rows(host_rows[lo:hi], dev)
-                    consts = None if sharding is None else self.replica(sw, dev)
-                    steps.append((self.program(sw, dev, hi - lo, rows.dtype, consts), rows,
-                                  n_valids[lo:hi]))
-            t3 = clock()
-            dispatch_phase_seconds["upload"] += (t3 - t2) * ns
-            launch = -1
             if RECORDER.on:
                 RECORDER.add("bank.sections", t0, t1, b, sw)
-                RECORDER.add("bank.pack", t1, t2, b, sw)
-                RECORDER.add("bank.upload", t2, t3, b, sw)
-                launch = RECORDER.open("bank.launch", t3, a=b, b=sw)
-            payloads = []
-            for prog, rows, n_valid in steps:
-                with device_guard(prog.device):
-                    prog.load(rows, n_valid)
-                    payloads.append(prog.run())
             if mode == "scan":
-                payloads = [torch.stack([p.reshape(-1) for p in payloads])]
-            t4 = clock()
-            dispatch_phase_seconds["launch"] += (t4 - t3) * ns
-            if launch >= 0:
-                RECORDER.close(launch, t4)
+                host_rows, raws, payloads, t4 = self._dispatch_rows(sw, cls["section_len"], parts, t1)
+            else:
+                host_rows, raws, payloads, t4 = self._dispatch_round(
+                    sw, cls["section_len"], parts, shards, sharding, t1)
             handles = [PayloadHandle(p) for p in payloads]
             handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
             dispatched.append((sw, handle, raws, b, host_rows))
@@ -803,6 +791,106 @@ class PatternBank:
             if RECORDER.on:
                 RECORDER.add("bank.prefetch", t4, t0, b, sw)
         return dispatched
+
+    def _dispatch_rows(
+        self, sw: int, section_len: int, parts: "list[tuple[NDArray[Any], ...]]", t: int,
+    ) -> tuple[NDArray[Any], list[NDArray[Any]], list[torch.Tensor], int]:
+        """The "scan" schedule of one class, from clock reading ``t``: row
+        after row, each row is packed into its row of the staging buffer,
+        copied up on the current stream and run (the B = 1 graph's load
+        and replay, or the eager single-section step) before the next is
+        packed, so the device runs a row while the host packs the next.
+        The dtype is the round's, chosen before the first row is packed,
+        and the rows, lengths and step are the whole-round staging's, so
+        the payload is too, bit for bit. Returns (staging buffer, raws,
+        [the (B, total) payload], the last clock reading). Each row adds to
+        the phases ``pack``, ``upload`` and ``launch`` and, while
+        recording, is the spans ``bank.pack``, ``bank.upload`` and
+        ``bank.launch`` (attributes: 1 row, window); the rows packed after
+        the class's first launch count as ``overlapped_rows``."""
+        clock, ns = time.perf_counter_ns, 1e-9
+        host_rows, raws, rows_parts = self._stage(section_len, parts)
+        prog = self.program(
+            sw, self.device, dtype=torch.int16 if host_rows.dtype == np.int16 else torch.float32)
+        payloads = []
+        overlapped = 0
+        for bi, ps in enumerate(rows_parts):
+            overlapped += bool(payloads)
+            self._pack_row(host_rows, bi, ps)
+            t2 = clock()
+            row = upload_rows(host_rows[bi], self.device)
+            t3 = clock()
+            launch = -1
+            if RECORDER.on:
+                RECORDER.add("bank.pack", t, t2, 1, sw)
+                RECORDER.add("bank.upload", t2, t3, 1, sw)
+                launch = RECORDER.open("bank.launch", t3, a=1, b=sw)
+            with device_guard(prog.device):
+                prog.load(row, len(raws[bi]))
+                payloads.append(prog.run().reshape(-1))
+            t4 = clock()
+            if launch >= 0:
+                RECORDER.close(launch, t4)
+            dispatch_phase_seconds["pack"] += (t2 - t) * ns
+            dispatch_phase_seconds["upload"] += (t3 - t2) * ns
+            dispatch_phase_seconds["launch"] += (t4 - t3) * ns
+            t = t4
+        if RECORDER.on:
+            RECORDER.count("overlapped_rows", overlapped)
+        return host_rows, raws, [torch.stack(payloads)], t
+
+    def _dispatch_round(
+        self,
+        sw: int,
+        section_len: int,
+        parts: "list[tuple[NDArray[Any], ...]]",
+        shards: "list[tuple[torch.device, int, int]]",
+        sharding: Any,
+        t1: int,
+    ) -> tuple[NDArray[Any], list[NDArray[Any]], list[torch.Tensor], int]:
+        """The "vmap" schedule of one class, from clock reading ``t1``: the
+        whole round packed, then uploaded once per shard, then one set of
+        launches per shard, since each needs every one of its rows. Returns
+        (staging buffer, raws, each shard's payload, the last clock
+        reading); each phase and, while recording, each span ``bank.*``
+        once (attributes: rows, window)."""
+        clock, ns = time.perf_counter_ns, 1e-9
+        b = len(parts)
+        host_rows, raws = self._staged_sections(section_len, parts)
+        t2 = clock()
+        dispatch_phase_seconds["pack"] += (t2 - t1) * ns
+        n_valids = torch.tensor([len(raw) for raw in raws], dtype=torch.int32)
+        if self.device.type == "cuda":
+            # Pinned, so that loading the lengths does not wait for the
+            # rounds in flight, as a pageable copy would.
+            n_valids = n_valids.pin_memory()
+        # The round's rows go up once per shard. Each step then copies its
+        # rows and lengths into its inputs just before it runs (two logical
+        # shards of one device may share one captured step).
+        steps = []
+        for dev, lo, hi in shards:
+            rows = upload_rows(host_rows[lo:hi], dev)
+            consts = None if sharding is None else self.replica(sw, dev)
+            steps.append((self.program(sw, dev, hi - lo, rows.dtype, consts), rows,
+                          n_valids[lo:hi]))
+        t3 = clock()
+        dispatch_phase_seconds["upload"] += (t3 - t2) * ns
+        launch = -1
+        if RECORDER.on:
+            RECORDER.add("bank.pack", t1, t2, b, sw)
+            RECORDER.add("bank.upload", t2, t3, b, sw)
+            RECORDER.count("overlapped_rows", 0)
+            launch = RECORDER.open("bank.launch", t3, a=b, b=sw)
+        payloads = []
+        for prog, rows, n_valid in steps:
+            with device_guard(prog.device):
+                prog.load(rows, n_valid)
+                payloads.append(prog.run())
+        t4 = clock()
+        dispatch_phase_seconds["launch"] += (t4 - t3) * ns
+        if launch >= 0:
+            RECORDER.close(launch, t4)
+        return host_rows, raws, payloads, t4
 
     def collect_chunks_batch(
         self,

@@ -25,10 +25,11 @@ A stretch takes one anchor pair (``perf_counter_ns``, ``time_ns``), which
 puts its spans on the profiler's Chrome-trace timeline
 (:meth:`Recorder.chrome_events`); :func:`device_trace` appends them to the
 trace it writes, on a track of their own. The spans of a round:
-``session.dispatch`` (the round's root) with ``bank.sections``,
-``bank.pack``, ``bank.upload``, ``bank.launch`` (holding ``step.load`` and
-``step.replay``, or ``step.capture`` at a key's first use) and
-``bank.prefetch``; ``session.collect`` (a root with the dispatch's round
+``session.dispatch`` (the round's root) with, for each window class,
+``bank.sections``, ``bank.pack``, ``bank.upload``, ``bank.launch``
+(holding ``step.load`` and ``step.replay``, or ``step.capture`` at a key's
+first use; in the "scan" schedule these three come once a row, in turn)
+and ``bank.prefetch``; ``session.collect`` (a root with the dispatch's round
 id) with ``collect.wait``, ``collect.unpack``, ``collect.flagged`` and
 ``collect.times``. Besides: ``file.read``, ``file.dispatch`` and
 ``file.collect`` (:class:`Stopwatch`), the ``serve.*`` phases of the

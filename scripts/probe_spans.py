@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The span recorder (``utils/profiling.py``) on a card, on the benchmark's
-``flagship64.live16`` cell (its bank, traffic and driver, from the seed):
+"""The span recorder (``utils/profiling.py``) on a card, on one of the
+benchmark's live cells (``flagship64.live16`` unless ``--cell`` names
+another; its bank, traffic and driver, from the seed):
 
 1. ``flag``: a ``torch.profiler`` session with CUDA activity alone, as the
    benchmark's traced window runs it, turns the recorder on.
@@ -16,11 +17,14 @@
    ``cudaEventSynchronize`` outside its ``collect.wait`` (microseconds; 0
    inside).
 4. ``slowest_rounds``: a window with recording on; its slowest rounds
-   split by span, the garbage collections among them, and the window's
-   counters a round.
+   split by span, the garbage collections among them, each round's
+   ``overlapped_rows`` (its rows packed after their class's first replay
+   was enqueued, read from the spans) and the time from its
+   ``session.dispatch`` start to its first ``step.replay``; then the
+   window's medians of those two and its counters a round.
 5. ``cost``: rounds with recording forced on against off, in turns.
 
-    python3 scripts/probe_spans.py [--seed N] [--turns 3] [--seconds 4]
+    python3 scripts/probe_spans.py [--cell flagship64.live16] [--seed N] [--turns 3] [--seconds 4]
 
 Prints one JSON line. Needs a CUDA device.
 """
@@ -58,11 +62,11 @@ def _card() -> dict:
             "nvidia_smi": smi.stdout.strip()}
 
 
-def _driver(seed: int, workdir: Path):
+def _driver(name: str, seed: int, workdir: Path):
     from harness.cell import load_cell, reference_clips
     from harness.traffic import generate
 
-    cell = load_cell("flagship64.live16")
+    cell = load_cell(name)
     config = cell.config
     clips = reference_clips(config, seed)
     traffic = generate(cell.traffic, seed, int(config["sample_rate"]), int(config["chunk_seconds"]), clips,
@@ -203,6 +207,26 @@ def shared_clock(driver, seconds: float) -> dict:
             "syncs_beyond_20us": sum(x > 20 for x in sync_off)}
 
 
+def _dispatch_overlap(ss) -> "tuple[int, float] | None":
+    """(overlapped rows, ms from the dispatch's start to its first
+    ``step.replay``) of one round's spans: a row counts where its
+    ``bank.pack`` starts once a ``step.replay`` of its class (attribute
+    ``b``, the window) inside the round's ``session.dispatch`` has ended."""
+    d = [s for s in ss if s.name == "session.dispatch"]
+    if not d:
+        return None
+    d0, d1 = d[0].start_ns, d[0].end_ns
+    replays = [s for s in ss if s.name == "step.replay" and d0 <= s.start_ns <= d1]
+    if not replays:
+        return None
+    first_end: dict = {}
+    for s in replays:
+        first_end[s.b] = min(first_end.get(s.b, s.end_ns), s.end_ns)
+    overlapped = sum(1 for s in ss if s.name == "bank.pack" and s.b in first_end
+                     and s.start_ns >= first_end[s.b])
+    return overlapped, 1e-6 * (min(s.start_ns for s in replays) - d0)
+
+
 def slowest_rounds(driver, seconds: float, k: int = 5) -> list:
     from audio_pattern_detector_tpu_torch.utils import profiling
 
@@ -221,11 +245,18 @@ def slowest_rounds(driver, seconds: float, k: int = 5) -> list:
         names: dict = defaultdict(int)
         for s in rounds[r]:
             names[s.name] += s.end_ns - s.start_ns
+        overlap = _dispatch_overlap(rounds[r])
         out.append({"round": r, "ms": round(lat[r] * 1e-6, 3),
                     "by_span_ms": {n: round(v * 1e-6, 3) for n, v in sorted(names.items())},
-                    "gc": [(s.a, round(s.ms, 3)) for s in rounds[r] if s.name == "python.gc"]})
+                    "gc": [(s.a, round(s.ms, 3)) for s in rounds[r] if s.name == "python.gc"],
+                    "overlapped_rows": overlap and overlap[0],
+                    "dispatch_to_first_replay_ms": overlap and round(overlap[1], 3)})
     all_gc = [s for s in spans if s.name == "python.gc"]
+    overlaps = [o for o in (_dispatch_overlap(rounds[r]) for r in lat) if o is not None]
     out.append({"rounds": len(lat), "median_ms": round(1e-6 * statistics.median(lat.values()), 3),
+                "overlapped_rows_median": statistics.median(o[0] for o in overlaps) if overlaps else None,
+                "dispatch_to_first_replay_ms_median":
+                    round(statistics.median(o[1] for o in overlaps), 4) if overlaps else None,
                 "by_span_ms_per_round": _per_round(spans), "starved_split_ms": _starved_split(spans),
                 "gc_count": len(all_gc), "gc_ms_total": round(sum(s.ms for s in all_gc), 3),
                 "gc_max_ms": round(max((s.ms for s in all_gc), default=0.0), 3),
@@ -254,6 +285,7 @@ def cost(driver, turns: int, seconds: float) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cell", default="flagship64.live16", help="a live cell of BENCHMARK.json")
     p.add_argument("--seed", type=int, default=2**31 + 977)
     p.add_argument("--turns", type=int, default=3)
     p.add_argument("--seconds", type=float, default=4.0)
@@ -267,7 +299,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_spans needs a CUDA device", file=sys.stderr)
         return 2
-    out: dict = {"card": _card()}
+    out: dict = {"cell": args.cell, "seed": args.seed, "card": _card()}
     with profile(activities=[ProfilerActivity.CUDA]):
         from torch.autograd import profiler as autograd_profiler
 
@@ -275,7 +307,7 @@ def main() -> int:
                        "recorder_on": profiling.RECORDER.on}
     out["flag"]["recorder_off_after"] = not profiling.RECORDER.on
     with tempfile.TemporaryDirectory(prefix="apd_probe_") as work:
-        driver = _driver(args.seed, Path(work))
+        driver = _driver(args.cell, args.seed, Path(work))
         out["traced_window"] = traced_window(driver, 1.5)
         out["shared_clock"] = shared_clock(driver, 1.5)
         out["slowest_rounds"] = slowest_rounds(driver, 10.0)

@@ -993,6 +993,72 @@ def test_staging_buffers_are_pinned_and_recycled_on_the_card(cuda):
     assert bank.collect_chunks_batch(second) == cpu.process_chunks_batch(rounds[1], None)
 
 
+def test_a_flagship_scan_round_staged_row_by_row_is_the_whole_upload_and_vmap_bit_for_bit(cuda):
+    """On the flagship bank (64 clips, 60 s int16 chunks at 8 kHz), a
+    captured 16-row scan round, each row packed, copied up and replayed
+    before the next is packed, gives the payload of the same rows uploaded
+    whole and then loaded and replayed row by row, and of the vmap round,
+    bit for bit: with a zero-length idle row, a short row and rows with and
+    without a lookback tail, from pinned staging buffers that the second
+    round takes back from the pool; results equal the vmap round's."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_bank
+    from audio_pattern_detector_tpu_torch.ops.packing import upload_rows
+
+    sr, n = 8000, 60 * 8000
+    bank = make_bank(num_normal=32, num_marker=32, chunk_seconds=60, device=cuda)
+    assert bank.capture
+    (sw,) = bank.classes
+    rng = np.random.default_rng(0)  # make_detector's clips
+    normal = [0.4 * rng.standard_normal(sr) for _ in range(32)]
+    t = np.arange(round(0.25 * sr)) / sr
+
+    def station_rows(seed):
+        g = np.random.default_rng(seed)
+        rows = []
+        for i in range(ROUND_ROWS):
+            if i == 5:
+                rows.append((np.zeros(0, np.int16), None))
+                continue
+            audio = 0.05 * g.standard_normal(2 * n)
+            o = n + int(g.integers(sr, n // 2 - 2 * sr))
+            audio[o : o + sr] += normal[i]
+            o = n + int(g.integers(sr, n // 2 - 2 * sr))
+            audio[o : o + len(t)] += 0.8 * np.sin(2 * np.pi * (900.0 + 7.0 * i) * t)
+            pcm = np.clip(np.round(audio * 32768), -32768, 32767).astype(np.int16)
+            rows.append((pcm[n : n + n // 2] if i == 11 else pcm[n:], pcm[:n] if i % 2 == 0 else None))
+        return rows
+
+    def dispatch(rows, mode):
+        return bank.dispatch_chunks_batch([c for c, _ in rows], None, mode=mode,
+                                          prev_tails=[p for _, p in rows])
+
+    prog = bank.program(sw, cuda, dtype=torch.int16)
+    seen: set = set()
+    for seed in (1, 2):
+        rows = station_rows(seed)
+        (scan,) = dispatch(rows, "scan")
+        _, handle, raws, _, staged = scan
+        assert staged.dtype == np.int16 and torch.from_numpy(staged).is_pinned()
+        assert (id(staged) in seen) == (seed == 2)
+        whole = upload_rows(staged, cuda)
+        replayed = []
+        for bi in range(ROUND_ROWS):
+            prog.load(whole[bi], len(raws[bi]))
+            replayed.append(prog.run().reshape(-1))
+        once = torch.stack(replayed).cpu().numpy()
+        (vmap,) = dispatch(rows, "vmap")
+        seen |= {id(staged), id(vmap[4])}
+        got = handle.numpy().copy()
+        assert got.shape[0] == ROUND_ROWS
+        assert _bitwise(got, once) and _bitwise(got, vmap[1].numpy())
+        results = bank.collect_chunks_batch([scan])
+        assert results == bank.collect_chunks_batch([vmap])
+        assert sum(len(v) for r in results for v in r.values()) >= ROUND_ROWS - 1
+    assert {s.key.rows for s in bank.graphs.steps()} == {1, ROUND_ROWS}
+
+
 # ── The general-plateau tier's conditional nodes (csrc/graph_conditional.cu) ──
 
 

@@ -70,11 +70,14 @@ def test_off_records_nothing_and_the_dispatch_stages_grow_as_before(session, mon
     monkeypatch.setattr(bank_module.time, "perf_counter_ns", lambda: next(ticks))
     before = dict(bank_module.dispatch_phase_seconds)
     session.collect(session.dispatch(_chunks(1)))
-    # One class: five stages, each between two of the bank's six readings
-    # of the clock (1,000 ns apart), and no reading besides.
+    # One class of three rows in the scan schedule: the sections and the
+    # prefetch once, the pack, upload and launch once a row, each between
+    # two of the bank's 2 + 3 x 3 + 1 readings of the clock (1,000 ns
+    # apart), and no reading besides.
+    per_row = ("pack", "upload", "launch")
     assert {k: v - before[k] for k, v in bank_module.dispatch_phase_seconds.items()} == pytest.approx(
-        dict.fromkeys(before, 1e-6), abs=1e-12)
-    assert next(ticks) == 6000
+        {k: (STATIONS if k in per_row else 1) * 1e-6 for k in before}, abs=1e-12)
+    assert next(ticks) == (3 + 3 * STATIONS) * 1000
     assert profiling.spans() == [] and profiling.counters() == {}
 
 
@@ -95,9 +98,13 @@ def test_a_profiled_round_gives_the_span_tree_with_one_round_id(session):
         return by_index[s.parent].name
 
     (sw,) = session._bank.classes
-    for name in ("bank.sections", "bank.pack", "bank.upload", "bank.launch", "bank.prefetch"):
+    for name in ("bank.sections", "bank.prefetch"):
         (s,) = [s for s in spans if s.name == name]
         assert parent(s) == "session.dispatch" and (s.a, s.b) == (STATIONS, sw)
+    for name in ("bank.pack", "bank.upload", "bank.launch"):  # the scan schedule: once a row
+        rows = [s for s in spans if s.name == name]
+        assert len(rows) == STATIONS
+        assert all(parent(s) == "session.dispatch" and (s.a, s.b) == (1, sw) for s in rows)
     for name in ("step.load", "step.replay"):  # the scan schedule: the 1-row key, a row at a time
         steps = [s for s in spans if s.name == name]
         assert len(steps) == STATIONS
@@ -108,8 +115,15 @@ def test_a_profiled_round_gives_the_span_tree_with_one_round_id(session):
         assert len(got) == n and all(parent(s) == "session.collect" for s in got)
     # The dispatch's children in order, and within it.
     kids = [s for s in spans if s.parent == disp.index]
-    assert [s.name for s in kids] == ["bank.sections", "bank.pack", "bank.upload", "bank.launch",
+    assert [s.name for s in kids] == ["bank.sections",
+                                      *["bank.pack", "bank.upload", "bank.launch"] * STATIONS,
                                       "bank.prefetch"]
+    # Each row's launch holds that row's load and replay, and every row
+    # after the first is packed once the one before it is on its way.
+    launches = [s for s in kids if s.name == "bank.launch"]
+    assert [[by_index[s.parent] for s in spans if s.name == n] for n in ("step.load", "step.replay")] == [
+        launches, launches]
+    assert profiling.counters()["overlapped_rows"] == STATIONS - 1
     assert all(disp.start_ns <= s.start_ns <= s.end_ns <= disp.end_ns for s in kids)
     assert disp.end_ns <= coll.start_ns
     # The two roots cover the round's host wall.
@@ -290,23 +304,25 @@ def test_the_server_loop_phases_are_spans():
 
 
 def test_device_trace_holds_the_spans_on_the_profiler_timeline(session, tmp_path, monkeypatch):
-    staged = bank_module.PatternBank._staged_sections
+    pack_row = bank_module.PatternBank._pack_row
 
-    def probed(self, *args):
+    def probed(*args):
         time.sleep(0.002)
         with record_function("probe.pack"):
-            out = staged(self, *args)
+            pack_row(*args)
         time.sleep(0.002)
-        return out
 
-    monkeypatch.setattr(bank_module.PatternBank, "_staged_sections", probed)
+    monkeypatch.setattr(bank_module.PatternBank, "_pack_row", staticmethod(probed))
     with profiling.device_trace(str(tmp_path), "cpu"):
         _round(session, 1)
     (path,) = tmp_path.iterdir()
     events = json.loads(path.read_text())["traceEvents"]
-    (probe,) = [e for e in events if e.get("name") == "probe.pack" and e.get("ph") == "X"]
-    (pack,) = [e for e in events if e.get("name") == "bank.pack" and e.get("cat") == "apd_span"]
-    assert pack["ts"] <= probe["ts"] and probe["ts"] + probe["dur"] <= pack["ts"] + pack["dur"]
+    probes = sorted((e["ts"], e["dur"]) for e in events if e.get("name") == "probe.pack" and e.get("ph") == "X")
+    packs = sorted((e["ts"], e["dur"]) for e in events
+                   if e.get("name") == "bank.pack" and e.get("cat") == "apd_span")
+    assert len(probes) == len(packs) == STATIONS  # a row at a time
+    for (p0, pd), (s0, sd) in zip(probes, packs):
+        assert s0 <= p0 and p0 + pd <= s0 + sd
     spans = [e for e in events if e.get("cat") == "apd_span"]
     assert {"session.dispatch", "session.collect", "step.replay"} <= {e["name"] for e in spans}
     assert len({e["pid"] for e in spans}) == 1 and spans[0]["pid"] != os.getpid()

@@ -362,3 +362,181 @@ def test_a_sharded_round_recycles_only_after_every_part(env, monkeypatch, path):
         assert got == _fresh_bank().process_chunk(exact[CHUNK:], exact[:CHUNK])
     assert seen == ["part", "part", "put"] * len(bank.classes)
     assert len(_pooled(bank)) == len(bank.classes)
+
+
+# ── The scan schedule: each row staged, copied up and launched in turn ──
+
+
+def _station_rows(n, kind, seed=20):
+    """``n`` independent stations' (chunk, lookback tail) rows, every third
+    row idle (zero length), the others each with a normal hit and a marker
+    tone: int16 rows, f32 rows off the PCM grid, or the two in turn
+    (``mixed``)."""
+    rows = []
+    for i in range(n):
+        if i % 3 == 2:
+            rows.append((np.zeros(0, np.float32), None))
+            continue
+        audio = _audio(seed + i, 2 * CHUNK_S, normal=(3.0 + 0.37 * i,),
+                       marker=(CHUNK_S + 2.0 + 0.29 * i,))
+        if kind == "int16" or (kind == "mixed" and i % 2):
+            audio = _on_grid(audio)[1]
+        else:
+            audio = audio.astype(np.float32)
+        rows.append((audio[CHUNK:], audio[:CHUNK] if i % 2 == 0 else None))
+    return rows
+
+
+def _dispatch(bank, rows, mode):
+    return bank.dispatch_chunks_batch([c for c, _ in rows], None, mode=mode,
+                                      prev_tails=[t for _, t in rows])
+
+
+@pytest.fixture
+def captured_bank(monkeypatch):
+    """A bank whose class steps are captured on the stand-in backend of
+    tests/test_torch_capture.py: a scan round replays the one-row graph."""
+    from audio_pattern_detector_tpu_torch.models import captured
+    from tests.test_torch_capture import RecordingBackend
+
+    monkeypatch.setattr(captured.StepGraphs, "backend", RecordingBackend)
+    return AudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S,
+                                capture=True)._ensure_bank()
+
+
+SCAN_CASES = [(1, "int16"), (1, "f32"), (3, "int16"), (3, "f32"), (3, "mixed"), (16, "mixed")]
+
+
+@pytest.mark.parametrize("n,kind", SCAN_CASES, ids=[f"{n}_{k}" for n, k in SCAN_CASES])
+def test_a_row_by_row_scan_round_is_the_whole_round_bit_for_bit(captured_bank, jax_bank, n, kind):
+    """A scan round staged, copied up and replayed row by row: its payload
+    is bit for bit the vmap round's and the eager step's on the same rows
+    staged whole, in the dtype the whole round decides (int16 only where
+    every non-empty row is int16; an idle row does not count), and its
+    results are the JAX bank's."""
+    bank, eager = captured_bank, _fresh_bank()
+    rows = _station_rows(n, kind)
+    scan = _dispatch(bank, rows, "scan")
+    assert {rec[4].dtype for rec in scan} == {np.dtype(np.int16 if kind == "int16" else np.float32)}
+    vmap = _dispatch(eager, rows, "vmap")
+    for (sw, handle, raws, _, staged), (_, want, *_) in zip(scan, vmap):
+        got = handle.numpy()
+        assert got.shape[0] == n and got.tobytes() == want.numpy().tobytes()
+        whole = eager._section_rows(eager.classes[sw]["section_len"],
+                                    [eager._section_parts(sw, c, t) for c, t in rows])
+        assert whole.tobytes() == staged.tobytes()
+        each = torch.stack([eager.step(sw, torch.from_numpy(whole[bi]), len(raws[bi]))
+                            for bi in range(n)])
+        assert each.numpy().tobytes() == got.tobytes()
+    assert [s.key.rows for s in bank.graphs.steps()] == [1] * len(bank.classes)
+    got = bank.collect_chunks_batch(scan)
+    assert got == eager.collect_chunks_batch(vmap)
+    assert got == jax_bank.collect_chunks_batch(_dispatch(jax_bank, rows, "scan"))
+    assert any(v for r in got for v in r.values())
+
+
+def test_two_scan_rounds_in_flight_recycle_their_buffers_only_at_collect(captured_bank, jax_bank):
+    """A collected round leaves its buffer in the pool; the next two scan
+    rounds, both dispatched before either is collected, take that buffer
+    and a new one, each row staged in its own round's buffer; each buffer
+    comes back only at its own round's collect, and each round's results
+    are its own (the JAX bank's)."""
+    bank = captured_bank
+    warm, first, second = (_station_rows(4, "int16", seed) for seed in (40, 50, 60))
+    bank.collect_chunks_batch(_dispatch(bank, warm, "scan"))
+    (recycled,) = _pooled(bank)
+    d1, d2 = _dispatch(bank, first, "scan"), _dispatch(bank, second, "scan")
+    assert d1[0][4] is recycled and d2[0][4] is not recycled and not _pooled(bank)
+    want = [jax_bank.collect_chunks_batch(_dispatch(jax_bank, r, "scan")) for r in (first, second)]
+    assert bank.collect_chunks_batch(d2) == want[1]
+    assert _pooled(bank) == [d2[0][4]]
+    assert bank.collect_chunks_batch(d1) == want[0]
+    assert {id(b) for b in _pooled(bank)} == {id(recycled), id(d2[0][4])}
+
+
+def test_a_scan_round_replays_its_first_row_before_it_packs_its_last(captured_bank, monkeypatch):
+    """Recording a warmed 4-row scan round on the stand-in capture backend:
+    each row is packed, uploaded and launched before the next is packed
+    (the packs and the replays themselves alternate), so the round's first
+    ``step.replay`` starts before its last ``bank.pack`` ends; the three
+    rows packed behind a launch count as ``overlapped_rows``."""
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.utils import profiling
+
+    bank = captured_bank
+    rows = _station_rows(4, "int16")
+    bank.collect_chunks_batch(_dispatch(bank, rows, "scan"))  # the key's capture
+    log = []
+    pack_row, run = PatternBank._pack_row, captured.CapturedStep.run
+
+    def logged_pack(buf, bi, parts):
+        log.append(("pack", bi))
+        pack_row(buf, bi, parts)
+
+    def logged_run(self):
+        log.append(("run",))
+        return run(self)
+
+    monkeypatch.setattr(PatternBank, "_pack_row", staticmethod(logged_pack))
+    monkeypatch.setattr(captured.CapturedStep, "run", logged_run)
+    with profiling.recording():
+        bank.collect_chunks_batch(_dispatch(bank, rows, "scan"))
+    assert log == [e for bi in range(4) for e in (("pack", bi), ("run",))]
+    spans = [s for s in profiling.spans() if s.name.startswith(("bank.", "step."))]
+    replays = [s for s in spans if s.name == "step.replay"]
+    packs = [s for s in spans if s.name == "bank.pack"]
+    assert len(replays) == len(packs) == 4 and "step.capture" not in {s.name for s in spans}
+    assert replays[0].start_ns < packs[-1].end_ns
+    assert [s.name for s in spans if s.name != "step.load"] == [
+        "bank.sections", *["bank.pack", "bank.upload", "bank.launch", "step.replay"] * 4,
+        "bank.prefetch"]
+    for pack, replay in zip(packs[1:], replays):
+        assert replay.end_ns <= pack.start_ns
+    assert profiling.counters()["overlapped_rows"] == 3
+
+
+def _two_class_bank():
+    """The bank of ``_clips`` with a 1.6 s clip besides, in a window class
+    of its own (2 s)."""
+    t = np.arange(int(1.6 * SR)) / SR
+    long = (0.4 * np.sin(2 * np.pi * 420.0 * t) * np.hanning(len(t))).astype(np.float32)
+    clips = [*_clips(), AudioClip(name="long", audio=long, sample_rate=SR)]
+    return AudioPatternDetector(clips, device="cpu", seconds_per_chunk=CHUNK_S)._ensure_bank()
+
+
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_overlapped_rows_is_b_less_one_a_class_in_scan_and_0_in_vmap(env, mode):
+    from audio_pattern_detector_tpu_torch.utils import profiling
+
+    _, _, pcm, _ = env
+    bank = _two_class_bank()
+    assert len(bank.classes) == 2
+    for n in (1, 4):
+        rows = [(pcm[CHUNK:], pcm[:CHUNK])] * n
+        with profiling.recording():
+            bank.collect_chunks_batch(_dispatch(bank, rows, mode))
+        assert profiling.counters()["overlapped_rows"] == (2 * (n - 1) if mode == "scan" else 0)
+    counted = profiling.counters()
+    bank.collect_chunks_batch(_dispatch(bank, rows, mode))  # the recorder off: nothing counted
+    assert profiling.counters() == counted
+
+
+def test_dispatch_phase_seconds_keeps_its_keys_and_sums_the_rows_in_scan(env):
+    """In the scan schedule pack, upload and launch come once a row: each
+    phase grows by the sum of its rows' spans, so ``pack`` over the rows
+    is still the pack a row; the keys stay the JAX bank's."""
+    from audio_pattern_detector_tpu_torch.utils import profiling
+
+    _, _, pcm, _ = env
+    bank = _two_class_bank()
+    phases = tbank_module.dispatch_phase_seconds
+    before = dict(phases)
+    with profiling.recording():
+        bank.collect_chunks_batch(_dispatch(bank, [(pcm[CHUNK:], pcm[:CHUNK])] * 3, "scan"))
+    assert list(phases) == list(jbank_module.dispatch_phase_seconds)
+    spans = profiling.spans()
+    for key in phases:
+        got = [s for s in spans if s.name == f"bank.{key}"]
+        assert len(got) == (3 if key in ("pack", "upload", "launch") else 1) * len(bank.classes)
+        assert phases[key] - before[key] == pytest.approx(
+            1e-9 * sum(s.end_ns - s.start_ns for s in got), rel=1e-6, abs=1e-12)
