@@ -31,40 +31,38 @@ route each row took.
 ``height_min <= 0`` runs the general-plateau tier (:func:`rich_group_packed`)
 in place of the lean one.
 
-Variants of the class step, each behind the JAX bank's own environment
-variable and read when the bank is built, as the JAX bank reads them:
+The class step has one form, the one the card runs: int16 rows upload as
+int16 wherever every part of the round is int16; each class correlates
+through its overlap-save segments wherever its geometry has them; in a
+captured lean step a group none of whose rows has a live lane skips its
+verify tail (the JAX ``lax.cond`` in ``_lean_tail``) through a CUDA
+conditional node (``models/captured.py``), which needs no host sync, and
+the plain block-wise greedy runs its ``r_max`` rounds as the body of a
+while loop that exits once every row is exhausted
+(``ops/peaks.py::greedy_survivors_from_blocks``), so a candidate-free group
+runs none. The eager step, which has no node, always verifies and runs the
+rounds unrolled; the payload is the same either way. The plain greedy runs
+on the CPU and in the mask tier; the kernel tier on a card runs the
+greedy's CUDA kernel (``ops/lean_greedy.py``), one launch a group. The JAX
+bank's ``APD_PACKED_UPLOAD``, ``APD_NO_OVERLAP_SAVE``,
+``APD_SKIP_EMPTY_VERIFY`` and ``APD_GREEDY_UNROLL`` pick other forms of the
+same step with the same detections; the port does not read them, since no
+caller selects them and none was faster on the card.
 
-* ``APD_PALLAS=0``: the mask lean tier (:func:`mask_group_packed`), the JAX
-  package's default off the TPU: the candidate mask over the normalised
-  correlation, no kernel. Unset or any other value keeps the kernel tier;
-  nothing else leaves it, and a kernel that fails to build or launch
-  raises.
-* ``APD_NO_OVERLAP_SAVE=1``: one full-length FFT per group and for the
-  loudness filter, in place of the class's overlap-save segments.
-* ``APD_PACKED_UPLOAD=0``: int16 rows decode on the host and upload as f32.
-* ``APD_SKIP_EMPTY_VERIFY=0``: the captured lean step verifies every group.
-  By default a group none of whose rows has a live lane skips its verify
-  tail (the JAX ``lax.cond`` in ``_lean_tail``): a CUDA conditional node in
-  the captured graph (``models/captured.py``), which needs no host sync.
-  The eager step, which has no node, always verifies; the payload is the
-  same either way.
-* ``APD_GREEDY_UNROLL=1``: the block-wise greedy's plain version runs its
-  ``r_max`` rounds unrolled. By default (unset or "0", as in JAX) a
-  captured step runs them as the body of a while loop that exits once
-  every row is exhausted (``ops/peaks.py::greedy_survivors_from_blocks``),
-  so a candidate-free group runs none. The plain version runs on the CPU
-  and in the mask tier (``APD_PALLAS=0``, whose captured step holds the
-  CUDA while node); the kernel tier on a card runs the greedy's CUDA
-  kernel (``ops/lean_greedy.py``), one launch a group, whatever the switch
-  says. The eager step always runs the unrolled rounds; the payload is the
-  same either way.
+Two of the JAX bank's switches do pick a form here:
 
-``APD_MARKER_GEMM`` picks the plain marker verifier's spectra, which the
-CPU runs, and is read at each call (``ops/verify_marker.py``); on a card
-the marker verifier is one fused kernel that makes its own spectra,
-whatever the switch says. :meth:`PatternBank.step` runs a class step
-under the bank's switches: the dispatch paths, the mesh paths and the
-flagship probes all go through it.
+* ``APD_PALLAS=0``, read when the bank is built: the mask lean tier
+  (:func:`mask_group_packed`), the JAX package's default off the TPU: the
+  candidate mask over the normalised correlation, no kernel. Unset or any
+  other value keeps the kernel tier; nothing else leaves it, and a kernel
+  that fails to build or launch raises.
+* ``APD_MARKER_GEMM``, read at each call (``ops/verify_marker.py``): the
+  plain marker verifier's spectra, which the CPU runs; on a card the
+  marker verifier is one fused kernel that makes its own spectra, whatever
+  the switch says.
+
+:meth:`PatternBank.step` runs a class step under the bank's switches: the
+dispatch paths, the mesh paths and the flagship probes all go through it.
 
 Batched dispatch has the JAX package's two schedules, with identical
 results. ``mode="scan"`` runs the class step row after row on the current
@@ -77,7 +75,7 @@ launches once per group per round and memory is B times a step's.
 On a CUDA device every class step runs as a replay of a captured CUDA
 graph, the counterpart of the JAX bank's jitted class-step programs
 (``models/captured.py``): one graph per (device, class, B, upload dtype,
-tier, switches, constants), the batched form with B = 1 for one section.
+tier, constants), the batched form with B = 1 for one section.
 "scan" replays the B = 1 graph once per row, "vmap" the (B) graph once per
 round. A graph keeps its memory pools for as long as its bank lives, about
 twice the eager round's peak, so no graph is wider than :data:`GRAPH_ROWS`:
@@ -88,10 +86,9 @@ a wide round in the same W-row steps, so the two agree bit for bit at
 every width (cuFFT may round a batch of B rows otherwise than W-row ones).
 The two greedy filters are CUDA kernels on a card, one launch a group
 (``ops/lean_greedy.py``, ``ops/lane_greedy.py``); the mask tier's lean
-greedy (unless ``APD_GREEDY_UNROLL=1``) and the verify tail's skip are
-CUDA conditional nodes inside the graph, and the general-plateau tier
-verifies every lane in one launch of each verifier's kernel, so no
-dispatch makes a host sync.
+greedy and the verify tail's skip are CUDA conditional nodes inside the
+graph, and the general-plateau tier verifies every lane in one launch of
+each verifier's kernel, so no dispatch makes a host sync.
 ``capture=False`` (a constructor argument, and the ``capture`` attribute)
 runs the eager step instead, whose mask-tier greedy runs its rounds
 unrolled; the plain verifiers' two-tier cond reads its predicate on the host;
@@ -327,12 +324,8 @@ class PatternBank:
         self.class_reruns = 0
         self.escalated_reruns = 0
         self.host_path_rows = 0  # flagged rows resolved on the exact host path
-        # The JAX bank's switches (module docstring), read once here.
-        self.packed_upload = os.environ.get("APD_PACKED_UPLOAD", "1") != "0"
+        # The JAX bank's tier switch (module docstring), read once here.
         self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
-        self.overlap_save = overlap_save = os.environ.get("APD_NO_OVERLAP_SAVE") != "1"
-        self.skip_empty_verify = os.environ.get("APD_SKIP_EMPTY_VERIFY", "1") != "0"
-        self.greedy_unroll = os.environ.get("APD_GREEDY_UNROLL", "0") == "1"
         # Staging buffers by (dtype, B, S), recycled at collect time.
         self._staging: dict[tuple[np.dtype, int, int], list[NDArray[Any]]] = {}
         # Captured class steps (models/captured.py): the default on a CUDA
@@ -356,7 +349,6 @@ class PatternBank:
             class_clip_lens.setdefault(sw, []).append(m)
         shared_geoms = {
             sw: class_overlap_save_geometry(sw * sample_rate + chunk_samples, ms)
-            if overlap_save else None
             for sw, ms in class_clip_lens.items()
         }
 
@@ -367,17 +359,14 @@ class PatternBank:
                 sw, {"section_len": section_len, "loud": None, "groups": []}
             )
             if cls["loud"] is None:
-                cls["loud"] = build_loudness_consts(
-                    section_len, sample_rate, self.device, overlap_save=overlap_save
-                )
+                cls["loud"] = build_loudness_consts(section_len, sample_rate, self.device)
             clips_np = np.stack([clip_datas[n]["clip"] for n in names])
             corr_clips_np = np.stack([clip_datas[n]["correlation_clip"] for n in names])
             self_max_np = np.array(
                 [float(clip_datas[n]["correlation_clip_absolute_max"]) for n in names]
             )
             corr = build_correlation_bank(
-                clips_np, self_max_np, section_len, self.device, shared_geoms[sw],
-                overlap_save=overlap_save,
+                clips_np, self_max_np, section_len, self.device, shared_geoms[sw]
             )
             full_len = corr.full_len
             # The JAX bank's lane sizing. k_verify bounds the post-distance
@@ -508,18 +497,16 @@ class PatternBank:
         (int16 rows stay int16; a row decoded for an f32 round is f32), and
         each row's parts, which :meth:`_pack_row` writes into it. The
         buffer is int16 when every non-empty part arrived as int16 (half
-        the bytes of f32) and ``APD_PACKED_UPLOAD`` is not 0, else f32 with
-        int16 parts decoded on the host, so its dtype is known before the
-        first row is packed. The device decode of an int16 row is bitwise
-        the host decode, so a row's payload does not depend on which form
-        its round took. f32 rows are not tested for lying on the PCM grid:
+        the bytes of f32), else f32 with int16 parts decoded on the host,
+        so its dtype is known before the first row is packed. The device
+        decode of an int16 row is bitwise the host decode, so a row's
+        payload does not depend on which form its round took. f32 rows are not tested for lying on the PCM grid:
         a source of 16-bit PCM hands its samples on as int16 (``match.py``'s
         stream wrappers, ``serve``), and the test costs a round more host
         time than the smaller upload saves. The views hold the sections
         until the buffer goes back to the pool, at collect."""
         rows_parts = [s if isinstance(s, tuple) else (s,) for s in sections]
-        as_i16 = self.packed_upload and all(
-            p.dtype == np.int16 or not len(p) for parts in rows_parts for p in parts)
+        as_i16 = all(p.dtype == np.int16 or not len(p) for parts in rows_parts for p in parts)
         rows = self._pool_get(np.int16 if as_i16 else np.float32, len(sections), section_len)
         raws = [rows[bi, : sum(len(p) for p in ps)] for bi, ps in enumerate(rows_parts)]
         return rows, raws, rows_parts
@@ -548,16 +535,6 @@ class PatternBank:
         for bi, ps in enumerate(rows_parts):
             self._pack_row(rows, bi, ps)
         return rows, raws
-
-    def _section_rows(
-        self,
-        section_len: int,
-        sections: "list[NDArray[Any] | tuple[NDArray[Any], ...]]",
-    ) -> NDArray[Any]:
-        """(B, S) zero-padded host rows for the upload, in a buffer of the
-        staging pool, one row per section: :meth:`_staged_sections`'
-        rows."""
-        return self._staged_sections(section_len, sections)[0]
 
     def program(
         self,
@@ -597,18 +574,10 @@ class PatternBank:
         if not self.capture:
             step = EagerStep(fn, device, width)
         else:
-            # APD_GREEDY_UNROLL picks a form of the plain lean greedy, which
-            # runs on the CPU and in the mask tier; on a card the kernel
-            # tier's greedy is a kernel, so both values capture one graph.
-            unroll = self.greedy_unroll and self.height_min > 0 and (
-                device.type != "cuda" or not self.kernel_tier)
             key = StepKey(
                 device=device, sw=sw, rows=width, dtype=dtype, fused=fused, scan=scan,
                 general=self.height_min <= 0, kernel_tier=self.kernel_tier,
-                overlap_save=self.overlap_save, packed_upload=self.packed_upload,
                 marker_gemm=_marker_gemm_enabled() and device.type != "cuda",
-                skip_empty_verify=self.skip_empty_verify,
-                greedy_unroll=unroll,
                 consts=(id(loud), *(id(c) for pair in group_consts for c in pair)),
             )
             step = self.graphs.get(key, fn, (loud, group_consts), cls["section_len"])
@@ -1064,10 +1033,8 @@ class PatternBank:
             return EagerStep(fn, self.device)
         key = StepKey(
             device=self.device, sw=sw, rows=1, dtype=torch.float32, fused=False, scan=candidate_scan,
-            general=False, kernel_tier=self.kernel_tier, overlap_save=self.overlap_save,
-            packed_upload=self.packed_upload,
+            general=False, kernel_tier=self.kernel_tier,
             marker_gemm=_marker_gemm_enabled() and self.device.type != "cuda",
-            skip_empty_verify=False, greedy_unroll=False,
             consts=(id(cls["loud"]), *(id(c) for c in row)), wide_lanes=(kd,),
         )
         return self.rerun_graphs.get(key, fn, (cls["loud"], (row,)), cls["section_len"])
@@ -1488,13 +1455,13 @@ def _lean_tail(
     already are the greedy survivors; ``wide`` lanes are raw top-k
     candidates, filtered here, verified two-tier.
 
-    ``branch(pred, body)`` (a captured lean step under
-    ``APD_SKIP_EMPTY_VERIFY``; ``models/captured.py``) runs the verify only
-    where the 0-d device tensor ``pred``, "some lane of the group is live",
-    holds at run time, into ``accept`` zeroed before it: the JAX
-    ``lax.cond``. Without a live lane ``sel = valive & accept`` is zero
-    whatever the verify returns, and nothing else reads it, so the payload
-    is the same either way. Without ``branch`` the verify always runs."""
+    ``branch(pred, body)`` (a captured lean step; ``models/captured.py``)
+    runs the verify only where the 0-d device tensor ``pred``, "some lane
+    of the group is live", holds at run time, into ``accept`` zeroed
+    before it: the JAX ``lax.cond``. Without a live lane ``sel = valive &
+    accept`` is zero whatever the verify returns, and nothing else reads
+    it, so the payload is the same either way. Without ``branch`` the
+    verify always runs."""
     keep = torch.isfinite(height)
     if wide:
         keep = greedy_distance_filter(PeakCandidates(pos, height, keep, flag != 0), m)

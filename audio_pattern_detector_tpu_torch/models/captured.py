@@ -16,16 +16,17 @@ payloads) is captured once per key into a CUDA graph and replayed:
 * **Key** (:class:`StepKey`): device, sliding-window class, B, upload
   dtype, fused or per-group payloads, the candidate scan, the tier (lean,
   or general-plateau for ``height_min <= 0``) and its form (kernel or
-  ``APD_PALLAS=0`` mask), the bank's switches
-  (``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD``,
-  ``APD_SKIP_EMPTY_VERIFY``, ``APD_GREEDY_UNROLL``), ``APD_MARKER_GEMM`` as
-  it reads at the call where it acts (off a card: a card's marker verifier
-  is its fused kernel either way), and the identity of the constants the
-  step reads:
+  ``APD_PALLAS=0`` mask), ``APD_MARKER_GEMM`` as it reads at the call
+  where it acts (off a card: a card's marker verifier is its fused kernel
+  either way), and the identity of the constants the step reads:
   a replica on another device or a bank shard's slice is another key, and
   its graph holds those constants for as long as it lives. A flagged
   row's wide rerun (``models/bank.py::PatternBank._full_tier_row``) is a
   key of its own too: one clip's constants, B = 1, and its lanes.
+  The JAX bank's ``APD_PACKED_UPLOAD``, ``APD_NO_OVERLAP_SAVE``,
+  ``APD_SKIP_EMPTY_VERIFY`` and ``APD_GREEDY_UNROLL`` are no part of it:
+  they pick other forms of the same step, which the port does not read
+  (``models/bank.py``).
 * **First use** copies the call's rows and lengths into the static inputs,
   runs the step eagerly on the device's capture stream (which builds the
   cuFFT plans, the kernels' per-device attributes and the marker kernel's
@@ -45,9 +46,9 @@ payloads) is captured once per key into a CUDA graph and replayed:
   rows (rather than a second key of B mod W rows) keep one graph and one
   set of static inputs per width. The eager step runs a wide round in the
   same W-row steps, idle rows included, so the two agree bit for bit.
-* **Candidate-free groups skip the verify tail** (``APD_SKIP_EMPTY_VERIFY``,
-  on by default, JAX ``models/bank.py:1306-1330``): the capture hands the
-  step the backend's ``conditional(pred, body)``, and the lean tail captures
+* **Candidate-free groups skip the verify tail** (JAX
+  ``models/bank.py:1306-1330``): the capture hands the step the backend's
+  ``conditional(pred, body)``, and the lean tail captures
   each group's verify as the body of a CUDA conditional (if) node whose
   predicate, "some lane of the group's rows is live", a kernel sets on the
   device at replay (``csrc/graph_conditional.cu``: torch 2.11 has no
@@ -64,17 +65,13 @@ payloads) is captured once per key into a CUDA graph and replayed:
   general-plateau tier's lane greedy are one launch a group in the graph,
   each row's loop inside the launch, where the JAX bank's
   ``lax.while_loop`` forms run in its program. So on a card a kernel-tier key
-  holds no while node, and ``APD_GREEDY_UNROLL`` (which picks between two
-  forms of the plain version with identical results) is not part of its
-  key: both switch values capture the same graph.
-* **The mask tier's lean greedy is a while node** (``APD_PALLAS=0`` with
-  ``APD_GREEDY_UNROLL`` unset or "0", the JAX default, JAX
+  holds no while node.
+* **The mask tier's lean greedy is a while node** (``APD_PALLAS=0``, JAX
   ``ops/peaks.py:542-565``): the capture hands the step the backend's
   ``while_loop(pred, body)``, the body one round of
   ``ops/peaks.py::greedy_survivors_from_blocks``, so a group whose rows
-  have no candidate runs no round. ``APD_GREEDY_UNROLL=1`` captures the
-  ``r_max`` rounds unrolled. The eager first run always runs them unrolled:
-  every gather buffer exists before the capture either way.
+  have no candidate runs no round. The eager first run runs the ``r_max``
+  rounds unrolled, so every gather buffer exists before the capture.
 * **The general-plateau tier's two-tier verify** (JAX
   ``models/bank.py:111-133``, a ``lax.cond``): on a card each verifier's
   kernel takes every lane in one launch and computes only live ones, so a
@@ -148,11 +145,7 @@ class StepKey(NamedTuple):
     scan: Callable  # the candidate scan the lean tier calls
     general: bool  # the general-plateau tier (height_min <= 0), else the lean one
     kernel_tier: bool  # False: the APD_PALLAS=0 mask tier
-    overlap_save: bool  # False: APD_NO_OVERLAP_SAVE=1
-    packed_upload: bool  # False: APD_PACKED_UPLOAD=0
     marker_gemm: bool  # APD_MARKER_GEMM=1 at the call, off a card (a card runs the fused kernel)
-    skip_empty_verify: bool  # False: APD_SKIP_EMPTY_VERIFY=0, no conditional node
-    greedy_unroll: bool  # APD_GREEDY_UNROLL=1 where it acts: the plain lean greedy's rounds unrolled
     consts: tuple[int, ...]  # ids of the loudness and group constants
     wide_lanes: tuple[int, ...] = ()  # a row rerun's wide tier: its k_detect lanes; () for the class step
 
@@ -432,15 +425,13 @@ class CapturedStep:
         def two_way(pred, then_, else_) -> None:
             backend.cond(pred, self._recorded(then_), self._recorded(else_))
 
-        # A plain greedy's loop (the mask tier's lean greedy unless unrolled,
-        # and on a stand-in backend the plain greedies of every tier) is a
-        # while node; the plain verifiers' two-tier verify in the general
-        # tier a cond. The kernels take neither.
-        loop = backend.while_loop if general or not self.key.greedy_unroll else None
+        # A plain greedy's loop (the mask tier's lean greedy, and on a
+        # stand-in backend the plain greedies of every tier) is a while
+        # node; the plain verifiers' two-tier verify in the general tier a
+        # cond. The kernels take neither.
         try:
             self._replay, self._out = backend.capture(self.device, lambda: self._step(
-                branch if self.key.skip_empty_verify else None, loop,
-                two_way if general else None))
+                branch, backend.while_loop, two_way if general else None))
             in_bodies = {w: sum(b.get(w, 0) for b in self.body_launches) for w in COUNTED}
             self.kernel_launches = {w: w.launches - n - in_bodies[w] for w, n in counted.items()}
         finally:

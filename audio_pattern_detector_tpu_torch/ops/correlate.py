@@ -93,7 +93,8 @@ def build_correlation_bank(
     overlap_save: bool = True,
 ) -> CorrelationBankConsts:
     """``overlap_save=False`` takes one full-length FFT whatever the
-    section's length (the bank's ``APD_NO_OVERLAP_SAVE``)."""
+    section's length (a row rerun's constants in a class whose geometry
+    has no segments)."""
     g, m = clips.shape
     step, pad_left, out_offset = 0, -1, 0
     if shared_geometry is not None and overlap_save:

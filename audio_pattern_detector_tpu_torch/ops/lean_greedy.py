@@ -26,8 +26,7 @@ blocks)
 and runs :func:`lean_greedy_reference` for CPU tensors; it never falls back
 from one to the other. The plain version keeps both JAX forms of the
 rounds (a while loop through ``loop``, else ``r_max`` unrolled rounds),
-which give identical results, so the kernel runs whatever
-``APD_GREEDY_UNROLL`` says. Every output is an integer, a mask or a
+which give identical results and so one kernel. Every output is an integer, a mask or a
 quotient rounded as IEEE division, so the kernel and its plain version are
 held to bitwise equality.
 """

@@ -111,16 +111,16 @@ def gate_tables(
 
 
 def build_loudness_consts(
-    section_len: int, sample_rate: int, device: torch.device, overlap_save: bool = True
+    section_len: int, sample_rate: int, device: torch.device
 ) -> LoudnessConsts:
-    """``overlap_save=False`` convolves in one full-length FFT (the bank's
-    ``APD_NO_OVERLAP_SAVE``)."""
+    """The class's loudness constants: the K-weighting filter convolves in
+    overlap-save segments wherever the section is longer than one FFT."""
     rate = float(sample_rate)
     t_g = 0.4
     fir = hostref.k_weighting_fir(rate, _FIR_TAPS)
     whole = next_pow2(section_len + _FIR_TAPS - 1)
     fft_len = next_pow2(4 * _FIR_TAPS)
-    if fft_len >= whole or not overlap_save:
+    if fft_len >= whole:
         fft_len, num_segments = whole, 1
     else:
         num_segments = -(-section_len // (fft_len - _FIR_TAPS + 1))

@@ -10,13 +10,12 @@ Two tiers, as in the JAX package:
   ``greedy_survivors_from_blocks`` in both of the JAX forms, with identical
   results. Given a ``loop(pred, body)`` hook (:data:`Loop`) its rounds are
   the body of a while loop that exits once every row is exhausted or
-  ``r_max`` rounds have run (the JAX default, ``APD_GREEDY_UNROLL`` unset
-  or "0"); without the hook it runs ``r_max`` statically unrolled rounds
-  (the JAX ``APD_GREEDY_UNROLL=1`` branch), with identical results. It is
-  the plain version of the kernel tier's greedy on the CPU
-  (``ops/lean_greedy.py``, whose CUDA kernel runs on a card whatever the
-  switch says) and the greedy of the mask lean tier (``APD_PALLAS=0``),
-  whose captured step passes its backend's CUDA while node.
+  ``r_max`` rounds have run (a captured step's form); without the hook it
+  runs ``r_max`` statically unrolled rounds (the eager step's), with
+  identical results. It is the plain version of the kernel tier's greedy
+  on the CPU (``ops/lean_greedy.py``, whose CUDA kernel runs on a card) and
+  the greedy of the mask lean tier (``APD_PALLAS=0``), whose captured step
+  passes its backend's CUDA while node.
 * full (the wide rerun of flagged rows and the ``height_min <= 0`` tier):
   the general plateau mask, top-k capture and the lane greedy,
   :func:`greedy_distance_filter`, which routes through
@@ -185,7 +184,7 @@ def greedy_survivors_from_blocks(
       index and rewrites ``pred = (r < r_max) & any(bwork > -inf)``. A
       captured step passes a CUDA while node, so a group whose rows have
       no candidate runs no round.
-    * without it (``APD_GREEDY_UNROLL=1``, and the eager step): ``r_max``
+    * without it (the eager step): ``r_max``
       unrolled rounds; an exhausted row's later rounds change nothing.
 
     Either way the lanes past a row's last survivor hold the sentinels and

@@ -182,8 +182,7 @@ card and checks them:
    of 11a, equal to the serial engine; kernel launches per process and
    their sum, wall per process beside the one-process run;
 13. the class-step switches of the JAX package that the port reads
-   (``APD_PALLAS=0``, ``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD=0``,
-   ``APD_MARKER_GEMM``), each set around its bank's construction and run,
+   (``APD_PALLAS=0``, ``APD_MARKER_GEMM``), each set around its bank's construction and run,
    on a 16-row round of int16 chunks and on phase 9's streams: payloads
    and detections equal to the default's (the mask tier has no
    near-collapse flag), f32 intermediates within tolerance, the DFT-GEMM
@@ -204,18 +203,17 @@ card and checks them:
    launches a replay; the memory a key's first use took and what the graph
    pools kept;
 16. candidate-free groups skip the captured verify tail (a CUDA
-   conditional node, ``APD_SKIP_EMPTY_VERIFY``) and the pinned staging
-   pool: a flagship detector with the node (the default) against one built
-   with ``APD_SKIP_EMPTY_VERIFY=0`` and against the eager step, payloads
+   conditional node) and the pinned staging pool: a flagship detector's
+   captured step against its eager step, payloads
    bit for bit on the flagship step's candidate-free section, phase 7's
    sections and one with hits in both groups, a candidate-free 16-row round
    and one with a single hit-bearing row (both modes), a chunk on 2 bank
    shards; detections, routes and stream times on phase 9's session in
    both modes, with accepted hits in both groups of one section (so both
    bodies ran); the node's route; under torch.profiler the kernels only the
-   verifiers launch, absent from a candidate-free replay, and how many of
-   them the trace of a replay with hits in both groups records; ms in turns (node, none, none, node, twice) and
-   profiled device-busy ms for the step, the rounds and the session; the
+   verifiers launch (the eager step's that a candidate-free replay does not
+   run), and how many of them the trace of a replay with hits in both
+   groups records; profiled device-busy ms for the step and the rounds; the
    pinned host allocations of a first and of a steady 16-row serving round
    (none in a steady one). A node that cannot be captured raises. It runs
    before 15;
@@ -230,15 +228,13 @@ card and checks them:
    and B = 4W as one graph of B rows against 4 replays, host ms to the
    payload and the dispatch's device span. Nothing falls back to the eager
    step;
-18. the lean greedy under both values of ``APD_GREEDY_UNROLL`` (which
-   picks a form of its plain version; the card runs its kernel either
-   way): payloads bit for bit between a bank built under each, a bank whose
-   while nodes count their passes and the eager step, on the flagship
-   step's candidate-free section and a hit-bearing one, and on 16-row
-   rounds without and with a hit-bearing row; no graph holds a while node,
-   one key field for both values, one lean greedy launch per group per
-   replay; each bank's device ms from CUDA events, in turns, beside PR 11's
-   while-node and unrolled forms;
+18. the lean greedy in the captured step (its kernel on the card):
+   payloads bit for bit between the default bank, a bank whose while nodes
+   count their passes and the eager step, on the flagship step's
+   candidate-free section and a hit-bearing one, and on 16-row rounds
+   without and with a hit-bearing row; no graph holds a while node, one
+   lean greedy launch per group per replay; the default bank's device ms
+   from CUDA events beside PR 11's while-node and unrolled forms;
 19. the 17 real broadcast captures of ``sample_audios/regressions/``
    (tests/test_real_data_regressions.py's cases, read from its source)
    through ``match_pattern`` on the card and on the CPU: equal detections
@@ -3620,8 +3616,6 @@ def switches(values: dict[str, str]):
 
 VARIANTS = (  # phase 13: each of the JAX package's class-step switches the port reads
     ("mask", {"APD_PALLAS": "0"}),
-    ("no_overlap_save", {"APD_NO_OVERLAP_SAVE": "1"}),
-    ("packed_upload_0", {"APD_PACKED_UPLOAD": "0"}),
     ("marker_gemm", {"APD_MARKER_GEMM": "1"}),
 )
 GEMM_RTOL = 1e-5  # of the largest power: the DFT-GEMM against the FFT's power
@@ -3644,7 +3638,6 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
     from audio_pattern_detector_tpu_torch.ops import verify_marker
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
-    from audio_pattern_detector_tpu_torch.ops.correlate import bank_correlate
     from audio_pattern_detector_tpu_torch.ops.loudness import (
         integrated_loudness_device,
         loudness_normalize_device,
@@ -3686,7 +3679,7 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
                 out = {"payload": payload, "acc": acc, "launches": launches,
                        "totals": [session.total_time(i) for i in range(16)],
                        "routes": routes(bank), "kernel_tier": bank.kernel_tier,
-                       "upload_dtype": str(bank._section_rows(10, [chunks[0][:10]]).dtype),
+                       "upload_dtype": str(bank._staged_sections(10, [chunks[0][:10]])[0].dtype),
                        "ms_per_round": float(np.median(ms[1:])), "session_wall_s": session_wall,
                        "marker_kernel_launches_first_use": marker_launches,
                        "key_marker_gemm": sorted({st.key.marker_gemm
@@ -3762,15 +3755,6 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     sections = torch.nn.functional.pad(rows, (0, cls["section_len"] - rows.shape[1]))
     lens = torch.full((4,), 480_000, dtype=torch.int32, device=dev)
     norm = loudness_normalize_device(sections, integrated_loudness_device(sections, lens, cls["loud"]))
-    consts = [g.corr for g in cls["groups"]]
-    with switches({"APD_NO_OVERLAP_SAVE": "1"}):
-        whole = make_detector(num_normal, num_marker, 60, dev)._ensure_bank().classes[1]
-    lufs_os = integrated_loudness_device(sections, lens, cls["loud"])
-    lufs_whole = integrated_loudness_device(sections, lens, whole["loud"])
-    whole_err = max(
-        float((bank_correlate(norm, lens, gw.corr)[0] - bank_correlate(norm, lens, c)[0]).abs().max())
-        for gw, c in zip(whole["groups"], consts))
-    del whole
     m = 2000  # the marker clips' length; windows of the round, Hann-weighted
     x = norm[:, : norm.shape[1] // m * m].reshape(-1, m) * torch.hann_window(
         m, periodic=False, device=dev)
@@ -3787,10 +3771,8 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
     scale = float(exact.max())
     gemm_err = float((gemm - exact).abs().max()) / scale
     tf32_err = float((tf32 - exact).abs().max()) / scale
-    lufs_err = float((lufs_os - lufs_whole).abs().max())
-    if whole_err > 1e-5 or lufs_err > 1e-4 or gemm_err > GEMM_RTOL or not precision_kept:
-        raise AssertionError(f"variant intermediates: no-overlap-save {whole_err} / {lufs_err} "
-                             f"LU, GEMM {gemm_err} (TF32 kept {precision_kept})")
+    if gemm_err > GEMM_RTOL or not precision_kept:
+        raise AssertionError(f"variant intermediates: GEMM {gemm_err} (TF32 kept {precision_kept})")
     phase("variants", card=smi, clips=num_normal + num_marker, round_rows=ROUND_ROWS, round="16 int16 chunks of 60 s",
           session="phase 9's streams, tile 16, vmap, 2 in flight",
           equal_to_default=True, default_ms_per_round=base["ms_per_round"],
@@ -3808,8 +3790,7 @@ def phase_variants(dev, smi: str, num_normal: int = 32, num_marker: int = 32) ->
           marker_gemm_on_card="the fused marker kernel, as the default: the switch picks only "
                               "the plain version's spectra",
           mask_tier_kernel_launches="0: APD_PALLAS=0 runs no kernel, by the caller's choice",
-          no_overlap_save_corr_max_abs_err=whole_err,
-          no_overlap_save_lufs_max_abs_err=lufs_err, gemm_with_tf32_allowed_rel_err=gemm_err,
+          gemm_with_tf32_allowed_rel_err=gemm_err,
           unguarded_tf32_product_rel_err=tf32_err, gemm_tolerance=GEMM_RTOL,
           kernel_vs_mask_tier_ms_per_round_in_turns=tier_turns)
     del base, bank
@@ -4075,23 +4056,22 @@ def host_allocs(fn) -> int:
 def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marker: int = 32,
                                   profile: "Path | None" = None) -> None:
     """Phase 16: candidate-free groups skip the captured verify tail (a
-    CUDA conditional node; ``APD_SKIP_EMPTY_VERIFY``), and the pinned
-    staging pool. Two flagship detectors, one built with the switch unset
-    (the node) and one with ``APD_SKIP_EMPTY_VERIFY=0`` (no node), and the
-    first's eager step. Payloads bit for bit between all three on the
-    flagship step's candidate-free section, phase 7's sections and a
-    section with hits in both groups (single-section graphs), a 16-row
-    round with no candidates and one with a single hit-bearing row (both
-    modes), and a bank-sharded chunk on 2 logical shards; detections,
-    routes and stream times on phase 9's session in both modes; accepted
-    hits in both groups of one section, so both bodies ran there. Under
-    torch.profiler a candidate-free replay holds none of the kernels only
-    the verifiers launch; the phase reports how many of them the trace of a
-    replay with hits in both groups records. Timed in turns (node,
-    none, none, node, twice): the flagship step, both rounds, the session;
-    profiled device-busy ms of each. The pool: pinned host allocations in
-    a first and in a steady 16-row serving round (cudaHostAlloc). A node
-    that cannot be captured raises: nothing falls back."""
+    CUDA conditional node), and the pinned staging pool. A flagship
+    detector's captured step against its eager step, which always
+    verifies. Payloads bit for bit on the flagship step's candidate-free
+    section, phase 7's sections and a section with hits in both groups
+    (single-section graphs), a 16-row round with no candidates and one with
+    a single hit-bearing row (both modes), and a bank-sharded chunk on 2
+    logical shards; detections, routes and stream times on phase 9's
+    session in both modes, captured against eager; accepted hits in both
+    groups of one section, so both bodies ran there. Under torch.profiler
+    a candidate-free replay holds none of the kernels only the verifiers
+    launch (those the eager step runs and the replay does not); the phase
+    reports how many of them the trace of a replay with hits in both groups
+    records. Profiled device-busy ms of the flagship step and the rounds,
+    captured. The pool: pinned host allocations in a first and in a steady
+    16-row serving round (cudaHostAlloc). A node that cannot be captured
+    raises: nothing falls back."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
@@ -4101,14 +4081,8 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
     from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, make_mesh
 
     tables = Path(tempfile.mkdtemp()) if profile is None else profile
-    det = {"node": make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)}
-    banks = {"node": det["node"]._ensure_bank()}
-    with switches({"APD_SKIP_EMPTY_VERIFY": "0"}):
-        det["none"] = make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)
-        banks["none"] = det["none"]._ensure_bank()
-    if not banks["node"].skip_empty_verify or banks["none"].skip_empty_verify:
-        raise AssertionError("APD_SKIP_EMPTY_VERIFY was not read at the bank's construction")
-    bank = banks["node"]
+    det = make_detector(num_normal, num_marker, chunk_seconds=60, device=dev)
+    bank = det._ensure_bank()
     sw, sr = 1, bank.sample_rate
     s_len = bank.classes[sw]["section_len"]
     groups = bank.classes[sw]["groups"]
@@ -4121,20 +4095,16 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
         parts = _split_fused(flat.cpu().numpy(), groups)
         return [bool((p[..., : g.k_verify] < 2**30).any()) for g, p in zip(groups, parts)]
 
-    def three_ways(run) -> dict:
-        """``run(bank)`` on the node's graph, the graph without it and the
-        eager step: payloads bit for bit."""
-        got = {}
-        for name in ("node", "none"):
-            banks[name].capture = True
-            got[name] = [run(banks[name]) for _ in range(2)]  # first use, then a replay
-        bank.capture = False
-        got["eager"] = [run(bank)]
+    def two_ways(run) -> dict:
+        """``run(bank)`` on the node's graph and on the eager step:
+        payloads bit for bit."""
         bank.capture = True
-        want = got["eager"][0]
-        for name in ("node", "none"):
-            if not all(payloads_equal(p, want) for p in got[name]):
-                raise AssertionError(f"{name}: payload differs from the eager step's")
+        got = [run(bank) for _ in range(2)]  # first use, then a replay
+        bank.capture = False
+        want = run(bank)
+        bank.capture = True
+        if not all(payloads_equal(p, want) for p in got):
+            raise AssertionError("the captured step's payload differs from the eager step's")
         return want
 
     rng = np.random.default_rng(1)
@@ -4147,7 +4117,7 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
                 **{name: torch.from_numpy(sec).to(dev) for name, sec in flooded.items()}}
     live, selected = {}, {}
     for name, sec in sections.items():
-        payload = three_ways(lambda b, sec=sec: b.step(sw, sec, s_len))
+        payload = two_ways(lambda b, sec=sec: b.step(sw, sec, s_len))
         live[name] = live_groups(payload)
         parts = _split_fused(payload[None].cpu().numpy(), groups)
         selected[name] = [int((p[..., g.k_verify : 2 * g.k_verify] != 0).sum())
@@ -4176,136 +4146,110 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
     out["rounds_live_groups"] = {}
     for rname, rows_ in (("candidate_free", rows), ("one_hit_row", mixed)):
         for mode in ("vmap", "scan"):
-            payload = three_ways(lambda b, m=mode, r=round_of(rows_): r(b, m))
+            payload = two_ways(lambda b, m=mode, r=round_of(rows_): r(b, m))
             out["rounds_live_groups"][f"{rname}_{mode}"] = live_groups(payload)
     if any(out["rounds_live_groups"]["candidate_free_vmap"]) or not all(
             out["rounds_live_groups"]["one_hit_row_vmap"]):
         raise AssertionError(f"live groups per round: {out['rounds_live_groups']}")
 
     # A bank-sharded chunk (phase 7's flooded row, with its lookback).
-    _audios, rounds, _ = serving_streams(det["node"], sr)
+    _audios, rounds, _ = serving_streams(det, sr)
     chunk, prev = rounds[1][3], rounds[0][3]
     shard_payloads, shard_results = {}, {}
-    for name, capture in (("node", True), ("none", True), ("eager", False)):
-        b = banks["none" if name == "none" else "node"]
-        b.capture = capture
-        sharded = BankShardedBank(b, make_mesh({"bank": 2}, devices=[dev] * 2))
+    for name, capture in (("node", True), ("eager", False)):
+        bank.capture = capture
+        sharded = BankShardedBank(bank, make_mesh({"bank": 2}, devices=[dev] * 2))
         recs = sharded.dispatch_chunk(chunk, prev)
         shard_payloads[name] = [rec[1].numpy().copy() for rec in recs]
         shard_results[name] = sharded.collect_chunk(recs)
     bank.capture = True
-    for name in ("node", "none"):
-        if shard_results[name] != shard_results["eager"] or not all(
-                np.array_equal(a.view(np.int32), e.view(np.int32))
-                for a, e in zip(shard_payloads[name], shard_payloads["eager"])):
-            raise AssertionError(f"bank shards, {name}: payload differs from the eager step's")
+    if shard_results["node"] != shard_results["eager"] or not all(
+            np.array_equal(a.view(np.int32), e.view(np.int32))
+            for a, e in zip(shard_payloads["node"], shard_payloads["eager"])):
+        raise AssertionError("bank shards: payload differs from the eager step's")
     out["bank_shards_2"] = {"payload_equal": True}
 
-    # ── Phase 9's session on both banks, both modes ──
-    def session_run(name: str, mode: str) -> dict:
-        session = MultiStreamSession(det[name], 16, tile=16, batch_mode=mode)
-        before = routes(banks[name])
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        acc, _ = drive_session(session, rounds, in_flight=2)
-        torch.cuda.synchronize()
+    # ── Phase 9's session, captured and eager, both modes ──
+    def session_run(capture: bool, mode: str) -> dict:
+        bank.capture = capture
+        try:
+            session = MultiStreamSession(det, 16, tile=16, batch_mode=mode)
+            before = routes(bank)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            acc, _ = drive_session(session, rounds, in_flight=2)
+            torch.cuda.synchronize()
+        finally:
+            bank.capture = True
         return {"acc": acc, "totals": [session.total_time(i) for i in range(16)],
-                "routes": tuple(a - b for a, b in zip(routes(banks[name]), before)),
+                "routes": tuple(a - b for a, b in zip(routes(bank), before)),
                 "wall_s": time.perf_counter() - t}
 
     out["session"] = {}
     for mode in ("scan", "vmap"):
-        runs = {name: session_run(name, mode) for name in ("node", "none")}
-        a, b = runs["node"], runs["none"]
+        a, b = session_run(True, mode), session_run(False, mode)
         if (a["acc"], a["totals"], a["routes"]) != (b["acc"], b["totals"], b["routes"]):
-            raise AssertionError(f"session {mode}: the node's run differs from the run without")
+            raise AssertionError(f"session {mode}: the captured run differs from the eager one")
         out["session"][mode] = {
             "detections": sum(len(v) for x in a["acc"][:12] for v in x.values()),
-            "routes_row_class_escalated_host": a["routes"]}
+            "routes_row_class_escalated_host": a["routes"], "wall_s": a["wall_s"]}
 
     # ── The node in the trace: no verifier kernel in a candidate-free replay ──
-    def replay(name: str, sec):
-        banks[name].step(sw, sec, s_len)
-        return lambda: banks[name].step(sw, sec, s_len)
+    def replay(sec):
+        bank.step(sw, sec, s_len)
+        return lambda: bank.step(sw, sec, s_len)
 
-    seen = {(name, sec): kernel_names(replay(name, sections[sec]))
-            for name in ("node", "none") for sec in ("flagship", "both")}
-    # Kernels of the graph without the node that a candidate-free replay
-    # with the node does not run: the verifiers' own, a name each. The
-    # profiler does not record every kernel of an if-node's body in every
-    # process (PERF.md, PR 9): the bodies' running is held by the payload
-    # above, and the replay with hits is traced up to 3 times and the most
-    # complete trace kept.
-    verifier_only = set(seen["none", "flagship"]) - set(seen["node", "flagship"])
+    seen = {sec: kernel_names(replay(sections[sec])) for sec in ("flagship", "both")}
+    bank.capture = False
+    eager = kernel_names(lambda: bank.step(sw, sections["flagship"], s_len))
+    bank.capture = True
+    # Kernels of the eager step, which always verifies, that a
+    # candidate-free replay does not run: the verifiers' own, a name each.
+    # The profiler does not record every kernel of an if-node's body in
+    # every process (PERF.md, PR 9): the bodies' running is held by the
+    # payload above, and the replay with hits is traced up to 3 times and
+    # the most complete trace kept.
+    verifier_only = set(eager) - set(seen["flagship"])
     if not verifier_only:
-        raise AssertionError("the trace does not show the skip: a candidate-free replay with "
-                             "the node runs every kernel the graph without it runs")
+        raise AssertionError("the trace does not show the skip: a candidate-free replay runs "
+                             "every kernel the eager step runs")
 
     def verifier_kernels(counts) -> int:
         return sum(counts[k] for k in verifier_only)
 
     for _ in range(2):
-        if verifier_kernels(seen["node", "both"]) >= verifier_kernels(seen["none", "both"]):
+        if verifier_kernels(seen["both"]) >= verifier_kernels(eager):
             break
-        again = kernel_names(replay("node", sections["both"]))
-        if verifier_kernels(again) > verifier_kernels(seen["node", "both"]):
-            seen["node", "both"] = again
+        again = kernel_names(replay(sections["both"]))
+        if verifier_kernels(again) > verifier_kernels(seen["both"]):
+            seen["both"] = again
     out["trace"] = {
-        "kernels_a_replay_candidate_free": {n: sum(seen[n, "flagship"].values())
-                                            for n in ("node", "none")},
-        "kernels_a_replay_hits_in_both_groups": {n: sum(seen[n, "both"].values())
-                                                 for n in ("node", "none")},
+        "kernels_a_replay_candidate_free": sum(seen["flagship"].values()),
+        "kernels_a_replay_hits_in_both_groups": sum(seen["both"].values()),
+        "kernels_eager_candidate_free": sum(eager.values()),
         "verifier_only_kernel_names": len(verifier_only),
-        "verifier_only_kernels_a_replay_hits_in_both_groups": {
-            n: verifier_kernels(seen[n, "both"]) for n in ("node", "none")},
+        "verifier_only_kernels_a_replay_hits_in_both_groups": verifier_kernels(seen["both"]),
         "verifier_only_examples": sorted(k[:90] for k in verifier_only)[:6],
-        "node_handle_kernels_a_replay": sum(v for k, v in seen["node", "both"].items()
+        "node_handle_kernels_a_replay": sum(v for k, v in seen["both"].items()
                                             if "set_if_handle" in k)}
 
-    # ── Timed in turns, and profiled ──
-    def in_turns_node(run, n: int = 2) -> dict:
-        times: dict[str, list[float]] = {"node": [], "none": []}
-        for name in ("node", "none", "none", "node") * n:
-            times[name].append(run(name))
-        return {k: median_and_range(v) for k, v in times.items()}
-
-    def ms_of(fn, reps: int):
-        def run(name: str) -> float:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(reps):
-                fn(name)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t) / reps * 1e3
-        return run
-
+    # ── Profiled, captured ──
     paths = {
-        "flagship_step": (lambda name: banks[name].step(sw, flagship, s_len, fused=False), 5),
-        "round_vmap_candidate_free": (lambda name: round_of(rows)(banks[name], "vmap"), 3),
-        "round_scan_candidate_free": (lambda name: round_of(rows)(banks[name], "scan"), 1),
-        "round_scan_one_hit_row": (lambda name: round_of(mixed)(banks[name], "scan"), 1),
+        "flagship_step": lambda: bank.step(sw, flagship, s_len, fused=False),
+        "round_vmap_candidate_free": lambda: round_of(rows)(bank, "vmap"),
+        "round_scan_candidate_free": lambda: round_of(rows)(bank, "scan"),
+        "round_scan_one_hit_row": lambda: round_of(mixed)(bank, "scan"),
     }
-    out["ms_median_min_max"] = {}
     out["profiled_device_busy_ms"] = {}
-    for pname, (fn, reps) in paths.items():
-        for name in ("node", "none"):
-            fn(name)
-        out["ms_median_min_max"][pname] = in_turns_node(ms_of(fn, reps))
-        out["profiled_device_busy_ms"][pname] = {
-            name: profile_run(lambda: fn(name), tables / f"skip_{pname}_{name}.txt")[
-                "device_busy_ms"] for name in ("node", "none")}
-    for mode in ("scan", "vmap"):
-        out["session"][mode]["wall_s_median_min_max"] = in_turns_node(
-            lambda name, mode=mode: session_run(name, mode)["wall_s"])
-        out["session"][mode]["profiled_device_busy_ms"] = {
-            name: profile_run(lambda: session_run(name, mode),
-                              tables / f"skip_session_{mode}_{name}.txt")["device_busy_ms"]
-            for name in ("node", "none")}
+    for pname, fn in paths.items():
+        fn()
+        out["profiled_device_busy_ms"][pname] = profile_run(
+            fn, tables / f"skip_{pname}.txt")["device_busy_ms"]
 
     # ── The staging pool: pinned allocations in a first and a steady round ──
     steady = [[(0.004 * rng.standard_normal(60 * sr)).astype(np.float32) for _ in range(16)]
               for _ in range(3)]
-    session = MultiStreamSession(det["node"], 16, tile=16, batch_mode="vmap")
+    session = MultiStreamSession(det, 16, tile=16, batch_mode="vmap")
     bank._staging.clear()
     out["pinned_host_allocs_a_round"] = {
         "first": host_allocs(lambda: session.feed(steady[0])),
@@ -4315,8 +4259,8 @@ def phase_skip_verify_and_staging(dev, smi: str, num_normal: int = 32, num_marke
                              f"{out['pinned_host_allocs_a_round']}")
     out["staging_pool"] = {f"{dt} {b}x{s}": len(v) for (dt, b, s), v in bank._staging.items()}
     phase("skip_empty_verify_and_staging", card=smi, clips=num_normal + num_marker,
-          payloads_equal_node_none_eager=True, **out)
-    del det, banks, bank, session
+          payloads_equal_node_eager=True, **out)
+    del det, bank, session
     torch.cuda.empty_cache()
 
 
@@ -4486,21 +4430,18 @@ def pass_counting_backend():
 
 
 def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32) -> dict:
-    """Phase 18: the lean greedy under ``APD_GREEDY_UNROLL`` unset (the JAX
-    default: a while loop over the rounds) and "1" (the rounds unrolled).
-    Those pick a form of the greedy's plain version; on the card the kernel
-    tier runs the greedy's kernel (``csrc/lean_greedy.cu``, one launch a
-    group) whatever the switch says. Three flagship banks: one built under
-    each value and one on a backend whose while nodes count their passes
-    (``pass_counting_backend``). Payloads bit for bit between the three and
+    """Phase 18: the lean greedy in the captured step. The kernel tier runs
+    the greedy's kernel (``csrc/lean_greedy.cu``, one launch a group), so
+    its graph holds no while node. Two flagship banks: the default and one
+    on a backend whose while nodes count their passes
+    (``pass_counting_backend``). Payloads bit for bit between the two and
     the eager step on the flagship step's candidate-free section, a section
     with hits in both groups (phase 16's), a candidate-free 16-row vmap
     round and one whose row 5 is the hit-bearing section; no graph holds a
-    while node, both banks' keys have the same ``greedy_unroll``; the lean
-    greedy's launches a replay; the device ms a call from CUDA events
-    around 5 calls (3 for a round), in turns (default, unroll switch,
-    unroll switch, default, twice), beside PR 11's while-node and unrolled
-    forms. Returns the kernel launches of the timed calls by bank."""
+    while node; the lean greedy's launches a replay; the default bank's
+    device ms a call from CUDA events around 5 calls (3 for a round), 4
+    times, beside PR 11's while-node and unrolled forms. Returns the kernel
+    launches of the timed calls."""
     import torch
 
     from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
@@ -4508,18 +4449,13 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
     from audio_pattern_detector_tpu_torch.ops.candidate_scan import candidate_scan
     from audio_pattern_detector_tpu_torch.ops.lean_greedy import lean_greedy
 
-    banks = {}
-    for name, unroll in (("default", "0"), ("unroll_switch", "1")):
-        with switches({"APD_GREEDY_UNROLL": unroll}):
-            banks[name] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
+    banks = {"default": make_detector(num_normal, num_marker, 60, dev)._ensure_bank()}
     saved = captured.StepGraphs.backend
     captured.StepGraphs.backend = pass_counting_backend()
     try:
         banks["counted"] = make_detector(num_normal, num_marker, 60, dev)._ensure_bank()
     finally:
         captured.StepGraphs.backend = saved
-    if banks["default"].greedy_unroll or not banks["unroll_switch"].greedy_unroll:
-        raise AssertionError("APD_GREEDY_UNROLL was not read at the bank's construction")
     bank = banks["default"]
     sw, sr = 1, bank.sample_rate
     s_len = bank.classes[sw]["section_len"]
@@ -4542,56 +4478,46 @@ def phase_greedy_forms(dev, smi: str, num_normal: int = 32, num_marker: int = 32
         "round_vmap_one_hit_row": (lambda b: b.step(sw, mixed, n_valids), 3),
     }
     out: dict = {}
-    launches = {"default": 0, "unroll_switch": 0}
+    launches = 0
     lean_launches = 0
     for pname, (fn, reps) in paths.items():
         bank.capture = False
         want = fn(bank)
         bank.capture = True
-        got = {}
-        for name in ("counted", "default", "unroll_switch"):
-            got[name] = [fn(banks[name]) for _ in range(2)]  # first use, then a replay
-        for name, payloads in got.items():
-            if not all(payloads_equal(p, want) for p in payloads):
+        for name, b in banks.items():
+            if not all(payloads_equal(fn(b), want) for _ in range(2)):  # first use, then a replay
                 raise AssertionError(f"{pname}, {name}: payload differs from the eager step's")
 
-        def ms(name: str) -> float:
+        def ms() -> float:
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(reps):
-                fn(banks[name])
+                fn(bank)
             end.record()
             end.synchronize()
             return start.elapsed_time(end) / reps
 
-        times: dict[str, list[float]] = {"default": [], "unroll_switch": []}
-        for name in ("default", "unroll_switch", "unroll_switch", "default") * 2:
+        times = []
+        for _ in range(4):
             before = (candidate_scan.launches, lean_greedy.launches)
             with counted_verify_launches("greedy_forms", lambda: list(banks.values())):
-                times[name].append(ms(name))
-            launches[name] += candidate_scan.launches - before[0]
+                times.append(ms())
+            launches += candidate_scan.launches - before[0]
             lean_launches += lean_greedy.launches - before[1]
-        out[pname] = {"device_ms_median_min_max": {k: median_and_range(v)
-                                                   for k, v in times.items()},
+        out[pname] = {"device_ms_median_min_max": median_and_range(times),
                       "pr11_while_node_ms": PR11_MS["greedy_forms_while_node"][pname],
                       "pr11_unrolled_ms": PR11_MS["greedy_forms_unrolled"][pname]}
     if banks["counted"].graphs._backend.counters:
         raise AssertionError("a kernel-tier graph holds a while node")
-    keys = {name: sorted({s.key.greedy_unroll for s in b.graphs.steps()})
-            for name, b in banks.items()}
-    if any(k != [False] for k in keys.values()):
-        raise AssertionError(f"the kernel tier's keys name APD_GREEDY_UNROLL: {keys}")
     per_replay = {f"rows_{s.key.rows}": s.kernel_launches[lean_greedy]
                   for s in bank.graphs.steps()}
-    if any(n != len(groups) for n in per_replay.values()) or lean_launches != sum(
-            launches.values()):
+    if any(n != len(groups) for n in per_replay.values()) or lean_launches != launches:
         raise AssertionError(f"lean greedy launches a replay {per_replay}, timed {lean_launches}, "
                              f"scans {launches}: want one per group per replay")
     GREEDY_PATH_LAUNCHES["lean_greedy"]["greedy_forms"] = lean_launches
     phase("greedy_forms", card=smi, clips=num_normal + num_marker, payloads_equal=True,
-          while_nodes=0, keys_greedy_unroll=keys, lean_greedy_launches_a_replay=per_replay,
-          **out)
+          while_nodes=0, lean_greedy_launches_a_replay=per_replay, **out)
     del banks, bank
     gc.collect()
     torch.cuda.empty_cache()
@@ -4687,7 +4613,7 @@ def replay_body_launches(step, payload, groups) -> dict[str, int]:
     ran = []
     for g, p in zip(groups, per_group):
         live = (p.reshape(-1, 2 * g.k_verify + 2)[:, : g.k_verify] < _BIG).sum(axis=1)
-        if step.key.skip_empty_verify and not step.key.general:
+        if not step.key.general and not step.key.wide_lanes:  # the lean tail's if-nodes
             body = next(bodies)
             if live.any():
                 ran.append(body)
@@ -5845,7 +5771,7 @@ def main(argv: "list[str] | None" = None) -> int:
     # the mesh paths (phase 11), the two processes' paths (phase 12, summed
     # over the processes), the class-step switches that keep the kernel
     # tier (phase 13; the mask tier launches none), the captured split
-    # rounds (phase 17), both greedy forms' timed calls (phase 18) and the
+    # rounds (phase 17), the greedy's timed calls (phase 18) and the
     # regression corpus on the card (phase 19). ``ms``, ``plain_ms``
     # and ``bound_ms`` are phase 2's at (32, 495,999); the batched shape's
     # stand beside them. No single PyTorch call computes the scan's five
@@ -5859,7 +5785,7 @@ def main(argv: "list[str] | None" = None) -> int:
                 "serving_stream_mesh": serving_launches["mesh"], **mesh_launches,
                 **multi_process_launches, "variants": variant_launches,
                 **{f"split_round_{k}": v for k, v in split_launches.items()},
-                **{f"greedy_forms_{k}": v for k, v in greedy_launches.items()},
+                "greedy_forms": greedy_launches,
                 "corpus_regressions": corpus_launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"a path of the run launched no kernel: {launches}")

@@ -203,7 +203,7 @@ def _bits(a):
 
 def _sections(bank, sw, rows):
     raws = [bank._raw_section(sw, c, t) for c, t in rows]
-    return torch.from_numpy(bank._section_rows(bank.classes[sw]["section_len"], raws)), \
+    return torch.from_numpy(bank._staged_sections(bank.classes[sw]["section_len"], raws)[0]), \
         torch.tensor([len(r) for r in raws], dtype=torch.int32)
 
 
@@ -240,16 +240,13 @@ def test_keys_follow_class_rows_dtype_and_the_banks_switches(stand_in):
     assert {(k.sw, k.rows, k.dtype) for k in keys} == {
         (sw, 4, torch.float32), (sw, 2, torch.int16), (sw, 1, torch.float32)}
     for k in keys:
-        assert (k.device, k.fused, k.scan, k.general, k.kernel_tier, k.overlap_save,
-                k.packed_upload, k.marker_gemm, k.skip_empty_verify, k.consts) == (
-                    CPU, True, candidate_scan, False, True, True, True, False, True, own)
+        assert (k.device, k.fused, k.scan, k.general, k.kernel_tier, k.marker_gemm,
+                k.consts) == (CPU, True, candidate_scan, False, True, False, own)
     assert bank.graphs._backend.captures == 3
 
 
 @pytest.mark.parametrize("switch,field,value", [
     ("APD_PALLAS=0", "kernel_tier", False),
-    ("APD_NO_OVERLAP_SAVE=1", "overlap_save", False),
-    ("APD_PACKED_UPLOAD=0", "packed_upload", False),
     ("APD_MARKER_GEMM=1", "marker_gemm", True),
 ])
 def test_a_switch_is_part_of_the_key(stand_in, monkeypatch, switch, field, value):
@@ -264,8 +261,7 @@ def test_a_switch_is_part_of_the_key(stand_in, monkeypatch, switch, field, value
     assert all(np.array_equal(_bits(want[sw]), _bits(payload[sw])) for sw in payload)
     (step,) = bank.graphs.steps()
     assert getattr(step.key, field) is value
-    # APD_PACKED_UPLOAD=0 decodes int16 rows on the host: an f32 graph.
-    assert step.key.dtype == (torch.float32 if name == "APD_PACKED_UPLOAD" else torch.int16)
+    assert step.key.dtype == torch.int16
     monkeypatch.delenv(name)
     _dispatch(bank, I16_ROWS, "vmap")
     keys = {getattr(s.key, field) for s in bank.graphs.steps()}

@@ -247,8 +247,8 @@ def test_the_route_follows_the_device_and_the_length(monkeypatch, on_card):
 
 
 def test_the_single_fft_branch_keeps_cufft(monkeypatch):
-    """A section short enough for one transform, or a bank built without
-    overlap-save (``APD_NO_OVERLAP_SAVE``), never reaches the wrapper; an
+    """A section short enough for one transform, or constants built without
+    overlap-save, never reaches the wrapper; an
     overlap-save geometry does, with its step and offset."""
     rng = np.random.default_rng(3)
     clip = rng.standard_normal((2, 700)).astype(np.float32)

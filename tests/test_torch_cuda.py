@@ -682,8 +682,7 @@ def test_marker_gemm_runs_at_f32_with_tf32_allowed(cuda):
     assert np.abs(got - exact).max() <= 1e-5 * exact.max()
 
 
-@pytest.mark.parametrize("switch", ["APD_PALLAS=0", "none", "APD_NO_OVERLAP_SAVE=1",
-                                    "APD_MARKER_GEMM=1"])
+@pytest.mark.parametrize("switch", ["APD_PALLAS=0", "none", "APD_MARKER_GEMM=1"])
 def test_class_step_switch_on_card_equals_cpu(cuda, switch, monkeypatch):
     """A vmap round with hits under one of the JAX package's switches, or
     none (the default path): the card's results equal the CPU's with the
@@ -944,11 +943,10 @@ def test_held_cufft_plans_agree_with_torch_fft(cuda, shape, n):
 
 
 @pytest.mark.parametrize("hits", ["none", "both_groups"])
-def test_captured_verify_node_equals_no_node_and_eager(cuda, monkeypatch, hits):
-    """``APD_SKIP_EMPTY_VERIFY``: the captured one-row and round graphs
-    with the conditional node (the default) against a bank built with the
-    switch at 0 and against the eager step, on rounds with no candidate and
-    with hits in both groups: payloads bit for bit."""
+def test_captured_verify_node_equals_eager(cuda, hits):
+    """The captured one-row and round graphs with the conditional node
+    against the eager step, which always verifies, on rounds with no
+    candidate and with hits in both groups: payloads bit for bit."""
     import numpy as np
 
     from audio_pattern_detector_tpu_torch.models.detector import TorchAudioPatternDetector
@@ -959,20 +957,14 @@ def test_captured_verify_node_equals_no_node_and_eager(cuda, monkeypatch, hits):
         rounds = [[(0.01 * rng.standard_normal(10 * 8000)).astype(np.float32)
                    for _ in range(4)]]
     node = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
-    monkeypatch.setenv("APD_SKIP_EMPTY_VERIFY", "0")
-    none = TorchAudioPatternDetector(clips, device=cuda, seconds_per_chunk=10)._ensure_bank()
-    monkeypatch.delenv("APD_SKIP_EMPTY_VERIFY")
-    assert node.skip_empty_verify and not none.skip_empty_verify
     for mode in ("vmap", "scan"):
-        def run(bank, mode=mode):
-            return [h.numpy().copy() for _, h, *_ in bank.dispatch_chunks_batch(
+        def run(mode=mode):
+            return [h.numpy().copy() for _, h, *_ in node.dispatch_chunks_batch(
                 rounds[0], None, mode=mode)]
 
-        eager, got = _eager_then_captured(node, lambda: run(node))
+        eager, got = _eager_then_captured(node, run)
         assert all(_bitwise(g, eager) for g in got)
-        assert all(_bitwise(run(none), eager) for _ in range(2))
-    assert {s.key.skip_empty_verify for s in node.graphs.steps()} == {True}
-    assert {s.key.skip_empty_verify for s in none.graphs.steps()} == {False}
+    assert {s.key.rows for s in node.graphs.steps()} == {1, 4}
 
 
 def test_staging_buffers_are_pinned_and_recycled_on_the_card(cuda):
@@ -1185,14 +1177,13 @@ def test_captured_general_round_wider_than_its_graph_equals_eager(cuda):
 
 
 def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, monkeypatch):
-    """The lean greedy's two forms under ``APD_GREEDY_UNROLL`` (unset, and
-    "1"), a one-row and a 4-row graph each, on a silent round and on one
-    with hits: in the kernel tier both values run the lean greedy's kernel
-    (no while node in any graph, one key field) and in the mask tier
-    (``APD_PALLAS=0``) the rounds are a while node or unrolled; payloads
-    bitwise equal to each other and to the eager step. The mask tier's
-    4-row graph's while nodes pass no round on the silent round and some
-    on the other (counted on the device, a replay at a time)."""
+    """The lean greedy captured, a one-row and a 4-row graph, on a silent
+    round and on one with hits: in the kernel tier it is the lean greedy's
+    kernel (no while node in any graph) and in the mask tier
+    (``APD_PALLAS=0``) its rounds are a while node; payloads bitwise equal
+    to the eager step's, whose rounds are unrolled. The mask tier's 4-row
+    graph's while nodes pass no round on the silent round and some on the
+    other (counted on the device, a replay at a time)."""
     import numpy as np
 
     from chip_smoke import pass_counting_backend
@@ -1204,9 +1195,7 @@ def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, mo
     rng = np.random.default_rng(7)
     silent = [(0.01 * rng.standard_normal(10 * 8000)).astype(np.float32) for _ in range(4)]
     banks = {}
-    for name, switches in (("kernel", {}), ("kernel_unrolled", {"APD_GREEDY_UNROLL": "1"}),
-                           ("mask", {"APD_PALLAS": "0"}),
-                           ("mask_unrolled", {"APD_PALLAS": "0", "APD_GREEDY_UNROLL": "1"})):
+    for name, switches in (("kernel", {}), ("mask", {"APD_PALLAS": "0"})):
         with monkeypatch.context() as mp:
             for var, value in switches.items():
                 mp.setenv(var, value)
@@ -1222,16 +1211,11 @@ def test_lean_while_node_equals_unrolled_and_passes_no_round_on_silence(cuda, mo
             for tier in ("kernel", "mask"):
                 eager, got = _eager_then_captured(banks[tier], lambda: run(banks[tier]))
                 assert all(_bitwise(g, eager) for g in got)
-                assert all(_bitwise(run(banks[f"{tier}_unrolled"]), eager) for _ in range(2))
             if mode == "vmap":  # the mask tier's 4-row key's two greedies: its last two counters
                 passes = sum(banks["mask"].graphs._backend.passes()[-2:])
                 assert (passes == 0) if name == "silent" else (passes > 0), (name, passes)
-    for name in ("kernel", "kernel_unrolled"):
-        assert banks[name].graphs._backend.counters == []  # no while node
-    keys = {name: {s.key.greedy_unroll for s in bank.graphs.steps()}
-            for name, bank in banks.items()}
-    assert keys == {"kernel": {False}, "kernel_unrolled": {False}, "mask": {False},
-                    "mask_unrolled": {True}}
+    assert banks["kernel"].graphs._backend.counters == []  # no while node
+    assert banks["mask"].graphs._backend.counters != []
 
 
 # ── The greedy kernels against their plain versions ──

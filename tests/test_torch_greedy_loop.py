@@ -6,8 +6,9 @@ The JAX lean tier runs the block-wise greedy's rounds in a
 ``r_max`` rounds have run. ``APD_GREEDY_UNROLL=1`` unrolls the ``r_max``
 rounds, with identical results. The port's
 ``greedy_survivors_from_blocks`` takes a ``loop(pred, body)`` hook for the
-first form (a captured lean step passes a CUDA while node) and runs the
-second without it (the eager step). Here the stand-in graph backend of
+first form (a captured lean step always passes a CUDA while node) and runs
+the second without it (the eager step); the port does not read the
+switch. Here the stand-in graph backend of
 tests/test_torch_capture.py takes the card's place; its ``while_loop``
 reads the predicate at every pass and counts the passes.
 
@@ -17,10 +18,11 @@ reads the predicate at every pass and counts the passes.
   overflow, a refused round (a seed the gathered block does not reach) and
   rows that finish at different rounds.
 * The captured lean step at B = 1 and B = 4, both schedules, the kernel and
-  the mask tier, under ``APD_GREEDY_UNROLL`` "0" and "1": payloads bit for
-  bit the eager step's and the JAX ``_class_step_scan_jit`` /
-  ``_class_step_batch_jit`` under the same switch; the switch is a field
-  of the key; a candidate-free section passes the loop no time.
+  the mask tier, built under ``APD_GREEDY_UNROLL`` "0" and "1": payloads
+  bit for bit the eager step's and the JAX ``_class_step_scan_jit`` /
+  ``_class_step_batch_jit`` under the same switch; either value gives the
+  port's bank the same key and the while loop; a candidate-free section
+  passes the loop no time.
 """
 
 import dataclasses
@@ -222,10 +224,11 @@ def jax_programs():
 def test_captured_lean_step_under_each_form_equals_eager_and_jax(
         stand_in, monkeypatch, jax_programs, tier, mode, rows, unroll):
     """First use, then replays: payloads bit for bit the eager step's and
-    the JAX program's of the same schedule under the same switch (the
-    kernel tier's near-collapse flag aside, which the XLA mask lacks). The
-    while form passes each group's loop at capture and at every replay;
-    the unrolled form has no loop."""
+    the JAX program's of the same schedule under ``unroll``, the JAX
+    program's form (the kernel tier's near-collapse flag aside, which the
+    XLA mask lacks). The port's bank, built under the same switch, does not
+    read it: its step passes each group's loop at capture and at every
+    replay."""
     monkeypatch.setenv("APD_GREEDY_UNROLL", unroll)
     if tier == "mask":
         monkeypatch.setenv("APD_PALLAS", "0")
@@ -236,14 +239,13 @@ def test_captured_lean_step_under_each_form_equals_eager_and_jax(
     groups = len(cls["groups"])
     got = [_payloads(_dispatch(bank, ROWS[:rows], mode)) for _ in range(3)]
     (step,) = bank.graphs.steps()
-    assert step.key.greedy_unroll is (unroll == "1") and not step.key.general
+    assert not step.key.general
     assert step.key.kernel_tier is (tier == "kernel")
     replays = 3 * (rows if mode == "scan" else 1) - 1
     backend = bank.graphs._backend
     assert step.replays == backend.replays == replays
-    assert backend.loops == (0 if unroll == "1" else groups * (1 + replays))
-    if unroll == "0":
-        assert backend.iterations > 0
+    assert backend.loops == groups * (1 + replays)
+    assert backend.iterations > 0
     bank.capture = False
     eager = _payloads(_dispatch(bank, ROWS[:rows], mode))
     assert all(np.array_equal(_bits(g[sw]), _bits(eager[sw])) for g in got)
@@ -263,10 +265,10 @@ def test_captured_lean_step_under_each_form_equals_eager_and_jax(
 
 def test_one_process_builds_both_forms_and_a_silent_section_passes_no_round(
         stand_in, monkeypatch):
-    """Two banks built under each switch capture two keys that differ in
-    ``greedy_unroll`` alone, with the same payloads; a section without a
-    candidate passes each group's loop no time, and one with hits passes
-    it once a survivor at least."""
+    """Two banks built under each value of the JAX switch capture one key
+    (their constants aside), both with the while loop, and the same
+    payloads; a section without a candidate passes each group's loop no
+    time, and one with hits passes it once a survivor at least."""
     banks = {}
     for unroll in ("0", "1"):
         monkeypatch.setenv("APD_GREEDY_UNROLL", unroll)
@@ -281,20 +283,17 @@ def test_one_process_builds_both_forms_and_a_silent_section_passes_no_round(
         backend = bank.graphs._backend
         before = (backend.loops, backend.iterations)
         payloads[unroll] = [bank.step(sw, torch.from_numpy(x), len(x)) for x in (silent, hits)]
-        if unroll == "0":
-            # The silent replay's loops pass no time; the hit-bearing one's do.
-            assert backend.loops - before[0] == 2 * 2
-            assert backend.iterations - before[1] >= 2
-        else:
-            assert backend.loops == 0
+        # The silent replay's loops pass no time; the hit-bearing one's do.
+        assert backend.loops - before[0] == 2 * 2
+        assert backend.iterations - before[1] >= 2
     (k0,), (k1,) = banks["0"].graphs.steps(), banks["1"].graphs.steps()
-    assert k0.key._replace(greedy_unroll=True, consts=()) == k1.key._replace(consts=())
+    assert k0.key._replace(consts=()) == k1.key._replace(consts=())
     for a, b in zip(payloads["0"], payloads["1"]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # The silent section alone: a replay passes no round in either group.
-    bank = banks["0"]
-    backend = bank.graphs._backend
-    before = (backend.loops, backend.iterations)
-    bank.step(sw, torch.from_numpy(silent), len(silent))
-    assert (backend.loops - before[0], backend.iterations - before[1]) == (2, 0)
+    for bank in banks.values():
+        backend = bank.graphs._backend
+        before = (backend.loops, backend.iterations)
+        bank.step(sw, torch.from_numpy(silent), len(silent))
+        assert (backend.loops - before[0], backend.iterations - before[1]) == (2, 0)
     assert not math.isnan(float(payloads["0"][0].sum()))

@@ -176,7 +176,7 @@ def run_case(name):
                 for d in np.flatnonzero(owned):
                     raw = _device_section(slab, prev_tail, b, int(d), sd.chunk_samples, halo,
                                           int(owned[d]), has_prev)
-                    rows = upload_rows(bank._section_rows(cls["section_len"], [raw]), bank.device)
+                    rows = upload_rows(bank._staged_sections(cls["section_len"], [raw])[0], bank.device)
                     flat = bank.step(sw, as_f32(rows[0]), len(raw)).numpy()
                     serial = _split_fused(flat, cls["groups"])
                     sharded = [p[b, d, : len(g.names)] for p, g in

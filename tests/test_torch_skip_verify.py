@@ -1,5 +1,4 @@
-"""Candidate-free groups skip the captured verify tail
-(``APD_SKIP_EMPTY_VERIFY``), on the CPU.
+"""Candidate-free groups skip the captured verify tail, on the CPU.
 
 The JAX lean tail runs each group's verifier under
 ``lax.cond(jnp.any(valive), verify, zeros)`` (JAX ``models/bank.py:1306-
@@ -18,7 +17,6 @@ and with the Pallas kernel in interpret mode):
 * hits in both groups run both;
 * a round (B > 1) runs a group's body when any of its rows has a live
   lane there; the "scan" schedule decides row by row;
-* ``APD_SKIP_EMPTY_VERIFY=0`` is another graph key and always verifies;
 * the mask tier (``APD_PALLAS=0``) skips in the same way.
 """
 
@@ -139,7 +137,7 @@ def test_a_replay_verifies_only_the_groups_with_a_live_lane(stand_in, verifies, 
     assert live == SECTIONS[kind][1]
     assert (ran, skipped, calls) == (len(live), len(cls["groups"]) - len(live), len(live))
     (step,) = bank.graphs.steps()
-    assert step.key.skip_empty_verify and step.key.rows == 1
+    assert step.key.rows == 1
     bank.capture = False
     eager = bank.step(sw, sec, len(raw))
     assert np.array_equal(_bits(got), _bits(eager))
@@ -181,33 +179,6 @@ def test_a_round_skips_a_group_only_where_no_row_is_live(stand_in, verifies, pal
     assert np.array_equal(_bits(scan), _bits(eager))
     want = _jax_payload(bank, rows, lens, pallas=pallas)
     _assert_jax_equal(vmap, want, cls["groups"], kernel_tier=not pallas)
-
-
-def test_the_switch_off_is_its_own_key_and_always_verifies(stand_in, verifies, monkeypatch):
-    """``APD_SKIP_EMPTY_VERIFY=0``, read when the bank is built, gives the
-    graph no node: a candidate-free replay verifies every group, its key
-    differs from the default bank's in that field alone, and the payload
-    is the same. Switched on the built bank, the same bank captures a
-    second graph for the other form."""
-    raw = _section("none")
-    sec = torch.from_numpy(raw)
-    default = _bank()
-    (sw, cls), = default.classes.items()
-    want = default.step(sw, sec, len(raw))
-    monkeypatch.setenv("APD_SKIP_EMPTY_VERIFY", "0")
-    bank = _bank()
-    monkeypatch.delenv("APD_SKIP_EMPTY_VERIFY")
-    assert bank.skip_empty_verify is False and default.skip_empty_verify is True
-    got, (ran, skipped, calls) = _replay(bank, lambda: bank.step(sw, sec, len(raw)), verifies)
-    assert (ran, skipped, calls) == (0, 0, len(cls["groups"]))
-    assert np.array_equal(_bits(got), _bits(want))
-    (off,), (on,) = bank.graphs.steps(), default.graphs.steps()
-    assert off.key._replace(skip_empty_verify=True, consts=on.key.consts) == on.key
-    bank.skip_empty_verify = True
-    again, (ran, skipped, calls) = _replay(bank, lambda: bank.step(sw, sec, len(raw)), verifies)
-    assert (ran, skipped, calls) == (0, len(cls["groups"]), 0)
-    assert np.array_equal(_bits(again), _bits(want))
-    assert {s.key.skip_empty_verify for s in bank.graphs.steps()} == {False, True}
 
 
 @pytest.mark.parametrize("kind", ["none", "both"])

@@ -13,8 +13,8 @@ rows on the same bank and against the JAX package's
 ``_class_step_batch_jit`` (the vmap program) on the same f32 sections:
 
 * B = 5 and 7 in the lean kernel tier, the mask tier (``APD_PALLAS=0``) and
-  the general-plateau tier (``height_min = 0``), the lean greedy as a while
-  loop (the default) and unrolled (``APD_GREEDY_UNROLL=1``);
+  the general-plateau tier (``height_min = 0``), the plain greedies as
+  while loops;
 * through ``dispatch_chunks_batch(mode="vmap")`` (the round above), a
   ``RowSharding`` shard of more than W rows, and a ``MultiStreamSession``
   whose tile is wider than W;
@@ -123,23 +123,20 @@ def _hold_to_jax(got, want, groups, tier):
 
 
 @pytest.mark.parametrize("rows", [5, 7])
-@pytest.mark.parametrize("tier,unroll", [
-    ("kernel", "0"), ("kernel", "1"), ("mask", "0"), ("mask", "1"), ("general", "0"),
-], ids=["kernel_while_loop", "kernel_unrolled", "mask_while_loop", "mask_unrolled", "general"])
+@pytest.mark.parametrize("tier", ["kernel", "mask", "general"],
+                         ids=["kernel_while_loop", "mask_while_loop", "general"])
 def test_a_round_wider_than_its_graph_is_replays_equal_to_eager_and_jax(
-        stand_in, monkeypatch, jax_vmap, tier, unroll, rows):
+        stand_in, monkeypatch, jax_vmap, tier, rows):
     """B = 5 or 7 rows through ``dispatch_chunks_batch(mode="vmap")`` on
     graphs of W = 2 (lean tiers) or 3 (general tier) rows: ceil(B / W)
     replays of one W-row key a round (its first use the eager W-row run),
     payloads bit for bit the eager round's in W-row steps and as one batch
-    of B rows and the JAX vmap program's, collected detections equal.
-    ``APD_GREEDY_UNROLL`` acts on the lean tiers only."""
+    of B rows and the JAX vmap program's, collected detections equal. The
+    plain greedies' rounds run as while loops in every tier."""
     width = 3 if tier == "general" else 2
     _width(monkeypatch, width)
-    monkeypatch.setenv("APD_GREEDY_UNROLL", unroll)
     bank = _tier_bank(monkeypatch, tier)
     eager = _tier_bank(monkeypatch, tier, capture=False)
-    monkeypatch.delenv("APD_GREEDY_UNROLL")
     (sw, cls), = bank.classes.items()
     rounds = [_dispatch(bank, ROWS7[:rows], "vmap") for _ in range(2)]
     want = _dispatch(eager, ROWS7[:rows], "vmap")
@@ -148,14 +145,10 @@ def test_a_round_wider_than_its_graph_is_replays_equal_to_eager_and_jax(
     assert np.array_equal(_bits(one_batch), _bits(want[0][1].numpy()))
     (step,) = bank.graphs.steps()
     replays = -(-rows // width)
-    assert step.key.rows == width and step.key.greedy_unroll is (unroll == "1")
+    assert step.key.rows == width
     assert step.replays == 2 * replays - 1  # the first replay of all is the eager run
     backend = bank.graphs._backend
-    assert backend.captures == 1
-    if tier == "general" or unroll == "0":
-        assert backend.loops > 0
-    else:
-        assert backend.loops == 0
+    assert backend.captures == 1 and backend.loops > 0
     got = [_payloads(d)[sw] for d in rounds]
     for payload in got:
         assert payload.shape == (rows, want[0][1].numpy().shape[1])

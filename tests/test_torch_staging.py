@@ -422,8 +422,8 @@ def test_a_row_by_row_scan_round_is_the_whole_round_bit_for_bit(captured_bank, j
     for (sw, handle, raws, _, staged), (_, want, *_) in zip(scan, vmap):
         got = handle.numpy()
         assert got.shape[0] == n and got.tobytes() == want.numpy().tobytes()
-        whole = eager._section_rows(eager.classes[sw]["section_len"],
-                                    [eager._section_parts(sw, c, t) for c, t in rows])
+        whole = eager._staged_sections(eager.classes[sw]["section_len"],
+                                       [eager._section_parts(sw, c, t) for c, t in rows])[0]
         assert whole.tobytes() == staged.tobytes()
         each = torch.stack([eager.step(sw, torch.from_numpy(whole[bi]), len(raws[bi]))
                             for bi in range(n)])

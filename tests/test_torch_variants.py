@@ -11,16 +11,23 @@ Op level:
 * the sequential lane greedy against the parallel one, exactly.
 
 Bank level, one case per switch the port reads (``APD_PALLAS=0``,
-``APD_NO_OVERLAP_SAVE``, ``APD_PACKED_UPLOAD=0``, ``APD_MARKER_GEMM``) and
-one with none: a round of independent rows with hits, an idle row and a
-flooded row through the port's and the JAX bank's vmap dispatch, and the
-golden corpus through both serial engines. Payload rules: the port's mask tier is the
+``APD_MARKER_GEMM``), one with none, and one for each of
+``APD_NO_OVERLAP_SAVE`` and ``APD_PACKED_UPLOAD=0``, which the port does not
+read (its one form against the JAX package's other one): a round of
+independent rows with hits, an idle row and a flooded row through the
+port's and the JAX bank's vmap dispatch, and the golden corpus through both
+serial engines. Payload rules: the port's mask tier is the
 JAX package's CPU tier, so its payloads are equal bit for bit; the port's
 kernel tier has a near-collapse flag (2) that the mask tier lacks, so
-there every field but that flag is equal. Detections are equal in every
+there every field but that flag is equal; under ``APD_NO_OVERLAP_SAVE`` the
+JAX bank correlates in one FFT and the port in its segments, so only the
+detections are compared. Detections are equal in every
 case. JAX reads ``APD_MARKER_GEMM`` when it traces, so in that case its
 side may be a program traced without it; the op-level test holds the
 switch against the JAX op.
+
+Each of the JAX package's switches the port does not read leaves the
+port's captured step as it is: the same keys, payloads and nodes.
 
 With no ``APD_*`` variable set (or ``APD_PALLAS=1``) every path of the port
 runs the kernel tier (the plain scan on the CPU); ``APD_PALLAS=0`` runs
@@ -43,6 +50,7 @@ from audio_pattern_detector_tpu.ops import peaks as jpeaks
 from audio_pattern_detector_tpu.ops import verify as jverify
 from audio_pattern_detector_tpu.utils import clip as jclip
 from audio_pattern_detector_tpu_torch.match import _load_pattern_clips, _WavFileStreamWrapper
+from audio_pattern_detector_tpu_torch.models import captured
 from audio_pattern_detector_tpu_torch.models.bank import _split_fused, unpack_group
 from audio_pattern_detector_tpu_torch.models.detector import (
     MARKER_TONE_STRATEGY,
@@ -57,6 +65,7 @@ from audio_pattern_detector_tpu_torch.ops.consts import consts_from_numpy
 from audio_pattern_detector_tpu_torch.parallel import BankShardedBank, ShardedDetector, make_mesh
 from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip, AudioStream
+from tests.test_torch_capture import RecordingBackend
 
 torch.set_num_threads(1)
 
@@ -72,7 +81,8 @@ GOLDEN_PATTERNS = [os.path.join(AUDIO, "clips", "rthk_beep.apd.toml"),
 GOLDEN_FILES = [os.path.join(AUDIO, "rthk_section_with_beep.wav"),
                 os.path.join(AUDIO, "cbs_news_audio_section.wav")]
 SWITCHES = ("APD_PALLAS", "APD_BLOCK_LEAN", "APD_MERGED_IRFFT", "APD_NO_OVERLAP_SAVE",
-            "APD_PACKED_UPLOAD", "APD_MARKER_GEMM", "APD_SEQ_GREEDY")  # the JAX bank's
+            "APD_PACKED_UPLOAD", "APD_MARKER_GEMM", "APD_SEQ_GREEDY", "APD_SKIP_EMPTY_VERIFY",
+            "APD_GREEDY_UNROLL")  # the JAX bank's
 
 
 @pytest.fixture(autouse=True)
@@ -313,17 +323,17 @@ def test_switch_matches_the_jax_bank(monkeypatch, case):
     jbank, tbank = jdet._ensure_bank(), tdet._ensure_bank()
     assert not jbank._pallas and jbank._metas == tbank._metas
     assert tbank.kernel_tier == (tier == "kernel")
-    assert tbank.packed_upload == (variables.get("APD_PACKED_UPLOAD") != "0")
+    same_geometry = case != "no_overlap_save"
     for sw, cls in tbank.classes.items():
         jcls = jbank.classes[sw]
+        assert all(g.corr.num_segments > 1 for g in cls["groups"])  # the port's one form
+        if not same_geometry:
+            assert jcls["loud"].num_segments == 1
+            assert all(jg.corr.num_segments == 1 for jg in jcls["groups"])
+            continue
         assert cls["loud"].num_segments == jcls["loud"].num_segments
         for g, jg in zip(cls["groups"], jcls["groups"]):
             assert (g.corr.fft_len, g.corr.num_segments) == (jg.corr.fft_len, jg.corr.num_segments)
-        if case == "no_overlap_save":
-            assert cls["loud"].num_segments == 1
-            assert all(g.corr.num_segments == 1 for g in cls["groups"])
-        else:
-            assert all(g.corr.num_segments > 1 for g in cls["groups"])
 
     routes = {"gemm": 0, "sequential": 0, "scan": 0}
     for key, module, name in (("gemm", tverify_marker, "_rfft_power_gemm"),
@@ -339,10 +349,9 @@ def test_switch_matches_the_jax_bank(monkeypatch, case):
 
     rows = _round_rows()
     chunks, tails = [c for c, _ in rows], [t for _, t in rows]
-    if case == "packed_upload_0":
-        assert tbank._section_rows(CHUNK, [chunks[0], chunks[3]]).dtype == np.float32
-    else:
-        assert tbank._section_rows(CHUNK, [chunks[0], chunks[3]]).dtype == np.int16
+    # int16 rows upload as int16 whatever APD_PACKED_UPLOAD says; the
+    # device decode is bitwise the JAX bank's host decode.
+    assert tbank._staged_sections(CHUNK, [chunks[0], chunks[3]])[0].dtype == np.int16
     want = jbank.dispatch_chunks_batch(chunks, None, mode="vmap", prev_tails=tails)
     got = tbank.dispatch_chunks_batch(chunks, None, mode="vmap", prev_tails=tails)
     hit_rows = near_rows = 0
@@ -358,7 +367,8 @@ def test_switch_matches_the_jax_bank(monkeypatch, case):
                 near_rows += int(near.sum())
                 packed = packed.copy()
                 packed[near, 2 * k] = 0.0
-            np.testing.assert_array_equal(packed, jpacked)
+            if same_geometry:
+                np.testing.assert_array_equal(packed, jpacked)
     assert near_rows <= 1
     assert hit_rows + near_rows >= 4  # 13 s, 17 s marker, 4 s, 7 s marker
     assert tbank.collect_chunks_batch(got) == jbank.collect_chunks_batch(want)
@@ -394,7 +404,6 @@ def test_every_path_runs_the_kernel_tier_unless_asked(monkeypatch, pallas):
     det = TorchAudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S)
     bank = det._ensure_bank()
     assert bank.kernel_tier == (pallas != "0")
-    assert bank.packed_upload
     rows = _round_rows()
     chunks, tails = [c for c, _ in rows], [t for _, t in rows]
     two = make_mesh({"stream": 2}, devices=[CPU] * 2)
@@ -414,3 +423,45 @@ def test_every_path_runs_the_kernel_tier_unless_asked(monkeypatch, pallas):
         calls.clear()
         run()
         assert (len(calls) > 0) == (pallas != "0"), (name, len(calls))
+
+
+@pytest.mark.parametrize("switch", [
+    "APD_PACKED_UPLOAD=0", "APD_SKIP_EMPTY_VERIFY=0", "APD_GREEDY_UNROLL=1",
+    "APD_NO_OVERLAP_SAVE=1", "APD_BLOCK_LEAN=1", "APD_MERGED_IRFFT=1", "APD_SEQ_GREEDY=1",
+])
+def test_a_jax_switch_the_port_does_not_read_leaves_its_step_unchanged(monkeypatch, switch):
+    """A bank built under one of the JAX package's switches that pick
+    another form of the same class step, which the port does not read, on
+    the stand-in graph backend: the round of :func:`_round_rows` in both
+    schedules and its collection give the same step keys (their constants'
+    ids aside), the same payload bits, the same detections and the same
+    nodes run (verify bodies, loops, loop passes) as a bank built with no
+    switch set."""
+    monkeypatch.setattr(captured.StepGraphs, "backend", RecordingBackend)
+    rows = _round_rows()
+    chunks, tails = [c for c, _ in rows], [t for _, t in rows]
+
+    def run():
+        bank = TorchAudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S,
+                                         capture=True)._ensure_bank()
+        payloads, results = [], []
+        for mode in ("vmap", "scan"):
+            dispatched = bank.dispatch_chunks_batch(chunks, None, mode=mode, prev_tails=tails)
+            payloads += [handle.numpy().view(np.int32).copy() for _, handle, *_ in dispatched]
+            results.append(bank.collect_chunks_batch(dispatched))
+        steps = bank.graphs.steps() + bank.rerun_graphs.steps()
+        backend = bank.graphs._backend
+        nodes = (backend.captures, backend.bodies, backend.skipped, backend.loops,
+                 backend.iterations)
+        return {s.key._replace(consts=()) for s in steps}, payloads, results, nodes
+
+    keys, payloads, results, nodes = run()
+    name, value = switch.split("=")
+    monkeypatch.setenv(name, value)
+    got_keys, got_payloads, got_results, got_nodes = run()
+    assert got_keys == keys and len(keys) >= 3  # rows 5 and 1, and a row rerun
+    assert len(got_payloads) == len(payloads)
+    for got, want in zip(got_payloads, payloads):
+        np.testing.assert_array_equal(got, want)
+    assert got_results == results and results[0] == results[1]
+    assert got_nodes == nodes and nodes[1] > 0 and nodes[3] > 0

@@ -464,7 +464,7 @@ def test_batched_class_step_groups_and_wide_tier(env):
     consts = tuple((g.corr, g.verify) for g in cls["groups"])
     raws = [bank._raw_section(sw, c, t) for c, t in _round_rows(audios)]
     sections = torch.from_numpy(
-        bank._section_rows(s_len, raws).astype(np.float32)
+        bank._staged_sections(s_len, raws)[0].astype(np.float32)
     )
     n_valids = torch.tensor([len(r) for r in raws], dtype=torch.int32)
     kw = dict(metas=bank._metas[sw], height_min=bank.height_min)
@@ -496,7 +496,7 @@ def test_batched_lean_step_makes_no_host_sync(env, monkeypatch):
     bank = _torch_det()._ensure_bank()
     (sw, cls), = bank.classes.items()
     raws = [bank._raw_section(sw, c, t) for c, t in _round_rows(audios)]
-    sections = torch.from_numpy(bank._section_rows(cls["section_len"], raws).astype(np.float32))
+    sections = torch.from_numpy(bank._staged_sections(cls["section_len"], raws)[0].astype(np.float32))
     n_valids = torch.tensor([len(r) for r in raws], dtype=torch.int32)
     want = bank.step(sw, sections, n_valids)
 
