@@ -278,6 +278,68 @@ class PayloadHandle:
         return self._host.numpy()
 
 
+class RowPayloads:
+    """A scan class's (B, total) payload on its way to the host row by row
+    (:meth:`PatternBank._dispatch_rows` on a card): each row's step output
+    is copied into its row of a pinned host buffer on the current stream
+    behind that row's step, and an event a row marks the copy's end, so
+    collect decodes the rows that have finished while the card runs the
+    rest (:meth:`PatternBank.collect_chunks_batch`).
+
+    ``finished()`` polls the rows' events in turn (one stream completes
+    them in order) and returns how many leading rows are on the host;
+    ``wait(i)`` waits for row ``i``. ``is_ready()`` polls the last row's
+    event and ``numpy()`` waits for it, as :class:`PayloadHandle`'s do.
+    The buffer and its events come from the bank's pool and go back to it
+    at collect (``release()``). ``on_final``, where the caller sets it on
+    its round's last class, is handed each batch of rows whose results are
+    final, as (row indices, the round's result dicts)."""
+
+    def __init__(self, host: torch.Tensor, events: list) -> None:
+        self._host = host
+        self._rows = host.numpy()
+        self._events = events
+        self._done = 0  # leading rows known to be on the host
+        self.on_final: "Callable[[list[int], list[dict[str, list[int]]]], None] | None" = None
+
+    def copy_row(self, bi: int, out: torch.Tensor) -> None:
+        """Enqueue row ``bi``'s copy from the device and its event on the
+        current stream."""
+        self._host[bi].copy_(out.reshape(-1), non_blocking=True)
+        self._events[bi].record()
+
+    def finished(self) -> int:
+        while self._done < len(self._events) and self._events[self._done].query():
+            self._done += 1
+        return self._done
+
+    def wait(self, i: int) -> int:
+        """Wait for row ``i``; then :meth:`finished`. While recording, the
+        wait is the span ``collect.wait``."""
+        span = RECORDER.open("collect.wait") if RECORDER.on else -1
+        self._events[i].synchronize()
+        if span >= 0:
+            RECORDER.close(span)
+        self._done = max(self._done, i + 1)
+        return self.finished()
+
+    def rows(self, lo: int, hi: int) -> NDArray[np.float32]:
+        return self._rows[lo:hi]
+
+    def is_ready(self) -> bool:
+        return self._events[-1].query()
+
+    def numpy(self) -> NDArray[np.float32]:
+        self.wait(len(self._events) - 1)
+        return self._rows
+
+    def release(self) -> tuple[torch.Tensor, list]:
+        """(host buffer, events) for the pool; the handle holds neither."""
+        held = (self._host, self._events)
+        self._host = self._rows = self._events = None  # type: ignore[assignment]
+        return held
+
+
 class StitchedPayload:
     """The payloads of one class step that ran as several shards, each a
     :class:`PayloadHandle` on its own device; ``numpy()`` waits for all of
@@ -328,6 +390,9 @@ class PatternBank:
         self.kernel_tier = os.environ.get("APD_PALLAS") != "0"
         # Staging buffers by (dtype, B, S), recycled at collect time.
         self._staging: dict[tuple[np.dtype, int, int], list[NDArray[Any]]] = {}
+        # A scan class's host payload rows and their events (RowPayloads)
+        # by (dtype, B, total), recycled at collect time.
+        self._row_payloads: dict[tuple[torch.dtype, int, int], list[tuple[torch.Tensor, list]]] = {}
         # Captured class steps (models/captured.py): the default on a CUDA
         # device; ``capture`` may be switched off and on again between
         # calls, to hold the two against each other.
@@ -485,6 +550,29 @@ class PatternBank:
         if len(pooled) < self._POOL_BOUND:
             pooled.append(buf)
 
+    def _row_event(self) -> "Callable[[], Any] | None":
+        """The event a scan row's copy back records, None where a scan
+        class's payload comes back whole (off a card)."""
+        return torch.cuda.Event if self.device.type == "cuda" else None
+
+    def _rows_get(self, out: torch.Tensor, b: int, event: "Callable[[], Any]") -> RowPayloads:
+        """A :class:`RowPayloads` for a class of ``b`` rows of ``out``'s
+        size and dtype: a recycled host buffer (pinned on a card) and its
+        ``b`` events, else new ones."""
+        key = (out.dtype, b, out.numel())
+        pooled = self._row_payloads.get(key)
+        if pooled:
+            return RowPayloads(*pooled.pop())
+        host = torch.empty((b, out.numel()), dtype=out.dtype, pin_memory=self.device.type == "cuda")
+        return RowPayloads(host, [event() for _ in range(b)])
+
+    def _rows_put(self, handle: RowPayloads) -> None:
+        """Return a collected :class:`RowPayloads`' buffer and events."""
+        host, events = handle.release()
+        pooled = self._row_payloads.setdefault((host.dtype, *host.shape), [])
+        if len(pooled) < self._POOL_BOUND:
+            pooled.append((host, events))
+
     def _stage(
         self,
         section_len: int,
@@ -635,6 +723,8 @@ class PatternBank:
         (the bank-sharded dispatch)."""
         results: dict[str, list[int]] = {}
         for sw, handle, raw, staged in dispatched:
+            if RECORDER.on:
+                RECORDER.count("rows_decoded_early", 0)
             rows = padded_rows.get(sw) if padded_rows else None
             results.update(self._collect_rows(sw, handle.numpy()[None], [raw], rows)[0])
             self._pool_put(staged)
@@ -688,7 +778,10 @@ class PatternBank:
         the next is staged (:meth:`_dispatch_rows`); "vmap" runs every row
         through one set of launches per class (B times the memory), so the
         whole round is staged and copied up first (:meth:`_dispatch_round`).
-        The payload copies back once per class in both.
+        The payload copies back once per class in "vmap", and on a card
+        once a row in "scan" (a :class:`RowPayloads`, which collect decodes
+        as its rows finish); off a card a scan class's rows are joined and
+        copied back once.
 
         ``sharding`` (an object with a ``mesh`` and the name of its row
         ``axis``, e.g. ``parallel.mesh.RowSharding``) spreads a "vmap" round
@@ -747,13 +840,14 @@ class PatternBank:
             dispatch_phase_seconds["sections"] += (t1 - t0) * ns
             if RECORDER.on:
                 RECORDER.add("bank.sections", t0, t1, b, sw)
+            handle: "PayloadHandle | RowPayloads | StitchedPayload"
             if mode == "scan":
-                host_rows, raws, payloads, t4 = self._dispatch_rows(sw, cls["section_len"], parts, t1)
+                host_rows, raws, handle, t4 = self._dispatch_rows(sw, cls["section_len"], parts, t1)
             else:
                 host_rows, raws, payloads, t4 = self._dispatch_round(
                     sw, cls["section_len"], parts, shards, sharding, t1)
-            handles = [PayloadHandle(p) for p in payloads]
-            handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
+                handles = [PayloadHandle(p) for p in payloads]
+                handle = handles[0] if sharding is None else StitchedPayload(handles, np.concatenate)
             dispatched.append((sw, handle, raws, b, host_rows))
             t0 = clock()
             dispatch_phase_seconds["prefetch"] += (t0 - t4) * ns
@@ -763,7 +857,7 @@ class PatternBank:
 
     def _dispatch_rows(
         self, sw: int, section_len: int, parts: "list[tuple[NDArray[Any], ...]]", t: int,
-    ) -> tuple[NDArray[Any], list[NDArray[Any]], list[torch.Tensor], int]:
+    ) -> tuple[NDArray[Any], list[NDArray[Any]], "RowPayloads | PayloadHandle", int]:
         """The "scan" schedule of one class, from clock reading ``t``: row
         after row, each row is packed into its row of the staging buffer,
         copied up on the current stream and run (the B = 1 graph's load
@@ -771,20 +865,27 @@ class PatternBank:
         packed, so the device runs a row while the host packs the next.
         The dtype is the round's, chosen before the first row is packed,
         and the rows, lengths and step are the whole-round staging's, so
-        the payload is too, bit for bit. Returns (staging buffer, raws,
-        [the (B, total) payload], the last clock reading). Each row adds to
-        the phases ``pack``, ``upload`` and ``launch`` and, while
-        recording, is the spans ``bank.pack``, ``bank.upload`` and
-        ``bank.launch`` (attributes: 1 row, window); the rows packed after
-        the class's first launch count as ``overlapped_rows``."""
+        the payload is too, bit for bit. On a card each row's output goes
+        straight from the step's static output into its row of a
+        :class:`RowPayloads` behind the row's step (no device copy of it);
+        off a card the rows' payloads are joined into one
+        :class:`PayloadHandle`. Returns (staging buffer, raws, payload
+        handle, the last clock reading). Each row adds to the phases
+        ``pack``, ``upload`` and ``launch`` and, while recording, is the
+        spans ``bank.pack``, ``bank.upload`` and ``bank.launch``
+        (attributes: 1 row, window; the copy back is in ``bank.launch``);
+        the rows packed after the class's first launch count as
+        ``overlapped_rows``."""
         clock, ns = time.perf_counter_ns, 1e-9
         host_rows, raws, rows_parts = self._stage(section_len, parts)
         prog = self.program(
             sw, self.device, dtype=torch.int16 if host_rows.dtype == np.int16 else torch.float32)
+        event = self._row_event()
+        handle: "RowPayloads | None" = None
         payloads = []
         overlapped = 0
         for bi, ps in enumerate(rows_parts):
-            overlapped += bool(payloads)
+            overlapped += bi > 0
             self._pack_row(host_rows, bi, ps)
             t2 = clock()
             row = upload_rows(host_rows[bi], self.device)
@@ -796,7 +897,13 @@ class PatternBank:
                 launch = RECORDER.open("bank.launch", t3, a=1, b=sw)
             with device_guard(prog.device):
                 prog.load(row, len(raws[bi]))
-                payloads.append(prog.run().reshape(-1))
+                if event is None:
+                    payloads.append(prog.run().reshape(-1))
+                else:
+                    out = prog.run(owned=False)
+                    if handle is None:
+                        handle = self._rows_get(out, len(rows_parts), event)
+                    handle.copy_row(bi, out)
             t4 = clock()
             if launch >= 0:
                 RECORDER.close(launch, t4)
@@ -806,7 +913,7 @@ class PatternBank:
             t = t4
         if RECORDER.on:
             RECORDER.count("overlapped_rows", overlapped)
-        return host_rows, raws, [torch.stack(payloads)], t
+        return host_rows, raws, PayloadHandle(torch.stack(payloads)) if handle is None else handle, t
 
     def _dispatch_round(
         self,
@@ -865,18 +972,77 @@ class PatternBank:
         self,
         dispatched: list[tuple[int, Any, list[NDArray[Any]], int, NDArray[Any]]],
     ) -> list[dict[str, list[int]]]:
-        """Wait for a dispatched batch; per-chunk result dicts. Each class's
-        staging buffer goes back to the pool once its payload (every
-        shard's) is on the host and its flagged rows, which read the raw
-        sections in it, are resolved."""
+        """Wait for a dispatched batch; per-chunk result dicts. The classes
+        are collected in turn. A class whose payload comes back row by row
+        (:class:`RowPayloads`) is decoded in batches: every row already on
+        the host at once, then, after a wait for the next row, every row
+        finished by then, and so on to its last row; its flagged rows are
+        resolved after its last batch, in the order the whole class's
+        decode gives them. Where its handle has ``on_final`` (a caller sets
+        it on its round's last class), each batch's unflagged rows are
+        handed to it once decoded, then the flagged rows once resolved.
+        Each class's staging buffer (and a row-wise payload's host buffer)
+        goes back to the pool once its payload (every shard's) is on the
+        host and its flagged rows, which read the raw sections in it, are
+        resolved. While recording, the
+        counter ``rows_decoded_early`` adds a class's rows whose decode
+        began before its last row had finished on the card (0 for a
+        payload that comes back whole), so that it is present for every
+        collect."""
         if not dispatched:
             return []
         results: list[dict[str, list[int]]] = [dict() for _ in range(dispatched[0][3])]
         for sw, handle, raws, _b, staged in dispatched:
-            for bi, res in enumerate(self._collect_rows(sw, handle.numpy(), raws)):
-                results[bi].update(res)
+            if isinstance(handle, RowPayloads):
+                self._collect_row_batches(sw, handle, raws, results)
+                self._rows_put(handle)
+            else:
+                if RECORDER.on:
+                    RECORDER.count("rows_decoded_early", 0)
+                for bi, res in enumerate(self._collect_rows(sw, handle.numpy(), raws)):
+                    results[bi].update(res)
             self._pool_put(staged)
         return results
+
+    def _collect_row_batches(
+        self,
+        sw: int,
+        handle: RowPayloads,
+        raws: list[NDArray[Any]],
+        results: list[dict[str, list[int]]],
+    ) -> None:
+        """:meth:`collect_chunks_batch` of one row-wise class, into the
+        round's ``results``."""
+        on_final = handle.on_final
+        b = len(raws)
+        flagged: list[list[tuple[int, int, bool]]] = [[] for _ in self.classes[sw]["groups"]]
+        early = lo = 0
+        while lo < b:
+            hi = handle.finished()
+            if hi <= lo or hi == b:
+                # Wait for the next row; the class's last row is always
+                # waited for too (at once where a poll found it), so that
+                # its payload on the host ends a ``collect.wait``, as a
+                # whole payload's does.
+                hi = handle.wait(lo if hi <= lo else b - 1)
+            if hi < b:
+                early += hi - lo
+            decoded, batch_flagged = self._unpack_rows(sw, handle.rows(lo, hi), hi - lo, lo=lo)
+            for bi, res in enumerate(decoded, lo):
+                results[bi].update(res)
+            for acc, got in zip(flagged, batch_flagged):
+                acc.extend(got)
+            if on_final is not None:
+                held = {bi for got in batch_flagged for bi, _, _ in got}
+                final = [bi for bi in range(lo, hi) if bi not in held]
+                if final:
+                    on_final(final, results)
+            lo = hi
+        if RECORDER.on:
+            RECORDER.count("rows_decoded_early", early)
+        resolved = self._resolve_rows(sw, flagged, raws, results)
+        if on_final is not None and resolved:
+            on_final(resolved, results)
 
     def _collect_rows(
         self,
@@ -885,36 +1051,77 @@ class PatternBank:
         raws: list[NDArray[Any]],
         rows: "tuple[int, ...] | None" = None,
     ) -> list[dict[str, list[int]]]:
-        """Unpack a (B, total) class payload; flagged rows of each section
-        go to :meth:`resolve_flagged_rows`. ``rows`` as in
-        :func:`_split_fused`. The flags and selections are read as arrays,
-        so Python converts positions only where a row selected some: every
-        other unflagged clip gets an empty list. While recording, the
-        unpack is the span ``collect.unpack`` (attributes: rows, window);
-        the counter ``live_groups`` adds the (row, group) pairs with a
-        position below the sentinel, those whose verify tail ran (a
-        captured lean step's if-node body, one a row in the scan schedule),
-        and ``decoded_pairs`` the unflagged (row, clip) pairs that selected
-        a position; ``flagged_rows`` is counted here too, by 0, so that it
-        is present for every collect, flagged or not."""
+        """Unpack a (B, total) class payload (:meth:`_unpack_rows`); flagged
+        rows of each section go to :meth:`resolve_flagged_rows`. ``rows``
+        as in :func:`_split_fused`."""
+        results, flagged = self._unpack_rows(sw, flat_np, len(raws), rows)
+        self._resolve_rows(sw, flagged, raws, results)
+        return results
+
+    def _resolve_rows(
+        self,
+        sw: int,
+        flagged: list[list[tuple[int, int, bool]]],
+        raws: list[NDArray[Any]],
+        results: list[dict[str, list[int]]],
+    ) -> list[int]:
+        """Resolve each group's flagged (row, clip, host flag) triples
+        (:meth:`_unpack_rows`) a section at a time, rows in the order the
+        groups first flag them, into ``results`` (indexed as ``raws``).
+        Returns the rows resolved."""
         groups = self.classes[sw]["groups"]
         flagged_by_bi: dict[int, list[tuple[int, int, bool]]] = {}
-        span = RECORDER.open("collect.unpack", a=len(raws), b=sw) if RECORDER.on else -1
+        for gi, got in enumerate(flagged):
+            for bi, ci, host in got:
+                flagged_by_bi.setdefault(bi, []).append((gi, ci, host))
+        for bi, flagged_rows in flagged_by_bi.items():
+            raw = raws[bi]
+            section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
+            for (gi, ci), hits in self.resolve_flagged_rows(sw, flagged_rows, section).items():
+                results[bi][groups[gi].names[ci]] = hits
+        return list(flagged_by_bi)
+
+    def _unpack_rows(
+        self,
+        sw: int,
+        flat_np: NDArray[np.float32],
+        n: int,
+        rows: "tuple[int, ...] | None" = None,
+        lo: int = 0,
+    ) -> tuple[list[dict[str, list[int]]], list[list[tuple[int, int, bool]]]]:
+        """Decode the first ``n`` rows of a (B, total) class payload, rows
+        ``lo`` to ``lo + n`` of their class: (each row's unflagged clips
+        with their accepted positions, and each group's flagged (row,
+        clip, host flag) triples, rows counted from the class's first).
+        ``rows`` as in :func:`_split_fused`. The flags and selections are
+        read as arrays, so Python converts positions only where a row
+        selected some: every other unflagged clip gets an empty list.
+        While recording, the unpack is the span ``collect.unpack``
+        (attributes: rows, window); the counter ``live_groups`` adds the
+        (row, group) pairs with a position below the sentinel, those whose
+        verify tail ran (a captured lean step's if-node body, one a row in
+        the scan schedule), and ``decoded_pairs`` the unflagged (row, clip)
+        pairs that selected a position; ``flagged_rows`` is counted here
+        too, by 0, so that it is present for every collect, flagged or
+        not."""
+        groups = self.classes[sw]["groups"]
+        flagged: list[list[tuple[int, int, bool]]] = []
+        span = RECORDER.open("collect.unpack", a=n, b=sw) if RECORDER.on else -1
         unpacked = []
-        for g, packed in zip(groups, _split_fused(flat_np[: len(raws)], groups, rows)):
+        for g, packed in zip(groups, _split_fused(flat_np[:n], groups, rows)):
             host_fb, needs_full = group_flags(packed, g.k_verify)
             unpacked.append((g, packed, host_fb, host_fb | needs_full))
         # A row's unflagged clips, each with a fresh empty list, in the
         # groups' order; flagged ones join after resolve_flagged_rows.
-        names = [n for g in groups for n in g.names]
+        names = [name for g in groups for name in g.names]
         results: list[dict[str, list[int]]] = [
-            {n: [] for n, f in zip(names, row) if not f}
+            {name: [] for name, f in zip(names, row) if not f}
             for row in np.concatenate([f for *_, f in unpacked], axis=-1).tolist()
         ]
-        for gi, (g, packed, host_fb, flagged) in enumerate(unpacked):
+        for g, packed, host_fb, flags in unpacked:
             k = g.k_verify
             # ``any`` tests the selection lanes ``!= 0``, without a copy.
-            live_bi, live_ci = np.nonzero(packed[..., k : 2 * k].any(axis=-1) & ~flagged)
+            live_bi, live_ci = np.nonzero(packed[..., k : 2 * k].any(axis=-1) & ~flags)
             if span >= 0:
                 alive = (packed[..., :k] < _BIG).any(axis=(-2, -1))
                 RECORDER.count("live_groups", int(np.count_nonzero(alive)))
@@ -923,17 +1130,12 @@ class PatternBank:
             for bi, ci in zip(live_bi.tolist(), live_ci.tolist()):
                 lanes = packed[bi, ci]
                 results[bi][g.names[ci]] = lanes[:k][lanes[k : 2 * k] != 0].astype(np.int32).tolist()
-            flag_bi, flag_ci = np.nonzero(flagged)
-            for bi, ci, host in zip(flag_bi.tolist(), flag_ci.tolist(), host_fb[flag_bi, flag_ci].tolist()):
-                flagged_by_bi.setdefault(bi, []).append((gi, ci, host))
+            flag_bi, flag_ci = np.nonzero(flags)
+            flagged.append(list(zip((flag_bi + lo).tolist(), flag_ci.tolist(),
+                                    host_fb[flag_bi, flag_ci].tolist())))
         if span >= 0:
             RECORDER.close(span)
-        for bi, flagged_rows in flagged_by_bi.items():
-            raw = raws[bi]
-            section = native.pcm16_to_f32_mono(raw) if raw.dtype == np.int16 else raw
-            for (gi, ci), hits in self.resolve_flagged_rows(sw, flagged_rows, section).items():
-                results[bi][groups[gi].names[ci]] = hits
-        return results
+        return results, flagged
 
     # ── Flagged rows: the wide rerun ──
 

@@ -36,8 +36,11 @@ payloads) is captured once per key into a CUDA graph and replayed:
 * **Replay**: copy the rows and lengths into the static inputs, replay on
   the current stream, copy the payload out of the static output (one small
   device copy), so that no later replay overwrites a payload a caller
-  holds. A call of fewer rows than B leaves the rest idle: zero samples,
-  zero length.
+  holds; or, for a caller that copies the static output to the host in
+  stream order before the next replay (the scan schedule's copy back a
+  row, ``models/bank.py::PatternBank._dispatch_rows``), hand out the
+  static output itself. A call of fewer rows than B leaves the rest idle:
+  zero samples, zero length.
 * **Rounds wider than a graph** (:class:`SplitRound`): a graph keeps its
   pools for its bank's life, so the bank caps a key's B
   (``models/bank.py::GRAPH_ROWS``) and a round of more rows runs as
@@ -187,7 +190,9 @@ class EagerStep:
         else:
             self._n_valid = int(n_valid)
 
-    def run(self) -> Any:
+    def run(self, owned: bool = True) -> Any:
+        """The payload of the loaded inputs; always the caller's own
+        (``owned`` as in :meth:`CapturedStep.run`)."""
         return self._fn(as_f32(self._section), self._n_valid)
 
 
@@ -391,11 +396,14 @@ class CapturedStep:
               cond: "Callable | None" = None) -> Any:
         return self._fn(as_f32(self.section), self.n_valid, branch=branch, loop=loop, cond=cond)
 
-    def run(self) -> Any:
-        """The payload of the loaded inputs, owned by the caller. A replay
-        adds its graph's launches to each wrapper's count; while recording
-        it is the span ``step.replay`` (attributes: rows, window), a first
-        use ``step.capture``."""
+    def run(self, owned: bool = True) -> Any:
+        """The payload of the loaded inputs, owned by the caller; with
+        ``owned=False`` a replay returns the static output itself, which
+        the next replay overwrites, for a caller that copies it out on the
+        current stream before then. A replay adds its graph's launches to
+        each wrapper's count; while recording it is the span
+        ``step.replay`` (attributes: rows, window), a first use
+        ``step.capture``."""
         with device_guard(self.device):
             if self._replay is None:
                 return self._first_run()
@@ -404,7 +412,7 @@ class CapturedStep:
             for wrapper, n in self.kernel_launches.items():
                 wrapper.launches += n
             self.replays += 1
-            out = _copy_out(self._out)
+            out = _copy_out(self._out) if owned else self._out
             if span >= 0:
                 RECORDER.close(span)
             return out

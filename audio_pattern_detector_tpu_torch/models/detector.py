@@ -426,7 +426,11 @@ class TorchAudioPatternDetector:
 
         def emit(index: int, had_prev: bool, clip_peaks: dict[str, list[int]]) -> None:
             chunk_matches: list[tuple[float, str]] = []
-            for name, peak_times in self.peaks_to_times(clip_peaks, index, had_prev).items():
+            span = RECORDER.open("collect.times", a=1) if RECORDER.on else -1
+            converted = self.peaks_to_times(clip_peaks, index, had_prev)
+            if span >= 0:
+                RECORDER.close(span)
+            for name, peak_times in converted.items():
                 if on_pattern_detected and peak_times:
                     chunk_matches.extend((t, name) for t in peak_times)
                 if all_peak_times is not None:
@@ -639,8 +643,8 @@ class TorchAudioPatternDetector:
         The reference algebra: t = pos/sr − subtract + index·chunk_s −
         clip_seconds, clamped ≥ 0, subtract = sliding_window for chunks
         with lookback (reference: audio_pattern_detector.py:440-452).
-        While recording, the call is the span ``collect.times``."""
-        span = RECORDER.open("collect.times") if RECORDER.on else -1
+        Its callers record the span ``collect.times`` around a batch of
+        calls (attributes: rows, window)."""
         sr = self.target_sample_rate
         out: dict[str, list[float]] = {}
         for name, sliding_window, clip_seconds in self._clip_times:
@@ -655,8 +659,6 @@ class TorchAudioPatternDetector:
                 t -= clip_seconds
                 times.append(t if t >= 0 else 0)
             out[name] = times
-        if span >= 0:
-            RECORDER.close(span)
         return out
 
     def _fold_batch_results(
@@ -667,11 +669,14 @@ class TorchAudioPatternDetector:
         sr: int,
     ) -> int:
         """Convert one batch's device peak positions to stream timestamps."""
+        span = RECORDER.open("collect.times", a=len(results)) if RECORDER.on else -1
         for bi, clip_peaks in enumerate(results):
             index = base_index + bi
             converted = self.peaks_to_times(clip_peaks, index, index > 0)
             for name, times in converted.items():
                 all_peak_times[name].extend(times)
+        if span >= 0:
+            RECORDER.close(span)
         return base_index + len(results)
 
     def _process_chunk_debug(

@@ -23,12 +23,14 @@ its own cells, and every process runs every round in lockstep.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Sequence
 from typing import Any
 
 import numpy as np
 from numpy.typing import NDArray
 
+from audio_pattern_detector_tpu_torch.models.bank import RowPayloads
 from audio_pattern_detector_tpu_torch.models.detector import (
     StreamCheckpoint,
     TorchAudioPatternDetector,
@@ -316,34 +318,59 @@ class MultiStreamSession:
         self._rounds += 1
 
     def collect(self, handle: Any) -> list[dict[str, list[float]]]:
-        """Block on a dispatched round; per-stream detection times. While
-        recording, the call is the span ``session.collect``, a root with
-        the dispatch's round id (attribute: streams)."""
+        """Block on a dispatched round; per-stream detection times. A
+        stream's positions become times as soon as its row's results are
+        final: where a dispatch's last class comes back row by row (the
+        scan schedule on a card), while collect decodes the rows that have
+        finished and the card runs the rest (``on_final`` of
+        ``models/bank.py::RowPayloads``); else once the dispatch is
+        collected. While recording, the call is the span
+        ``session.collect``, a root with the dispatch's round id
+        (attribute: streams), and each batch of rows converted a span
+        ``collect.times`` (attributes: rows, window)."""
         dispatched, meta, active, rid = handle
         span = RECORDER.open("session.collect", round=rid, a=self.n_streams) if RECORDER.on else -1
-        rows: list[dict[str, list[int]]] = []
+        # Compacted tiled rounds scatter their rows back to their slots;
+        # an idle slot's result is {} (on a tiled session it never
+        # dispatched a row).
+        slots = range(self.n_streams) if active is None else active
+        out: list[dict[str, list[float]] | None] = [{} if m is None else None for m in meta]
+        offset = 0
         for d in dispatched:
-            rows.extend(self._bank.collect_chunks_batch(d))
-        if active is None:
-            results = rows[: self.n_streams]
-        else:
-            # Scatter the compacted rows back to their slots (idle slots
-            # never dispatched a row).
-            results = [dict() for _ in range(self.n_streams)]
-            for pos, slot in enumerate(active):
-                results[slot] = rows[pos]
-        out: list[dict[str, list[float]]] = []
-        for i, m in enumerate(meta):
-            if m is None:
-                out.append({})
+            if not d:
                 continue
-            index, had_prev = m
-            out.append(
-                self.detector.peaks_to_times(results[i], index, had_prev)
-            )
+            times = functools.partial(self._to_times, out, meta, slots, offset, d[-1][0])
+            if isinstance(d[-1][1], RowPayloads):
+                d[-1][1].on_final = times
+            rows = self._bank.collect_chunks_batch(d)
+            times(range(len(rows)), rows)
+            offset += len(rows)
         if span >= 0:
             RECORDER.close(span)
-        return out
+        return out  # type: ignore[return-value]
+
+    def _to_times(
+        self,
+        out: list[dict[str, list[float]] | None],
+        meta: list[tuple[int, bool] | None],
+        slots: Sequence[int],
+        offset: int,
+        sw: int,
+        rows: Sequence[int],
+        results: list[dict[str, list[int]]],
+    ) -> None:
+        """The stream times of a dispatch's ``rows`` (from ``offset`` in the
+        round's rows) that are still to convert, into ``out`` by slot."""
+        todo = [(slots[offset + bi], bi) for bi in rows
+                if offset + bi < len(slots) and out[slots[offset + bi]] is None]
+        if not todo:
+            return
+        span = RECORDER.open("collect.times", a=len(todo), b=sw) if RECORDER.on else -1
+        for slot, bi in todo:
+            index, had_prev = meta[slot]  # type: ignore[misc]
+            out[slot] = self.detector.peaks_to_times(results[bi], index, had_prev)
+        if span >= 0:
+            RECORDER.close(span)
 
     def round_ready(self, handle: Any) -> bool:
         """Non-blocking: a dispatched round's payloads all completed."""

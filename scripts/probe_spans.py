@@ -19,9 +19,12 @@ another; its bank, traffic and driver, from the seed):
 4. ``slowest_rounds``: a window with recording on; its slowest rounds
    split by span, the garbage collections among them, each round's
    ``overlapped_rows`` (its rows packed after their class's first replay
-   was enqueued, read from the spans) and the time from its
-   ``session.dispatch`` start to its first ``step.replay``; then the
-   window's medians of those two and its counters a round.
+   was enqueued, read from the spans), the time from its
+   ``session.dispatch`` start to its first ``step.replay``, its
+   ``rows_decoded_early`` (the counter, read around each ``collect``), the
+   time from its last ``collect.wait``'s end to its ``session.collect``'s
+   end, and its ``bank.launch`` a row; then the window's medians of these
+   and its counters a round.
 5. ``cost``: rounds with recording forced on against off, in turns.
 
     python3 scripts/probe_spans.py [--cell flagship64.live16] [--seed N] [--turns 3] [--seconds 4]
@@ -227,11 +230,45 @@ def _dispatch_overlap(ss) -> "tuple[int, float] | None":
     return overlapped, 1e-6 * (min(s.start_ns for s in replays) - d0)
 
 
+def _after_last_wait(ss) -> "float | None":
+    """ms from a round's last ``collect.wait`` end to its ``session.collect`` end."""
+    c = [s for s in ss if s.name == "session.collect"]
+    waits = [s.end_ns for s in ss if s.name == "collect.wait"]
+    return 1e-6 * (c[0].end_ns - max(waits)) if c and waits else None
+
+
+def _launch_per_row(ss) -> "float | None":
+    """Mean ms of a round's one-row ``bank.launch`` spans (load, replay and
+    the row's copy back), the host's time a row beside the card's."""
+    rows = [s.ms for s in ss if s.name == "bank.launch" and s.a == 1]
+    return statistics.mean(rows) if rows else None
+
+
+def _median(values) -> "float | None":
+    values = [v for v in values if v is not None]
+    return round(statistics.median(values), 4) if values else None
+
+
 def slowest_rounds(driver, seconds: float, k: int = 5) -> list:
     from audio_pattern_detector_tpu_torch.utils import profiling
 
-    with profiling.recording():
-        driver.run(seconds)
+    # The counter rows_decoded_early a round: read around each collect.
+    session = driver.session
+    collect = session.collect
+    early: dict = {}
+
+    def counted_collect(handle):
+        before = profiling.RECORDER.counters.get("rows_decoded_early", 0)
+        out = collect(handle)
+        early[handle[3]] = profiling.RECORDER.counters.get("rows_decoded_early", 0) - before
+        return out
+
+    session.collect = counted_collect
+    try:
+        with profiling.recording():
+            driver.run(seconds)
+    finally:
+        del session.collect
     spans = profiling.spans()
     rounds = _by_round(spans)
     lat = {}
@@ -250,13 +287,19 @@ def slowest_rounds(driver, seconds: float, k: int = 5) -> list:
                     "by_span_ms": {n: round(v * 1e-6, 3) for n, v in sorted(names.items())},
                     "gc": [(s.a, round(s.ms, 3)) for s in rounds[r] if s.name == "python.gc"],
                     "overlapped_rows": overlap and overlap[0],
-                    "dispatch_to_first_replay_ms": overlap and round(overlap[1], 3)})
+                    "dispatch_to_first_replay_ms": overlap and round(overlap[1], 3),
+                    "rows_decoded_early": early.get(r),
+                    "after_last_wait_ms": _after_last_wait(rounds[r]),
+                    "launch_ms_per_row": _launch_per_row(rounds[r])})
     all_gc = [s for s in spans if s.name == "python.gc"]
     overlaps = [o for o in (_dispatch_overlap(rounds[r]) for r in lat) if o is not None]
     out.append({"rounds": len(lat), "median_ms": round(1e-6 * statistics.median(lat.values()), 3),
                 "overlapped_rows_median": statistics.median(o[0] for o in overlaps) if overlaps else None,
                 "dispatch_to_first_replay_ms_median":
                     round(statistics.median(o[1] for o in overlaps), 4) if overlaps else None,
+                "rows_decoded_early_median": _median(early.get(r) for r in lat),
+                "after_last_wait_ms_median": _median(_after_last_wait(rounds[r]) for r in lat),
+                "launch_ms_per_row_median": _median(_launch_per_row(rounds[r]) for r in lat),
                 "by_span_ms_per_round": _per_round(spans), "starved_split_ms": _starved_split(spans),
                 "gc_count": len(all_gc), "gc_ms_total": round(sum(s.ms for s in all_gc), 3),
                 "gc_max_ms": round(max((s.ms for s in all_gc), default=0.0), 3),

@@ -14,8 +14,15 @@ replaced, which are written out here as oracles.
   timestamps bit for bit, and a clamped time must stay the int ``0``.
 * The counters ``live_groups`` and ``decoded_pairs`` move only while
   recording.
+* A scan class whose payload comes back row by row (``RowPayloads``) is
+  decoded in batches of the rows finished so far: for every way of cutting
+  16 rows into contiguous batches the results, the counters and the
+  flagged rows' resolution equal the whole-class decode's, and
+  ``MultiStreamSession.collect``, which converts a row's times as soon as
+  its results are final, gives the output it gave, tiled rounds included.
 """
 
+import itertools
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,7 +30,7 @@ import pytest
 import torch
 
 from audio_pattern_detector_tpu_torch import native
-from audio_pattern_detector_tpu_torch.models.bank import _BIG, PatternBank, _split_fused, unpack_group
+from audio_pattern_detector_tpu_torch.models.bank import _BIG, PatternBank, RowPayloads, _split_fused, unpack_group
 from audio_pattern_detector_tpu_torch.models.detector import MARKER_TONE_STRATEGY, TorchAudioPatternDetector
 from audio_pattern_detector_tpu_torch.utils import profiling
 from audio_pattern_detector_tpu_torch.utils.clip import AudioClip
@@ -88,15 +95,17 @@ def _same_in_order(a, b):
             _same_in_order(x, y)
 
 
-def _recording_bank(monkeypatch, bank=None):
-    """A bank (by default one with only the flagship class's two groups)
-    whose ``resolve_flagged_rows`` records each call. The stand-in answers
-    in reverse order, so that a row's keys depend on the order it was given."""
+def _recording_bank(monkeypatch, bank=None, clips=CLIPS, k_verify=K_VERIFY):
+    """A bank (by default one with only the flagship class's two groups, of
+    ``clips`` clips and ``k_verify`` lanes) whose ``resolve_flagged_rows``
+    records each call. The stand-in answers in reverse order, so that a
+    row's keys depend on the order it was given."""
     if bank is None:
         bank = PatternBank.__new__(PatternBank)
-        groups = [SimpleNamespace(names=[f"{kind}{i:02d}" for i in range(CLIPS)], k_verify=k)
-                  for kind, k in zip(("jingle", "marker"), K_VERIFY)]
+        groups = [SimpleNamespace(names=[f"{kind}{i:02d}" for i in range(clips)], k_verify=k)
+                  for kind, k in zip(("jingle", "marker"), k_verify)]
         bank.classes = {SW: {"groups": groups}}
+        bank._staging, bank._row_payloads = {}, {}
 
         def resolve(sw, flagged, raw_section):
             return {(gi, ci): [gi * 1000 + ci, int(host), len(raw_section)]
@@ -113,7 +122,8 @@ def _recording_bank(monkeypatch, bank=None):
     return bank, calls
 
 
-def _payload(seed, b, *, live=0.05, selected=0.3, flag1=0.0, flag2=0.0, host=0.0, rows=None):
+def _payload(seed, b, *, live=0.05, selected=0.3, flag1=0.0, flag2=0.0, host=0.0, rows=None,
+             clips=CLIPS, k_verify=K_VERIFY):
     """A seeded (b, total) class payload: per group, positions (dead lanes at
     the sentinel), selections among the live lanes, the flag column (1 or 2)
     and the host column. ``rows`` pads each group as the bank-sharded path
@@ -121,8 +131,8 @@ def _payload(seed, b, *, live=0.05, selected=0.3, flag1=0.0, flag2=0.0, host=0.0
     unread)."""
     rng = np.random.default_rng(seed)
     parts = []
-    for gi, k in enumerate(K_VERIFY):
-        n = rows[gi] if rows is not None else CLIPS
+    for gi, k in enumerate(k_verify):
+        n = rows[gi] if rows is not None else clips
         p = np.zeros((b, n, 2 * k + 2), np.float32)
         alive = rng.random((b, n, k)) < live
         p[..., :k] = np.where(alive, rng.integers(0, 488_000, (b, n, k)), _BIG)
@@ -130,7 +140,7 @@ def _payload(seed, b, *, live=0.05, selected=0.3, flag1=0.0, flag2=0.0, host=0.0
         p[..., 2 * k] = np.where(rng.random((b, n)) < flag1, 1.0,
                                  np.where(rng.random((b, n)) < flag2, 2.0, 0.0))
         p[..., 2 * k + 1] = rng.random((b, n)) < host
-        p[:, CLIPS:] = 1.0
+        p[:, clips:] = 1.0
         parts.append(p.reshape(b, -1))
     return np.concatenate(parts, axis=-1)
 
@@ -279,3 +289,192 @@ def test_the_decode_counters_move_only_while_recording(monkeypatch):
     assert not profiling.RECORDER.on
     bank._collect_rows(SW, flat, raws)
     assert profiling.counters() == counted
+
+
+# ── A scan class decoded in batches as its rows finish (RowPayloads) ──
+
+SPLIT_ROWS = 16
+SPLIT_SHAPES = dict(clips=4, k_verify=(3, 6))  # small groups: every split of 16 rows is run
+
+
+def _splits(n, k):
+    """Every way of cutting ``n`` rows into ``k`` contiguous batches, as the
+    batches' sizes."""
+    for cuts in itertools.combinations(range(1, n), k - 1):
+        ends = (0, *cuts, n)
+        yield [hi - lo for lo, hi in zip(ends, ends[1:])]
+
+
+class _Card:
+    """A stand-in card that finishes a class's rows batch by batch: the first
+    batch's rows are on the host when collect starts, and a wait for a row
+    finishes the rest of its batch. ``event()`` is a row's event, the rows
+    taken in the order their events are made."""
+
+    def __init__(self, sizes):
+        self.ends = np.cumsum(sizes).tolist()
+        self.done = self.ends[0]
+        self.made = self.waits = 0
+
+    def event(self):
+        self.made += 1
+        return _RowEvent(self, self.made - 1)
+
+
+class _RowEvent:
+    def __init__(self, card, row):
+        self.card, self.row = card, row
+
+    def record(self):
+        pass
+
+    def query(self):
+        return self.row < self.card.done
+
+    def synchronize(self):
+        self.card.waits += 1
+        if not self.query():
+            self.card.done = next(e for e in self.card.ends if e > self.row)
+
+
+class _Slices:
+    """``bank._unpack_rows`` with each slice of rows decoded once: a split
+    that holds the same slice reuses it (fresh dicts), and the counters its
+    decode added are added again. ``sizes`` logs the rows of each call."""
+
+    def __init__(self, bank):
+        self._unpack = bank._unpack_rows
+        self._done = {}
+        self.sizes = []
+
+    def __call__(self, sw, flat_np, n, rows=None, lo=0):
+        self.sizes.append(n)
+        key = (lo, n)
+        if key in self._done:
+            (results, flagged), added = self._done[key]
+            for k, v in added.items():
+                profiling.RECORDER.count(k, v)
+        else:
+            before = profiling.counters()
+            results, flagged = self._unpack(sw, flat_np, n, rows, lo=lo)
+            added = {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+            self._done[key] = ((results, flagged), added)
+        return [dict(r) for r in results], flagged
+
+
+@pytest.mark.parametrize("batches", range(1, SPLIT_ROWS + 1))
+def test_a_class_decoded_in_ready_batches_equals_the_whole_class_decode(batches, monkeypatch):
+    """For every way of cutting a 16-row class into ``batches`` contiguous
+    batches: the results (types and key order included), the counters'
+    sums and the flagged rows handed to ``resolve_flagged_rows`` (the same
+    sections, lists and order, so the same routes) are the whole-class
+    decode's; each batch is one unpack after one wait (none before the
+    first, which waits for its last row alone when it is the only one, so
+    that the class's payload on the host ends a wait), rows before the last batch count as ``rows_decoded_early``, and
+    ``on_final`` gets each batch's unflagged rows, then the flagged rows
+    once resolved, every row once. Each slice of rows is decoded once and
+    reused by the splits that hold it (``_Slices``)."""
+    bank, calls = _recording_bank(monkeypatch, **SPLIT_SHAPES)
+    flat = _payload(2**31 + 27, SPLIT_ROWS, live=0.4, flag1=0.06, flag2=0.06, host=0.03,
+                    **SPLIT_SHAPES)
+    raws = _raws(SPLIT_ROWS)
+    with profiling.recording():
+        want = bank._collect_rows(SW, flat, raws)
+        want_counted = profiling.counters()
+    want_calls = [(sw, fl, raw.tobytes()) for sw, fl, raw in calls]
+    flagged = list(dict.fromkeys(bi for got in bank._unpack_rows(SW, flat, SPLIT_ROWS)[1]
+                                 for bi, _, _ in got))
+    assert len(flagged) >= 4 and len({bi // 4 for bi in flagged}) >= 3  # in several batches
+    slices = _Slices(bank)
+    monkeypatch.setattr(bank, "_unpack_rows", slices)
+    staged = np.zeros((SPLIT_ROWS, 1), np.float32)
+    for sizes in _splits(SPLIT_ROWS, batches):
+        calls.clear()
+        slices.sizes.clear()
+        card = _Card(sizes)
+        handle = RowPayloads(torch.from_numpy(flat), [card.event() for _ in raws])
+        handed = []
+        handle.on_final = lambda rows, results: handed.append(list(rows))
+        with profiling.recording():
+            got = bank.collect_chunks_batch([(SW, handle, raws, SPLIT_ROWS, staged)])
+            counted = profiling.counters()
+        assert got == want and [(sw, fl, raw.tobytes()) for sw, fl, raw in calls] == want_calls, sizes
+        assert counted == {**want_counted, "rows_decoded_early": SPLIT_ROWS - sizes[-1]}, sizes
+        assert slices.sizes == sizes and card.waits == max(batches - 1, 1)
+        ends = np.cumsum([0, *sizes]).tolist()
+        batch_rows = [[bi for bi in range(lo, hi) if bi not in flagged] for lo, hi in zip(ends, ends[1:])]
+        assert handed == [rows for rows in batch_rows if rows] + [flagged], sizes
+    _same_in_order(got, want)
+
+
+class _LaggingEvent:
+    """A stand-in row event (``PatternBank._row_event``) of which every third
+    one made finds itself unfinished at its first poll after each record (a
+    wait finishes it), so that a class's rows come back in several
+    batches."""
+
+    made = itertools.count()
+
+    def __init__(self):
+        self.lag = next(self.made) % 3 == 0
+
+    def record(self):
+        self.left = self.lag
+
+    def query(self):
+        if self.left:
+            self.left = False
+            return False
+        return True
+
+    def synchronize(self):
+        self.left = False
+
+
+def _jax_session_collect(sess, handle):
+    """The JAX module's ``MultiStreamSession.collect``, which the port's
+    was until it converted rows as they finish, run on the port's session:
+    every dispatch collected, the rows scattered to their slots, then each
+    converted."""
+    from audio_pattern_detector_tpu.models.multistream import MultiStreamSession
+
+    return MultiStreamSession.collect(sess, handle[:3])
+
+
+SESSION_CASES = {"untiled": dict(), "tiled": dict(tile=4)}
+
+
+@pytest.mark.parametrize("case", sorted(SESSION_CASES))
+def test_session_collect_converts_rows_as_they_finish_with_the_same_output(case, monkeypatch):
+    """Two sessions of six stations over four rounds with idle stations: one
+    whose scan classes come back row by row through stand-in events that
+    finish in several batches, one whose payloads come back whole and whose
+    rounds the JAX module's collect converts. The outputs are equal bit for bit, the
+    tiled session's compacted rounds (widths 4, 2 and 1) included, and the
+    row-wise session converted its times in more than one batch a round."""
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+
+    stations = 6
+    audio = [_audio(70 + s, 4 * CHUNK_S, normal=(3.0 + s, 27.0), marker=(15.0 + s,)) for s in range(stations)]
+    sessions = []
+    for row_event in (_LaggingEvent, None):
+        monkeypatch.setattr(PatternBank, "_row_event", lambda self, e=row_event: e)
+        det = TorchAudioPatternDetector(_clips(), device="cpu", seconds_per_chunk=CHUNK_S)
+        det._ensure_bank()
+        sessions.append(MultiStreamSession(det, stations, **SESSION_CASES[case]))
+    rowwise, whole = sessions
+    for r in range(4):
+        chunks = [None if (s + r) % 4 == 3 else _pcm16(a[r * CHUNK : (r + 1) * CHUNK])
+                  for s, a in enumerate(audio)]
+        monkeypatch.setattr(PatternBank, "_row_event", lambda self: _LaggingEvent)
+        handle = rowwise.dispatch(chunks)
+        assert all(isinstance(rec[1], RowPayloads) for d in handle[0] for rec in d)
+        with profiling.recording():
+            got = rowwise.collect(handle)
+        times = [s for s in profiling.spans() if s.name == "collect.times"]
+        monkeypatch.setattr(PatternBank, "_row_event", lambda self: None)
+        want = _jax_session_collect(whole, whole.dispatch(chunks))
+        _same(got, want)
+        _same_in_order(got, want)
+        assert len(times) > len(handle[0]) and sum(s.a for s in times) == sum(c is not None for c in chunks)
+    assert any(any(v) for v in got)

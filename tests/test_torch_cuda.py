@@ -985,6 +985,35 @@ def test_staging_buffers_are_pinned_and_recycled_on_the_card(cuda):
     assert bank.collect_chunks_batch(second) == cpu.process_chunks_batch(rounds[1], None)
 
 
+def _flagship_station_rows(seed):
+    """A round of the flagship's 16 stations, (int16 60 s chunk, lookback
+    tail or None) a row, each with a jingle of the bank and a marker tone
+    planted: row 5 zero-length (idle), row 11 a half chunk, the odd rows
+    without a tail."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS
+
+    sr, n = 8000, 60 * 8000
+    rng = np.random.default_rng(0)  # make_detector's clips
+    normal = [0.4 * rng.standard_normal(sr) for _ in range(32)]
+    t = np.arange(round(0.25 * sr)) / sr
+    g = np.random.default_rng(seed)
+    rows = []
+    for i in range(ROUND_ROWS):
+        if i == 5:
+            rows.append((np.zeros(0, np.int16), None))
+            continue
+        audio = 0.05 * g.standard_normal(2 * n)
+        o = n + int(g.integers(sr, n // 2 - 2 * sr))
+        audio[o : o + sr] += normal[i]
+        o = n + int(g.integers(sr, n // 2 - 2 * sr))
+        audio[o : o + len(t)] += 0.8 * np.sin(2 * np.pi * (900.0 + 7.0 * i) * t)
+        pcm = np.clip(np.round(audio * 32768), -32768, 32767).astype(np.int16)
+        rows.append((pcm[n : n + n // 2] if i == 11 else pcm[n:], pcm[:n] if i % 2 == 0 else None))
+    return rows
+
+
 def test_a_flagship_scan_round_staged_row_by_row_is_the_whole_upload_and_vmap_bit_for_bit(cuda):
     """On the flagship bank (64 clips, 60 s int16 chunks at 8 kHz), a
     captured 16-row scan round, each row packed, copied up and replayed
@@ -998,29 +1027,10 @@ def test_a_flagship_scan_round_staged_row_by_row_is_the_whole_upload_and_vmap_bi
     from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_bank
     from audio_pattern_detector_tpu_torch.ops.packing import upload_rows
 
-    sr, n = 8000, 60 * 8000
     bank = make_bank(num_normal=32, num_marker=32, chunk_seconds=60, device=cuda)
     assert bank.capture
     (sw,) = bank.classes
-    rng = np.random.default_rng(0)  # make_detector's clips
-    normal = [0.4 * rng.standard_normal(sr) for _ in range(32)]
-    t = np.arange(round(0.25 * sr)) / sr
-
-    def station_rows(seed):
-        g = np.random.default_rng(seed)
-        rows = []
-        for i in range(ROUND_ROWS):
-            if i == 5:
-                rows.append((np.zeros(0, np.int16), None))
-                continue
-            audio = 0.05 * g.standard_normal(2 * n)
-            o = n + int(g.integers(sr, n // 2 - 2 * sr))
-            audio[o : o + sr] += normal[i]
-            o = n + int(g.integers(sr, n // 2 - 2 * sr))
-            audio[o : o + len(t)] += 0.8 * np.sin(2 * np.pi * (900.0 + 7.0 * i) * t)
-            pcm = np.clip(np.round(audio * 32768), -32768, 32767).astype(np.int16)
-            rows.append((pcm[n : n + n // 2] if i == 11 else pcm[n:], pcm[:n] if i % 2 == 0 else None))
-        return rows
+    station_rows = _flagship_station_rows
 
     def dispatch(rows, mode):
         return bank.dispatch_chunks_batch([c for c, _ in rows], None, mode=mode,
@@ -1049,6 +1059,74 @@ def test_a_flagship_scan_round_staged_row_by_row_is_the_whole_upload_and_vmap_bi
         assert results == bank.collect_chunks_batch([vmap])
         assert sum(len(v) for r in results for v in r.values()) >= ROUND_ROWS - 1
     assert {s.key.rows for s in bank.graphs.steps()} == {1, ROUND_ROWS}
+
+
+def test_a_flagship_scan_round_collected_as_its_rows_finish_is_the_whole_class_collect(cuda, monkeypatch):
+    """On the flagship bank, a captured 16-row scan round whose rows come
+    back one by one (a pinned host row and an event a row) and are decoded
+    as they finish gives the whole-class form's payload (the rows' outputs
+    joined on the card and copied back once, as before) bit for bit, its
+    positions and flags, and a 16-station session's times, tiled rounds of
+    16 included, equal that form's. With the card held before the last
+    row's copy, collect begins with rows left on the card: at least one row
+    is decoded early, and the results still equal."""
+    import numpy as np
+
+    from audio_pattern_detector_tpu_torch.flagship import ROUND_ROWS, make_detector
+    from audio_pattern_detector_tpu_torch.models.bank import PayloadHandle, RowPayloads
+    from audio_pattern_detector_tpu_torch.models.multistream import MultiStreamSession
+    from audio_pattern_detector_tpu_torch.utils import profiling
+
+    detectors = [make_detector(num_normal=32, num_marker=32, chunk_seconds=60, device=cuda)
+                 for _ in range(2)]
+    rowwise, whole = (d._ensure_bank() for d in detectors)
+    monkeypatch.setattr(whole, "_row_event", lambda: None)  # the form before rows came back alone
+
+    def dispatch(bank, rows):
+        return bank.dispatch_chunks_batch([c for c, _ in rows], None, mode="scan",
+                                          prev_tails=[p for _, p in rows])
+
+    for seed in (3, 4):
+        rows = _flagship_station_rows(seed)
+        (got,), (want,) = dispatch(rowwise, rows), dispatch(whole, rows)
+        assert type(got[1]) is RowPayloads and type(want[1]) is PayloadHandle
+        assert got[1]._host.is_pinned() and got[1]._host[ROUND_ROWS - 1].is_pinned()
+        assert _bitwise(got[1].numpy().copy(), want[1].numpy())
+        assert rowwise.collect_chunks_batch([got]) == whole.collect_chunks_batch([want])
+
+    # The card held before the last row's copy: collect starts with it to run.
+    copy_row = RowPayloads.copy_row
+
+    def held_last(self, bi, out):
+        if bi == len(self._events) - 1:
+            torch.cuda._sleep(100_000_000)
+        copy_row(self, bi, out)
+
+    monkeypatch.setattr(RowPayloads, "copy_row", held_last)
+    rows = _flagship_station_rows(5)
+    (got,), (want,) = dispatch(rowwise, rows), dispatch(whole, rows)
+    assert not got[1].is_ready()
+    with profiling.recording():
+        results = rowwise.collect_chunks_batch([got])
+    early = profiling.counters()["rows_decoded_early"]
+    assert 1 <= early < ROUND_ROWS and results == whole.collect_chunks_batch([want])
+    unpacks = [s.a for s in profiling.spans() if s.name == "collect.unpack"]
+    assert len(unpacks) >= 2 and sum(unpacks) == ROUND_ROWS
+    monkeypatch.setattr(RowPayloads, "copy_row", copy_row)
+
+    # Times: a 16-station session each way, three rounds, a station idle in one.
+    sessions = [MultiStreamSession(d, ROUND_ROWS, tile=ROUND_ROWS) for d in detectors]
+    outs = []
+    for session in sessions:
+        outs.append([])
+        for seed in (6, 7, 8):
+            chunks = [c for c, _ in _flagship_station_rows(seed)]
+            if seed == 7:
+                chunks[2] = None
+            outs[-1].append(session.feed(chunks))
+    assert outs[0] == outs[1]
+    assert sum(len(v) for out in outs[0] for r in out for v in r.values()) >= 3 * (ROUND_ROWS - 2)
+    assert rowwise._row_event() is torch.cuda.Event
 
 
 # ── The general-plateau tier's conditional nodes (csrc/graph_conditional.cu) ──

@@ -17,6 +17,10 @@ compute what the originals compute.
   branches of ``EngineOptions.validate`` among them. The one statement the
   port adds at the head of ``MultiStreamSession.dispatch``, the lockstep
   of a round across processes, is held to be there and set aside.
+  ``MultiStreamSession.collect`` is the port's own (it converts a row's
+  times as soon as the row's results are final); run on the port's
+  session, the JAX module's ``collect`` gives what it gives
+  (tests/test_torch_collect_decode.py).
 """
 
 import ast
@@ -160,12 +164,6 @@ PORT_INSTRUMENTATION = {
         ("if span >= 0:\n    RECORDER.close(span)", None),
         ("return (dispatched, meta, active, rid)", "return (dispatched, meta, active)"),
     ],
-    "MultiStreamSession.collect": [
-        ("dispatched, meta, active, rid = handle", "dispatched, meta, active = handle"),
-        ("span = RECORDER.open('session.collect', round=rid, a=self.n_streams) if RECORDER.on else -1",
-         None),
-        ("if span >= 0:\n    RECORDER.close(span)", None),
-    ],
     "PatternServer._dispatch_round": [
         ("span = RECORDER.open('serve.take') if RECORDER.on else -1", None),
         ("if span >= 0:\n    RECORDER.close(span)", None),
@@ -253,8 +251,8 @@ SHARED = {
         "PatternServer._flush", "PatternServer._release", "PatternServer._teardown",
     ],
     "models/multistream.py": [
-        "MultiStreamSession.feed", "MultiStreamSession.dispatch", "MultiStreamSession.collect",
-        "MultiStreamSession.total_time", "MultiStreamSession.reset",
+        "MultiStreamSession.feed", "MultiStreamSession.dispatch", "MultiStreamSession.total_time",
+        "MultiStreamSession.reset",
     ],
     "parallel/sequence.py": [
         "ShardedDetector.session", "ShardedDetector.detect", "_device_section",

@@ -110,9 +110,14 @@ def test_a_profiled_round_gives_the_span_tree_with_one_round_id(session):
         assert len(steps) == STATIONS
         assert all(parent(s) == "bank.launch" and (s.a, s.b) == (1, sw) for s in steps)
     assert "step.capture" not in names
-    for name, n in (("collect.wait", 1), ("collect.unpack", 1), ("collect.times", STATIONS)):
+    # Off a card a scan class's payload comes back whole: one wait, and one
+    # batch of rows to unpack and to convert to times.
+    for name in ("collect.wait", "collect.unpack", "collect.times"):
         got = [s for s in spans if s.name == name]
-        assert len(got) == n and all(parent(s) == "session.collect" for s in got)
+        assert len(got) == 1 and all(parent(s) == "session.collect" for s in got)
+        if name != "collect.wait":
+            assert (got[0].a, got[0].b) == (STATIONS, sw)
+    assert profiling.counters()["rows_decoded_early"] == 0
     # The dispatch's children in order, and within it.
     kids = [s for s in spans if s.parent == disp.index]
     assert [s.name for s in kids] == ["bank.sections",

@@ -17,6 +17,13 @@ The staging pool is the JAX bank's ``_payload_pool``: a dispatch takes a
 past the row, and the buffer comes back at collect, once the payload (every
 shard's) is on the host; at most 4 are kept a key. On a CUDA bank the
 buffers are pinned (tests/test_torch_cuda.py); here they are plain.
+
+On a card a scan class's payload comes back row by row (``RowPayloads``):
+each row's step output is copied into its row of a pooled host buffer, with
+an event a row. Here stand-in events (``PatternBank._row_event``) run that
+path: its host rows hold the payload the whole-round form stacks, two
+rounds in flight hold buffers and events of their own, and vmap and plain
+CPU rounds keep one handle a class.
 """
 
 import dataclasses
@@ -540,3 +547,113 @@ def test_dispatch_phase_seconds_keeps_its_keys_and_sums_the_rows_in_scan(env):
         assert len(got) == (3 if key in ("pack", "upload", "launch") else 1) * len(bank.classes)
         assert phases[key] - before[key] == pytest.approx(
             1e-9 * sum(s.end_ns - s.start_ns for s in got), rel=1e-6, abs=1e-12)
+
+
+# ── The scan schedule's payload back row by row (RowPayloads) ──
+
+
+class _DoneEvent:
+    """A stand-in row event (``PatternBank._row_event``): the CPU's copy is
+    done when it returns, so every event is finished."""
+
+    recorded = 0
+
+    def record(self):
+        type(self).recorded += 1
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+
+@pytest.fixture
+def row_wise(monkeypatch):
+    """Scan classes come back row by row on the CPU, through stand-in events."""
+    monkeypatch.setattr(PatternBank, "_row_event", lambda self: _DoneEvent)
+
+
+@pytest.mark.parametrize("n,kind", SCAN_CASES, ids=[f"{n}_{k}" for n, k in SCAN_CASES])
+def test_a_row_wise_scan_round_holds_the_stacked_payload_in_its_host_rows(
+        row_wise, captured_bank, n, kind, monkeypatch):
+    """A scan round whose rows come back one by one: each row's step output
+    is copied into its row of the handle's host buffer with one event a
+    row, and nothing is cloned or stacked on the way; the host rows are bit
+    for bit the payload the whole-round form stacks (a bank without row
+    events), and the results are that form's."""
+    from audio_pattern_detector_tpu_torch.models import captured
+    from audio_pattern_detector_tpu_torch.models.bank import RowPayloads
+
+    bank, rows = captured_bank, _station_rows(n, kind)
+    bank.collect_chunks_batch(_dispatch(bank, rows, "scan"))  # the key's capture
+    made = []
+    copy_out, handle_init = captured._copy_out, PayloadHandle.__init__
+    monkeypatch.setattr(captured, "_copy_out", lambda out: made.append("clone") or copy_out(out))
+    monkeypatch.setattr(PayloadHandle, "__init__",
+                        lambda self, p: made.append("stacked payload") or handle_init(self, p))
+    recorded = _DoneEvent.recorded
+    scan = _dispatch(bank, rows, "scan")
+    assert made == [] and _DoneEvent.recorded - recorded == n * len(bank.classes)
+    monkeypatch.setattr(PatternBank, "_row_event", lambda self: None)
+    bank.collect_chunks_batch(_dispatch(bank, rows, "scan"))  # the form this one replaces
+    assert made == ["clone"] * (n * len(bank.classes)) + ["stacked payload"] * len(bank.classes)
+    monkeypatch.undo()
+    whole = _fresh_bank()
+    want = _dispatch(whole, rows, "scan")
+    for (_, handle, *_), (_, stacked, *_) in zip(scan, want):
+        assert isinstance(handle, RowPayloads) and isinstance(stacked, PayloadHandle)
+        assert handle.finished() == n and handle.is_ready()
+        assert handle.rows(0, n).tobytes() == stacked.numpy().tobytes()
+        assert handle.numpy().tobytes() == stacked.numpy().tobytes()
+    assert bank.collect_chunks_batch(scan) == whole.collect_chunks_batch(want)
+
+
+def test_two_row_wise_rounds_in_flight_hold_distinct_host_buffers_and_events(row_wise, env):
+    """Two scan rounds dispatched before either is collected each hold a
+    host buffer and events of their own; each goes back to the pool at its
+    own round's collect, the pool keeps at most four a key, and a later
+    round takes a pooled buffer with its events again."""
+    _, _, pcm, _ = env
+    bank = _fresh_bank()
+    (sw,) = bank.classes
+    rows = [(pcm[CHUNK:], pcm[:CHUNK])] * 3
+    d1, d2 = _dispatch(bank, rows, "scan"), _dispatch(bank, rows, "scan")
+    h1, h2 = d1[0][1], d2[0][1]
+    assert h1._host.data_ptr() != h2._host.data_ptr()
+    assert not {id(e) for e in h1._events} & {id(e) for e in h2._events}
+    assert len({id(e) for e in h1._events}) == 3
+    held = [(h._host, list(h._events)) for h in (h1, h2)]
+    want = bank.collect_chunks_batch(d2)
+    (pooled,) = bank._row_payloads.values()
+    assert [p[0] for p in pooled] == [held[1][0]]
+    assert bank.collect_chunks_batch(d1) == want
+    assert [p[0] for p in pooled] == [held[1][0], held[0][0]]
+    d3 = _dispatch(bank, rows, "scan")
+    assert d3[0][1]._host is held[0][0] and d3[0][1]._events == held[0][1]
+    bank.collect_chunks_batch(d3)
+    many = [_dispatch(bank, rows, "scan") for _ in range(6)]
+    for d in many:
+        assert bank.collect_chunks_batch(d) == want
+    assert len(pooled) == PatternBank._POOL_BOUND
+
+
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_vmap_and_cpu_rounds_keep_one_handle_and_count_no_early_rows(env, mode, monkeypatch):
+    """Off a card a scan class's payload comes back whole, and a vmap class's
+    always does (with row events too): one handle a class, and
+    ``rows_decoded_early`` counted at 0 at each collect."""
+    from audio_pattern_detector_tpu_torch.utils import profiling
+
+    _, _, pcm, _ = env
+    rows = [(pcm[CHUNK:], pcm[:CHUNK])] * 3
+    for row_event in ([None, _DoneEvent] if mode == "vmap" else [None]):
+        monkeypatch.setattr(PatternBank, "_row_event", lambda self, e=row_event: e)
+        bank = _two_class_bank()
+        with profiling.recording():
+            d = _dispatch(bank, rows, mode)
+            assert all(type(rec[1]) is PayloadHandle for rec in d) and len(d) == 2
+            bank.collect_chunks_batch(d)
+            bank.collect_chunk(bank.dispatch_chunk(pcm[CHUNK:], pcm[:CHUNK]))
+        assert profiling.counters()["rows_decoded_early"] == 0
+        assert sum(s.name == "collect.wait" for s in profiling.spans()) == 4
